@@ -1,0 +1,197 @@
+"""The port's kernel modules, through their CPU path (the plain versions),
+held against the JAX package's oracles (``repro.kernels.ref``) and its
+Pallas kernels in interpret mode; plus the wrappers' operand checks and the
+build command.  The CUDA kernels themselves run in tests/test_torch_cuda.py
+and chip_smoke.py, on the card."""
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from conftest import enable_x64  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.fused_axpy import fused_axpy_pallas  # noqa: E402
+from repro.kernels.fused_dots import fused_dots_pallas  # noqa: E402
+from repro.kernels.spmv_ell import spmv_ell_pallas  # noqa: E402
+from repro_torch.core.linear_operator import ELLOperator  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.fused_axpy import IN_ORDER, OUT_ORDER  # noqa: E402
+from repro_torch.kernels.fused_dots import MAX_BLOCKS, num_blocks  # noqa: E402
+
+SCALARS = (0.3, -0.7, 1.1, 0.2)
+
+
+def np_(a):
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def vectors(n, count, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(n).astype(dtype) for _ in range(count)]
+
+
+def assert_close(got, want, scale, dtype, rtol32, atol32=0.0, what=""):
+    """fp64: within 1e-12 of ``scale``; fp32: the tolerances of
+    tests/test_kernels.py."""
+    got, want = np_(got).astype(np.float64), np_(want).astype(np.float64)
+    if dtype == np.float64:
+        err = np.max(np.abs(got - want) / np.asarray(scale))
+        assert err <= 1e-12, (what, err)
+    else:
+        np.testing.assert_allclose(got, want, rtol=rtol32, atol=atol32,
+                                   err_msg=what)
+
+
+@pytest.mark.parametrize("n", [100, 1000, 40_000])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_fused_dots_matches_ref_and_pallas(n, dtype):
+    vecs = vectors(n, 5, dtype, seed=n)
+    with enable_x64(dtype == np.float64):
+        jv = [jnp.asarray(v) for v in vecs]
+        want_ref = np_(jref.fused_dots(*jv))
+        want_pallas = np_(fused_dots_pallas(*jv, interpret=True))
+    before = dict(ops.LAUNCHES)
+    got = ops.fused_dots(*(torch.from_numpy(v) for v in vecs))
+    assert ops.LAUNCHES == before          # the CPU path launches nothing
+    assert got.shape == (9,) and got.dtype == getattr(torch, dtype.__name__)
+    scale = np_(ref.fused_dots(*(torch.from_numpy(np.abs(v))
+                                 for v in vecs))).astype(np.float64)
+    for want, what in ((want_ref, "ref"), (want_pallas, "pallas")):
+        assert_close(got, want, scale, dtype, rtol32=2e-5, what=what)
+
+
+@pytest.mark.parametrize("n", [100, 8193])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_fused_axpy_matches_ref_and_pallas(n, dtype):
+    vecs = dict(zip(IN_ORDER, vectors(n, len(IN_ORDER), dtype, seed=n + 1)))
+    with enable_x64(dtype == np.float64):
+        jv = {k: jnp.asarray(v) for k, v in vecs.items()}
+        want_ref = {k: np_(v) for k, v in jref.fused_axpy(jv, SCALARS).items()}
+        want_pallas = {k: np_(v) for k, v in
+                       fused_axpy_pallas(jv, SCALARS, interpret=True).items()}
+    got = ops.fused_axpy({k: torch.from_numpy(v) for k, v in vecs.items()},
+                         SCALARS)
+    assert tuple(got) == OUT_ORDER
+    for k in OUT_ORDER:
+        scale = np.max(np.abs(want_ref[k]))
+        for want, what in ((want_ref, "ref"), (want_pallas, "pallas")):
+            assert_close(got[k], want[k], scale, dtype, rtol32=5e-5,
+                         atol32=1e-5, what=f"{what}:{k}")
+
+
+def _banded(n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    offs = np.array([-2, -1, 0, 1, 2])
+    cols = np.clip(np.arange(n)[:, None] + offs[None, :], 0, n - 1)
+    vals = rng.standard_normal((n, len(offs)))
+    vals[cols == np.arange(n)[:, None]] += 3.0
+    return vals.astype(dtype), cols.astype(np.int32)
+
+
+@pytest.mark.parametrize("n", [512, 1000, 4099])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_spmv_ell_matches_ref_and_pallas(n, dtype):
+    vals, cols = _banded(n, dtype, seed=n)
+    x = vectors(n, 1, dtype, seed=n + 2)[0]
+    with enable_x64(dtype == np.float64):
+        jv, jc, jx = jnp.asarray(vals), jnp.asarray(cols), jnp.asarray(x)
+        want_ref = np_(jref.spmv_ell(jv, jc, jx))
+        want_pallas = np_(spmv_ell_pallas(jv, jc, jx, interpret=True))
+    op = ELLOperator(torch.from_numpy(vals), torch.from_numpy(cols), n)
+    got = ops.spmv_ell(op, torch.from_numpy(x))
+    scale = np.max(np.abs(want_ref))
+    for want, what in ((want_ref, "ref"), (want_pallas, "pallas")):
+        assert_close(got, want, scale, dtype, rtol32=1e-4, atol32=1e-5,
+                     what=what)
+
+
+def test_spmv_ell_takes_unbanded_matrices(x64):
+    """No band limit in the port: a random (unbanded) ELL matrix goes
+    through the same wrapper and matches the JAX oracle."""
+    rng = np.random.default_rng(0)
+    n, k = 3000, 6
+    cols = rng.integers(0, n, size=(n, k)).astype(np.int32)
+    vals = rng.standard_normal((n, k))
+    x = rng.standard_normal(n)
+    want = np_(jref.spmv_ell(jnp.asarray(vals), jnp.asarray(cols),
+                             jnp.asarray(x)))
+    op = ELLOperator(torch.from_numpy(vals), torch.from_numpy(cols), n)
+    got = np_(ops.spmv_ell(op, torch.from_numpy(x)))
+    assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
+
+
+def test_fused_dots_rejects_bad_operands():
+    v = torch.ones(10, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ops.fused_dots(*(v.half(),) * 5)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ops.fused_dots(*(v.long(),) * 5)
+    with pytest.raises(ValueError, match="unlike"):
+        ops.fused_dots(v, v, v, v, torch.ones(11, dtype=torch.float64))
+    with pytest.raises(ValueError, match="unlike"):
+        ops.fused_dots(v, v, v, v, v.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_dots(v, v, v, v, torch.ones(20, dtype=torch.float64)[::2])
+    with pytest.raises(ValueError, match="1-D"):
+        ops.fused_dots(*(v.reshape(2, 5),) * 5)
+
+
+def test_fused_axpy_rejects_bad_operands():
+    vecs = {k: torch.ones(8, dtype=torch.float64) for k in IN_ORDER}
+    with pytest.raises(KeyError, match="As"):
+        ops.fused_axpy({k: v for k, v in vecs.items() if k != "As"},
+                       SCALARS)
+    with pytest.raises(ValueError, match="4 scalars"):
+        ops.fused_axpy(vecs, SCALARS[:3])
+    got = ops.fused_axpy(vecs, torch.tensor(SCALARS, dtype=torch.float64))
+    want = ops.fused_axpy(vecs, SCALARS)
+    for k in OUT_ORDER:
+        assert torch.equal(got[k], want[k])
+
+
+def test_spmv_ell_rejects_bad_operands():
+    vals, cols = _banded(16, np.float64, seed=0)
+    op = ELLOperator(torch.from_numpy(vals), torch.from_numpy(cols), 16)
+    with pytest.raises(ValueError):
+        ops.spmv_ell(op, torch.ones(15, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        ops.spmv_ell(op, torch.ones(16, dtype=torch.float32))
+    with pytest.raises(TypeError):
+        ops.spmv_ell(op, torch.ones(16, dtype=torch.float16))
+
+
+def test_fused_dots_grid_is_fixed_by_n():
+    assert num_blocks(0) == 1 and num_blocks(1) == 1
+    assert num_blocks(256) == 1 and num_blocks(257) == 2
+    assert num_blocks(108 ** 3) == MAX_BLOCKS
+
+
+def test_build_command_targets_sm90a(tmp_path, monkeypatch):
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text("")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    out = tmp_path / "lib.so"
+    cmd = _build.nvcc_command(out)
+    assert cmd[0] == str(fake)
+    assert "-gencode=arch=compute_90a,code=sm_90a" in cmd
+    srcs = [c for c in cmd if c.endswith(".cu")]
+    assert {os.path.basename(s) for s in srcs} >= {
+        "fused_dots.cu", "fused_axpy.cu", "spmv_ell.cu"}
+    assert cmd[cmd.index("-o") + 1] == str(out)
+    path = _build.library_path()
+    assert path.parent == _build.BUILD_DIR
+    assert path.parent.parent == _build.CSRC.parents[2]
+    assert path.name.startswith("librepro_torch_kernels-")
+
+
+def test_launch_counts_only_successful_launches():
+    _build.reset_launches()
+    _build.launch("spmv_ell", lambda: 0)
+    assert _build.LAUNCHES["spmv_ell"] == 1
+    _build.reset_launches()
+    assert set(_build.LAUNCHES.values()) == {0}
