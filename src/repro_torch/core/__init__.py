@@ -6,6 +6,9 @@ FRONT DOOR: :mod:`repro_torch.api` —
 * Solvers (``(matvec, b, x0=None, *, config, r0_star, substrate)``):
   - :func:`pbicgsafe_solve`       p-BiCGSafe          (Alg. 3.1, 1 overlapped sync)
   - :func:`pbicgsafe_rr_solve`    p-BiCGSafe-rr       (Alg. 4.1)
+  - :func:`solve_batched`         p-BiCGSafe on (n, m) right-hand sides, one
+    (9, m) reduction per iteration; open-loop pieces :func:`init_state`,
+    :func:`step_chunk`, :func:`splice_columns`, :func:`result_from_state`
 * Operators: Dense/CSR/ELL/Stencil7.
 * Problem generators: :mod:`repro_torch.core.matrices`.
 * Compute substrates: ``substrate="torch"|"cuda"``
@@ -13,6 +16,8 @@ FRONT DOOR: :mod:`repro_torch.api` —
 """
 from .linear_operator import (CSROperator, DenseOperator, ELLOperator,
                               Stencil7Operator, as_matvec)
+from .multirhs import (init_state, result_from_state, solve_batched,
+                       splice_columns, step_chunk)
 from .pipelined_bicgsafe import pbicgsafe_rr_solve, pbicgsafe_solve
 from .substrate import (SUBSTRATES, CudaSubstrate, Substrate, TorchSubstrate,
                         get_substrate)
@@ -30,4 +35,6 @@ __all__ = [
     "Substrate", "TorchSubstrate", "CudaSubstrate", "SUBSTRATES",
     "get_substrate",
     "pbicgsafe_solve", "pbicgsafe_rr_solve", "SOLVERS",
+    "solve_batched", "init_state", "step_chunk", "splice_columns",
+    "result_from_state",
 ]

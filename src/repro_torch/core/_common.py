@@ -17,8 +17,12 @@ from .types import SolveStatus
 def local_dots(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
                ) -> torch.Tensor:
     """Stack the inner products <a,b> of each pair into one vector (one
-    reduction phase)."""
-    return torch.stack([torch.dot(a, b) for a, b in pairs])
+    reduction phase): ``(k,)`` for ``(n,)`` vectors, ``(k, m)`` per-column
+    dots for ``(n, m)`` blocks (summed in ``promote(dtype, float32)``)."""
+    if pairs[0][0].dim() == 1:
+        return torch.stack([torch.dot(a, b) for a, b in pairs])
+    acc = torch.promote_types(pairs[0][0].dtype, torch.float32)
+    return torch.stack([(a * b).sum(0, dtype=acc) for a, b in pairs])
 
 
 def safe_div(num: torch.Tensor, den: torch.Tensor, eps: float):
@@ -58,7 +62,9 @@ def bicgsafe_coefficients(dots: torch.Tensor, i, alpha_prev, zeta_prev,
             zeta=(b d - c e)/(a b - c^2),
             eta =(a e - c d)/(a b - c^2)                (paper lines 16-20)
 
-    ``i`` may be a 0-d device tensor (the solver's) or an int.
+    ``i`` may be a 0-d device tensor (the solver's) or an int.  For the
+    multi-RHS solve ``dots`` is ``(9, m)``, ``i`` the ``(m,)`` per-column
+    iteration counts and the carries ``(m,)``: everything is elementwise.
     Returns (beta, alpha, zeta, eta, f, rr, breakdown).
     """
     a, b, c, d, e, f, g, h, rr = dots.unbind(0)

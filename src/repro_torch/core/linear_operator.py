@@ -2,7 +2,10 @@
 ``repro.core.linear_operator``).
 
 Every operator exposes ``matvec``, ``diagonal``, ``shape``, ``dtype`` and
-``device``; its tensors all live on one device.
+``device``; its tensors all live on one device.  ``matvec`` takes an
+``(n,)`` vector or an ``(n, m)`` block of columns: the batch dimension is
+written out (the JAX package lifts with ``vmap``), so a block matvec costs
+the same number of launches whatever m is.
 
 * :class:`DenseOperator` — dense matrix (small systems / tests).
 * :class:`CSROperator` — compressed sparse row: gather + ``index_add_``.
@@ -72,11 +75,13 @@ class CSROperator:
         return self.data.device
 
     def _segment_sum(self, vals: torch.Tensor, seg: torch.Tensor):
-        out = torch.zeros(self.n, dtype=vals.dtype, device=vals.device)
+        out = torch.zeros((self.n,) + vals.shape[1:], dtype=vals.dtype,
+                          device=vals.device)
         return out.index_add_(0, seg, vals)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return self._segment_sum(self.data * x[self.indices], self.row_ids)
+        data = self.data if x.dim() == 1 else self.data[:, None]
+        return self._segment_sum(data * x[self.indices], self.row_ids)
 
     def diagonal(self) -> torch.Tensor:
         on_diag = torch.where(self.indices == self.row_ids, self.data,
@@ -129,6 +134,8 @@ class ELLOperator:
         return self.values.shape[1]
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 2:
+            return torch.einsum("rk,rkm->rm", self.values, x[self.cols])
         return (self.values * x[self.cols]).sum(dim=1)
 
     def diagonal(self) -> torch.Tensor:
@@ -186,7 +193,7 @@ class Stencil7Operator:
         return self.c.device
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        u = x.reshape(self.nx, self.ny, self.nz)
+        u = x.reshape(self.nx, self.ny, self.nz, *x.shape[1:])
         c = self.c
         out = c[0] * u
         # zero-Dirichlet shifts (no wraparound): pad + slice
@@ -201,7 +208,7 @@ class Stencil7Operator:
         wp = torch.cat([u[:, :, 1:], zz], dim=2)
         out = out + c[1] * um + c[2] * up + c[3] * vm + c[4] * vp \
             + c[5] * wm + c[6] * wp
-        return out.reshape(-1)
+        return out.reshape(x.shape)
 
     def diagonal(self) -> torch.Tensor:
         return self.c[0].expand(self.n).clone()
@@ -215,3 +222,19 @@ def as_matvec(op) -> MatVec:
         return op.matvec
     a = torch.as_tensor(op)
     return lambda x: a @ x
+
+
+def batched_matvec(matvec: MatVec) -> MatVec:
+    """Lift a single-vector matvec ``(n,) -> (n,)`` to ``(n, m)`` column
+    blocks, one call per column (what ``vmap`` does in the JAX package)."""
+    return lambda X: torch.stack([matvec(X[:, j]) for j in range(X.shape[1])],
+                                 dim=1)
+
+
+def as_block_matvec(op) -> MatVec:
+    """Operator -> column-blocked matvec ``(n, m) -> (n, m)``: an operator's
+    or a dense matrix's own block matvec; a bare callable, which may take
+    only ``(n,)`` vectors, is lifted column by column."""
+    if callable(op) and not hasattr(op, "matvec"):
+        return batched_matvec(op)
+    return as_matvec(op)

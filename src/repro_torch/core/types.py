@@ -115,6 +115,22 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def per_column(value, m: int, dtype, *, name: str = "tol",
+               device=None) -> torch.Tensor:
+    """Broadcast a per-solve setting (``tol``, ``maxiter``) to a per-column
+    ``(m,)`` vector: a scalar goes to all m columns, an ``(m,)`` vector is
+    taken as it is, anything else raises (a ``(k,)`` vector of the wrong
+    length would hand tolerances to the wrong right-hand sides)."""
+    arr = torch.as_tensor(value, dtype=dtype, device=device)
+    if arr.dim() == 0:
+        return arr.expand(m).clone()
+    if tuple(arr.shape) != (m,):
+        raise ValueError(
+            f"per-column {name} must be a scalar or shape ({m},); "
+            f"got shape {tuple(arr.shape)}")
+    return arr
+
+
 def history_init(cfg: SolverConfig, dtype, device) -> torch.Tensor:
     if cfg.record_history:
         return torch.full((cfg.maxiter + 1,), float("nan"), dtype=dtype,

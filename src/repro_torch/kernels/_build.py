@@ -31,7 +31,9 @@ FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
 #: launches of each kernel since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"fused_dots": 0, "fused_axpy": 0, "spmv_ell": 0}
+LAUNCHES: Dict[str, int] = {
+    "fused_dots": 0, "fused_axpy": 0, "spmv_ell": 0,
+    "fused_dots_batched": 0, "fused_axpy_batched": 0, "spmv_ell_batched": 0}
 
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -43,6 +45,15 @@ _SIGNATURES = {
                          _VP],
     # values, cols, x, y, n, k, stream
     "repro_spmv_ell": [_VP] * 4 + [_I64, ctypes.c_int, _VP],
+    # s, y, r, t, rs, n, m, width, partials, nblocks, out, stream
+    "repro_fused_dots_batched": [_VP] * 5 + [_I64, ctypes.c_int, ctypes.c_int,
+                                             _VP, ctypes.c_int, _VP, _VP],
+    # ins[12], outs[10], scalars (4, m), mask (m,) or null, n, m, stream
+    "repro_fused_axpy_batched": [ctypes.POINTER(_VP), ctypes.POINTER(_VP),
+                                 _VP, _VP, _I64, ctypes.c_int, _VP],
+    # values, cols, x, y, n, m, k, stream
+    "repro_spmv_ell_batched": [_VP] * 4 + [_I64, ctypes.c_int, ctypes.c_int,
+                                           _VP],
 }
 
 

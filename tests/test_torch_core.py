@@ -317,7 +317,7 @@ def test_local_dots_and_sync_counter(x64):
 
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.kernels.ops, "
-            "repro_torch.core.matrices\n"
+            "repro_torch.core.matrices, repro_torch.core.multirhs\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")

@@ -14,13 +14,18 @@ import jax.numpy as jnp  # noqa: E402
 
 from conftest import enable_x64  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
-from repro.kernels.fused_axpy import fused_axpy_pallas  # noqa: E402
-from repro.kernels.fused_dots import fused_dots_pallas  # noqa: E402
-from repro.kernels.spmv_ell import spmv_ell_pallas  # noqa: E402
+from repro.kernels.fused_axpy import (fused_axpy_batched_pallas,  # noqa: E402
+                                      fused_axpy_pallas)
+from repro.kernels.fused_dots import (fused_dots_batched_pallas,  # noqa: E402
+                                      fused_dots_pallas)
+from repro.kernels.spmv_ell import (spmv_ell_batched_pallas,  # noqa: E402
+                                    spmv_ell_pallas)
 from repro_torch.core.linear_operator import ELLOperator  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels.fused_axpy import IN_ORDER, OUT_ORDER  # noqa: E402
-from repro_torch.kernels.fused_dots import MAX_BLOCKS, num_blocks  # noqa: E402
+from repro_torch.kernels.fused_axpy import (IN_ORDER, MASKED_OUT,  # noqa: E402
+                                            OUT_ORDER)
+from repro_torch.kernels.fused_dots import (MAX_BLOCKS, num_blocks,  # noqa: E402
+                                            tile_width)
 
 SCALARS = (0.3, -0.7, 1.1, 0.2)
 
@@ -137,7 +142,9 @@ def test_fused_dots_rejects_bad_operands():
     with pytest.raises(ValueError, match="contiguous"):
         ops.fused_dots(v, v, v, v, torch.ones(20, dtype=torch.float64)[::2])
     with pytest.raises(ValueError, match="1-D"):
-        ops.fused_dots(*(v.reshape(2, 5),) * 5)
+        ops.fused_dots(*(v.reshape(2, 5, 1),) * 5)
+    with pytest.raises(ValueError, match="unlike"):
+        ops.fused_dots(v, v, v, v, v.reshape(10, 1))
 
 
 def test_fused_axpy_rejects_bad_operands():
@@ -168,6 +175,12 @@ def test_fused_dots_grid_is_fixed_by_n():
     assert num_blocks(0) == 1 and num_blocks(1) == 1
     assert num_blocks(256) == 1 and num_blocks(257) == 2
     assert num_blocks(108 ** 3) == MAX_BLOCKS
+    # the batched kernel: a block takes 256 // m rows of all m <= 256
+    # columns per pass, or a 256-column tile of one row
+    assert [tile_width(m) for m in (1, 8, 17, 256, 300)] == \
+        [1, 8, 17, 256, 256]
+    assert num_blocks(1000, 256 // tile_width(8)) == 32
+    assert num_blocks(108 ** 3, 256 // tile_width(8)) == MAX_BLOCKS
 
 
 def test_build_command_targets_sm90a(tmp_path, monkeypatch):
@@ -181,7 +194,9 @@ def test_build_command_targets_sm90a(tmp_path, monkeypatch):
     assert "-gencode=arch=compute_90a,code=sm_90a" in cmd
     srcs = [c for c in cmd if c.endswith(".cu")]
     assert {os.path.basename(s) for s in srcs} >= {
-        "fused_dots.cu", "fused_axpy.cu", "spmv_ell.cu"}
+        "fused_dots.cu", "fused_axpy.cu", "spmv_ell.cu",
+        "fused_dots_batched.cu", "fused_axpy_batched.cu",
+        "spmv_ell_batched.cu"}
     assert cmd[cmd.index("-o") + 1] == str(out)
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
@@ -195,3 +210,132 @@ def test_launch_counts_only_successful_launches():
     assert _build.LAUNCHES["spmv_ell"] == 1
     _build.reset_launches()
     assert set(_build.LAUNCHES.values()) == {0}
+
+
+# -- the batched (multi-RHS) kernels ------------------------------------------
+
+BATCHED_SHAPES = [(n, m) for n in (100, 1000) for m in (1, 3, 8, 17)]
+
+
+def blocks(n, m, count, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((n, m)).astype(dtype) for _ in range(count)]
+
+
+@pytest.mark.parametrize("n,m", BATCHED_SHAPES)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_fused_dots_batched_matches_ref_and_pallas(n, m, dtype):
+    vecs = blocks(n, m, 5, dtype, seed=n + m)
+    with enable_x64(dtype == np.float64):
+        jv = [jnp.asarray(v) for v in vecs]
+        want_ref = np_(jref.fused_dots_batched(*jv))
+        want_pallas = np_(fused_dots_batched_pallas(*jv, interpret=True))
+    before = dict(ops.LAUNCHES)
+    got = ops.fused_dots(*(torch.from_numpy(v) for v in vecs))
+    assert ops.LAUNCHES == before          # the CPU path launches nothing
+    assert got.shape == (9, m) and got.dtype == getattr(torch, dtype.__name__)
+    scale = np_(ref.fused_dots(*(torch.from_numpy(np.abs(v))
+                                 for v in vecs))).astype(np.float64)
+    for want, what in ((want_ref, "ref"), (want_pallas, "pallas")):
+        assert_close(got, want, scale, dtype, rtol32=2e-4, atol32=1e-5,
+                     what=what)
+
+
+@pytest.mark.parametrize("n,m", BATCHED_SHAPES)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_fused_axpy_batched_matches_ref_and_pallas(n, m, dtype):
+    """Per-column coefficients and the in-kernel mask (every third column
+    frozen): frozen columns keep their inputs bit for bit."""
+    vecs = dict(zip(IN_ORDER, blocks(n, m, len(IN_ORDER), dtype, seed=n)))
+    rng = np.random.default_rng(m)
+    scal = rng.standard_normal((4, m)).astype(dtype)
+    mask = np.arange(m) % 3 != 1
+    with enable_x64(dtype == np.float64):
+        jv = {k: jnp.asarray(v) for k, v in vecs.items()}
+        js = tuple(jnp.asarray(c) for c in scal)
+        jm = jnp.asarray(mask)
+        want_ref = {k: np_(v) for k, v in
+                    jref.fused_axpy(jv, js, mask=jm).items()}
+        want_pallas = {k: np_(v) for k, v in fused_axpy_batched_pallas(
+            jv, js, jm, interpret=True).items()}
+    tv = {k: torch.from_numpy(v) for k, v in vecs.items()}
+    got = ops.fused_axpy(tv, torch.from_numpy(scal),
+                         torch.from_numpy(mask))
+    assert tuple(got) == OUT_ORDER
+    for k in OUT_ORDER:
+        assert got[k].shape == (n, m)
+        scale = np.max(np.abs(want_ref[k]))
+        for want, what in ((want_ref, "ref"), (want_pallas, "pallas")):
+            assert_close(got[k], want[k], scale, dtype, rtol32=5e-5,
+                         atol32=1e-5, what=f"{what}:{k}")
+        if k in MASKED_OUT:
+            assert torch.equal(got[k][:, ~mask], tv[k][:, ~mask]), k
+
+
+def test_fused_axpy_batched_mask_is_a_select(x64):
+    """NaN and Inf coefficients in frozen columns (a zero column's relres
+    is 0/0) stay out of the state; ``mask=None`` advances every column,
+    as an all-True mask does."""
+    n, m = 64, 4
+    vecs = {k: torch.from_numpy(v) for k, v in
+            zip(IN_ORDER, blocks(n, m, len(IN_ORDER), np.float64, seed=9))}
+    scal = torch.tensor([[0.3, np.nan, 0.5, np.inf]] * 4, dtype=torch.float64)
+    mask = torch.tensor([True, False, True, False])
+    got = ops.fused_axpy(vecs, scal, mask)
+    for k in MASKED_OUT:
+        assert torch.equal(got[k][:, ~mask], vecs[k][:, ~mask]), k
+        assert bool(torch.isfinite(got[k]).all()), k
+    live = ops.fused_axpy(vecs, scal[:, [0, 2]].repeat(1, 2),
+                          torch.ones(m, dtype=torch.bool))
+    free = ops.fused_axpy(vecs, scal[:, [0, 2]].repeat(1, 2))
+    for k in OUT_ORDER:
+        assert torch.equal(live[k], free[k]), k
+    # scalar and (m,) coefficients broadcast over the columns
+    one = ops.fused_axpy(vecs, SCALARS)
+    per = ops.fused_axpy(vecs, [torch.full((m,), c, dtype=torch.float64)
+                                for c in SCALARS])
+    for k in OUT_ORDER:
+        assert torch.equal(one[k], per[k]), k
+
+
+@pytest.mark.parametrize("n,m", BATCHED_SHAPES)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_spmv_ell_batched_matches_ref_and_pallas(n, m, dtype):
+    vals, cols = _banded(n, dtype, seed=n)
+    x = blocks(n, m, 1, dtype, seed=n + m)[0]
+    with enable_x64(dtype == np.float64):
+        jv, jc, jx = jnp.asarray(vals), jnp.asarray(cols), jnp.asarray(x)
+        want_ref = np_(jref.spmv_ell(jv, jc, jx))
+        want_pallas = np_(spmv_ell_batched_pallas(jv, jc, jx, interpret=True))
+    op = ELLOperator(torch.from_numpy(vals), torch.from_numpy(cols), n)
+    got = ops.spmv_ell(op, torch.from_numpy(x))
+    assert got.shape == (n, m)
+    scale = np.max(np.abs(want_ref))
+    for want, what in ((want_ref, "ref"), (want_pallas, "pallas")):
+        assert_close(got, want, scale, dtype, rtol32=1e-4, atol32=1e-5,
+                     what=what)
+
+
+def test_batched_wrappers_reject_bad_operands():
+    v = torch.ones(10, 3, dtype=torch.float64)
+    with pytest.raises(ValueError, match="unlike"):
+        ops.fused_dots(v, v, v, v, torch.ones(10, 4, dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_dots(v, v, v, v, torch.ones(3, 10, dtype=torch.float64).T)
+    vecs = {k: torch.ones(8, 3, dtype=torch.float64) for k in IN_ORDER}
+    with pytest.raises(ValueError, match="4 scalars"):
+        ops.fused_axpy(vecs, torch.ones(4, 2, dtype=torch.float64))
+    with pytest.raises(ValueError, match=r"mask must be \(3,\)"):
+        ops.fused_axpy(vecs, SCALARS, torch.ones(2, dtype=torch.bool))
+    vals, cols = _banded(16, np.float64, seed=0)
+    op = ELLOperator(torch.from_numpy(vals), torch.from_numpy(cols), 16)
+    with pytest.raises(ValueError):
+        ops.spmv_ell(op, torch.ones(15, 2, dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.spmv_ell(op, torch.ones(2, 16, dtype=torch.float64).T)
+
+
+def test_mask_on_vectors_raises():
+    vecs = {k: torch.ones(8, dtype=torch.float64) for k in IN_ORDER}
+    with pytest.raises(ValueError, match="multi-RHS"):
+        ops.fused_axpy(vecs, SCALARS, torch.ones(8, dtype=torch.bool))

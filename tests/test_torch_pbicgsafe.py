@@ -265,6 +265,9 @@ def test_later_slices_raise_not_implemented(call):
         elif call in ("trace", "profile"):
             repro_torch.make_solver("p-bicgsafe", op, device=CPU).solve(
                 b, **{call: True})
+        elif call == "solve_many":      # ported; its trace ring is not
+            repro_torch.make_solver("p-bicgsafe", op, device=CPU).solve_many(
+                [b], trace=True)
         else:
             getattr(repro_torch.make_solver("p-bicgsafe", op, device=CPU),
                     call)([b])
