@@ -11,15 +11,17 @@ package is missing.  Phases, any failure of which fails the run:
    build (one ``nvcc`` call into ``build/``) with its time and the
    compiler's register report;
 2. kernels: each single-RHS kernel (``fused_dots``, ``fused_axpy``,
-   ``spmv_ell``) against its plain PyTorch version on the card, in fp64 and
-   fp32, at the main path's shape (n = 108**3 = 1,259,712 rows, k = 7),
-   with its device time beside the plain version's, one PyTorch library
-   call's where there is one, and the HBM bound;
+   ``spmv_ell``, ``fused_dots_health``) against its plain PyTorch version
+   on the card, in fp64 and fp32, at the main path's shape (n = 108**3 =
+   1,259,712 rows, k = 7), with its device time beside the plain version's,
+   one PyTorch library call's where there is one, and the HBM bound;
 2b. batched kernels: the same for ``fused_dots_batched``,
    ``fused_axpy_batched`` (fed a mask with frozen columns whose
-   coefficients are NaN: their outputs must be their inputs, bit for bit)
-   and ``spmv_ell_batched`` at (1,259,712, 8), the width the JAX package's
-   service binds;
+   coefficients are NaN: their outputs must be their inputs, bit for bit),
+   ``spmv_ell_batched`` and ``fused_dots_health_batched`` (whose probe row
+   must be non-finite in exactly the columns fed a NaN or an Inf) at
+   (1,259,712, 8), the width the JAX package's service binds; then each
+   dots kernel, single and batched, timed on one column (m = 1);
 3. main path: p-BiCGSafe and p-BiCGSafe-rr through
    ``repro_torch.make_solver(...).solve(b)`` on ``substrate="cuda"`` for
    the 1,259,712-row convection-diffusion system in ELL form, fp64,
@@ -30,6 +32,16 @@ package is missing.  Phases, any failure of which fails the run:
    columns, 1e-6 for four): every column converges with a true residual
    within 100x its tol, column 0 within 2 iterations of 3's solve of b,
    and the batched kernels' launch counters match the steps;
+3d. guarded path: ``make_solver(..., recovery=RecoveryPolicy(chunk=16))``
+   on the same system: ``solve_many`` of 3c's block (every column
+   CONVERGED, no recovery event, iterations within 2 of 3c's, one
+   ``fused_dots_health_batched`` launch per step and no
+   ``fused_dots_batched``), the same with a NaN written into column 2
+   before chunk 1 (one restart of column 2, every column converges), and
+   ``solve(b)`` (m = 1, the single-vector health kernel; within 2
+   iterations of 3's solve of b); then the kernels the card runs per step
+   of 3c and of 3d, counted from a ``torch.profiler`` trace after every
+   timed phase;
 4. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -58,19 +70,31 @@ PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 # the last ulps only.  fp32: the tolerances of tests/test_kernels.py.
 TOL = {"float64": {"fused_dots": 1e-12, "fused_axpy": 1e-12,
                    "spmv_ell": 1e-12, "fused_dots_batched": 1e-12,
-                   "fused_axpy_batched": 1e-12, "spmv_ell_batched": 1e-12},
+                   "fused_axpy_batched": 1e-12, "spmv_ell_batched": 1e-12,
+                   "fused_dots_health": 1e-12,
+                   "fused_dots_health_batched": 1e-12},
        "float32": {"fused_dots": 2e-5, "fused_axpy": 5e-5, "spmv_ell": 1e-4,
                    "fused_dots_batched": 2e-4, "fused_axpy_batched": 5e-5,
-                   "spmv_ell_batched": 1e-4}}
+                   "spmv_ell_batched": 1e-4, "fused_dots_health": 2e-5,
+                   "fused_dots_health_batched": 2e-4}}
 REPLACES = {"fused_dots": "src/repro/kernels/fused_dots.py:63",
             "fused_axpy": "src/repro/kernels/fused_axpy.py:73",
             "spmv_ell": "src/repro/kernels/spmv_ell.py:45",
             "fused_dots_batched": "src/repro/kernels/fused_dots.py:110",
             "fused_axpy_batched": "src/repro/kernels/fused_axpy.py:154",
-            "spmv_ell_batched": "src/repro/kernels/spmv_ell.py:99"}
+            "spmv_ell_batched": "src/repro/kernels/spmv_ell.py:99",
+            "fused_dots_health": "src/repro/kernels/fused_dots.py:167",
+            "fused_dots_health_batched": "src/repro/kernels/fused_dots.py:220"}
+# the health kernels are the 11-row forms of the dots kernels' templates
+SOURCE = dict({k: f"src/repro_torch/csrc/{k}.cu" for k in REPLACES},
+              fused_dots_health="src/repro_torch/csrc/fused_dots.cu",
+              fused_dots_health_batched=(
+                  "src/repro_torch/csrc/fused_dots_batched.cu"))
 SINGLE = ("fused_dots", "fused_axpy", "spmv_ell")
 BATCHED = ("fused_dots_batched", "fused_axpy_batched", "spmv_ell_batched")
+HEALTH = ("fused_dots_health", "fused_dots_health_batched")
 M = 8                       # columns of the batched path (ServiceConfig.max_batch)
+STEP_REPS = 4               # solver steps queued per timing (see device_ms)
 
 
 def log(msg: str) -> None:
@@ -82,7 +106,10 @@ def device_ms(torch, fn, reps: int = 20, trials: int = 5) -> float:
 
     A sleep kernel holds the stream while the host queues ``reps`` calls,
     so the events time the calls back to back on the device and not the
-    host's launch rate."""
+    host's launch rate.  The ``reps`` calls must launch well under the
+    1,024 kernels the launch queue holds, or the host blocks and its rate
+    shows in the time again: a solver step of about 100-170 kernels is
+    timed with ``reps=STEP_REPS``."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -104,6 +131,30 @@ def device_ms(torch, fn, reps: int = 20, trials: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_kernels_per_step(torch, fn, reps: int = 16) -> float:
+    """Kernels the device ran per call of ``fn``: a ``torch.profiler``
+    trace of the card's activity over ``reps`` calls, its kernel events
+    counted (copies and memsets are not kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out_dir = os.path.join(ROOT, "build", "profile")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "chip_smoke_step_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = sum(1 for e in events
+                  if e.get("ph") == "X" and e.get("cat") == "kernel")
+    if kernels == 0:
+        raise SystemExit("the profiler's trace holds no kernel")
+    return kernels / reps
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -139,6 +190,33 @@ def check_kernels(torch, ops, ref, values, cols, dtype) -> dict:
         plain_ms=device_ms(torch, lambda: ref.fused_dots(s, y, r, t, rs)),
         library_ms=device_ms(torch, lambda: stacked @ stacked.T),
         bound=bound_ms(5 * item * n + 9 * item, 18 * n, name))
+    del stacked
+
+    # fused_dots_health: the 9 dots, x.x and the probe; the yardstick is the
+    # Gram of the six stacked vectors (it omits the probe row).  Rows 0-8
+    # must equal fused_dots' bit for bit (one template).
+    x = randn()
+    got = ops.fused_dots_health(s, y, r, t, rs, x)
+    want = ref.fused_dots_health(s, y, r, t, rs, x)
+    scale = ref.fused_dots_health(*(v.abs() for v in (s, y, r, t, rs, x)))
+    same_rows = torch.equal(got[:9], ops.fused_dots(s, y, r, t, rs))
+    probe = ops.fused_dots_health(s, y, r, t, rs,
+                                  torch.where(torch.arange(n, device=dev)
+                                              == n // 3, float("nan"), x))
+    if bool(torch.isfinite(probe[10])) or \
+            not bool(torch.isfinite(probe[:9]).all()):
+        raise SystemExit(f"fused_dots_health {name}: a NaN in x did not "
+                         f"reach the probe row alone: {probe.tolist()}")
+    stacked = torch.stack([s, y, r, t, rs, x])
+    out["fused_dots_health"] = dict(
+        err=float(((got - want).abs() / scale).max()),
+        max_abs_err=float((got - want).abs().max()),
+        ms=device_ms(torch, lambda: ops.fused_dots_health(s, y, r, t, rs, x)),
+        plain_ms=device_ms(torch, lambda: ref.fused_dots_health(s, y, r, t,
+                                                                rs, x)),
+        library_ms=device_ms(torch, lambda: stacked @ stacked.T),
+        bound=bound_ms(6 * item * n + 11 * item, 25 * n, name),
+        rows_0_8_bitwise=same_rows)
     del stacked
 
     # fused_axpy: scale of an output vector is its max-abs
@@ -277,7 +355,55 @@ def check_batched_kernels(torch, ops, ref, values, cols, dtype) -> dict:
         library_ms=device_ms(torch, lambda: csr @ x),
         bound=bound_ms(k * item * n + k * 4 * n + 2 * item * n * m,
                        2 * k * n * m, name))
-    return finish(out, name)
+    del x, csr
+
+    # fused_dots_health_batched: the yardstick is the per-column Gram of the
+    # six blocks, one bmm (it omits the probe row).  The probe row must be
+    # non-finite in exactly the columns fed an Inf (s) or a NaN (x).
+    s, y, r, t, rs, x = (randn(n, m) for _ in range(6))
+    got = ops.fused_dots_health(s, y, r, t, rs, x)
+    want = ref.fused_dots_health(s, y, r, t, rs, x)
+    scale = ref.fused_dots_health(*(v.abs() for v in (s, y, r, t, rs, x)))
+    same_rows = torch.equal(got[:9], ops.fused_dots(s, y, r, t, rs))
+    s_bad, x_bad = s.clone(), x.clone()
+    s_bad[17, 1] = float("inf")
+    x_bad[n // 2, 3] = float("nan")
+    flagged = (~torch.isfinite(ops.fused_dots_health(
+        s_bad, y, r, t, rs, x_bad)[10])).tolist()
+    if flagged != [j in (1, 3) for j in range(m)]:
+        raise SystemExit(f"fused_dots_health_batched {name}: the probe row "
+                         f"flags columns {flagged}, not 1 and 3")
+    del s_bad, x_bad
+    cols_major = torch.stack([s, y, r, t, rs, x]).permute(2, 0, 1).contiguous()
+    gram_t = cols_major.transpose(1, 2)
+    out["fused_dots_health_batched"] = dict(
+        err=float(((got - want).abs() / scale).max()),
+        max_abs_err=float((got - want).abs().max()),
+        ms=device_ms(torch, lambda: ops.fused_dots_health(s, y, r, t, rs, x)),
+        plain_ms=device_ms(torch, lambda: ref.fused_dots_health(s, y, r, t,
+                                                                rs, x)),
+        library_ms=device_ms(torch, lambda: torch.bmm(cols_major, gram_t)),
+        bound=bound_ms(6 * item * n * m + 11 * item * m, 25 * n * m, name),
+        rows_0_8_bitwise=same_rows)
+    del cols_major, gram_t
+    finish(out, name)
+
+    # m = 1: an (n, 1) block is an (n,) vector in memory, so either kernel
+    # of a pair can serve it; each pair timed on the same column
+    from repro_torch.kernels import fused_dots as fd
+    col = [v[:, :1].contiguous() for v in (s, y, r, t, rs, x)]
+    vec = [v.view(-1) for v in col]
+    at_m1 = dict(
+        fused_dots=device_ms(torch, lambda: fd.fused_dots_cuda(*vec[:5])),
+        fused_dots_batched=device_ms(
+            torch, lambda: fd.fused_dots_batched_cuda(*col[:5])),
+        fused_dots_health=device_ms(
+            torch, lambda: fd.fused_dots_health_cuda(*vec)),
+        fused_dots_health_batched=device_ms(
+            torch, lambda: fd.fused_dots_health_batched_cuda(*col)))
+    log(f"m = 1 {name}: ms of each kernel on one column: "
+        f"{json.dumps(at_m1)}")
+    return out, at_m1
 
 
 def run_main_path(torch, repro_torch, ops, method, ell, stencil, b):
@@ -304,7 +430,7 @@ def run_main_path(torch, repro_torch, ops, method, ell, stencil, b):
                rr_steps=rr_steps, host_reads=solver.stats["host_reads"],
                launches=launches)
     log(f"main {method}: {json.dumps(rec)}")
-    want = dict.fromkeys(BATCHED, 0)
+    want = dict.fromkeys(BATCHED + HEALTH, 0)
     want.update(fused_dots=steps, fused_axpy=steps,
                 spmv_ell=1 + 2 * steps + 4 * rr_steps)
     if not rec["converged"] or true_relres > 1e-6:
@@ -319,16 +445,22 @@ def run_main_path(torch, repro_torch, ops, method, ell, stencil, b):
     return rec
 
 
-def run_batched_path(torch, repro_torch, ops, ell, stencil, b, single_it):
-    """One measured ``solve_many`` of an (n, M) block through the front
-    door, with the launch counters set to 0 just before it and read just
-    after."""
+def batched_rhs(torch, b):
+    """3c's (n, M) block, column 0 = b, and its per-column tolerances."""
     gen = torch.Generator(device=b.device).manual_seed(3)
     B = torch.stack([b] + [torch.randn(b.shape[0], generator=gen,
                                        device=b.device, dtype=b.dtype)
                            for _ in range(M - 1)], dim=1)
     tol = torch.tensor([1e-8] * (M // 2) + [1e-6] * (M - M // 2),
                        dtype=b.dtype, device=b.device)
+    return B, tol
+
+
+def run_batched_path(torch, repro_torch, ops, ell, stencil, b, single_it):
+    """One measured ``solve_many`` of an (n, M) block through the front
+    door, with the launch counters set to 0 just before it and read just
+    after."""
+    B, tol = batched_rhs(torch, b)
     solver = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda")
     solver.solve_many(B, maxiter=32)                 # warm-up, not counted
     solver.stats.update(steps=0, host_reads=0)
@@ -360,7 +492,7 @@ def run_batched_path(torch, repro_torch, ops, ell, stencil, b, single_it):
     if abs(its[0] - single_it) > 2:
         raise SystemExit(f"solve_many: column 0 took {its[0]} iterations, "
                          f"the single-RHS solve of b {single_it}")
-    want = dict.fromkeys(SINGLE, 0)
+    want = dict.fromkeys(SINGLE + HEALTH, 0)
     want.update(fused_dots_batched=steps, fused_axpy_batched=steps,
                 spmv_ell_batched=1 + 2 * steps)
     if launches != want or steps == 0:
@@ -372,11 +504,129 @@ def run_batched_path(torch, repro_torch, ops, ell, stencil, b, single_it):
     st0 = solver.init(B, tol=tol)
     body = multirhs._make_body(solver.sub, solver.block_matvec,
                                solver.config)
-    rec["device_ms_per_step"] = device_ms(torch, lambda: body(st0))
+    rec["device_ms_per_step"] = device_ms(torch, lambda: body(st0),
+                                          reps=STEP_REPS)
     rec["busy_share"] = rec["device_ms_per_step"] / rec["ms_per_step"]
     log(f"batched step: {rec['device_ms_per_step']:.4f} ms of device time "
         f"back to back; busy share {rec['busy_share']:.3f}")
     return rec
+
+
+def run_guarded_path(torch, repro_torch, ops, ell, stencil, b, many, main):
+    """Phase 3d: the guarded driver on 3c's block (clean, then with a NaN
+    written into column 2 before chunk 1) and on b alone, each run with the
+    launch counters set to 0 just before it and read just after."""
+    from repro_torch.core import multirhs
+    from repro_torch.resilience import ChunkFaultInjector, RecoveryPolicy
+    B, tol = batched_rhs(torch, b)
+    gs = repro_torch.make_solver(
+        "p-bicgsafe", ell, substrate="cuda",
+        recovery=RecoveryPolicy(chunk=16, substrate_fallback=False))
+    gs.solve_many(B, maxiter=32)                     # warm-up, not counted
+
+    def measured(label, rhs, **kw):
+        gs.events.clear()
+        gs.stats.update(steps=0, host_reads=0)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = gs.solve(rhs) if rhs.dim() == 1 else gs.solve_many(rhs, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        X = res.x.reshape(rhs.shape[0], -1)
+        R = rhs.reshape(rhs.shape[0], -1)
+        true = (torch.linalg.vector_norm(R - stencil.matvec(X), dim=0)
+                / torch.linalg.vector_norm(R, dim=0))
+        steps = gs.stats["steps"]
+        rec = dict(
+            run=label, iterations=res.iterations.reshape(-1).tolist(),
+            status=[repro_torch.SolveStatus(int(v)).name
+                    for v in res.status.reshape(-1)],
+            true_relres=true.tolist(), finite=bool(torch.isfinite(X).all()),
+            events=list(gs.events), wall_s=wall, steps=steps,
+            ms_per_step=wall / max(steps, 1) * 1e3,
+            host_reads=gs.stats["host_reads"], launches=dict(ops.LAUNCHES))
+        log(f"guarded {label}: {json.dumps(rec)}")
+        tol_col = tol if rhs.dim() == 2 else torch.full_like(true, 1e-8)
+        if rec["status"] != ["CONVERGED"] * len(rec["status"]) \
+                or not rec["finite"] or bool((true > 100 * tol_col).any()):
+            raise SystemExit(f"guarded {label}: a column failed: {rec}")
+        return rec
+
+    def want(**counts):
+        return dict(dict.fromkeys(ops.LAUNCHES, 0), **counts)
+
+    clean = measured("clean", B, tol=tol)
+    steps = clean["steps"]
+    same = clean["iterations"] == many["iterations"]
+    log(f"guarded clean: iterations equal to 3c's: {same}")
+    if clean["events"] or max(abs(a - c) for a, c in zip(
+            clean["iterations"], many["iterations"])) > 2:
+        raise SystemExit(f"guarded clean: events {clean['events']} or "
+                         "iterations off 3c's by more than 2")
+    if clean["launches"] != want(fused_dots_health_batched=steps,
+                                 fused_axpy_batched=steps,
+                                 spmv_ell_batched=1 + 2 * steps) \
+            or steps == 0:
+        raise SystemExit(f"guarded clean: launches {clean['launches']}")
+    # one guarded step's device time back to back, beside 3c's
+    sess = gs.session
+    st0 = sess.init(B, tol=tol)
+    body = multirhs._make_body(sess.sub, sess.block_matvec, sess.config)
+    clean["device_ms_per_step"] = device_ms(torch, lambda: body(st0),
+                                            reps=STEP_REPS)
+    del st0
+    log(f"guarded step: {clean['ms_per_step']:.4f} ms wall, "
+        f"{clean['device_ms_per_step']:.4f} ms device, against 3c's "
+        f"{many['ms_per_step']:.4f} / {many['device_ms_per_step']:.4f}: "
+        f"x{clean['ms_per_step'] / many['ms_per_step']:.3f} wall, "
+        f"x{clean['device_ms_per_step'] / many['device_ms_per_step']:.3f} "
+        "device")
+
+    gs.inject = ChunkFaultInjector(nan_at={1: (2,)})
+    fault = measured("fault", B, tol=tol)
+    gs.inject = None
+    # the driver logs an action at the boundary after the chunk that found
+    # it: the NaN written before chunk 1 is restarted at boundary 2
+    if fault["events"] != [dict(event="restart", chunk=2, columns=[2])]:
+        raise SystemExit(f"guarded fault: events {fault['events']}")
+    fsteps = fault["steps"]
+    if fault["launches"] != want(fused_dots_health_batched=fsteps,
+                                 fused_axpy_batched=fsteps,
+                                 spmv_ell_batched=1 + 2 * fsteps + 2):
+        raise SystemExit(f"guarded fault: launches {fault['launches']}")
+
+    one = measured("single", b)
+    if abs(one["iterations"][0] - main["iterations"]) > 2:
+        raise SystemExit(f"guarded single: {one['iterations'][0]} "
+                         f"iterations, 3's solve of b {main['iterations']}")
+    osteps = one["steps"]
+    if one["launches"] != want(fused_dots_health=osteps,
+                               fused_axpy_batched=osteps,
+                               spmv_ell_batched=1 + 2 * osteps):
+        raise SystemExit(f"guarded single: launches {one['launches']}")
+    return dict(clean=clean, fault=fault, single=one)
+
+
+def count_step_kernels(torch, repro_torch, ell, b) -> dict:
+    """Kernels per step on the card of 3c's step and of 3d's guarded step,
+    from a profiler trace; run after every timed phase, so the profiler
+    touches no timing."""
+    from repro_torch.core import multirhs
+    from repro_torch.resilience import RecoveryPolicy
+    B, tol = batched_rhs(torch, b)
+    out = {}
+    for label, recovery in (("batched", None),
+                            ("guarded", RecoveryPolicy(chunk=16))):
+        sess = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda",
+                                       recovery=recovery)
+        sess = getattr(sess, "session", sess)
+        st0 = sess.init(B, tol=tol)
+        body = multirhs._make_body(sess.sub, sess.block_matvec, sess.config)
+        out[label] = device_kernels_per_step(torch, lambda: body(st0))
+        del st0
+    log(f"kernels per step on the card: {json.dumps(out)}")
+    return out
 
 
 def main() -> int:
@@ -425,12 +675,14 @@ def main() -> int:
             raise SystemExit(f"ELL {label} matvec disagrees with the stencil")
 
     # -- 2 and 2b. kernels against their plain versions ----------------------
-    results = {}
+    results, at_m1 = {}, {}
     for dtype in (torch.float64, torch.float32):
         res = check_kernels(torch, ops, ref, ell.values, ell.cols, dtype)
         torch.cuda.empty_cache()
-        res.update(check_batched_kernels(torch, ops, ref, ell.values,
-                                         ell.cols, dtype))
+        batched, at_m1[str(dtype).replace("torch.", "")] = \
+            check_batched_kernels(torch, ops, ref, ell.values, ell.cols,
+                                  dtype)
+        res.update(batched)
         torch.cuda.empty_cache()
         for kname, rec in res.items():
             if not rec["err"] <= rec["tol"]:
@@ -458,18 +710,39 @@ def main() -> int:
         f"column); the three batched kernels' device time is "
         f"{kernel_ms / (many['wall_s'] * 1e3):.3f} of the wall time "
         f"({kernel_ms / many['steps']:.3f} ms per step)")
+    torch.cuda.empty_cache()
+
+    # -- 3d. the guarded path -----------------------------------------------
+    guarded = run_guarded_path(torch, repro_torch, ops, ell, stencil, b, many,
+                               main)
+    path_launches = dict(main["launches"])
+    path_launches.update({k: many["launches"][k] for k in BATCHED})
+    path_launches.update(
+        fused_dots_health=guarded["single"]["launches"]["fused_dots_health"],
+        fused_dots_health_batched=guarded["clean"]["launches"][
+            "fused_dots_health_batched"])
+
+    step_kernels = count_step_kernels(torch, repro_torch, ell, b)
+    many["kernels_per_step"] = step_kernels["batched"]
+    guarded["clean"]["kernels_per_step"] = step_kernels["guarded"]
 
     # -- 4. the kernel table and the result line ------------------------------
     kernels = []
-    for kname in SINGLE + BATCHED:
+    for kname in SINGLE + BATCHED + HEALTH:
         r64, r32 = results["float64"][kname], results["float32"][kname]
-        extra = (dict(launches_rr=rr["launches"][kname]) if kname in SINGLE
-                 else dict(m=M))
+        if kname in SINGLE:
+            extra = dict(launches_rr=rr["launches"][kname])
+        elif kname in HEALTH:
+            extra = dict(m=M if kname.endswith("batched") else 1,
+                         rows_0_8_bitwise=r64["rows_0_8_bitwise"],
+                         library_omits="the probe row (row 10)")
+        else:
+            extra = dict(m=M)
         kernels.append(dict(
-            name=kname, route="cuda",
-            source=f"src/repro_torch/csrc/{kname}.cu",
+            name=kname, route="cuda", source=SOURCE[kname],
             replaces=REPLACES[kname],
-            launches=(main if kname in SINGLE else many)["launches"][kname],
+            launches=path_launches[kname],
+            ms_at_m1=at_m1["float64"].get(kname),
             max_abs_err=r64["max_abs_err"], ms=r64["ms"],
             plain_ms=r64["plain_ms"], bound_ms=r64["bound"][0],
             bound_by=r64["bound"][1], library_ms=r64["library_ms"],

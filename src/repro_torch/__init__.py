@@ -16,16 +16,21 @@ batched form:
     res = solver.solve(b)
     many = solver.solve_many(torch.stack([b, 2 * b], dim=1))   # (n, 2)
 
+With ``recovery=`` (:mod:`repro_torch.resilience`) the batched iteration is
+guarded: an (11, m) reduction with health rows, typed statuses and a
+chunked recovery driver.  BiCGStab (plain PyTorch) is its method fallback.
+
 This package imports ``torch``, ``numpy`` and the standard library only —
 nothing of the JAX package :mod:`repro`, which stays its reference.
 """
 from .api import LinearSolver, make_solver, solve
 from .convert import operator_from_numpy
-from .core import (SOLVERS, SUBSTRATES, CSROperator, DenseOperator,
-                   ELLOperator, SolveResult, SolverConfig, SolveStatus,
-                   Stencil7Operator, get_substrate, init_state,
+from .core import (GUARD_FIELDS, SOLVERS, SUBSTRATES, CSROperator,
+                   DenseOperator, ELLOperator, SolveResult, SolverConfig,
+                   SolveStatus, Stencil7Operator, get_substrate, init_state,
                    result_from_state, solve_batched, splice_columns,
                    step_chunk)
+from .resilience import GuardedSolver, RecoveryPolicy
 
 __all__ = [
     "LinearSolver", "make_solver", "solve", "operator_from_numpy",
@@ -33,5 +38,5 @@ __all__ = [
     "SolveResult", "SolveStatus", "SolverConfig",
     "CSROperator", "DenseOperator", "ELLOperator", "Stencil7Operator",
     "solve_batched", "init_state", "step_chunk", "splice_columns",
-    "result_from_state",
+    "result_from_state", "GUARD_FIELDS", "GuardedSolver", "RecoveryPolicy",
 ]

@@ -13,13 +13,17 @@
     st = solver.splice(st, refill, B_new)   # refill finished columns
     res = solver.result(st)
 
+    guarded = repro_torch.make_solver("p-bicgsafe", op, substrate="cuda",
+                                      recovery=RecoveryPolicy(chunk=16))
+    res = guarded.solve_many(B)             # typed statuses, recovery
+
 ``device=None`` means ``"cuda"``, and raises when no GPU is present: pass
 ``device="cpu"`` to run on the CPU.  The operator's tensors must lie on the
 session's device.
 
 Not ported yet, and raising :class:`NotImplementedError`: ``precond=``,
-``recovery=``, ``trace=`` and ``profile=`` of ``solve`` and ``solve_many``,
-and ``on_mesh``.  Sessions are not cached by operator content.
+``trace=`` and ``profile=`` of ``solve`` and ``solve_many``, and
+``on_mesh``.  Sessions are not cached by operator content.
 """
 from __future__ import annotations
 
@@ -216,16 +220,34 @@ def make_solver(method: str = "p-bicgsafe", operator=None, *,
                 substrate: SubstrateLike = "torch",
                 config: SolverConfig = SolverConfig(),
                 device=None,
-                recovery=None) -> LinearSolver:
+                recovery=None):
     """Bind ``method`` (a name from :data:`repro_torch.core.SOLVERS`) to
     ``operator`` (Dense/CSR/ELL/Stencil7, a dense matrix, or a matvec
-    callable) on ``device`` (``None`` means ``"cuda"``)."""
+    callable) on ``device`` (``None`` means ``"cuda"``).
+
+    ``recovery``: ``None`` | ``True`` | a :class:`repro_torch.resilience
+    .RecoveryPolicy`.  Given one, the result is a :class:`repro_torch
+    .resilience.GuardedSolver` around a guarded session (``config.guard``:
+    the fused reduction widens to (11, m) health rows) whose chunked
+    driver applies the policy; ``True`` means the default policy.
+    p-BiCGSafe only."""
     if operator is None:
         raise TypeError("make_solver requires an operator")
     if precond is not None:
         raise _not_ported("precond=")
     if recovery is not None and recovery is not False:
-        raise _not_ported("recovery=")
+        # lazy: repro_torch.resilience imports this module for fallbacks
+        from .resilience.guard import GuardedSolver, guarded_config
+        from .resilience.policy import RecoveryPolicy
+        policy = RecoveryPolicy() if recovery is True else recovery
+        if not isinstance(policy, RecoveryPolicy):
+            raise TypeError(
+                f"recovery must be None, True or a RecoveryPolicy; got "
+                f"{type(recovery).__name__}")
+        inner = make_solver(method, operator, substrate=substrate,
+                            config=guarded_config(config, policy),
+                            device=device)
+        return GuardedSolver(inner, policy)
     return LinearSolver(method, operator, substrate=substrate, config=config,
                         device=device)
 

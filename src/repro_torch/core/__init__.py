@@ -4,26 +4,31 @@ FRONT DOOR: :mod:`repro_torch.api` —
 ``repro_torch.make_solver(method, op, substrate=...).solve(b)``.
 
 * Solvers (``(matvec, b, x0=None, *, config, r0_star, substrate)``):
+  - :func:`bicgstab_solve`        BiCGStab            (Alg. 2.1, 2 syncs)
   - :func:`pbicgsafe_solve`       p-BiCGSafe          (Alg. 3.1, 1 overlapped sync)
   - :func:`pbicgsafe_rr_solve`    p-BiCGSafe-rr       (Alg. 4.1)
   - :func:`solve_batched`         p-BiCGSafe on (n, m) right-hand sides, one
     (9, m) reduction per iteration; open-loop pieces :func:`init_state`,
-    :func:`step_chunk`, :func:`splice_columns`, :func:`result_from_state`
+    :func:`step_chunk`, :func:`splice_columns`, :func:`result_from_state`;
+    ``SolverConfig(guard=True)`` widens its phase to (11, m) health rows
+    (driven by :mod:`repro_torch.resilience`)
 * Operators: Dense/CSR/ELL/Stencil7.
 * Problem generators: :mod:`repro_torch.core.matrices`.
 * Compute substrates: ``substrate="torch"|"cuda"``
   (:mod:`repro_torch.core.substrate`).
 """
+from .bicgstab import bicgstab_solve
 from .linear_operator import (CSROperator, DenseOperator, ELLOperator,
                               Stencil7Operator, as_matvec)
-from .multirhs import (init_state, result_from_state, solve_batched,
-                       splice_columns, step_chunk)
+from .multirhs import (GUARD_FIELDS, init_state, result_from_state,
+                       solve_batched, splice_columns, step_chunk)
 from .pipelined_bicgsafe import pbicgsafe_rr_solve, pbicgsafe_solve
 from .substrate import (SUBSTRATES, CudaSubstrate, Substrate, TorchSubstrate,
                         get_substrate)
 from .types import SolveResult, SolveStatus, SolverConfig
 
 SOLVERS = {
+    "bicgstab": bicgstab_solve,
     "p-bicgsafe": pbicgsafe_solve,
     "p-bicgsafe-rr": pbicgsafe_rr_solve,
 }
@@ -34,7 +39,7 @@ __all__ = [
     "as_matvec",
     "Substrate", "TorchSubstrate", "CudaSubstrate", "SUBSTRATES",
     "get_substrate",
-    "pbicgsafe_solve", "pbicgsafe_rr_solve", "SOLVERS",
+    "bicgstab_solve", "pbicgsafe_solve", "pbicgsafe_rr_solve", "SOLVERS",
     "solve_batched", "init_state", "step_chunk", "splice_columns",
-    "result_from_state",
+    "result_from_state", "GUARD_FIELDS",
 ]

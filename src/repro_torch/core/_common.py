@@ -49,7 +49,7 @@ def _first(i, like: torch.Tensor) -> torch.Tensor:
 
 
 def bicgsafe_coefficients(dots: torch.Tensor, i, alpha_prev, zeta_prev,
-                          f_prev, eps: float):
+                          f_prev, eps: float, typed: bool = False):
     """Coefficients shared by ssBiCGSafe2 (Alg 2.3) and p-BiCGSafe (Alg 3.1).
 
     ``dots = [a, b, c, d, e, f, g, h, rr]`` with
@@ -65,7 +65,9 @@ def bicgsafe_coefficients(dots: torch.Tensor, i, alpha_prev, zeta_prev,
     ``i`` may be a 0-d device tensor (the solver's) or an int.  For the
     multi-RHS solve ``dots`` is ``(9, m)``, ``i`` the ``(m,)`` per-column
     iteration counts and the carries ``(m,)``: everything is elementwise.
-    Returns (beta, alpha, zeta, eta, f, rr, breakdown).
+    Returns (beta, alpha, zeta, eta, f, rr, breakdown), and with ``typed``
+    also the :func:`bicgsafe_breakdown_code` of the same step, derived from
+    the denominators' flags computed here (the same predicates).
     """
     a, b, c, d, e, f, g, h, rr = dots.unbind(0)
     first = _first(i, f)
@@ -84,7 +86,22 @@ def bicgsafe_coefficients(dots: torch.Tensor, i, alpha_prev, zeta_prev,
 
     breakdown = torch.where(first, bad_z0 | bad_alpha,
                             bad_beta | bad_alpha | bad_zg)
-    return beta, alpha, zeta, eta, f, rr, breakdown
+    if not typed:
+        return beta, alpha, zeta, eta, f, rr, breakdown
+    code = _breakdown_code(first, ~first & bad_beta, bad_alpha,
+                           torch.where(first, bad_z0, bad_zg))
+    return beta, alpha, zeta, eta, f, rr, breakdown, code
+
+
+def _breakdown_code(first, bad_rho, bad_alpha, bad_pivot) -> torch.Tensor:
+    """The first offender, rho -> alpha -> omega, as an int32 code."""
+    zero = torch.zeros((), dtype=torch.int32, device=bad_alpha.device)
+    code = torch.where(bad_pivot, SolveStatus.BREAKDOWN_OMEGA.value, zero)
+    code = torch.where(first & bad_pivot, SolveStatus.BREAKDOWN_ALPHA.value,
+                       code)
+    code = torch.where(bad_alpha, SolveStatus.BREAKDOWN_ALPHA.value, code)
+    code = torch.where(bad_rho, SolveStatus.BREAKDOWN_RHO.value, code)
+    return code.to(torch.int32)
 
 
 def bicgsafe_breakdown_code(dots: torch.Tensor, i, alpha_prev, zeta_prev,
@@ -107,14 +124,7 @@ def bicgsafe_breakdown_code(dots: torch.Tensor, i, alpha_prev, zeta_prev,
     bad_alpha = torch.abs(g + beta * h) <= eps
     bad_pivot = torch.where(first, torch.abs(a) <= eps,
                             torch.abs(a * b - c * c) <= eps)
-
-    zero = torch.zeros((), dtype=torch.int32, device=f.device)
-    code = torch.where(bad_pivot, SolveStatus.BREAKDOWN_OMEGA.value, zero)
-    code = torch.where(first & bad_pivot, SolveStatus.BREAKDOWN_ALPHA.value,
-                       code)
-    code = torch.where(bad_alpha, SolveStatus.BREAKDOWN_ALPHA.value, code)
-    code = torch.where(bad_rho, SolveStatus.BREAKDOWN_RHO.value, code)
-    return code.to(torch.int32)
+    return _breakdown_code(first, bad_rho, bad_alpha, bad_pivot)
 
 
 def pipelined_recurrence_tail(q, s, As, g, Aw, alpha, zeta, eta):

@@ -31,6 +31,15 @@ state bitwise as it was, as the JAX loop would no longer run its body: every
 field is a per-column select, and the global counter ``i`` (history slot)
 advances by ``any(active)``, not by 1.  The JAX package's ``dot_reduce``
 (the sharded solve's psum) is not part of the port yet.
+
+The guard.  With ``SolverConfig.guard`` the fused phase is the ``(11, m)``
+health variant (still one reduction, still no edge to ``A S``: its extra
+operand is the previous iterate ``x``), and the state carries the
+per-column fields of :data:`GUARD_FIELDS`: a typed :class:`SolveStatus`, a
+NaN/Inf detector that freezes a poisoned column, the Cools drift bound and
+a stagnation counter, which :class:`repro_torch.resilience.GuardedSolver`
+reads at chunk boundaries.  Each of them changes only under ``active`` or
+``advance``, so a queued step leaves them bitwise as they were too.
 """
 from __future__ import annotations
 
@@ -45,18 +54,34 @@ from .substrate import SubstrateLike, get_substrate
 from .types import (SolveResult, SolverConfig, SolveStatus, classify_status,
                     per_column)
 
-__all__ = ["active_columns", "batched_matvec", "init_state",
+__all__ = ["GUARD_FIELDS", "active_columns", "batched_matvec", "init_state",
            "splice_columns", "step_chunk", "result_from_state",
            "solve_batched"]
+
+#: Per-column health fields of a guarded state (``SolverConfig.guard``);
+#: their presence marks a state as guarded.
+GUARD_FIELDS = ("status", "drift", "drift_flag", "stall", "best_relres",
+                "stagnant", "replacements", "restarts")
 
 
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to repro_torch yet")
 
 
-def _check_config(config: SolverConfig) -> None:
-    if config.guard:
-        raise _not_ported("SolverConfig.guard (the guarded (11, m) phase)")
+def _guard_init(m: int, rdtype, conv0: torch.Tensor) -> dict:
+    """Fresh guard fields for ``m`` columns (``conv0``: the columns
+    converged at t=0, i.e. zero right-hand sides)."""
+    dev = conv0.device
+    return dict(
+        status=torch.where(conv0, SolveStatus.CONVERGED.value,
+                           SolveStatus.RUNNING.value).to(torch.int32),
+        drift=torch.zeros(m, dtype=rdtype, device=dev),
+        drift_flag=torch.zeros(m, dtype=torch.bool, device=dev),
+        stall=torch.zeros(m, dtype=torch.int32, device=dev),
+        best_relres=torch.full((m,), float("inf"), dtype=rdtype, device=dev),
+        stagnant=torch.zeros(m, dtype=torch.bool, device=dev),
+        replacements=torch.zeros(m, dtype=torch.int32, device=dev),
+        restarts=torch.zeros(m, dtype=torch.int32, device=dev))
 
 
 def _masked(mask_cols: torch.Tensor, new: torch.Tensor, old: torch.Tensor
@@ -99,8 +124,8 @@ def init_state(bmv: Callable,
     ``maxiter`` are per column, a scalar or ``(m,)``; they default to
     ``config.tol`` / ``config.maxiter``.  Costs one block matvec
     (``S_0 = A R_0``; two with an ``X0``) and one ``(1, m)`` dot phase.
+    With ``config.guard`` the state also holds :data:`GUARD_FIELDS`.
     """
-    _check_config(config)
     sub = get_substrate(substrate)
     B = B.contiguous()
     n, m = B.shape
@@ -120,7 +145,7 @@ def init_state(bmv: Callable,
                           dtype=norm_r0.dtype, device=dev)
     else:
         hist = torch.zeros((0, m), dtype=norm_r0.dtype, device=dev)
-    return dict(
+    st = dict(
         x=X, r=R0, s=S0, p=Z0, u=Z0, t=Z0, y=Z0, z=Z0, w=Z0, l=Z0, g=Z0,
         rs=RS,
         alpha=torch.zeros(m, dtype=B.dtype, device=dev),
@@ -138,6 +163,9 @@ def init_state(bmv: Callable,
                                else maxiter, m, torch.int32,
                                name="maxiter", device=dev),
         hist=hist)
+    if config.guard:
+        st.update(_guard_init(m, norm_r0.dtype, conv0))
+    return st
 
 
 def splice_columns(bmv: Callable,
@@ -196,29 +224,51 @@ def splice_columns(bmv: Callable,
         col_maxiter=sca(maxiter_col, state["col_maxiter"]))
     if state["hist"].shape[0]:
         out["hist"] = torch.where(refill, float("nan"), state["hist"])
+    if "status" in state:
+        fresh = _guard_init(m, state["norm_r0"].dtype, conv_new)
+        for k in GUARD_FIELDS:
+            out[k] = sca(fresh[k], state[k])
     return out
 
 
 def _make_body(sub, bmv: Callable, config: SolverConfig) -> Callable:
     """One batched p-BiCGSafe iteration: state dict -> state dict.  It
     reads nothing back to the host.  ``hist`` is written in place: the
-    caller hands the body a history it owns."""
+    caller hands the body a history it owns.  With ``config.guard`` the
+    fused phase is the (11, m) health variant and the guard fields are
+    updated (as the JAX package's body does)."""
+    guard = config.guard
+
     def body(st):
         r, s, y, t_prev = st["r"], st["s"], st["y"], st["t"]
         eps = config.breakdown_threshold(r.dtype)
         active = active_columns(st)                               # (m,)
 
         # block MV and the single fused (9, m) reduction: independent, as
-        # in the single-RHS iteration
+        # in the single-RHS iteration; the guarded (11, m) phase also reads
+        # the previous iterate x (loop-carried, no edge to As)
         As = bmv(s)
-        dots = sub.bicgsafe_dots(s, y, r, t_prev, st["rs"])
+        if guard:
+            dots = sub.bicgsafe_dots_health(s, y, r, t_prev, st["rs"],
+                                            st["x"])
+        else:
+            dots = sub.bicgsafe_dots(s, y, r, t_prev, st["rs"])
 
         # each column's i = 0 branch keys off its own iteration count, so
-        # a column spliced into a running block starts correctly
-        beta, alpha, zeta, eta, f, rr, bad = bicgsafe_coefficients(
-            dots, st["iterations"], st["alpha"], st["zeta"], st["f"], eps)
-        relres = torch.sqrt(torch.abs(rr)) / st["norm_r0"]
+        # a column spliced into a running block starts correctly.  Guarded,
+        # the typed breakdown code comes from the same denominators' flags
+        # (bicgsafe_breakdown_code's predicates, without computing them twice)
+        beta, alpha, zeta, eta, f, rr, bad, *code = bicgsafe_coefficients(
+            dots[:9], st["iterations"], st["alpha"], st["zeta"], st["f"],
+            eps, typed=guard)
+        normr = torch.sqrt(torch.abs(rr))
+        relres = normr / st["norm_r0"]
         done = relres <= st["tol"]
+        if guard:
+            # rows 8-10 (rr, x.x, the probe): a non-finite one freezes the
+            # column as a coefficient breakdown does, so NaN never advances
+            nonfinite = ~torch.isfinite(dots[8:]).all(0)
+            bad = bad | nonfinite
         advance = active & ~done & ~bad                           # (m,)
 
         # the update phase freezes the columns that do not advance (in the
@@ -244,7 +294,9 @@ def _make_body(sub, bmv: Callable, config: SolverConfig) -> Callable:
             write = active & (st["i"] < rows)
             hist.index_copy_(0, idx, torch.where(
                 write, relres_out.to(hist.dtype), keep))
-        return dict(
+        iters_next = torch.where(advance, st["iterations"] + 1,
+                                 st["iterations"])
+        out = dict(
             x=upd["x"], r=upd["r"], s=_masked(advance, s_next, s),
             p=upd["p"], u=upd["u"], t=upd["t"], y=upd["y"], z=upd["z"],
             w=upd["w"],
@@ -256,16 +308,64 @@ def _make_body(sub, bmv: Callable, config: SolverConfig) -> Callable:
             f=_masked(advance, f, st["f"]),
             # a step with no active column is the JAX loop not running
             i=st["i"] + active.any().to(st["i"].dtype),
-            iterations=torch.where(advance, st["iterations"] + 1,
-                                   st["iterations"]),
+            iterations=iters_next,
             relres=relres_out,
             converged=st["converged"] | (active & done),
             breakdown=st["breakdown"] | (active & bad & ~done),
             norm_r0=st["norm_r0"], tol=st["tol"],
             col_maxiter=st["col_maxiter"],
             hist=hist)
+        if guard:
+            out.update(_guard_update(config, st, dots, normr, relres, active,
+                                     done, bad, nonfinite, code[0], advance,
+                                     iters_next))
+        return out
 
     return body
+
+
+def _guard_update(config: SolverConfig, st: dict, dots, normr, relres,
+                  active, done, bad, nonfinite, code, advance,
+                  iters_next) -> dict:
+    """The guard fields after one step; each changes only under ``active``
+    or ``advance``.  ``normr`` is ``sqrt(|rr|)``."""
+    # typed status: the first terminal event wins; a column that uses up
+    # its budget is stamped MAXITER as it crosses it
+    sts = st["status"]
+    stopped = active & ~done
+    sts = torch.where(active & done, SolveStatus.CONVERGED.value, sts)
+    sts = torch.where(stopped & nonfinite, SolveStatus.NONFINITE.value, sts)
+    sts = torch.where(stopped & ~nonfinite & bad,
+                      torch.clamp(code, min=SolveStatus.BREAKDOWN.value), sts)
+    sts = torch.where(advance & (iters_next >= st["col_maxiter"])
+                      & (sts == SolveStatus.RUNNING.value),
+                      SolveStatus.MAXITER.value, sts).to(torch.int32)
+
+    # Cools / van der Vorst-Ye drift bound: the recurred-vs-true residual
+    # gap grows like eps * sum_i (||A|| ||x_i|| + ||r_i||); ||A|| is
+    # estimated in flight as sqrt((s, s) / (r, r)), rows 0 and 8 (a NaN
+    # there only reaches a column that does not advance)
+    fi = torch.finfo(normr.dtype)
+    normA = torch.sqrt(torch.abs(dots[0])
+                       / torch.clamp(torch.abs(dots[8]), min=fi.tiny))
+    inc = fi.eps * (normA * torch.sqrt(torch.abs(dots[9])) + normr)
+    drift = torch.where(advance, st["drift"] + inc, st["drift"])
+    drift_flag = st["drift_flag"] | (
+        advance & (drift > config.drift_threshold(normr.dtype) * st["tol"]
+                   * st["norm_r0"]))
+
+    # stagnation: consecutive steps without a new best relres; the flag
+    # sticks once the window is reached
+    improved = relres < st["best_relres"]
+    best = torch.where(advance & improved, relres, st["best_relres"])
+    stall = torch.where(advance, torch.where(improved, 0, st["stall"] + 1),
+                        st["stall"]).to(torch.int32)
+    stagnant = st["stagnant"]
+    if config.stagnation_window > 0:
+        stagnant = stagnant | (stall >= config.stagnation_window)
+    return dict(status=sts, drift=drift, drift_flag=drift_flag, stall=stall,
+                best_relres=best, stagnant=stagnant,
+                replacements=st["replacements"], restarts=st["restarts"])
 
 
 def step_chunk(bmv: Callable,
@@ -277,13 +377,13 @@ def step_chunk(bmv: Callable,
                stats: Optional[Dict[str, int]] = None) -> dict:
     """Advance every live column by up to ``k`` iterations; stops early
     once every column is frozen (converged, broken down, or past its own
-    budget).  One (9, m) dot phase per step.  The global counter
-    ``state["i"]`` keeps counting across chunks; per-column ``iterations``
-    count from each column's own start.  ``state`` is not changed.
+    budget).  One (9, m) dot phase per step ((11, m) when guarded).  The
+    global counter ``state["i"]`` keeps counting across chunks; per-column
+    ``iterations`` count from each column's own start.  ``state`` is not
+    changed.
 
     ``stats``, when given, accumulates ``steps`` (steps queued, frozen
     ones included) and ``host_reads`` (reads of ``any(active)``)."""
-    _check_config(config)
     stats = {} if stats is None else stats
     for key in ("steps", "host_reads"):
         stats.setdefault(key, 0)
@@ -306,11 +406,24 @@ def result_from_state(state: dict) -> SolveResult:
     """Package a state as a :class:`SolveResult` with per-column fields:
     ``x`` (n, m); ``iterations``, ``relres``, ``converged``,
     ``breakdown``, ``status`` (m,); ``residual_history`` (maxiter+1, m)
-    when recorded.  A column still active (an open-loop state mid-flight)
-    has status RUNNING."""
-    sts = torch.where(active_columns(state), SolveStatus.RUNNING.value,
-                      classify_status(state["converged"], state["breakdown"],
-                                      state["relres"]))
+    when recorded.  A guarded state's typed status is finalised (a column
+    still RUNNING past its budget becomes MAXITER); otherwise a column
+    still active (an open-loop state mid-flight) has status RUNNING."""
+    if "status" in state:
+        sts = state["status"]
+        running = sts == SolveStatus.RUNNING.value
+        sts = torch.where(running & state["converged"],
+                          SolveStatus.CONVERGED.value, sts)
+        sts = torch.where(running & state["breakdown"] & ~state["converged"],
+                          SolveStatus.BREAKDOWN.value, sts)
+        sts = torch.where((sts == SolveStatus.RUNNING.value)
+                          & (state["iterations"] >= state["col_maxiter"]),
+                          SolveStatus.MAXITER.value, sts)
+    else:
+        sts = torch.where(active_columns(state), SolveStatus.RUNNING.value,
+                          classify_status(state["converged"],
+                                          state["breakdown"],
+                                          state["relres"]))
     return SolveResult(state["x"], state["iterations"], state["relres"],
                        state["converged"], state["breakdown"], state["hist"],
                        sts.to(torch.int32), None)
@@ -333,7 +446,8 @@ def solve_batched(matvec: Callable,
     blocks by the substrate (the block ELL kernel on ``"cuda"``).  ``B`` is
     (n, m); ``X0`` optional (n, m); ``r0_star`` an (n,) shadow shared by
     every column or an (n, m) block; ``tol`` a scalar or (m,).  One (9, m)
-    dot phase per iteration whatever m is, plus one for ``||r_0||``.
+    dot phase per iteration whatever m is ((11, m) with ``config.guard``),
+    plus one for ``||r_0||``.
     ``blocked=True`` and ``precond=`` (the sharded solve's and the
     preconditioned solves) raise :class:`NotImplementedError`.
     """

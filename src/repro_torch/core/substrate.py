@@ -3,6 +3,7 @@ of ``repro.core.substrate``).
 
 * ``dots(pairs)``      — stacked inner products (one reduction phase),
 * ``bicgsafe_dots``    — the fused 9-dot phase of p-BiCGSafe,
+* ``bicgsafe_dots_health`` — its guarded (11-row) form,
 * ``axpy_phase``       — the blocked vector-update phase,
 * ``as_matvec(op)``    — operator -> matvec dispatch (SpMV),
 * ``as_block_matvec(op)`` — operator -> ``(n, m)`` block matvec dispatch.
@@ -13,14 +14,16 @@ Two substrates run the same iteration body:
 
 * ``"torch"`` — plain PyTorch (the counterpart of ``"jnp"``).
 * ``"cuda"``  — the hand-written CUDA kernels of :mod:`repro_torch.kernels`
-  (the counterpart of ``"pallas"``): ``fused_dots``, ``fused_axpy`` and
-  ``spmv_ell``, each with a batched kernel for ``(n, m)`` blocks.  On CPU
+  (the counterpart of ``"pallas"``): ``fused_dots`` (and its guarded form
+  ``fused_dots_health``), ``fused_axpy`` and ``spmv_ell``, each with a
+  batched kernel for ``(n, m)`` blocks.  On CPU
   tensors those wrappers run their plain versions, so the same substrate
   runs in the CPU tests.  Unlike ``"pallas"`` it sends every
   :class:`ELLOperator` to the SpMV kernels, banded or not.
 
-Either way the dot phase reads only ``{s, y, r, t_prev, rs}``: it has no
-dependency on the iteration's in-flight matvec ``A s``.
+Either way the dot phase reads only ``{s, y, r, t_prev, rs}`` (and the
+previous iterate ``x`` in its guarded form): it has no dependency on the
+iteration's in-flight matvec ``A s``.
 """
 from __future__ import annotations
 
@@ -57,6 +60,12 @@ class Substrate:
         blocks."""
         raise NotImplementedError
 
+    def bicgsafe_dots_health(self, s, y, r, t_prev, rs, x) -> torch.Tensor:
+        """The guarded fused phase: the 9 dots, then row 9 ``x·x`` and row
+        10 the NaN/Inf probe ``Σ(s+y+t_prev+rs+x)``; reads ONLY {s, y, r,
+        t_prev, rs, x}.  Returns (11,), or (11, m) for (n, m) blocks."""
+        raise NotImplementedError
+
     def axpy_phase(self, vecs: dict, scalars, mask=None) -> dict:
         """p-BiCGSafe's blocked vector-update phase (Alg. 3.1 lines 23-32).
 
@@ -89,19 +98,30 @@ class TorchSubstrate(Substrate):
         v = dict(s=s, y=y, r=r, t=t_prev, rs=rs)
         return local_dots([(v[a], v[b]) for a, b in BICGSAFE_DOT_PAIRS])
 
+    def bicgsafe_dots_health(self, s, y, r, t_prev, rs, x):
+        v = dict(s=s, y=y, r=r, t=t_prev, rs=rs)
+        base = local_dots(
+            [(v[a], v[b]) for a, b in BICGSAFE_DOT_PAIRS] + [(x, x)])
+        probe = (s + y + t_prev + rs + x).sum(0)
+        return torch.cat([base, probe[None]])
+
     def axpy_phase(self, vecs, scalars, mask=None):
         return ref.fused_axpy(vecs, scalars, mask)
 
 
 class CudaSubstrate(Substrate):
-    """Hand-written CUDA kernels: the fused 9-dot phase, the fused update
-    phase and the ELL SpMV each run as one kernel pass on the card."""
+    """Hand-written CUDA kernels: the fused 9-dot phase (11 rows when
+    guarded), the fused update phase and the ELL SpMV each run as one
+    kernel pass on the card."""
 
     name = "cuda"
     kernel_backed = True
 
     def bicgsafe_dots(self, s, y, r, t_prev, rs):
         return ops.fused_dots(s, y, r, t_prev, rs)
+
+    def bicgsafe_dots_health(self, s, y, r, t_prev, rs, x):
+        return ops.fused_dots_health(s, y, r, t_prev, rs, x)
 
     def axpy_phase(self, vecs, scalars, mask=None):
         return ops.fused_axpy(vecs, scalars, mask)

@@ -29,6 +29,14 @@ class SolveStatus(enum.IntEnum):
     STAGNATION = 8       # residual stopped improving; recovery exhausted
     DEADLINE = 9         # service wall-clock budget expired
 
+    @property
+    def is_failure(self) -> bool:
+        return self >= SolveStatus.BREAKDOWN
+
+    @property
+    def is_terminal(self) -> bool:
+        return self != SolveStatus.RUNNING
+
 
 def classify_status(converged: torch.Tensor, breakdown: torch.Tensor,
                     relres: torch.Tensor) -> torch.Tensor:
@@ -98,6 +106,12 @@ class SolverConfig:
         if self.breakdown_eps:
             return self.breakdown_eps
         return float(torch.finfo(dtype).tiny) * 1e4
+
+    def drift_threshold(self, dtype) -> float:
+        """With ``guard``: the drift monitor trips once the accumulated
+        rounding bound exceeds this times ``tol * ||r_0||``."""
+        del dtype
+        return self.drift_scale if self.drift_scale else 1.0
 
 
 # A matvec is any callable Tensor -> Tensor preserving shape/dtype.

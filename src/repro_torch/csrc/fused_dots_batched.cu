@@ -5,11 +5,19 @@
 //   out[k, j] = sum_i a_k[i, j] * b_k[i, j],   out (9, m),
 //   (a_k, b_k) = (s,s) (y,y) (s,y) (s,r) (y,r) (rs,r) (rs,s) (rs,t) (r,r)
 //
-// Replaces src/repro/kernels/fused_dots.py:fused_dots_batched_pallas.
+// and its guarded form, fused_dots_health_batched, which reads the previous
+// iterate block x as a sixth operand and adds two health rows per column in
+// the same pass, out (11, m):
 //
-// What bounds it on an H100: bytes.  It reads 5 blocks once (40 * m bytes
-// per row in fp64) and does 18 flops per element, far below the card's
-// flop-per-byte balance.
+//   out[9, j]  = sum_i x[i, j]^2
+//   out[10, j] = sum_i (((s + y) + t) + rs) + x   at [i, j]  (NaN/Inf probe)
+//
+// Replaces src/repro/kernels/fused_dots.py:fused_dots_batched_pallas and
+// fused_dots_health_batched_pallas.
+//
+// What bounds it on an H100: bytes.  It reads 5 (6) blocks once (40 (48) * m
+// bytes per row in fp64) and does 18 (24) flops per element, far below the
+// card's flop-per-byte balance.
 //
 // Design.  The TPU kernel walks a sequential (column, row-block) grid on one
 // core and carries each column's sum in its output block.  CUDA blocks run
@@ -19,13 +27,19 @@
 //      neighbouring columns (blockIdx.y picks the tile) and R = 256 / W rows
 //      per pass; thread t owns column t % W and row t / W of each group of
 //      R rows.  The warp's loads are then contiguous in the row-major block,
-//      and each thread's 9 register accumulators belong to one column.  The
+//      and each thread's register accumulators belong to one column.  The
 //      block adds the R threads of each column in shared memory, by a
-//      halving tree in a fixed order, and writes (nblocks, 9, m) partials.
-//   2. final: one block per output (9 * m of them) adds its nblocks
+//      halving tree in a fixed order, and writes (nblocks, rows, m)
+//      partials.  Shared memory: rows x 256 accumulators, 22.5 KB for the
+//      11-row form in fp64, under the 48 KB static limit.
+//   2. final: one block per output (rows * m of them) adds its nblocks
 //      partials, strided over 256 threads, then a fixed-order block sum.
-// Accumulation is in the input type (double or float), which is
-// promote(dtype, float32) for the two types the wrapper admits.
+// Both forms are one template on the row count, so rows 0-8 of the health
+// form are summed in the same order as the 9-row form and agree bit for
+// bit.  The probe row carries NaN and Inf through: idle threads add 0 and
+// nothing compares, clamps or takes a max.  Accumulation is in the input
+// type (double or float), which is promote(dtype, float32) for the two
+// types the wrapper admits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,6 +47,7 @@
 namespace {
 
 constexpr int kDots = 9;
+constexpr int kHealthDots = 11;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
@@ -43,22 +58,23 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-template <typename T>
+// x is read only by the 11-row form (it may be null for the 9-row one).
+template <typename T, int kRows>
 __global__ void __launch_bounds__(kThreads)
 dots_batched_partial(const T* __restrict__ s, const T* __restrict__ y,
                      const T* __restrict__ r, const T* __restrict__ t,
-                     const T* __restrict__ rs, int64_t n, int m, int width,
-                     T* __restrict__ partials) {
-  __shared__ T red[kDots][kThreads];
+                     const T* __restrict__ rs, const T* __restrict__ x,
+                     int64_t n, int m, int width, T* __restrict__ partials) {
+  __shared__ T red[kRows][kThreads];
   const int rows = kThreads / width;          // R rows per pass
   const int lane_col = threadIdx.x % width;
   const int lane_row = threadIdx.x / width;   // == rows for idle threads
   const int col = blockIdx.y * width + lane_col;
   const bool live = lane_row < rows && col < m;
 
-  T acc[kDots];
+  T acc[kRows];
 #pragma unroll
-  for (int k = 0; k < kDots; ++k) acc[k] = T(0);
+  for (int k = 0; k < kRows; ++k) acc[k] = T(0);
   if (live) {
     const int64_t step = (int64_t)gridDim.x * rows;
     for (int64_t row = (int64_t)blockIdx.x * rows + lane_row; row < n;
@@ -74,10 +90,15 @@ dots_batched_partial(const T* __restrict__ s, const T* __restrict__ y,
       acc[6] += qv * sv;
       acc[7] += qv * tv;
       acc[8] += rv * rv;
+      if constexpr (kRows == kHealthDots) {
+        const T xv = x[i];
+        acc[9] += xv * xv;
+        acc[10] += (((sv + yv) + tv) + qv) + xv;
+      }
     }
   }
 #pragma unroll
-  for (int k = 0; k < kDots; ++k) red[k][threadIdx.x] = acc[k];
+  for (int k = 0; k < kRows; ++k) red[k][threadIdx.x] = acc[k];
   __syncthreads();
   // halving tree over the R rows of each column: every block and every
   // launch adds in the same order
@@ -85,7 +106,7 @@ dots_batched_partial(const T* __restrict__ s, const T* __restrict__ y,
     const int half = (h + 1) / 2;
     if (lane_row < h - half) {
 #pragma unroll
-      for (int k = 0; k < kDots; ++k)
+      for (int k = 0; k < kRows; ++k)
         red[k][threadIdx.x] += red[k][threadIdx.x + half * width];
     }
     __syncthreads();
@@ -93,8 +114,8 @@ dots_batched_partial(const T* __restrict__ s, const T* __restrict__ y,
   }
   if (lane_row == 0 && col < m) {
 #pragma unroll
-    for (int k = 0; k < kDots; ++k)
-      partials[((int64_t)blockIdx.x * kDots + k) * m + col] = red[k][threadIdx.x];
+    for (int k = 0; k < kRows; ++k)
+      partials[((int64_t)blockIdx.x * kRows + k) * m + col] = red[k][threadIdx.x];
   }
 }
 
@@ -118,20 +139,21 @@ dots_batched_final(const T* __restrict__ partials, int nblocks, int outputs,
   }
 }
 
-template <typename T>
+template <typename T, int kRows>
 int launch(const void* s, const void* y, const void* r, const void* t,
-           const void* rs, int64_t n, int m, int width, void* partials,
-           int nblocks, void* out, void* stream) {
+           const void* rs, const void* x, int64_t n, int m, int width,
+           void* partials, int nblocks, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles = (m + width - 1) / width;
-  dots_batched_partial<T><<<dim3(nblocks, tiles), kThreads, 0, st>>>(
+  dots_batched_partial<T, kRows><<<dim3(nblocks, tiles), kThreads, 0, st>>>(
       static_cast<const T*>(s), static_cast<const T*>(y),
       static_cast<const T*>(r), static_cast<const T*>(t),
-      static_cast<const T*>(rs), n, m, width, static_cast<T*>(partials));
+      static_cast<const T*>(rs), static_cast<const T*>(x), n, m, width,
+      static_cast<T*>(partials));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dots_batched_final<T><<<kDots * m, kThreads, 0, st>>>(
-      static_cast<const T*>(partials), nblocks, kDots * m,
+  dots_batched_final<T><<<kRows * m, kThreads, 0, st>>>(
+      static_cast<const T*>(partials), nblocks, kRows * m,
       static_cast<T*>(out));
   return (int)cudaGetLastError();
 }
@@ -145,14 +167,32 @@ extern "C" int repro_fused_dots_batched_f64(
     const void* s, const void* y, const void* r, const void* t,
     const void* rs, int64_t n, int m, int width, void* partials, int nblocks,
     void* out, void* stream) {
-  return launch<double>(s, y, r, t, rs, n, m, width, partials, nblocks, out,
-                        stream);
+  return launch<double, kDots>(s, y, r, t, rs, nullptr, n, m, width, partials,
+                               nblocks, out, stream);
 }
 
 extern "C" int repro_fused_dots_batched_f32(
     const void* s, const void* y, const void* r, const void* t,
     const void* rs, int64_t n, int m, int width, void* partials, int nblocks,
     void* out, void* stream) {
-  return launch<float>(s, y, r, t, rs, n, m, width, partials, nblocks, out,
-                       stream);
+  return launch<float, kDots>(s, y, r, t, rs, nullptr, n, m, width, partials,
+                              nblocks, out, stream);
+}
+
+// The guarded form: x (n, m) is the sixth operand; partials:
+// nblocks * 11 * m scratch; out: (11, m).
+extern "C" int repro_fused_dots_health_batched_f64(
+    const void* s, const void* y, const void* r, const void* t,
+    const void* rs, const void* x, int64_t n, int m, int width,
+    void* partials, int nblocks, void* out, void* stream) {
+  return launch<double, kHealthDots>(s, y, r, t, rs, x, n, m, width, partials,
+                                     nblocks, out, stream);
+}
+
+extern "C" int repro_fused_dots_health_batched_f32(
+    const void* s, const void* y, const void* r, const void* t,
+    const void* rs, const void* x, int64_t n, int m, int width,
+    void* partials, int nblocks, void* out, void* stream) {
+  return launch<float, kHealthDots>(s, y, r, t, rs, x, n, m, width, partials,
+                                    nblocks, out, stream);
 }

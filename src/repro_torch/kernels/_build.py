@@ -33,7 +33,8 @@ FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: launches of each kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {
     "fused_dots": 0, "fused_axpy": 0, "spmv_ell": 0,
-    "fused_dots_batched": 0, "fused_axpy_batched": 0, "spmv_ell_batched": 0}
+    "fused_dots_batched": 0, "fused_axpy_batched": 0, "spmv_ell_batched": 0,
+    "fused_dots_health": 0, "fused_dots_health_batched": 0}
 
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -54,6 +55,12 @@ _SIGNATURES = {
     # values, cols, x, y, n, m, k, stream
     "repro_spmv_ell_batched": [_VP] * 4 + [_I64, ctypes.c_int, ctypes.c_int,
                                            _VP],
+    # s, y, r, t, rs, x, n, partials, nblocks, out, stream
+    "repro_fused_dots_health": [_VP] * 6 + [_I64, _VP, ctypes.c_int, _VP,
+                                            _VP],
+    # s, y, r, t, rs, x, n, m, width, partials, nblocks, out, stream
+    "repro_fused_dots_health_batched": [_VP] * 6 + [
+        _I64, ctypes.c_int, ctypes.c_int, _VP, ctypes.c_int, _VP, _VP],
 }
 
 

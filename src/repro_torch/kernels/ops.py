@@ -7,7 +7,9 @@ launches the hand-written kernel (or raises), on a CPU tensor it runs the
 plain version in :mod:`repro_torch.kernels.ref`.  There is no fallback from
 the kernel to the plain version.  Each takes single-RHS ``(n,)`` vectors
 or multi-RHS ``(n, m)`` row-major blocks, and an ``(n, m)`` block goes to
-the batched kernel, as in the JAX package's ``ops``.
+the batched kernel, as in the JAX package's ``ops``; the dots wrappers
+send an ``(n, 1)`` block, an ``(n,)`` vector in memory, to the
+single-vector kernel, which is the faster of the two on one column.
 
 These are the backing of the ``"cuda"`` compute substrate
 (:mod:`repro_torch.core.substrate`).  ``LAUNCHES`` counts the kernel
@@ -22,11 +24,13 @@ import torch
 from . import ref
 from ._build import LAUNCHES, reset_launches
 from .fused_axpy import IN_ORDER, fused_axpy_batched_cuda, fused_axpy_cuda
-from .fused_dots import fused_dots_batched_cuda, fused_dots_cuda
+from .fused_dots import (fused_dots_batched_cuda, fused_dots_cuda,
+                         fused_dots_health_batched_cuda,
+                         fused_dots_health_cuda)
 from .spmv_ell import spmv_ell_batched_cuda, spmv_ell_cuda
 
-__all__ = ["fused_dots", "fused_axpy", "spmv_ell", "LAUNCHES",
-           "reset_launches"]
+__all__ = ["fused_dots", "fused_dots_health", "fused_axpy", "spmv_ell",
+           "LAUNCHES", "reset_launches"]
 
 
 def _check_vectors(name: str, vecs: dict):
@@ -56,6 +60,16 @@ def _check_vectors(name: str, vecs: dict):
     return first
 
 
+def _dots_cuda(single, batched, v: torch.Tensor, operands) -> torch.Tensor:
+    """Launch a dots kernel on CUDA operands: the batched one on an
+    ``(n, m)`` block with m > 1, else the single-vector one (an ``(n, 1)``
+    block viewed as its one column, the result given its column back)."""
+    if v.dim() == 2 and v.shape[1] > 1:
+        return batched(*operands)
+    out = single(*(a.view(-1) for a in operands))
+    return out if v.dim() == 1 else out.view(-1, 1)
+
+
 def fused_dots(s, y, r, t, rs) -> torch.Tensor:
     """The 9 fused inner products ``[s·s, y·y, s·y, s·r, y·r, rs·r, rs·s,
     rs·t, r·r]``: ``(9,)`` for ``(n,)`` vectors, ``(9, m)`` per-column dots
@@ -63,9 +77,21 @@ def fused_dots(s, y, r, t, rs) -> torch.Tensor:
     v = _check_vectors("fused_dots", dict(s=s, y=y, r=r, t=t, rs=rs))
     if not v.is_cuda:
         return ref.fused_dots(s, y, r, t, rs)
-    if v.dim() == 2:
-        return fused_dots_batched_cuda(s, y, r, t, rs)
-    return fused_dots_cuda(s, y, r, t, rs)
+    return _dots_cuda(fused_dots_cuda, fused_dots_batched_cuda, v,
+                      (s, y, r, t, rs))
+
+
+def fused_dots_health(s, y, r, t, rs, x) -> torch.Tensor:
+    """The guarded reduction phase: the 9 dots of :func:`fused_dots`, then
+    ``x·x`` and the NaN/Inf probe ``Σ(s+y+t+rs+x)``: ``(11,)`` for
+    ``(n,)`` vectors, ``(11, m)`` per column for ``(n, m)`` blocks.  A NaN
+    or Inf in any operand of a column makes its row 10 non-finite."""
+    v = _check_vectors("fused_dots_health",
+                       dict(s=s, y=y, r=r, t=t, rs=rs, x=x))
+    if not v.is_cuda:
+        return ref.fused_dots_health(s, y, r, t, rs, x)
+    return _dots_cuda(fused_dots_health_cuda, fused_dots_health_batched_cuda,
+                      v, (s, y, r, t, rs, x))
 
 
 def _coefficients(scalars, v: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,18 @@ def fused_dots(s, y, r, t, rs) -> torch.Tensor:
                         for a, b in DOT_PAIRS])
 
 
+def fused_dots_health(s, y, r, t, rs, x) -> torch.Tensor:
+    """The guarded reduction phase: the 9 rows of :func:`fused_dots`, then
+    row 9 ``x·x`` (the drift bound's ``||x||^2``) and row 10 the NaN/Inf
+    probe ``Σ((((s + y) + t) + rs) + x)``: ``(11,)`` for ``(n,)`` vectors,
+    ``(11, m)`` per column for ``(n, m)`` blocks.  ``x`` is the previous
+    iterate, so the phase still reads nothing of the in-flight ``A s``."""
+    acc = acc_dtype(s.dtype)
+    health = torch.stack([(x * x).sum(0, dtype=acc),
+                          (s + y + t + rs + x).sum(0, dtype=acc)])
+    return torch.cat([fused_dots(s, y, r, t, rs), health])
+
+
 def spmv_ell(values, cols, x) -> torch.Tensor:
     """ELLPACK SpMV: y[i] = sum_j values[i,j] * x[cols[i,j]]; an ``(n, m)``
     ``x`` has each column multiplied on its own."""

@@ -58,6 +58,16 @@ def test_breakdown_threshold_matches(dtype, x64):
         == jtypes.SolverConfig().breakdown_threshold(getattr(jnp, dtype))
 
 
+def test_status_predicates_and_drift_threshold_match():
+    for s in ttypes.SolveStatus:
+        j = jtypes.SolveStatus(s.value)
+        assert (s.is_failure, s.is_terminal) == (j.is_failure, j.is_terminal)
+    for scale in (0.0, 1e-3):
+        assert ttypes.SolverConfig(drift_scale=scale).drift_threshold(
+            torch.float64) == jtypes.SolverConfig(
+                drift_scale=scale).drift_threshold(jnp.float64)
+
+
 def test_trace_cap_not_ported():
     with pytest.raises(NotImplementedError):
         ttypes.SolverConfig(trace_cap=8)
@@ -282,6 +292,32 @@ def test_breakdown_branches_match(case, code, x64):
     assert int(tcode) == int(jcode) == int(code)
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_typed_coefficients_give_the_breakdown_code(seed):
+    """``bicgsafe_coefficients(..., typed=True)`` derives the code from its
+    own denominators' flags; it equals ``bicgsafe_breakdown_code`` on
+    columns that hit each branch (and on healthy ones)."""
+    rng = np.random.default_rng(seed)
+    m = 12
+    dots = torch.from_numpy(rng.standard_normal((9, m)))
+    alpha, zeta, f = (torch.from_numpy(rng.standard_normal(m))
+                      for _ in range(3))
+    i = torch.from_numpy(rng.integers(0, 2, m).astype(np.int32))
+    dots[0, 0] = 0.0                                  # pivot a
+    dots[0, 1], dots[1, 1], dots[2, 1] = 1.0, 4.0, 2.0   # a*b - c^2 = 0
+    zeta[2] = 0.0                                     # rho denominator
+    dots[6, 3], dots[7, 3] = 0.0, 0.0                 # alpha denominator
+    *_, bad, code = tcommon.bicgsafe_coefficients(dots, i, alpha, zeta, f,
+                                                  1e-12, typed=True)
+    want = tcommon.bicgsafe_breakdown_code(dots, i, alpha, zeta, f, 1e-12)
+    assert torch.equal(code, want)
+    assert bool(((code != 0) == bad).all())
+    plain = tcommon.bicgsafe_coefficients(dots, i, alpha, zeta, f, 1e-12)
+    for a, b in zip(plain, tcommon.bicgsafe_coefficients(
+            dots, i, alpha, zeta, f, 1e-12, typed=True)):
+        assert torch.equal(a, b)
+
+
 def test_safe_div_and_recurrence_tail_match(x64):
     num = np.array([1.0, 2.0, -3.0])
     den = np.array([0.0, 1e-30, 4.0])
@@ -317,7 +353,8 @@ def test_local_dots_and_sync_counter(x64):
 
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.kernels.ops, "
-            "repro_torch.core.matrices, repro_torch.core.multirhs\n"
+            "repro_torch.core.matrices, repro_torch.core.multirhs, "
+            "repro_torch.resilience, repro_torch.core.bicgstab\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")

@@ -29,6 +29,11 @@ def cuda():
     return torch.device("cuda")
 
 
+def launches(**counts):
+    """Every kernel's launch count: 0 unless given."""
+    return dict(dict.fromkeys(ops.LAUNCHES, 0), **counts)
+
+
 def randn(n, dtype, device, seed):
     g = torch.Generator(device=device).manual_seed(seed)
     return torch.randn(n, generator=g, device=device, dtype=torch.float64
@@ -60,9 +65,7 @@ def test_kernels_match_plain_versions(cuda, dtype):
     assert float((got - want).abs().max() / want.abs().max()) <= TOL[dtype]
     torch.cuda.synchronize()
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == \
-        {"fused_dots": 1, "fused_axpy": 1, "spmv_ell": 1,
-         "fused_dots_batched": 0, "fused_axpy_batched": 0,
-         "spmv_ell_batched": 0}
+        launches(fused_dots=1, fused_axpy=1, spmv_ell=1)
 
 
 def test_fused_dots_repeats_bitwise(cuda):
@@ -106,11 +109,8 @@ def test_cuda_substrate_matches_torch_substrate(cuda, method):
     assert abs(int(res.iterations) - int(plain.iterations)) <= 2
     assert float((res.x - plain.x).abs().max()) <= 1e-6
     steps, rr = solver.stats["steps"], solver.stats["rr_steps"]
-    assert dict(ops.LAUNCHES) == {"fused_dots": steps, "fused_axpy": steps,
-                                  "spmv_ell": 1 + 2 * steps + 4 * rr,
-                                  "fused_dots_batched": 0,
-                                  "fused_axpy_batched": 0,
-                                  "spmv_ell_batched": 0}
+    assert dict(ops.LAUNCHES) == launches(fused_dots=steps, fused_axpy=steps,
+                                          spmv_ell=1 + 2 * steps + 4 * rr)
 
 
 #: batched fp32: the tolerances of tests/test_kernels.py
@@ -121,7 +121,7 @@ TOL_BATCHED = {torch.float64: 1e-12, torch.float32: 2e-4}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_batched_kernels_match_plain_versions(cuda, dtype, m):
     """m = 300 takes the dots kernel's multi-tile path (256 columns a
-    tile)."""
+    tile); the dots of an (n, 1) block go to the single-vector kernel."""
     n = 10_007 if m < 300 else 1_001
     g = torch.Generator(device=cuda).manual_seed(m)
 
@@ -159,10 +159,9 @@ def test_batched_kernels_match_plain_versions(cuda, dtype, m):
     assert float((got - want).abs().max() / want.abs().max()) \
         <= TOL_BATCHED[dtype]
     torch.cuda.synchronize()
+    dots = "fused_dots" if m == 1 else "fused_dots_batched"
     assert {k: ops.LAUNCHES[k] - before[k] for k in before} == \
-        {"fused_dots": 0, "fused_axpy": 0, "spmv_ell": 0,
-         "fused_dots_batched": 1, "fused_axpy_batched": 1,
-         "spmv_ell_batched": 1}
+        launches(**{dots: 1}, fused_axpy_batched=1, spmv_ell_batched=1)
 
 
 def test_fused_dots_batched_repeats_bitwise(cuda):
@@ -191,8 +190,98 @@ def test_solve_many_on_the_card_matches_the_torch_substrate(cuda):
     assert int((res.iterations - plain.iterations).abs().max()) <= 2
     assert float((res.x - plain.x).abs().max()) <= 1e-6
     steps = solver.stats["steps"]
-    assert dict(ops.LAUNCHES) == {"fused_dots": 0, "fused_axpy": 0,
-                                  "spmv_ell": 0,
-                                  "fused_dots_batched": steps,
-                                  "fused_axpy_batched": steps,
-                                  "spmv_ell_batched": 1 + 2 * steps}
+    assert dict(ops.LAUNCHES) == launches(fused_dots_batched=steps,
+                                          fused_axpy_batched=steps,
+                                          spmv_ell_batched=1 + 2 * steps)
+
+
+# -- the guarded (11-row) health dots ------------------------------------------
+
+@pytest.mark.parametrize("m", [None, 1, 3, 8, 17, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_health_kernels_match_plain_versions(cuda, dtype, m):
+    """m = None is the single-RHS kernel on (n,) vectors, and an (n, 1)
+    block goes to it too; m = 300 is the batched kernel's multi-tile path.
+    Rows 0-8 equal the 9-row kernel's bit for bit (one template, one
+    summation order)."""
+    n = 100_003 if m is None else (10_007 if m < 300 else 1_001)
+    g = torch.Generator(device=cuda).manual_seed(7 if m is None else m)
+    shape = (n,) if m is None else (n, m)
+    vs = [torch.randn(*shape, generator=g, device=cuda,
+                      dtype=torch.float64).to(dtype) for _ in range(6)]
+    single = m is None or m == 1
+    before = dict(ops.LAUNCHES)
+    got = ops.fused_dots_health(*vs)
+    nine = ops.fused_dots(*(v.view(-1) if single else v for v in vs[:5]))
+    torch.cuda.synchronize()
+    name = "fused_dots_health" if single else "fused_dots_health_batched"
+    base = "fused_dots" if single else "fused_dots_batched"
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == \
+        launches(**{name: 1, base: 1})
+    assert got.shape == (11,) + shape[1:]
+    scale = ref.fused_dots_health(*(v.abs() for v in vs))
+    tol = TOL[dtype] if m is None else TOL_BATCHED[dtype]
+    assert float(((got - ref.fused_dots_health(*vs)).abs() / scale).max()) \
+        <= tol
+    assert torch.equal(got[:9].reshape(nine.shape), nine)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_health_kernels_repeat_bitwise(cuda, batched):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    shape = (1_259_712, 8) if batched else (1_259_712,)
+    vs = [torch.randn(*shape, generator=g, device=cuda, dtype=torch.float64)
+          for _ in range(6)]
+    first = ops.fused_dots_health(*vs)
+    for _ in range(3):
+        assert torch.equal(ops.fused_dots_health(*vs), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_health_probe_flags_exactly_the_poisoned_columns(cuda, dtype):
+    """A NaN in x and an Inf in s make row 10 non-finite in exactly those
+    columns, on the card as in the plain version; the single kernel flags
+    its vector."""
+    n, m = 50_000, 5
+    g = torch.Generator(device=cuda).manual_seed(3)
+    vs = [torch.randn(n, m, generator=g, device=cuda, dtype=torch.float64
+                      ).to(dtype) for _ in range(6)]
+    vs[0][17, 1] = float("inf")
+    vs[5][40_000, 3] = float("nan")
+    want = [False, True, False, True, False]
+    for rows in (ops.fused_dots_health(*vs), ref.fused_dots_health(*vs)):
+        assert (~torch.isfinite(rows[10])).tolist() == want
+        assert bool(torch.isfinite(rows[:, [0, 2, 4]]).all())
+    single = ops.fused_dots_health(*(v[:, 3].contiguous() for v in vs))
+    assert not bool(torch.isfinite(single[10]))
+    assert bool(torch.isfinite(single[:9]).all())
+
+
+def test_guarded_solve_many_on_the_card_matches_the_torch_substrate(cuda):
+    op, b, _ = TM.convection_diffusion(24, peclet=1.0)
+    ell = TM.stencil_to_ell(op)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B = torch.stack([b] + [torch.randn(b.shape[0], generator=g, device=cuda,
+                                       dtype=b.dtype) for _ in range(3)], 1)
+    tol = [1e-8, 1e-8, 1e-6, 1e-6]
+    pol = repro_torch.RecoveryPolicy(chunk=16, substrate_fallback=False)
+    plain = repro_torch.make_solver("p-bicgsafe", ell, substrate="torch",
+                                    recovery=pol).solve_many(B, tol=tol)
+    solver = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda",
+                                     recovery=pol)
+    unguarded = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda"
+                                        ).solve_many(B, tol=tol)
+    ops.reset_launches()
+    res = solver.solve_many(B, tol=tol)
+    torch.cuda.synchronize()
+    assert solver.events == []
+    assert bool(res.converged.all()) and bool(plain.converged.all())
+    assert (res.status == repro_torch.SolveStatus.CONVERGED).all()
+    assert int((res.iterations - plain.iterations).abs().max()) <= 2
+    assert float((res.x - plain.x).abs().max()) <= 1e-6
+    # the health rows observe only: the unguarded solve's iterations
+    assert torch.equal(res.iterations, unguarded.iterations)
+    steps = solver.stats["steps"]
+    assert dict(ops.LAUNCHES) == launches(fused_dots_health_batched=steps,
+                                          fused_axpy_batched=steps,
+                                          spmv_ell_batched=1 + 2 * steps)

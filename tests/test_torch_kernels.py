@@ -16,8 +16,9 @@ from conftest import enable_x64  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.fused_axpy import (fused_axpy_batched_pallas,  # noqa: E402
                                       fused_axpy_pallas)
-from repro.kernels.fused_dots import (fused_dots_batched_pallas,  # noqa: E402
-                                      fused_dots_pallas)
+from repro.kernels.fused_dots import (  # noqa: E402
+    fused_dots_batched_pallas, fused_dots_health_batched_pallas,
+    fused_dots_health_pallas, fused_dots_pallas)
 from repro.kernels.spmv_ell import (spmv_ell_batched_pallas,  # noqa: E402
                                     spmv_ell_pallas)
 from repro_torch.core.linear_operator import ELLOperator  # noqa: E402
@@ -339,3 +340,87 @@ def test_mask_on_vectors_raises():
     vecs = {k: torch.ones(8, dtype=torch.float64) for k in IN_ORDER}
     with pytest.raises(ValueError, match="multi-RHS"):
         ops.fused_axpy(vecs, SCALARS, torch.ones(8, dtype=torch.bool))
+
+
+# -- the guarded (11-row) health dots ------------------------------------------
+
+@pytest.mark.parametrize("n", [100, 1000, 40_000])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_fused_dots_health_matches_ref_and_pallas(n, dtype):
+    vecs = vectors(n, 6, dtype, seed=n + 7)
+    with enable_x64(dtype == np.float64):
+        jv = [jnp.asarray(v) for v in vecs]
+        want_ref = np_(jref.fused_dots_health(*jv))
+        want_pallas = np_(fused_dots_health_pallas(*jv, interpret=True))
+    before = dict(ops.LAUNCHES)
+    tv = [torch.from_numpy(v) for v in vecs]
+    got = ops.fused_dots_health(*tv)
+    assert ops.LAUNCHES == before          # the CPU path launches nothing
+    assert got.shape == (11,) and got.dtype == getattr(torch, dtype.__name__)
+    # rows 0-8 are the 9-row phase's, bit for bit
+    assert torch.equal(got[:9], ops.fused_dots(*tv[:5]))
+    scale = np_(ref.fused_dots_health(*(torch.from_numpy(np.abs(v))
+                                        for v in vecs))).astype(np.float64)
+    for want, what in ((want_ref, "ref"), (want_pallas, "pallas")):
+        assert_close(got, want, scale, dtype, rtol32=2e-5, what=what)
+
+
+@pytest.mark.parametrize("n,m", BATCHED_SHAPES)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_fused_dots_health_batched_matches_ref_and_pallas(n, m, dtype):
+    vecs = blocks(n, m, 6, dtype, seed=n + m + 7)
+    with enable_x64(dtype == np.float64):
+        jv = [jnp.asarray(v) for v in vecs]
+        want_ref = np_(jref.fused_dots_health_batched(*jv))
+        want_pallas = np_(fused_dots_health_batched_pallas(*jv,
+                                                           interpret=True))
+    tv = [torch.from_numpy(v) for v in vecs]
+    got = ops.fused_dots_health(*tv)
+    assert got.shape == (11, m) and got.dtype == getattr(torch,
+                                                         dtype.__name__)
+    assert torch.equal(got[:9], ops.fused_dots(*tv[:5]))
+    scale = np_(ref.fused_dots_health(*(torch.from_numpy(np.abs(v))
+                                        for v in vecs))).astype(np.float64)
+    for want, what in ((want_ref, "ref"), (want_pallas, "pallas")):
+        assert_close(got, want, scale, dtype, rtol32=2e-4, atol32=1e-5,
+                     what=what)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_fused_dots_health_probe_flags_exactly_the_poisoned_columns(batched,
+                                                                    x64):
+    """A NaN in x and an Inf in s make row 10 non-finite in exactly those
+    columns, on both sides; the other columns stay finite."""
+    n, m = 300, 5
+    vecs = blocks(n, m, 6, np.float64, seed=21)
+    s, x = vecs[0], vecs[5]
+    s[17, 1] = np.inf
+    x[200, 3] = np.nan
+    if not batched:
+        vecs = [v[:, 3].copy() for v in vecs]     # the NaN column alone
+    jv = [jnp.asarray(v) for v in vecs]
+    if batched:
+        want = [np_(jref.fused_dots_health_batched(*jv)),
+                np_(fused_dots_health_batched_pallas(*jv, interpret=True))]
+    else:
+        want = [np_(jref.fused_dots_health(*jv)),
+                np_(fused_dots_health_pallas(*jv, interpret=True))]
+    got = np_(ops.fused_dots_health(*(torch.from_numpy(v) for v in vecs)))
+    for rows in [got] + want:
+        probe = np.atleast_1d(rows[10])
+        bad = ~np.isfinite(probe)
+        assert bad.tolist() == ([False, True, False, True, False]
+                                if batched else [True])
+
+
+def test_fused_dots_health_rejects_bad_operands():
+    v = torch.ones(10, dtype=torch.float64)
+    with pytest.raises(ValueError, match="unlike"):
+        ops.fused_dots_health(v, v, v, v, v, v.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_dots_health(v, v, v, v, v,
+                              torch.ones(20, dtype=torch.float64)[::2])
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ops.fused_dots_health(*(v.long(),) * 6)
+    with pytest.raises(TypeError):
+        ops.fused_dots_health(v, v, v, v, v)      # x is not optional

@@ -298,13 +298,15 @@ def test_open_loop_handles_need_pbicgsafe():
 def test_later_slices_raise_not_implemented():
     op, b, _ = TM.poisson3d(4, device=CPU)
     B = torch.stack([b, b], 1)
-    for kwargs in ({"blocked": True}, {"precond": "jacobi"},
-                   {"config": SolverConfig(guard=True)}):
+    for kwargs in ({"blocked": True}, {"precond": "jacobi"}):
         with pytest.raises(NotImplementedError):
             multirhs.solve_batched(op, B, **kwargs)
     with pytest.raises(NotImplementedError):
         repro_torch.make_solver("p-bicgsafe", op, device=CPU).solve_many(
             B, profile="somewhere")
+    # the guard is ported: a guarded solve runs and types its statuses
+    res = multirhs.solve_batched(op, B, config=SolverConfig(guard=True))
+    assert (np_(res.status) == SolveStatus.CONVERGED).all()
 
 
 # -- the loop's structure ----------------------------------------------------------
@@ -313,9 +315,29 @@ def test_later_slices_raise_not_implemented():
 def test_chunk_size_does_not_change_the_result(substrate, monkeypatch):
     """Steps queued after every column stopped leave the state bitwise as
     it was, the global counter ``i`` included."""
+    _chunk_size_invariance(substrate, monkeypatch,
+                           SolverConfig(record_history=True, maxiter=300))
+
+
+@pytest.mark.parametrize("substrate", SUBSTRATES)
+def test_chunk_size_does_not_change_the_guarded_result(substrate,
+                                                       monkeypatch):
+    """The same with the guard: each guard field changes only under
+    ``active`` / ``advance``, so queued steps leave it bitwise unchanged
+    (a stagnation window of 1, which trips on every column, included)."""
+    one = _chunk_size_invariance(
+        substrate, monkeypatch,
+        SolverConfig(record_history=True, maxiter=300, guard=True,
+                     stagnation_window=1))
+    assert set(multirhs.GUARD_FIELDS) <= set(one)
+    assert (np_(one["status"]) == SolveStatus.CONVERGED).all()
+    assert bool(one["stagnant"].all())
+    assert bool(one["drift"].gt(0).all())
+
+
+def _chunk_size_invariance(substrate, monkeypatch, cfg):
     ell, b = convdiff(8)
     B = torch.from_numpy(rhs_block(b, 3))
-    cfg = SolverConfig(record_history=True, maxiter=300)
     states = []
     for chunk in (1, 16):
         monkeypatch.setattr(pipelined_bicgsafe, "CHUNK", chunk)
@@ -332,6 +354,7 @@ def test_chunk_size_does_not_change_the_result(substrate, monkeypatch):
             a, b = a.nan_to_num(-1), b.nan_to_num(-1)
         assert torch.equal(a, b), key
     assert int(one["i"]) == int(one["iterations"].max()) + 1
+    return one
 
 
 class RecordingSubstrate(CudaSubstrate):
@@ -373,3 +396,141 @@ def test_one_dot_phase_per_step_never_fed_as():
         assert len(As) == 1
         assert not any(v is As[0] for v in (s, y, r, t_prev, rs))
         assert rs is sub.dot_calls[0][4]
+
+
+class RecordingGuardedSubstrate(RecordingSubstrate):
+    """The recording "cuda" substrate, guarded phase."""
+
+    def bicgsafe_dots_health(self, s, y, r, t_prev, rs, x):
+        self.dot_calls.append((s, y, r, t_prev, rs, x))
+        out = super(RecordingSubstrate, self).bicgsafe_dots_health(
+            s, y, r, t_prev, rs, x)
+        assert out.shape == (11, s.shape[1])
+        return out
+
+
+def test_one_guarded_dot_phase_per_step_never_fed_as():
+    """The guarded (11, m) phase is still the step's one reduction, and it
+    reads the previous iterate x, never the in-flight A s."""
+    ell, b = convdiff(8)
+    B = torch.from_numpy(rhs_block(b, 3))
+    sub = RecordingGuardedSubstrate()
+    stats = {}
+    res = multirhs.solve_batched(ell, B, substrate=sub, stats=stats,
+                                 config=SolverConfig(guard=True))
+    assert (np_(res.status) == SolveStatus.CONVERGED).all()
+    assert len(sub.dot_calls) == stats["steps"]
+    assert len(sub.matvec_io) == 1 + 2 * stats["steps"]
+    for *ops_, x in sub.dot_calls:
+        As = [out for X, out in sub.matvec_io if X is ops_[0]]
+        assert len(As) == 1
+        assert not any(v is As[0] for v in (*ops_, x))
+
+
+# -- the guard against the JAX package -------------------------------------------
+
+GUARD_FLOAT_FIELDS = ("x", "r", "drift", "best_relres")
+GUARD_EXACT_FIELDS = ("status", "drift_flag", "stall", "stagnant",
+                      "replacements", "restarts", "iterations", "converged",
+                      "breakdown")
+
+
+@functools.lru_cache(maxsize=None)
+def jax_guarded_chunk(k=12, window=0):
+    """The JAX package's guarded state after ``step_chunk(..., k)`` on
+    ``"jnp"`` (the port of tests/test_resilience.py's kernel-parity test:
+    nonsym_dense(64), B = [b, 2b])."""
+    with enable_x64(True):
+        op, b, _ = JM.nonsym_dense(64)
+        B = jnp.stack([b, 2.0 * b], axis=1)
+        cfg = JConfig(guard=True, stagnation_window=window)
+        bmv = jmrhs.batched_matvec(op.matvec)
+        st = jmrhs.step_chunk(bmv, jmrhs.init_state(bmv, B, config=cfg),
+                              k, config=cfg, substrate="jnp")
+        return np.asarray(op.a), np_(B), {key: np_(v) for key, v in
+                                          st.items()}
+
+
+@pytest.mark.parametrize("substrate", SUBSTRATES)
+def test_guarded_step_chunk_matches_jax(substrate):
+    a, B, want = jax_guarded_chunk()
+    op = DenseOperator(torch.from_numpy(a.copy()))
+    bmv = as_block_matvec(op)
+    cfg = SolverConfig(guard=True)
+    st = multirhs.init_state(bmv, torch.from_numpy(B), config=cfg,
+                             substrate=substrate)
+    got = multirhs.step_chunk(bmv, st, 12, config=cfg, substrate=substrate)
+    assert set(want) == set(got)
+    for key in GUARD_FLOAT_FIELDS:
+        np.testing.assert_allclose(np_(got[key]), want[key], rtol=1e-10,
+                                   atol=1e-12, err_msg=key)
+    for key in GUARD_EXACT_FIELDS:
+        np.testing.assert_array_equal(np_(got[key]), want[key], err_msg=key)
+    assert (np_(got["iterations"]) == 12).all()
+    assert (np_(got["status"]) == SolveStatus.RUNNING).all()
+    assert np_(got["drift"]).min() > 0
+
+
+@pytest.mark.parametrize("substrate", SUBSTRATES)
+def test_guarded_typed_statuses_match_jax(substrate):
+    """A NaN written into column 1's residual: the (11, m) probe types it
+    NONFINITE and freezes it on the next step, on both sides; a column
+    whose budget runs out is stamped MAXITER."""
+    a, B, _ = jax_guarded_chunk()
+    with enable_x64(True):
+        op = jlo.DenseOperator(jnp.asarray(a))
+        bmv = jmrhs.batched_matvec(op.matvec)
+        cfg = JConfig(guard=True)
+        st = jmrhs.init_state(bmv, jnp.asarray(B), config=cfg,
+                              maxiter=jnp.asarray([5, 400], jnp.int32))
+        st = jmrhs.step_chunk(bmv, st, 3, config=cfg)
+        st = dict(st, r=st["r"].at[:, 1].set(jnp.nan))
+        st = jmrhs.step_chunk(bmv, st, 4, config=cfg)
+        want = {k: np_(v) for k, v in st.items()}
+        want_res = np_(jmrhs.result_from_state(st).status)
+    top = DenseOperator(torch.from_numpy(a.copy()))
+    tbmv = as_block_matvec(top)
+    tcfg = SolverConfig(guard=True)
+    got = multirhs.init_state(tbmv, torch.from_numpy(B), config=tcfg,
+                              substrate=substrate, maxiter=[5, 400])
+    got = multirhs.step_chunk(tbmv, got, 3, config=tcfg, substrate=substrate)
+    got["r"] = got["r"].clone()
+    got["r"][:, 1] = float("nan")
+    got = multirhs.step_chunk(tbmv, got, 4, config=tcfg, substrate=substrate)
+    for key in GUARD_EXACT_FIELDS:
+        np.testing.assert_array_equal(np_(got[key]), want[key], err_msg=key)
+    assert np_(got["status"]).tolist() == [SolveStatus.MAXITER,
+                                           SolveStatus.NONFINITE]
+    res = multirhs.result_from_state(got)
+    assert np_(res.status).tolist() == want_res.tolist()
+    assert bool(torch.isfinite(got["x"]).all())     # NaN never advanced
+
+
+@pytest.mark.parametrize("substrate", SUBSTRATES)
+def test_splice_resets_the_guard_fields(substrate):
+    ell, b = convdiff(8)
+    B = torch.from_numpy(rhs_block(b, 3))
+    solver = repro_torch.make_solver(
+        "p-bicgsafe", ell, substrate=substrate, device=CPU,
+        config=SolverConfig(guard=True, stagnation_window=2))
+    st = solver.step_chunk(solver.init(B), 6)
+    st = dict(st, replacements=st["replacements"] + 1,
+              restarts=st["restarts"] + 2)
+    refill = torch.tensor([False, True, False])
+    out = solver.splice(st, refill, 2 * B)
+    fresh = multirhs._guard_init(3, torch.float64,
+                                 torch.zeros(3, dtype=torch.bool))
+    for key in multirhs.GUARD_FIELDS:
+        assert torch.equal(out[key][1], fresh[key][1]), key
+        assert torch.equal(out[key][[0, 2]], st[key][[0, 2]]), key
+    assert float(st["drift"][1]) > 0 and int(st["restarts"][1]) == 2
+    # a zero column spliced in is typed CONVERGED at t=0, as init types it
+    zero = solver.splice(st, refill, torch.zeros_like(B))
+    assert int(zero["status"][1]) == SolveStatus.CONVERGED
+    with enable_x64(True):
+        jst = jmrhs.splice_columns(
+            lambda X: X, {k: jnp.asarray(np_(v)) for k, v in st.items()},
+            jnp.asarray(np_(refill)), jnp.zeros((B.shape[0], 3)))
+    for key in multirhs.GUARD_FIELDS:
+        np.testing.assert_array_equal(np_(zero[key]), np_(jst[key]),
+                                      err_msg=key)

@@ -258,8 +258,14 @@ def test_x0_and_r0_star_match_jax():
                                   "solve_many", "on_mesh"])
 def test_later_slices_raise_not_implemented(call):
     op, b, _ = TM.poisson3d(4, device=CPU)
+    if call == "recovery":
+        # ported: a string is not a policy, as in the JAX package
+        with pytest.raises(TypeError, match="RecoveryPolicy"):
+            repro_torch.make_solver("p-bicgsafe", op, device=CPU,
+                                    recovery="jacobi")
+        return
     with pytest.raises(NotImplementedError):
-        if call in ("precond", "recovery"):
+        if call == "precond":
             repro_torch.make_solver("p-bicgsafe", op, device=CPU,
                                     **{call: "jacobi"})
         elif call in ("trace", "profile"):
@@ -276,7 +282,7 @@ def test_later_slices_raise_not_implemented(call):
 def test_session_checks_method_and_device():
     op, _, _ = TM.poisson3d(4, device=CPU)
     with pytest.raises(ValueError, match="unknown method"):
-        repro_torch.make_solver("bicgstab", op, device=CPU)
+        repro_torch.make_solver("gmres", op, device=CPU)
     with pytest.raises(ValueError, match="unknown substrate"):
         repro_torch.make_solver("p-bicgsafe", op, substrate="pallas",
                                 device=CPU)
