@@ -22,6 +22,12 @@ package is missing.  Phases, any failure of which fails the run:
    must be non-finite in exactly the columns fed a NaN or an Inf) at
    (1,259,712, 8), the width the JAX package's service binds; then each
    dots kernel, single and batched, timed on one column (m = 1);
+2c. preconditioner kernels: the block-Jacobi set-up on the main path's ELL
+   operator (timed: n / 64 = 19,683 blocks of 64 x 64), then
+   ``block_jacobi_apply`` on (n,) and ``block_jacobi_apply_batched`` on
+   (n, 8) with its blocks, against their plain versions in fp64 and fp32,
+   each repeated and required bitwise equal, timed beside the plain
+   version, one ``torch.bmm`` and the HBM bound;
 3. main path: p-BiCGSafe and p-BiCGSafe-rr through
    ``repro_torch.make_solver(...).solve(b)`` on ``substrate="cuda"`` for
    the 1,259,712-row convection-diffusion system in ELL form, fp64,
@@ -39,9 +45,18 @@ package is missing.  Phases, any failure of which fails the run:
    ``fused_dots_batched``), the same with a NaN written into column 2
    before chunk 1 (one restart of column 2, every column converges), and
    ``solve(b)`` (m = 1, the single-vector health kernel; within 2
-   iterations of 3's solve of b); then the kernels the card runs per step
-   of 3c and of 3d, counted from a ``torch.profiler`` trace after every
-   timed phase;
+   iterations of 3's solve of b);
+3e. preconditioned path: ``make_solver(..., precond=...)`` on the same
+   system, fp64, tol 1e-8: ``solve(b)`` with block_jacobi for both methods,
+   ``solve_many`` of 3c's block with block_jacobi (its step's device time
+   back to back beside 3c's), and ``solve(b)`` with jacobi and with
+   neumann (degree 2) on the ELL form and with ssor on the Stencil7 form:
+   every run converged with the preconditioned system's true residual
+   within 100x its tol, the original system's residual printed, and the
+   launch counters held to the steps (block-Jacobi applies = SpMVs + 1;
+   neumann adds 2 SpMVs per apply); then the kernels the card runs per
+   step of 3c, 3d and 3e's batched solve, counted from a
+   ``torch.profiler`` trace after every timed phase;
 4. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -72,11 +87,15 @@ TOL = {"float64": {"fused_dots": 1e-12, "fused_axpy": 1e-12,
                    "spmv_ell": 1e-12, "fused_dots_batched": 1e-12,
                    "fused_axpy_batched": 1e-12, "spmv_ell_batched": 1e-12,
                    "fused_dots_health": 1e-12,
-                   "fused_dots_health_batched": 1e-12},
+                   "fused_dots_health_batched": 1e-12,
+                   "block_jacobi_apply": 1e-12,
+                   "block_jacobi_apply_batched": 1e-12},
        "float32": {"fused_dots": 2e-5, "fused_axpy": 5e-5, "spmv_ell": 1e-4,
                    "fused_dots_batched": 2e-4, "fused_axpy_batched": 5e-5,
                    "spmv_ell_batched": 1e-4, "fused_dots_health": 2e-5,
-                   "fused_dots_health_batched": 2e-4}}
+                   "fused_dots_health_batched": 2e-4,
+                   "block_jacobi_apply": 5e-5,
+                   "block_jacobi_apply_batched": 5e-5}}
 REPLACES = {"fused_dots": "src/repro/kernels/fused_dots.py:63",
             "fused_axpy": "src/repro/kernels/fused_axpy.py:73",
             "spmv_ell": "src/repro/kernels/spmv_ell.py:45",
@@ -84,7 +103,10 @@ REPLACES = {"fused_dots": "src/repro/kernels/fused_dots.py:63",
             "fused_axpy_batched": "src/repro/kernels/fused_axpy.py:154",
             "spmv_ell_batched": "src/repro/kernels/spmv_ell.py:99",
             "fused_dots_health": "src/repro/kernels/fused_dots.py:167",
-            "fused_dots_health_batched": "src/repro/kernels/fused_dots.py:220"}
+            "fused_dots_health_batched": "src/repro/kernels/fused_dots.py:220",
+            "block_jacobi_apply": "src/repro/kernels/precond_apply.py:47",
+            "block_jacobi_apply_batched":
+                "src/repro/kernels/precond_apply.py:80"}
 # the health kernels are the 11-row forms of the dots kernels' templates
 SOURCE = dict({k: f"src/repro_torch/csrc/{k}.cu" for k in REPLACES},
               fused_dots_health="src/repro_torch/csrc/fused_dots.cu",
@@ -93,6 +115,7 @@ SOURCE = dict({k: f"src/repro_torch/csrc/{k}.cu" for k in REPLACES},
 SINGLE = ("fused_dots", "fused_axpy", "spmv_ell")
 BATCHED = ("fused_dots_batched", "fused_axpy_batched", "spmv_ell_batched")
 HEALTH = ("fused_dots_health", "fused_dots_health_batched")
+PRECOND = ("block_jacobi_apply", "block_jacobi_apply_batched")
 M = 8                       # columns of the batched path (ServiceConfig.max_batch)
 STEP_REPS = 4               # solver steps queued per timing (see device_ms)
 
@@ -406,6 +429,46 @@ def check_batched_kernels(torch, ops, ref, values, cols, dtype) -> dict:
     return out, at_m1
 
 
+def check_precond_kernels(torch, ops, ref, inv_blocks, dtype) -> dict:
+    """Phase 2c: the block-Jacobi kernels against their plain versions on
+    the card, in ``dtype``, with the main path's blocks; each repeated and
+    required bitwise equal.  The library yardstick is one ``torch.bmm`` of
+    the blocks and x viewed as (nb, bs, m)."""
+    name = str(dtype).replace("torch.", "")
+    inv = inv_blocks.to(dtype).contiguous()
+    nb, bs, _ = inv.shape
+    n = nb * bs
+    dev = inv.device
+    gen = torch.Generator(device=dev).manual_seed(4)
+    item = torch.empty((), dtype=dtype).element_size()
+    out = {}
+    for kname, m in (("block_jacobi_apply", None),
+                     ("block_jacobi_apply_batched", M)):
+        shape = (n,) if m is None else (n, m)
+        x = torch.randn(*shape, generator=gen, device=dev,
+                        dtype=torch.float64).to(dtype)
+        got = ops.block_jacobi_apply(inv, x)
+        want = ref.block_jacobi_apply(inv, x)
+        scale = ref.block_jacobi_apply(inv.abs(), x.abs())
+        repeats = all(torch.equal(ops.block_jacobi_apply(inv, x), got)
+                      for _ in range(3))
+        if not repeats:
+            raise SystemExit(f"{kname} {name}: a repeat is not bitwise equal")
+        xb = x.view(nb, bs, -1)
+        cols = 1 if m is None else m
+        out[kname] = dict(
+            err=float(((got - want).abs() / scale).max()),
+            max_abs_err=float((got - want).abs().max()),
+            ms=device_ms(torch, lambda: ops.block_jacobi_apply(inv, x)),
+            plain_ms=device_ms(torch, lambda: ref.block_jacobi_apply(inv, x)),
+            library_ms=device_ms(torch, lambda: torch.bmm(inv, xb)),
+            bound=bound_ms(nb * bs * bs * item + 2 * n * cols * item,
+                           2 * n * bs * cols, name),
+            repeats_bitwise=repeats, bs=bs, nb=nb)
+        del x, got, want, scale, xb
+    return finish(out, name)
+
+
 def run_main_path(torch, repro_torch, ops, method, ell, stencil, b):
     """One measured solve through the front door, with the launch counters
     set to 0 just before it and read just after."""
@@ -430,7 +493,7 @@ def run_main_path(torch, repro_torch, ops, method, ell, stencil, b):
                rr_steps=rr_steps, host_reads=solver.stats["host_reads"],
                launches=launches)
     log(f"main {method}: {json.dumps(rec)}")
-    want = dict.fromkeys(BATCHED + HEALTH, 0)
+    want = dict.fromkeys(BATCHED + HEALTH + PRECOND, 0)
     want.update(fused_dots=steps, fused_axpy=steps,
                 spmv_ell=1 + 2 * steps + 4 * rr_steps)
     if not rec["converged"] or true_relres > 1e-6:
@@ -492,7 +555,7 @@ def run_batched_path(torch, repro_torch, ops, ell, stencil, b, single_it):
     if abs(its[0] - single_it) > 2:
         raise SystemExit(f"solve_many: column 0 took {its[0]} iterations, "
                          f"the single-RHS solve of b {single_it}")
-    want = dict.fromkeys(SINGLE + HEALTH, 0)
+    want = dict.fromkeys(SINGLE + HEALTH + PRECOND, 0)
     want.update(fused_dots_batched=steps, fused_axpy_batched=steps,
                 spmv_ell_batched=1 + 2 * steps)
     if launches != want or steps == 0:
@@ -608,18 +671,134 @@ def run_guarded_path(torch, repro_torch, ops, ell, stencil, b, many, main):
     return dict(clean=clean, fault=fault, single=one)
 
 
-def count_step_kernels(torch, repro_torch, ell, b) -> dict:
-    """Kernels per step on the card of 3c's step and of 3d's guarded step,
-    from a profiler trace; run after every timed phase, so the profiler
-    touches no timing."""
+def run_precond_path(torch, repro_torch, ops, ell, stencil, b, pc, main,
+                     many) -> dict:
+    """Phase 3e: preconditioned solves through the front door, each run
+    with the launch counters set to 0 just before it and read just after.
+    ``pc`` is the block-Jacobi preconditioner built in phase 2c from
+    ``ell`` (sessions take the built instance: no second build)."""
+    from repro_torch.core import multirhs
+    from repro_torch.core.pipelined_bicgsafe import CHUNK
+    B, tol = batched_rhs(torch, b)
+    zero = dict.fromkeys(ops.LAUNCHES, 0)
+
+    def measured(label, solver, rhs, want, **kw):
+        if rhs.dim() == 1:
+            solver.solve(rhs, maxiter=32)                # warm-up, not counted
+        else:
+            solver.solve_many(rhs, maxiter=32)
+        solver.stats.update(steps=0, rr_steps=0, host_reads=0)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = solver.solve(rhs, **kw) if rhs.dim() == 1 \
+            else solver.solve_many(rhs, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        steps, rr_steps = solver.stats["steps"], solver.stats["rr_steps"]
+        # true residuals of the preconditioned system (what tol bounds),
+        # with the plain apply, and of the original one
+        papply = solver.precond.apply
+        resid = rhs - solver.operator.matvec(res.x)
+        n = rhs.shape[0]
+        prec_true = (torch.linalg.vector_norm(papply(resid).reshape(n, -1),
+                                              dim=0)
+                     / torch.linalg.vector_norm(papply(rhs).reshape(n, -1),
+                                                dim=0))
+        orig = (torch.linalg.vector_norm(resid.reshape(n, -1), dim=0)
+                / torch.linalg.vector_norm(rhs.reshape(n, -1), dim=0))
+        its = res.iterations.reshape(-1).tolist()
+        rec = dict(
+            run=label, precond=solver.precond.name, method=solver.method,
+            iterations=its,
+            converged=[bool(v) for v in res.converged.reshape(-1)],
+            relres=res.relres.reshape(-1).tolist(),
+            precond_true_relres=prec_true.tolist(),
+            original_relres=orig.tolist(),
+            max_err=float((res.x - 1.0).abs().max()) if rhs.dim() == 1
+            else None,
+            wall_s=wall, steps=steps, rr_steps=rr_steps,
+            ms_per_step=wall / max(steps, 1) * 1e3,
+            host_reads=solver.stats["host_reads"], launches=launches)
+        log(f"precond {label}: {json.dumps(rec)}")
+        tol_col = tol if rhs.dim() == 2 else torch.full_like(prec_true, 1e-8)
+        if not all(rec["converged"]) \
+                or bool((prec_true > 100 * tol_col).any()):
+            raise SystemExit(f"precond {label}: not converged to its tol: "
+                             f"{rec}")
+        expect = dict(zero, **want(steps, rr_steps))
+        if launches != expect or steps == 0:
+            raise SystemExit(f"precond {label}: launches {launches} != "
+                             f"{expect}")
+        if not max(its) + 1 <= steps <= max(its) + CHUNK:
+            raise SystemExit(f"precond {label}: {steps} steps for {its}")
+        return rec
+
+    def single(steps, rr):
+        spmv = 1 + 2 * steps + 4 * rr
+        return dict(fused_dots=steps, fused_axpy=steps, spmv_ell=spmv,
+                    block_jacobi_apply=spmv + 1)
+
+    out = {}
+    for method in ("p-bicgsafe", "p-bicgsafe-rr"):
+        solver = repro_torch.make_solver(method, ell, substrate="cuda",
+                                         precond=pc)
+        out[method] = measured(f"block_jacobi {method}", solver, b, single,
+                               tol=1e-8)
+    pre = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda",
+                                  precond=pc)
+    rec = measured("block_jacobi solve_many", pre, B, lambda steps, rr: dict(
+        fused_dots_batched=steps, fused_axpy_batched=steps,
+        spmv_ell_batched=1 + 2 * steps,
+        block_jacobi_apply_batched=2 + 2 * steps), tol=tol)
+    st0 = pre.init(B, tol=tol)
+    body = multirhs._make_body(pre.sub, pre.block_matvec, pre.config)
+    rec["device_ms_per_step"] = device_ms(torch, lambda: body(st0),
+                                          reps=STEP_REPS)
+    del st0
+    out["solve_many"] = rec
+    log(f"precond step (n, {M}): {rec['ms_per_step']:.4f} ms wall, "
+        f"{rec['device_ms_per_step']:.4f} ms device, against 3c's "
+        f"{many['ms_per_step']:.4f} / {many['device_ms_per_step']:.4f}; "
+        f"one RHS: {out['p-bicgsafe']['ms_per_step']:.4f} ms wall per step "
+        f"against 3b's {main['wall_s'] / main['steps'] * 1e3:.4f}; "
+        f"iterations {out['p-bicgsafe']['iterations'][0]} against "
+        f"{main['iterations']}")
+    torch.cuda.empty_cache()
+
+    solver = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda",
+                                     precond="jacobi")
+    out["jacobi"] = measured("jacobi", solver, b, lambda steps, rr: dict(
+        fused_dots=steps, fused_axpy=steps, spmv_ell=1 + 2 * steps),
+        tol=1e-8)
+    solver = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda",
+                                     precond="neumann")
+    # an apply of degree 2 runs 2 SpMVs: b's apply, then 3 per matvec
+    out["neumann"] = measured("neumann", solver, b, lambda steps, rr: dict(
+        fused_dots=steps, fused_axpy=steps,
+        spmv_ell=2 + 3 * (1 + 2 * steps)), tol=1e-8)
+    solver = repro_torch.make_solver("p-bicgsafe", stencil, substrate="cuda",
+                                     precond="ssor")
+    out["ssor"] = measured("ssor (Stencil7)", solver, b, lambda steps, rr: dict(
+        fused_dots=steps, fused_axpy=steps), tol=1e-8)
+    return out
+
+
+def count_step_kernels(torch, repro_torch, ell, b, pc) -> dict:
+    """Kernels per step on the card of 3c's step, of 3d's guarded step and
+    of 3e's preconditioned (n, M) step, from a profiler trace; run after
+    every timed phase, so the profiler touches no timing."""
     from repro_torch.core import multirhs
     from repro_torch.resilience import RecoveryPolicy
     B, tol = batched_rhs(torch, b)
     out = {}
-    for label, recovery in (("batched", None),
-                            ("guarded", RecoveryPolicy(chunk=16))):
+    for label, recovery, precond in (
+            ("batched", None, None),
+            ("guarded", RecoveryPolicy(chunk=16), None),
+            ("preconditioned", None, pc)):
         sess = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda",
-                                       recovery=recovery)
+                                       recovery=recovery, precond=precond)
         sess = getattr(sess, "session", sess)
         st0 = sess.init(B, tol=tol)
         body = multirhs._make_body(sess.sub, sess.block_matvec, sess.config)
@@ -690,6 +869,26 @@ def main() -> int:
                                  f"{rec['tol']}")
         results[str(dtype).replace("torch.", "")] = res
 
+    # -- 2c. the preconditioner's set-up and kernels --------------------------
+    from repro_torch import precond
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pc = precond.block_jacobi(ell)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    log(f"block_jacobi set-up on the ELL operator: {setup_s:.2f} s, "
+        f"inv_blocks {tuple(pc.inv_blocks.shape)} "
+        f"({pc.inv_blocks.numel() * 8 / 1e6:.0f} MB fp64)")
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        res = check_precond_kernels(torch, ops, ref, pc.inv_blocks, dtype)
+        torch.cuda.empty_cache()
+        for kname, rec in res.items():
+            if not rec["err"] <= rec["tol"]:
+                raise SystemExit(f"{kname} {dtype}: error {rec['err']} above "
+                                 f"{rec['tol']}")
+        results[name].update(res)
+
     # -- 3b. the main path ----------------------------------------------------
     runs = [run_main_path(torch, repro_torch, ops, method, ell, stencil, b)
             for method in ("p-bicgsafe", "p-bicgsafe-rr")]
@@ -722,16 +921,36 @@ def main() -> int:
         fused_dots_health_batched=guarded["clean"]["launches"][
             "fused_dots_health_batched"])
 
-    step_kernels = count_step_kernels(torch, repro_torch, ell, b)
+    torch.cuda.empty_cache()
+
+    # -- 3e. the preconditioned path ------------------------------------------
+    pre = run_precond_path(torch, repro_torch, ops, ell, stencil, b, pc, main,
+                           many)
+    pre["setup_s"] = setup_s
+    path_launches.update(
+        block_jacobi_apply=pre["p-bicgsafe"]["launches"]["block_jacobi_apply"],
+        block_jacobi_apply_batched=pre["solve_many"]["launches"][
+            "block_jacobi_apply_batched"])
+
+    step_kernels = count_step_kernels(torch, repro_torch, ell, b, pc)
     many["kernels_per_step"] = step_kernels["batched"]
     guarded["clean"]["kernels_per_step"] = step_kernels["guarded"]
+    pre["solve_many"]["kernels_per_step"] = step_kernels["preconditioned"]
 
     # -- 4. the kernel table and the result line ------------------------------
     kernels = []
-    for kname in SINGLE + BATCHED + HEALTH:
+    for kname in SINGLE + BATCHED + HEALTH + PRECOND:
         r64, r32 = results["float64"][kname], results["float32"][kname]
         if kname in SINGLE:
             extra = dict(launches_rr=rr["launches"][kname])
+        elif kname in PRECOND:
+            extra = dict(m=M if kname.endswith("batched") else 1,
+                         bs=r64["bs"], nb=r64["nb"],
+                         repeats_bitwise=r64["repeats_bitwise"],
+                         library_call="torch.bmm")
+            if kname == "block_jacobi_apply":
+                extra["launches_rr"] = \
+                    pre["p-bicgsafe-rr"]["launches"][kname]
         elif kname in HEALTH:
             extra = dict(m=M if kname.endswith("batched") else 1,
                          rows_0_8_bitwise=r64["rows_0_8_bitwise"],

@@ -19,12 +19,16 @@ batched form:
 With ``recovery=`` (:mod:`repro_torch.resilience`) the batched iteration is
 guarded: an (11, m) reduction with health rows, typed statuses and a
 chunked recovery driver.  BiCGStab (plain PyTorch) is its method fallback.
+With ``precond=`` (:mod:`repro_torch.precond`: ``"jacobi"``,
+``"block_jacobi"``, ``"neumann"``, ``"ssor"``) every solve runs on the
+left-preconditioned system; block-Jacobi's apply is a CUDA kernel too.
 
 This package imports ``torch``, ``numpy`` and the standard library only —
 nothing of the JAX package :mod:`repro`, which stays its reference.
 """
+from . import precond
 from .api import LinearSolver, make_solver, solve
-from .convert import operator_from_numpy
+from .convert import operator_from_numpy, preconditioner_from_numpy
 from .core import (GUARD_FIELDS, SOLVERS, SUBSTRATES, CSROperator,
                    DenseOperator, ELLOperator, SolveResult, SolverConfig,
                    SolveStatus, Stencil7Operator, get_substrate, init_state,
@@ -34,6 +38,7 @@ from .resilience import GuardedSolver, RecoveryPolicy
 
 __all__ = [
     "LinearSolver", "make_solver", "solve", "operator_from_numpy",
+    "preconditioner_from_numpy", "precond",
     "SOLVERS", "SUBSTRATES", "get_substrate",
     "SolveResult", "SolveStatus", "SolverConfig",
     "CSROperator", "DenseOperator", "ELLOperator", "Stencil7Operator",

@@ -21,14 +21,25 @@
 ``device="cpu"`` to run on the CPU.  The operator's tensors must lie on the
 session's device.
 
-Not ported yet, and raising :class:`NotImplementedError`: ``precond=``,
-``trace=`` and ``profile=`` of ``solve`` and ``solve_many``, and
-``on_mesh``.  Sessions are not cached by operator content.
+    pre = repro_torch.make_solver("p-bicgsafe", op, substrate="cuda",
+                                  precond="block_jacobi")
+    res = pre.solve(b)                      # M^{-1} A x = M^{-1} b
+
+``precond=`` (``None``, a name of :data:`repro_torch.precond
+.PRECONDITIONERS` or a :class:`repro_torch.precond.Preconditioner`) is
+checked when the session is made and built on first use, once; every
+solve of the session, single, batched and open-loop, then runs on the
+left-preconditioned system, whose residual ``relres``/``tol`` measure.
+
+Not ported yet, and raising :class:`NotImplementedError`: ``trace=`` and
+``profile=`` of ``solve`` and ``solve_many``, and ``on_mesh``.  Sessions
+are not cached by operator content (the JAX package's
+``operator_fingerprint``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -36,6 +47,8 @@ import torch
 from .core import SOLVERS, multirhs
 from .core.substrate import SubstrateLike, get_substrate
 from .core.types import SolveResult, SolverConfig, resolve_device
+from .precond.base import (PrecondLike, Preconditioner, resolve_precond,
+                           validate_precond_spec)
 
 __all__ = ["LinearSolver", "make_solver", "solve"]
 
@@ -61,8 +74,11 @@ class LinearSolver:
     Attributes:
       method / operator / config / device: as bound.
       sub: the resolved :class:`~repro_torch.core.substrate.Substrate`.
+      precond_spec: the ``precond=`` spec as given; ``precond`` the built
+        preconditioner (``None`` when unset), built on first access.
       block_matvec: the substrate's ``(n, m)`` block matvec of the operator
-        (the block ELL kernel on ``"cuda"``).
+        (the block ELL kernel on ``"cuda"``), composed once with the bound
+        M^{-1}-apply when there is a preconditioner.
       stats: ``{"solves", "steps", "rr_steps", "host_reads"}`` summed over
         this session's solves and open-loop chunks: iterations queued
         (stopped ones included), residual-replacement steps and host reads
@@ -70,6 +86,7 @@ class LinearSolver:
     """
 
     def __init__(self, method: str, operator, *,
+                 precond: PrecondLike = None,
                  substrate: SubstrateLike = "torch",
                  config: SolverConfig = SolverConfig(),
                  device=None):
@@ -85,9 +102,51 @@ class LinearSolver:
             raise ValueError(f"the operator lies on {op_device}, the session "
                              f"on {self.device}")
         self.sub = get_substrate(substrate)
-        self.block_matvec = self.sub.as_block_matvec(operator)
+        # checked now (a bad spec fails at make_solver), built on first use:
+        # a block-Jacobi build at full size takes seconds
+        validate_precond_spec(precond, operator)
+        self.precond_spec = precond
+        self._precond_built = False
+        self._precond: Optional[Preconditioner] = None
+        self._bmv: Optional[Callable] = None
+        self._papply: Optional[Callable] = None
         self.stats: Dict[str, int] = {"solves": 0, "steps": 0,
                                       "rr_steps": 0, "host_reads": 0}
+
+    @property
+    def precond(self) -> Optional[Preconditioner]:
+        """The built preconditioner (the first access builds it, once)."""
+        if not self._precond_built:
+            self._precond = resolve_precond(self.precond_spec, self.operator)
+            self._precond_built = True
+        return self._precond
+
+    @property
+    def block_matvec(self) -> Callable:
+        """The substrate's block matvec, composed once with M^{-1}."""
+        if self._bmv is None:
+            raw = self.sub.as_block_matvec(self.operator)
+            pc = self.precond
+            if pc is None:
+                self._bmv = raw
+            else:
+                papply = self.sub.as_precond_apply(pc)
+                self._papply = papply
+                self._bmv = lambda X: papply(raw(X))
+        return self._bmv
+
+    def _prep(self, B: torch.Tensor) -> torch.Tensor:
+        """``M^{-1} B``: the right-hand sides of the preconditioned system
+        (``B`` itself without a preconditioner)."""
+        self.block_matvec                 # composes, and binds the apply
+        return B if self._papply is None else self._papply(B)
+
+    def __repr__(self):
+        # the spec, not the property: a repr must not trigger the build
+        pc = getattr(self._precond, "name", None) if self._precond_built \
+            else self.precond_spec
+        return (f"<LinearSolver {self.method!r} substrate={self.sub.name!r} "
+                f"precond={pc!r} device={str(self.device)!r}>")
 
     def _derive(self, tol, maxiter) -> SolverConfig:
         cfg = self.config
@@ -117,7 +176,7 @@ class LinearSolver:
         return SOLVERS[self.method](
             self.operator, self._tensor(b), self._tensor(x0), config=cfg,
             r0_star=self._tensor(r0_star), substrate=self.sub,
-            stats=self.stats)
+            precond=self.precond, stats=self.stats)
 
     # -- multi-RHS and the open-loop handles -------------------------------
 
@@ -163,7 +222,7 @@ class LinearSolver:
             cfg = self.config
         self.stats["solves"] += 1
         st = multirhs.init_state(
-            self.block_matvec, B, self._tensor(X0), config=cfg,
+            self.block_matvec, self._prep(B), self._tensor(X0), config=cfg,
             r0_star=self._tensor(r0_star), substrate=self.sub, tol=tol,
             maxiter=maxiter)
         st = multirhs.step_chunk(self.block_matvec, st, cfg.maxiter,
@@ -176,7 +235,8 @@ class LinearSolver:
         """The per-column Krylov state for ``A X = B`` (open loop)."""
         self._require_pbicgsafe("init")
         return multirhs.init_state(
-            self.block_matvec, self._as_block(B), self._tensor(X0),
+            self.block_matvec, self._prep(self._as_block(B)),
+            self._tensor(X0),
             config=self.config, r0_star=self._tensor(r0_star),
             substrate=self.sub, tol=tol, maxiter=maxiter)
 
@@ -195,7 +255,7 @@ class LinearSolver:
         self._require_pbicgsafe("splice")
         return multirhs.splice_columns(
             self.block_matvec, state, self._tensor(refill),
-            self._as_block(B_new), r0_star=self._tensor(r0_star),
+            self._prep(self._as_block(B_new)), r0_star=self._tensor(r0_star),
             substrate=self.sub,
             tol=self.config.tol if tol is None else tol,
             maxiter=self.config.maxiter if maxiter is None else maxiter)
@@ -216,7 +276,7 @@ class LinearSolver:
 
 
 def make_solver(method: str = "p-bicgsafe", operator=None, *,
-                precond=None,
+                precond: PrecondLike = None,
                 substrate: SubstrateLike = "torch",
                 config: SolverConfig = SolverConfig(),
                 device=None,
@@ -224,6 +284,12 @@ def make_solver(method: str = "p-bicgsafe", operator=None, *,
     """Bind ``method`` (a name from :data:`repro_torch.core.SOLVERS`) to
     ``operator`` (Dense/CSR/ELL/Stencil7, a dense matrix, or a matvec
     callable) on ``device`` (``None`` means ``"cuda"``).
+
+    ``precond``: ``None``, a name of :data:`repro_torch.precond
+    .PRECONDITIONERS` (built from ``operator``, which must then be an
+    operator object) or a :class:`repro_torch.precond.Preconditioner`;
+    checked here, built on first use, once.  Every solve of the session
+    runs on the left-preconditioned system.
 
     ``recovery``: ``None`` | ``True`` | a :class:`repro_torch.resilience
     .RecoveryPolicy`.  Given one, the result is a :class:`repro_torch
@@ -233,8 +299,6 @@ def make_solver(method: str = "p-bicgsafe", operator=None, *,
     p-BiCGSafe only."""
     if operator is None:
         raise TypeError("make_solver requires an operator")
-    if precond is not None:
-        raise _not_ported("precond=")
     if recovery is not None and recovery is not False:
         # lazy: repro_torch.resilience imports this module for fallbacks
         from .resilience.guard import GuardedSolver, guarded_config
@@ -244,20 +308,22 @@ def make_solver(method: str = "p-bicgsafe", operator=None, *,
             raise TypeError(
                 f"recovery must be None, True or a RecoveryPolicy; got "
                 f"{type(recovery).__name__}")
-        inner = make_solver(method, operator, substrate=substrate,
+        inner = make_solver(method, operator, precond=precond,
+                            substrate=substrate,
                             config=guarded_config(config, policy),
                             device=device)
         return GuardedSolver(inner, policy)
-    return LinearSolver(method, operator, substrate=substrate, config=config,
-                        device=device)
+    return LinearSolver(method, operator, precond=precond,
+                        substrate=substrate, config=config, device=device)
 
 
 def solve(A, b, method: str = "p-bicgsafe", *, x0=None, tol=None,
-          maxiter=None, r0_star=None, precond=None,
+          maxiter=None, r0_star=None, precond: PrecondLike = None,
           substrate: SubstrateLike = "torch",
           config: SolverConfig = SolverConfig(),
           device=None) -> SolveResult:
-    """One-shot convenience: ``repro_torch.solve(A, b)``."""
+    """One-shot convenience: ``repro_torch.solve(A, b)`` (``precond=`` as
+    in :func:`make_solver`)."""
     session = make_solver(method, A, precond=precond, substrate=substrate,
                           config=config, device=device)
     return session.solve(b, x0, tol=tol, maxiter=maxiter, r0_star=r0_star)

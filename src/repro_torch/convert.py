@@ -14,6 +14,19 @@ Kinds and their arrays:
 
 Float arrays take ``dtype`` (``None`` keeps theirs); index arrays become
 int32.
+
+Preconditioners are carried over the same way, from the arrays of a built
+one:
+
+    pc = preconditioner_from_numpy("block_jacobi",
+                                   {"inv_blocks": np.asarray(jpc.inv_blocks)},
+                                   device="cuda")
+
+* ``"jacobi"``       — ``inv_diag``;
+* ``"block_jacobi"`` — ``inv_blocks``;
+* ``"neumann"``      — ``inv_diag``, ``degree``, ``omega``, and the port's
+  operator as ``op=``;
+* ``"ssor"``         — ``c``, ``nx``, ``ny``, ``nz``, ``omega``, ``terms``.
 """
 from __future__ import annotations
 
@@ -25,6 +38,8 @@ import torch
 from .core.linear_operator import (CSROperator, DenseOperator, ELLOperator,
                                    Stencil7Operator)
 from .core.types import resolve_device
+from .precond import (BlockJacobiPreconditioner, JacobiPreconditioner,
+                      NeumannPreconditioner, SSORPreconditioner)
 
 KINDS = {
     "dense": ("a",),
@@ -33,21 +48,35 @@ KINDS = {
     "stencil7": ("c", "nx", "ny", "nz"),
 }
 
+PRECOND_KINDS = {
+    "jacobi": ("inv_diag",),
+    "block_jacobi": ("inv_blocks",),
+    "neumann": ("inv_diag", "degree", "omega"),
+    "ssor": ("c", "nx", "ny", "nz", "omega", "terms"),
+}
+
+
+def _checked(kinds: Mapping, what: str, kind: str, arrays: Mapping):
+    if kind not in kinds:
+        raise ValueError(f"unknown {what} kind {kind!r}; expected one of "
+                         f"{sorted(kinds)}")
+    missing = set(kinds[kind]) - set(arrays)
+    if missing:
+        raise KeyError(f"{kind} {what} needs {sorted(missing)}")
+
+
+def _float(arrays: Mapping, name: str, device, dtype) -> torch.Tensor:
+    return torch.tensor(np.asarray(arrays[name]), dtype=dtype, device=device)
+
 
 def operator_from_numpy(kind: str, arrays: Mapping, *, device=None,
                         dtype=None):
     """Build the port's operator of ``kind`` from numpy arrays."""
-    if kind not in KINDS:
-        raise ValueError(f"unknown operator kind {kind!r}; expected one of "
-                         f"{sorted(KINDS)}")
-    missing = set(KINDS[kind]) - set(arrays)
-    if missing:
-        raise KeyError(f"{kind} operator needs {sorted(missing)}")
+    _checked(KINDS, "operator", kind, arrays)
     device = resolve_device(device)
 
     def fl(name):
-        return torch.tensor(np.asarray(arrays[name]), dtype=dtype,
-                            device=device)
+        return _float(arrays, name, device, dtype)
 
     def ix(name):
         return torch.tensor(np.asarray(arrays[name], dtype=np.int32),
@@ -63,3 +92,30 @@ def operator_from_numpy(kind: str, arrays: Mapping, *, device=None,
                            ix("cols").contiguous(), int(arrays["n"]))
     return Stencil7Operator(fl("c"), int(arrays["nx"]), int(arrays["ny"]),
                             int(arrays["nz"]))
+
+
+def preconditioner_from_numpy(kind: str, arrays: Mapping, *, op=None,
+                              device=None, dtype=None):
+    """Build the port's preconditioner of ``kind`` from numpy arrays (and,
+    for ``"neumann"``, the port's operator ``op``, whose matvecs its series
+    runs)."""
+    _checked(PRECOND_KINDS, "preconditioner", kind, arrays)
+    device = resolve_device(device)
+
+    def fl(name):
+        return _float(arrays, name, device, dtype).contiguous()
+
+    if kind == "jacobi":
+        return JacobiPreconditioner(fl("inv_diag"))
+    if kind == "block_jacobi":
+        return BlockJacobiPreconditioner(fl("inv_blocks"))
+    if kind == "neumann":
+        if op is None:
+            raise TypeError("a neumann preconditioner needs its operator: "
+                            "pass op=")
+        return NeumannPreconditioner(op, fl("inv_diag"),
+                                     int(arrays["degree"]),
+                                     float(arrays["omega"]))
+    return SSORPreconditioner(fl("c"), int(arrays["nx"]), int(arrays["ny"]),
+                              int(arrays["nz"]), float(arrays["omega"]),
+                              int(arrays["terms"]))

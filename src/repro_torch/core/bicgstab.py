@@ -23,6 +23,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..precond.base import PrecondLike, preconditioned_system
 from . import pipelined_bicgsafe
 from ._common import init_guess, safe_div, tree_select
 from .substrate import SubstrateLike, get_substrate
@@ -37,20 +38,19 @@ def bicgstab_solve(matvec: Callable,
                    config: SolverConfig = SolverConfig(),
                    r0_star: Optional[torch.Tensor] = None,
                    substrate: SubstrateLike = "torch",
-                   precond=None,
+                   precond: PrecondLike = None,
                    stats: Optional[Dict[str, int]] = None) -> SolveResult:
     """Solve A x = b with BiCGStab.
 
     ``matvec`` is a callable or an operator (dispatched through the
-    substrate).  ``stats``, when given, accumulates ``steps`` (iterations
-    queued, stopped ones included) and ``host_reads``.  ``precond=``
-    raises :class:`NotImplementedError`.
+    substrate).  ``precond`` (a name or a :class:`repro_torch.precond
+    .Preconditioner`) runs the left-preconditioned system M^{-1} A x =
+    M^{-1} b; ``relres``/``tol`` are then in the preconditioned norm.
+    ``stats``, when given, accumulates ``steps`` (iterations queued,
+    stopped ones included) and ``host_reads``.
     """
-    if precond is not None:
-        raise NotImplementedError(
-            "precond= is not ported to repro_torch yet")
     sub = get_substrate(substrate)
-    matvec = sub.as_matvec(matvec)
+    matvec, b = preconditioned_system(sub, matvec, b, precond)
     stats = {} if stats is None else stats
     for key in ("steps", "host_reads"):
         stats.setdefault(key, 0)

@@ -47,6 +47,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..precond.base import PrecondLike, wrap_block_preconditioned
 from . import pipelined_bicgsafe
 from ._common import bicgsafe_coefficients, pipelined_recurrence_tail
 from .linear_operator import batched_matvec
@@ -120,7 +121,9 @@ def init_state(bmv: Callable,
     """Build the batched p-BiCGSafe state for ``A X = B``.
 
     ``bmv`` is the ``(n, m) -> (n, m)`` block matvec; ``B`` the (n, m)
-    right-hand sides; ``X0`` optional (n, m) initial guesses.  ``tol`` and
+    right-hand sides (under preconditioning, ``bmv`` is ``M^{-1} ∘ A`` and
+    ``B`` is ``M^{-1} B``: :func:`solve_batched` and the session compose
+    them); ``X0`` optional (n, m) initial guesses.  ``tol`` and
     ``maxiter`` are per column, a scalar or ``(m,)``; they default to
     ``config.tol`` / ``config.maxiter``.  Costs one block matvec
     (``S_0 = A R_0``; two with an ``X0``) and one ``(1, m)`` dot phase.
@@ -437,7 +440,7 @@ def solve_batched(matvec: Callable,
                   r0_star: Optional[torch.Tensor] = None,
                   substrate: SubstrateLike = "torch",
                   blocked: bool = False,
-                  precond=None,
+                  precond: PrecondLike = None,
                   tol=None,
                   stats: Optional[Dict[str, int]] = None) -> SolveResult:
     """Solve A X = B with p-BiCGSafe for all m columns of ``B`` at once.
@@ -447,18 +450,20 @@ def solve_batched(matvec: Callable,
     (n, m); ``X0`` optional (n, m); ``r0_star`` an (n,) shadow shared by
     every column or an (n, m) block; ``tol`` a scalar or (m,).  One (9, m)
     dot phase per iteration whatever m is ((11, m) with ``config.guard``),
-    plus one for ``||r_0||``.
-    ``blocked=True`` and ``precond=`` (the sharded solve's and the
-    preconditioned solves) raise :class:`NotImplementedError`.
+    plus one for ``||r_0||``.  ``precond`` (a name or a
+    :class:`repro_torch.precond.Preconditioner`) runs every column on the
+    left-preconditioned system M^{-1} A X = M^{-1} B, the apply composed
+    into the block matvec; ``relres``/``tol`` are then in the
+    preconditioned norm.  ``blocked=True`` (the sharded solve's) raises
+    :class:`NotImplementedError`.
     """
     if B.dim() != 2:
         raise ValueError(f"B must be (n, m); got shape {tuple(B.shape)}")
     if blocked:
         raise _not_ported("solve_batched(blocked=True)")
-    if precond is not None:
-        raise _not_ported("precond=")
     sub = get_substrate(substrate)
-    bmv = sub.as_block_matvec(matvec)
+    bmv, B = wrap_block_preconditioned(sub, sub.as_block_matvec(matvec),
+                                       B.contiguous(), precond, matvec)
     state = init_state(bmv, B, X0, config=config, r0_star=r0_star,
                        substrate=sub, tol=tol)
     state = step_chunk(bmv, state, config.maxiter, config=config,

@@ -32,6 +32,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..precond.base import PrecondLike, preconditioned_system
 from ._common import (bicgsafe_coefficients, init_guess,
                       pipelined_recurrence_tail, tree_select)
 from .substrate import SubstrateLike, get_substrate
@@ -44,12 +45,15 @@ CHUNK = 16
 
 def _pipelined_solve(matvec, b, x0, config: SolverConfig, r0_star,
                      residual_replacement: bool, substrate: SubstrateLike,
-                     precond=None,
+                     precond: PrecondLike = None,
                      stats: Optional[Dict[str, int]] = None) -> SolveResult:
-    if precond is not None:
-        raise NotImplementedError(
-            "precond= is not ported to repro_torch yet")
+    # Left preconditioning composes M^{-1} INTO the matvec, so every
+    # recurred A-image below is an (M^{-1}A)-image and the algebra is
+    # unchanged; the apply joins the in-flight compute (the dots still
+    # read none of it), and -rr's replacement recomputes the
+    # preconditioned residual b' - M^{-1}A x through the same composite.
     sub = get_substrate(substrate)
+    matvec, b = preconditioned_system(sub, matvec, b, precond)
     stats = {} if stats is None else stats
     for key in ("steps", "rr_steps", "host_reads"):
         stats.setdefault(key, 0)
@@ -166,17 +170,20 @@ def pbicgsafe_solve(matvec: Callable,
                     config: SolverConfig = SolverConfig(),
                     r0_star: Optional[torch.Tensor] = None,
                     substrate: SubstrateLike = "torch",
-                    precond=None,
+                    precond: PrecondLike = None,
                     stats: Optional[Dict[str, int]] = None) -> SolveResult:
     """Solve A x = b with p-BiCGSafe (paper Alg. 3.1).
 
     ``matvec`` is a callable or an operator (dispatched through the
-    substrate).  ``stats``, when given, accumulates ``steps`` (iterations
-    queued, stopped ones included), ``rr_steps`` and ``host_reads``.
+    substrate).  ``precond`` (a name or a :class:`repro_torch.precond
+    .Preconditioner`) runs the left-preconditioned system M^{-1} A x =
+    M^{-1} b, the apply inside the overlap window of the one reduction per
+    iteration; ``relres``/``tol`` are then in the preconditioned norm.
+    ``stats``, when given, accumulates ``steps`` (iterations queued,
+    stopped ones included), ``rr_steps`` and ``host_reads``.
     """
-    sub = get_substrate(substrate)
-    return _pipelined_solve(sub.as_matvec(matvec), b, x0, config, r0_star,
-                            residual_replacement=False, substrate=sub,
+    return _pipelined_solve(matvec, b, x0, config, r0_star,
+                            residual_replacement=False, substrate=substrate,
                             precond=precond, stats=stats)
 
 
@@ -187,14 +194,15 @@ def pbicgsafe_rr_solve(matvec: Callable,
                        config: SolverConfig = SolverConfig(),
                        r0_star: Optional[torch.Tensor] = None,
                        substrate: SubstrateLike = "torch",
-                       precond=None,
+                       precond: PrecondLike = None,
                        stats: Optional[Dict[str, int]] = None) -> SolveResult:
     """Solve A x = b with p-BiCGSafe-rr (paper Alg. 4.1).
 
     ``config.rr_epoch`` is the paper's ``m``, ``config.rr_maxiter`` the
-    cutoff ``M``.  Other arguments as in :func:`pbicgsafe_solve`.
+    cutoff ``M``.  Other arguments as in :func:`pbicgsafe_solve`; with
+    ``precond`` the replacement step recomputes the residual of the
+    preconditioned system, so recurred and replaced quantities agree.
     """
-    sub = get_substrate(substrate)
-    return _pipelined_solve(sub.as_matvec(matvec), b, x0, config, r0_star,
-                            residual_replacement=True, substrate=sub,
+    return _pipelined_solve(matvec, b, x0, config, r0_star,
+                            residual_replacement=True, substrate=substrate,
                             precond=precond, stats=stats)

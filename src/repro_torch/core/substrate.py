@@ -6,7 +6,8 @@ of ``repro.core.substrate``).
 * ``bicgsafe_dots_health`` — its guarded (11-row) form,
 * ``axpy_phase``       — the blocked vector-update phase,
 * ``as_matvec(op)``    — operator -> matvec dispatch (SpMV),
-* ``as_block_matvec(op)`` — operator -> ``(n, m)`` block matvec dispatch.
+* ``as_block_matvec(op)`` — operator -> ``(n, m)`` block matvec dispatch,
+* ``as_precond_apply(pc)`` — preconditioner -> bound M^{-1}-apply.
 
 Every phase takes ``(n,)`` vectors or ``(n, m)`` multi-RHS blocks.
 
@@ -15,8 +16,9 @@ Two substrates run the same iteration body:
 * ``"torch"`` — plain PyTorch (the counterpart of ``"jnp"``).
 * ``"cuda"``  — the hand-written CUDA kernels of :mod:`repro_torch.kernels`
   (the counterpart of ``"pallas"``): ``fused_dots`` (and its guarded form
-  ``fused_dots_health``), ``fused_axpy`` and ``spmv_ell``, each with a
-  batched kernel for ``(n, m)`` blocks.  On CPU
+  ``fused_dots_health``), ``fused_axpy``, ``spmv_ell`` and the
+  block-Jacobi apply ``block_jacobi_apply``, each with a batched kernel
+  for ``(n, m)`` blocks.  On CPU
   tensors those wrappers run their plain versions, so the same substrate
   runs in the CPU tests.  Unlike ``"pallas"`` it sends every
   :class:`ELLOperator` to the SpMV kernels, banded or not.
@@ -45,7 +47,8 @@ class Substrate:
     """Strategy object for the solver hot-loop phases."""
 
     name = "abstract"
-    #: True when the substrate executes the hand-written CUDA kernels
+    #: True when the substrate executes the hand-written CUDA kernels;
+    #: preconditioners read it in ``bind`` to pick their kernel path
     kernel_backed = False
 
     def dots(self, pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -84,6 +87,14 @@ class Substrate:
         """Operator -> block matvec ``(n, m) -> (n, m)``: the operator's own
         2-D matvec (a bare callable is lifted column by column)."""
         return linear_operator.as_block_matvec(op)
+
+    def as_precond_apply(self, pc):
+        """Preconditioner -> substrate-routed M^{-1}-apply: ``pc.bind(self)``,
+        so each preconditioner class picks its own path (block-Jacobi its
+        kernels where ``kernel_backed``, Neumann this substrate's matvecs).
+        The bound apply takes ``(n,)`` and ``(n, m)`` operands and computes
+        no inner product."""
+        return pc.bind(self)
 
     def __repr__(self):
         return f"<{type(self).__name__} {self.name!r}>"

@@ -34,7 +34,8 @@ FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {
     "fused_dots": 0, "fused_axpy": 0, "spmv_ell": 0,
     "fused_dots_batched": 0, "fused_axpy_batched": 0, "spmv_ell_batched": 0,
-    "fused_dots_health": 0, "fused_dots_health_batched": 0}
+    "fused_dots_health": 0, "fused_dots_health_batched": 0,
+    "block_jacobi_apply": 0, "block_jacobi_apply_batched": 0}
 
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -61,6 +62,11 @@ _SIGNATURES = {
     # s, y, r, t, rs, x, n, m, width, partials, nblocks, out, stream
     "repro_fused_dots_health_batched": [_VP] * 6 + [
         _I64, ctypes.c_int, ctypes.c_int, _VP, ctypes.c_int, _VP, _VP],
+    # blocks, x, y, nb, bs, stream
+    "repro_block_jacobi_apply": [_VP] * 3 + [_I64, ctypes.c_int, _VP],
+    # blocks, x, y, nb, bs, m, stream
+    "repro_block_jacobi_apply_batched": [_VP] * 3 + [_I64, ctypes.c_int,
+                                                     ctypes.c_int, _VP],
 }
 
 

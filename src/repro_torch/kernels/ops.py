@@ -27,10 +27,12 @@ from .fused_axpy import IN_ORDER, fused_axpy_batched_cuda, fused_axpy_cuda
 from .fused_dots import (fused_dots_batched_cuda, fused_dots_cuda,
                          fused_dots_health_batched_cuda,
                          fused_dots_health_cuda)
+from .precond_apply import (block_jacobi_apply_batched_cuda,
+                            block_jacobi_apply_cuda)
 from .spmv_ell import spmv_ell_batched_cuda, spmv_ell_cuda
 
 __all__ = ["fused_dots", "fused_dots_health", "fused_axpy", "spmv_ell",
-           "LAUNCHES", "reset_launches"]
+           "block_jacobi_apply", "LAUNCHES", "reset_launches"]
 
 
 def _check_vectors(name: str, vecs: dict):
@@ -170,3 +172,39 @@ def spmv_ell(op, x) -> torch.Tensor:
     if x.dim() == 2:
         return spmv_ell_batched_cuda(values, cols, x)
     return spmv_ell_cuda(values, cols, x)
+
+
+def block_jacobi_apply(inv_blocks, x) -> torch.Tensor:
+    """Block-Jacobi ``M^{-1}`` apply ``y_g = B_g x_g`` over the pre-inverted
+    ``(nb, bs, bs)`` diagonal blocks, for an ``(n,)`` ``x`` or an ``(n, m)``
+    block (the batched kernel reads each block once for all m columns).
+
+    The shared block (``nb == 1``, every row block the same: constant-
+    coefficient stencils) is one ``torch.matmul`` on either device, as the
+    JAX package sends it to one dense product; every ``nb >= 2`` goes to
+    the kernels on the card."""
+    _check_vectors("block_jacobi_apply", {"x": x})
+    if not isinstance(inv_blocks, torch.Tensor):
+        raise TypeError(f"block_jacobi_apply: inv_blocks must be a tensor, "
+                        f"got {type(inv_blocks).__name__}")
+    if inv_blocks.dim() != 3 or inv_blocks.shape[1] != inv_blocks.shape[2] \
+            or inv_blocks.shape[0] == 0 or inv_blocks.shape[1] == 0:
+        raise ValueError(f"block_jacobi_apply: inv_blocks must be (nb, bs, "
+                         f"bs), got shape {tuple(inv_blocks.shape)}")
+    if inv_blocks.dtype != x.dtype or inv_blocks.device != x.device:
+        raise ValueError(
+            f"block_jacobi_apply: x is {x.dtype} on {x.device}, inv_blocks "
+            f"{inv_blocks.dtype} on {inv_blocks.device}")
+    if not inv_blocks.is_contiguous():
+        raise ValueError("block_jacobi_apply: inv_blocks must be contiguous")
+    nb, bs, _ = inv_blocks.shape
+    n = x.shape[0]
+    if n % bs or (nb > 1 and n != nb * bs):
+        raise ValueError(
+            f"block_jacobi_apply: x has {n} rows; the blocks cover "
+            f"{'a multiple of ' if nb == 1 else ''}{nb * bs}")
+    if nb == 1 or not x.is_cuda:
+        return ref.block_jacobi_apply(inv_blocks, x)
+    if x.dim() == 2:
+        return block_jacobi_apply_batched_cuda(inv_blocks, x)
+    return block_jacobi_apply_cuda(inv_blocks, x)

@@ -51,6 +51,31 @@ def spmv_ell(values, cols, x) -> torch.Tensor:
     return (values * x[cols]).sum(dim=1)
 
 
+def block_jacobi_apply(inv_blocks, x) -> torch.Tensor:
+    """Block-Jacobi apply: y_g = inv_blocks[g] @ x_g per row block.
+
+    ``inv_blocks`` is (nb, bs, bs), or (1, bs, bs) for one block shared
+    by every row block (constant-coefficient stencils).  ``x`` may be an
+    (n,) vector or an (n, m) multi-RHS block; n == (n // bs) * bs.
+    """
+    nb, bs, _ = inv_blocks.shape
+    n = x.shape[0]
+    g = n // bs
+    if x.dim() == 2:
+        xb = x.reshape(g, bs, x.shape[1])
+        if nb == 1:
+            y = torch.matmul(inv_blocks[0], xb)
+        else:
+            y = torch.einsum("gij,gjm->gim", inv_blocks, xb)
+        return y.reshape(x.shape).contiguous()
+    xb = x.reshape(g, bs)
+    if nb == 1:
+        y = xb @ inv_blocks[0].T
+    else:
+        y = torch.einsum("gij,gj->gi", inv_blocks, xb)
+    return y.reshape(n).contiguous()
+
+
 def fused_axpy(vecs: dict, scalars, mask=None) -> dict:
     """The fused vector-update phase of p-BiCGSafe (Alg. 3.1 lines 23-32).
 

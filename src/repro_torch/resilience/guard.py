@@ -21,6 +21,10 @@ edge to the in-flight matvec) and the host-side
    is raised: the port never runs the plain version in place of a
    kernel, and after a CUDA error the device's context is lost anyway.
 
+Under ``precond=`` the state is the left-preconditioned system's, so the
+recovery steps recompute true residuals against ``M^{-1} B``, and the
+degraded and fallback sessions carry the session's preconditioner.
+
 Every action is logged in ``events`` and counted in the state
 (``replacements`` / ``restarts`` per column).  A clean solve takes the
 unguarded numerical path: the health rows only observe.
@@ -144,6 +148,10 @@ class GuardedSolver:
         state = self._active.init(B, X0, tol=tol_col.to(B.device),
                                   maxiter=mit_col.to(B.device),
                                   r0_star=r0_star)
+        # the right-hand sides the recovery steps recompute true residuals
+        # against: M^{-1} B under preconditioning, as the state's r is
+        # (the state does not carry them)
+        Bp = self._active._prep(B)
 
         pol = self.policy
         chunk = pol.chunk
@@ -187,12 +195,12 @@ class GuardedSolver:
             bmv = self._active.block_matvec
             if need_replace.any():
                 state = replace_columns(bmv, state, self._mask(need_replace),
-                                        B)
+                                        Bp)
                 self._log("replace", ci, need_replace)
                 acted = True
             if need_restart.any():
                 state = restart_columns(bmv, state, self._mask(need_restart),
-                                        B)
+                                        Bp)
                 self._log("restart", ci, need_restart)
                 acted = True
             if give_up.any():
@@ -224,6 +232,7 @@ class GuardedSolver:
         the same on either substrate)."""
         sess = self.session
         self._active = api.make_solver(sess.method, sess.operator,
+                                       precond=sess.precond,
                                        substrate="torch", config=sess.config,
                                        device=sess.device)
         self._active.stats = sess.stats
@@ -247,7 +256,8 @@ class GuardedSolver:
         if failed.any() and pol.method_fallback is not None:
             sess = self.session
             fb = api.make_solver(
-                pol.method_fallback, sess.operator, substrate="torch",
+                pol.method_fallback, sess.operator,
+                precond=sess.precond, substrate="torch",
                 config=dataclasses.replace(
                     sess.config, guard=False, stagnation_window=0,
                     drift_scale=0.0),

@@ -285,3 +285,100 @@ def test_guarded_solve_many_on_the_card_matches_the_torch_substrate(cuda):
     assert dict(ops.LAUNCHES) == launches(fused_dots_health_batched=steps,
                                           fused_axpy_batched=steps,
                                           spmv_ell_batched=1 + 2 * steps)
+
+
+# -- the block-Jacobi apply (preconditioning) ------------------------------------
+
+@pytest.mark.parametrize("m", [None, 1, 8, 17, 300])
+@pytest.mark.parametrize("bs", [4, 16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_jacobi_kernels_match_plain_versions(cuda, dtype, bs, m):
+    """m = None is the single kernel on (n,) vectors; an (n, m) block, m = 1
+    included, goes to the batched one (m = 17 and 300 tile the columns by
+    8 over the grid)."""
+    nb = 301 if m in (None, 1, 8) else 37
+    g = torch.Generator(device=cuda).manual_seed(bs)
+    inv = torch.randn(nb, bs, bs, generator=g, device=cuda,
+                      dtype=torch.float64).to(dtype)
+    shape = (nb * bs,) if m is None else (nb * bs, m)
+    x = torch.randn(*shape, generator=g, device=cuda,
+                    dtype=torch.float64).to(dtype)
+    before = dict(ops.LAUNCHES)
+    got = ops.block_jacobi_apply(inv, x)
+    torch.cuda.synchronize()
+    name = "block_jacobi_apply" if m is None else "block_jacobi_apply_batched"
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == \
+        launches(**{name: 1})
+    assert got.shape == x.shape and got.is_contiguous()
+    scale = ref.block_jacobi_apply(inv.abs(), x.abs())
+    assert float(((got - ref.block_jacobi_apply(inv, x)).abs()
+                  / scale).max()) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_block_jacobi_kernels_repeat_bitwise(cuda, batched):
+    n, bs = 1_259_712, 64
+    g = torch.Generator(device=cuda).manual_seed(2)
+    inv = torch.randn(n // bs, bs, bs, generator=g, device=cuda,
+                      dtype=torch.float64)
+    x = torch.randn(*((n, 8) if batched else (n,)), generator=g, device=cuda,
+                    dtype=torch.float64)
+    first = ops.block_jacobi_apply(inv, x)
+    for _ in range(3):
+        assert torch.equal(ops.block_jacobi_apply(inv, x), first)
+
+
+@pytest.mark.parametrize("method", ["p-bicgsafe", "p-bicgsafe-rr"])
+def test_preconditioned_solve_on_the_card_matches_the_torch_substrate(
+        cuda, method):
+    """block_jacobi on "cuda": the kernels, one apply per SpMV plus one (for
+    b), the same solve as the plain apply's on the same card."""
+    op, b, _ = TM.convection_diffusion(24, peclet=1.0)
+    ell = TM.stencil_to_ell(op)
+    cfg = repro_torch.SolverConfig(rr_epoch=10)
+    plain = repro_torch.make_solver(method, ell, substrate="torch",
+                                    precond="block_jacobi", config=cfg
+                                    ).solve(b)
+    solver = repro_torch.make_solver(method, ell, substrate="cuda",
+                                     precond="block_jacobi", config=cfg)
+    solver.precond                              # the set-up, not counted
+    ops.reset_launches()
+    res = solver.solve(b)
+    torch.cuda.synchronize()
+    assert bool(res.converged) and bool(plain.converged)
+    assert abs(int(res.iterations) - int(plain.iterations)) <= 2
+    assert float((res.x - plain.x).abs().max()) <= 1e-6
+    steps, rr = solver.stats["steps"], solver.stats["rr_steps"]
+    spmv = 1 + 2 * steps + 4 * rr
+    assert dict(ops.LAUNCHES) == launches(
+        fused_dots=steps, fused_axpy=steps, spmv_ell=spmv,
+        block_jacobi_apply=spmv + 1)
+    B = torch.stack([b, 0.5 * b, b + 1.0], dim=1)
+    if method == "p-bicgsafe":
+        ops.reset_launches()
+        many = solver.solve_many(B)
+        torch.cuda.synchronize()
+        assert bool(many.converged.all())
+        assert abs(int(many.iterations[0]) - int(res.iterations)) <= 3
+        steps = solver.stats["steps"] - steps
+        assert dict(ops.LAUNCHES) == launches(
+            fused_dots_batched=steps, fused_axpy_batched=steps,
+            spmv_ell_batched=1 + 2 * steps,
+            block_jacobi_apply_batched=2 + 2 * steps)
+
+
+@pytest.mark.parametrize("bs,m", [(6400, None), (1024, 8)])
+def test_block_jacobi_kernels_take_blocks_past_shared_memory(cuda, bs, m):
+    """x_g (single, fp64 past 6,144 rows) or the staged column tile
+    (batched, fp64 past 767 rows) no longer fits 48 KB of shared memory:
+    the kernels read it from device memory instead, with the same result."""
+    g = torch.Generator(device=cuda).manual_seed(bs)
+    inv = torch.randn(2, bs, bs, generator=g, device=cuda,
+                      dtype=torch.float64)
+    shape = (2 * bs,) if m is None else (2 * bs, m)
+    x = torch.randn(*shape, generator=g, device=cuda, dtype=torch.float64)
+    got = ops.block_jacobi_apply(inv, x)
+    scale = ref.block_jacobi_apply(inv.abs(), x.abs())
+    assert float(((got - ref.block_jacobi_apply(inv, x)).abs()
+                  / scale).max()) <= TOL[torch.float64]
+    assert torch.equal(ops.block_jacobi_apply(inv, x), got)

@@ -298,9 +298,13 @@ def test_open_loop_handles_need_pbicgsafe():
 def test_later_slices_raise_not_implemented():
     op, b, _ = TM.poisson3d(4, device=CPU)
     B = torch.stack([b, b], 1)
-    for kwargs in ({"blocked": True}, {"precond": "jacobi"}):
-        with pytest.raises(NotImplementedError):
-            multirhs.solve_batched(op, B, **kwargs)
+    with pytest.raises(NotImplementedError):
+        multirhs.solve_batched(op, B, blocked=True)
+    # precond= is ported: the JAX package's spec errors
+    with pytest.raises(ValueError, match="unknown preconditioner"):
+        multirhs.solve_batched(op, B, precond="ilu")
+    with pytest.raises(TypeError, match="operator object"):
+        multirhs.solve_batched(op.matvec, B, precond="jacobi")
     with pytest.raises(NotImplementedError):
         repro_torch.make_solver("p-bicgsafe", op, device=CPU).solve_many(
             B, profile="somewhere")

@@ -264,11 +264,18 @@ def test_later_slices_raise_not_implemented(call):
             repro_torch.make_solver("p-bicgsafe", op, device=CPU,
                                     recovery="jacobi")
         return
-    with pytest.raises(NotImplementedError):
-        if call == "precond":
+    if call == "precond":
+        # ported: the JAX package's spec errors, an unknown name and a name
+        # with a bare matvec callable to build from
+        with pytest.raises(ValueError, match="unknown preconditioner"):
             repro_torch.make_solver("p-bicgsafe", op, device=CPU,
-                                    **{call: "jacobi"})
-        elif call in ("trace", "profile"):
+                                    precond="ilu")
+        with pytest.raises(TypeError, match="operator object"):
+            repro_torch.make_solver("p-bicgsafe", op.matvec, device=CPU,
+                                    precond="jacobi")
+        return
+    with pytest.raises(NotImplementedError):
+        if call in ("trace", "profile"):
             repro_torch.make_solver("p-bicgsafe", op, device=CPU).solve(
                 b, **{call: True})
         elif call == "solve_many":      # ported; its trace ring is not
