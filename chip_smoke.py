@@ -8,8 +8,8 @@ It exits non-zero, and prints no result, when no GPU is present or the
 package is missing.  Phases, any failure of which fails the run:
 
 1. device: the card's name and power limit, the versions, and the kernels'
-   build (one ``nvcc`` call into ``build/``) with its time and the
-   compiler's register report;
+   build (one ``nvcc`` per source, all at once, and a link into
+   ``build/``) with its time and the compiler's register report;
 2. kernels: each single-RHS kernel (``fused_dots``, ``fused_axpy``,
    ``spmv_ell``, ``fused_dots_health``) against its plain PyTorch version
    on the card, in fp64 and fp32, at the main path's shape (n = 108**3 =
@@ -57,7 +57,23 @@ package is missing.  Phases, any failure of which fails the run:
    neumann adds 2 SpMVs per apply); then the kernels the card runs per
    step of 3c, 3d and 3e's batched solve, counted from a
    ``torch.profiler`` trace after every timed phase;
-4. a ``{"kernels": [...]}`` JSON line, then the last line
+2d. flash attention: ``flash_attention`` against its plain version on the
+   card at qwen3-8b's prefill shape (B, H, K, S, hd) = (4, 32, 8, 1024,
+   128), causal, in bf16 and fp32, then phi3's (1, 32, 32, 1024, 96) full
+   (non-causal) and a ragged S = 1000; a bitwise repeat; at the full shape
+   the kernel's device time beside the plain version's, one
+   ``scaled_dot_product_attention`` call's and the bound;
+4. serving path: ``ServingEngine`` on full-width qwen3-8b (36 layers,
+   bf16, weights from a seeded generator on the card) with
+   ``use_flash_kernel=True``: 4 requests of 1,024-token prompts and 16
+   new tokens each; the launch counter (36 flash launches per prefill
+   batch, no other kernel), every token in the vocabulary, the
+   last-position prefill logits finite and within a bf16 tolerance of the
+   same engine's without the kernel (the plain single-block path), and
+   the prefill time, the time per decode step, tokens per second, the
+   kernel's share of the prefill, and from a profiler trace the kernels
+   and the device's busy time per prefill and per decode step;
+5. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Each path is driven with the launch counters set to 0 just before it and
@@ -79,7 +95,10 @@ NX = 108                    # 108**3 = 1,259,712 rows, about atmosmodd's 1.27 M
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # peak rate outside the tensor cores (H100 SXM data sheet): the kernels do
 # plain fp64 / fp32 FMAs
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12,
+              # bf16 inputs: the tensor cores' dense rate, the least time
+              # the card could take (the kernel itself runs f32 FMAs)
+              "bfloat16": 989e12}
 # max |kernel - plain| over the result's scale (a dot's sum of |a_i b_i|, a
 # vector's max-abs).  fp64: FMA contraction and another summation order move
 # the last ulps only.  fp32: the tolerances of tests/test_kernels.py.
@@ -116,6 +135,29 @@ SINGLE = ("fused_dots", "fused_axpy", "spmv_ell")
 BATCHED = ("fused_dots_batched", "fused_axpy_batched", "spmv_ell_batched")
 HEALTH = ("fused_dots_health", "fused_dots_health_batched")
 PRECOND = ("block_jacobi_apply", "block_jacobi_apply_batched")
+FLASH = ("flash_attention",)
+# (B, H, K, S, hd): qwen3-8b's prefill of 4 prompts of 1,024 tokens
+FLASH_SHAPE = (4, 32, 8, 1024, 128)
+# (shape, causal, dtype name): the full shape in both types, phi3's heads
+# without the mask, and a ragged S (no multiple of the kernel's 64-row tile)
+FLASH_CASES = ((FLASH_SHAPE, True, "bfloat16"), (FLASH_SHAPE, True, "float32"),
+               ((1, 32, 32, 1024, 96), False, "bfloat16"),
+               ((4, 32, 8, 1000, 128), True, "bfloat16"))
+# max |kernel - plain| over the output's max-abs: tests/test_kernels.py's
+# flash tolerances (bf16: both round the same f32 values at other points)
+TOL_FLASH = {"bfloat16": 2e-2, "float32": 2e-5}
+SERVE_ARCH = "qwen3-8b"
+SERVE_REQUESTS = 4
+SERVE_PROMPT = 1024
+SERVE_NEW = 16
+# max |flash - plain| of the last-position prefill logits over the plain
+# ones' max-abs, bf16 through 36 layers: the plain path rounds the softmax
+# probabilities to bf16 before the product with V, the kernel does not, so
+# each layer's attention output differs by about a bf16 ulp (2^-8) and the
+# random-weight stack carries that on, as it carries bf16's other roundings
+# (the run prints each path's gap to an fp32 run of the plain path beside
+# it: the size of bf16's own noise at this depth)
+SERVE_LOGITS_TOL = 5e-2
 M = 8                       # columns of the batched path (ServiceConfig.max_batch)
 STEP_REPS = 4               # solver steps queued per timing (see device_ms)
 
@@ -156,10 +198,11 @@ def device_ms(torch, fn, reps: int = 20, trials: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_kernels_per_step(torch, fn, reps: int = 16) -> float:
-    """Kernels the device ran per call of ``fn``: a ``torch.profiler``
-    trace of the card's activity over ``reps`` calls, its kernel events
-    counted (copies and memsets are not kernels)."""
+def device_activity(torch, fn, reps: int = 16) -> dict:
+    """What the device ran per call of ``fn``: a ``torch.profiler`` trace
+    of the card's activity over ``reps`` calls; ``kernels`` counts its
+    kernel events (copies and memsets are not kernels), ``busy_ms`` is
+    the union of its kernel, copy and memset intervals."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
@@ -173,11 +216,19 @@ def device_kernels_per_step(torch, fn, reps: int = 16) -> float:
     prof.export_chrome_trace(path)
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("ph") == "X" and e.get("cat") in (
+                        "kernel", "gpu_memcpy", "gpu_memset"))
     kernels = sum(1 for e in events
                   if e.get("ph") == "X" and e.get("cat") == "kernel")
     if kernels == 0:
         raise SystemExit("the profiler's trace holds no kernel")
-    return kernels / reps
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in device:
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    return dict(kernels=kernels / reps, busy_ms=busy / 1e3 / reps)
+
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -493,7 +544,7 @@ def run_main_path(torch, repro_torch, ops, method, ell, stencil, b):
                rr_steps=rr_steps, host_reads=solver.stats["host_reads"],
                launches=launches)
     log(f"main {method}: {json.dumps(rec)}")
-    want = dict.fromkeys(BATCHED + HEALTH + PRECOND, 0)
+    want = dict.fromkeys(BATCHED + HEALTH + PRECOND + FLASH, 0)
     want.update(fused_dots=steps, fused_axpy=steps,
                 spmv_ell=1 + 2 * steps + 4 * rr_steps)
     if not rec["converged"] or true_relres > 1e-6:
@@ -555,7 +606,7 @@ def run_batched_path(torch, repro_torch, ops, ell, stencil, b, single_it):
     if abs(its[0] - single_it) > 2:
         raise SystemExit(f"solve_many: column 0 took {its[0]} iterations, "
                          f"the single-RHS solve of b {single_it}")
-    want = dict.fromkeys(SINGLE + HEALTH + PRECOND, 0)
+    want = dict.fromkeys(SINGLE + HEALTH + PRECOND + FLASH, 0)
     want.update(fused_dots_batched=steps, fused_axpy_batched=steps,
                 spmv_ell_batched=1 + 2 * steps)
     if launches != want or steps == 0:
@@ -802,10 +853,197 @@ def count_step_kernels(torch, repro_torch, ell, b, pc) -> dict:
         sess = getattr(sess, "session", sess)
         st0 = sess.init(B, tol=tol)
         body = multirhs._make_body(sess.sub, sess.block_matvec, sess.config)
-        out[label] = device_kernels_per_step(torch, lambda: body(st0))
+        out[label] = device_activity(torch, lambda: body(st0))["kernels"]
         del st0
     log(f"kernels per step on the card: {json.dumps(out)}")
     return out
+
+
+def flash_operands(torch, shape, dtype, seed):
+    """qg (B, S, K, G, hd) and k, v (B, S, K, hd): the model's layout."""
+    B, H, K, S, hd = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*dims):
+        return torch.randn(*dims, generator=g, device="cuda").to(dtype)
+
+    return rnd(B, S, K, H // K, hd), rnd(B, S, K, hd), rnd(B, S, K, hd)
+
+
+def check_flash_kernel(torch, ops, ref) -> dict:
+    """Phase 2d: the flash kernel against its plain version on the card;
+    at the full shape also a bitwise repeat and the times."""
+    F = torch.nn.functional
+    out = {}
+    for shape, causal, name in FLASH_CASES:
+        dtype = getattr(torch, name)
+        B, H, K, S, hd = shape
+        qg, k, v = flash_operands(torch, shape, dtype, seed=S + hd)
+        scale = 1.0 / hd ** 0.5
+        q4 = qg.view(B, S, H, hd).transpose(1, 2)          # (B, H, S, hd)
+        k4, v4 = k.transpose(1, 2), v.transpose(1, 2)      # (B, K, S, hd)
+
+        def kernel():
+            return ops.flash_attention(qg, k, v, scale=scale, causal=causal)
+
+        def plain():
+            return ref.flash_attention(q4, k4, v4, scale=scale,
+                                       causal=causal)
+
+        got = kernel()
+        want = plain().transpose(1, 2).reshape(B, S, H * hd)
+        diff = (got.float() - want.float()).abs().max()
+        rec = dict(shape=list(shape), causal=causal, dtype=name,
+                   err=float(diff / want.float().abs().max()),
+                   max_abs_err=float(diff), tol=TOL_FLASH[name])
+        del want
+        if shape == FLASH_SHAPE:
+            rec["repeats_bitwise"] = all(torch.equal(kernel(), got)
+                                         for _ in range(3))
+            if not rec["repeats_bitwise"]:
+                raise SystemExit(f"flash_attention {name}: a repeat is not "
+                                 "bitwise equal")
+            lib = [t.contiguous() for t in (q4, k4, v4)]
+            item = torch.empty((), dtype=dtype).element_size()
+            pairs = S * (S + 1) // 2 if causal else S * S
+            rec.update(
+                ms=device_ms(torch, kernel),
+                plain_ms=device_ms(torch, plain, reps=5),
+                library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+                    *lib, is_causal=causal, scale=scale, enable_gqa=True)),
+                bound=bound_ms((2 * B * H + 2 * B * K) * S * hd * item,
+                               4 * B * H * hd * pairs, name))
+            del lib
+        out[(shape, causal, name)] = rec
+        times = "" if "ms" not in rec else (
+            f" kernel_ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
+            f"library_ms {rec['library_ms']:.4f} bound_ms "
+            f"{rec['bound'][0]:.4f} ({rec['bound'][1]})")
+        log(f"kernel flash_attention {shape} causal={causal} {name}: "
+            f"max_rel_err {rec['err']:.3e} (tol {rec['tol']:.0e}){times}")
+        if not rec["err"] <= rec["tol"]:
+            raise SystemExit(f"flash_attention {shape} {name}: error "
+                             f"{rec['err']} above {rec['tol']}")
+        del qg, k, v, q4, k4, v4, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_serving_path(torch, ops, flash_ms: float) -> dict:
+    """Phase 4: full-width qwen3-8b through the serving engine, with the
+    launch counters set to 0 just before the measured run and read just
+    after; then the prefill logits with and without the kernel (not
+    counted).  ``flash_ms``: the kernel's device time at this shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    cfg = get_config(SERVE_ARCH).replace(use_flash_kernel=True)
+    scfg = ServeConfig(max_batch=SERVE_REQUESTS,
+                       max_len=SERVE_PROMPT + 2 * SERVE_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, scfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in eng.params.parameters())
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, cfg.vocab_size, (SERVE_PROMPT,),
+                             generator=g).tolist()
+               for _ in range(SERVE_REQUESTS)]
+    eng.submit(Request(prompt=prompts[0][:256], max_new_tokens=2))
+    eng.run()                                        # warm-up, not counted
+    eng.done.clear()
+    eng.stats = {k: [] for k in eng.stats}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for p in prompts:
+        eng.submit(Request(prompt=p, max_new_tokens=SERVE_NEW))
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    batches = len(eng.stats["prefill_s"])
+    outputs = [r.output for r in done]
+    n_tokens = sum(len(o) for o in outputs)
+    if launches != dict(dict.fromkeys(ops.LAUNCHES, 0),
+                        flash_attention=cfg.n_layers * batches) \
+            or batches == 0:
+        raise SystemExit(f"serving: launches {launches} for {batches} "
+                         f"prefill batches of {cfg.n_layers} layers")
+    if [len(o) for o in outputs] != [SERVE_NEW] * SERVE_REQUESTS or not all(
+            0 <= t < cfg.vocab_size for o in outputs for t in o):
+        raise SystemExit(f"serving: bad outputs {outputs}")
+
+    tokens = torch.tensor(prompts, device=eng.device)
+    plain = cfg.replace(use_flash_kernel=False)
+    last = {}
+    with torch.inference_mode():
+        for label, c in (("flash", cfg), ("plain", plain),
+                         ("fp32", plain.replace(dtype=torch.float32))):
+            e = eng if c is cfg else ServingEngine(c, scfg, params=eng.params)
+            logits, _ = e.prefill(tokens)
+            last[label] = logits[:, -1].float()
+            del logits, e
+            torch.cuda.empty_cache()
+    finite = all(bool(torch.isfinite(t).all()) for t in last.values())
+
+    def gap(a, b):
+        return float((last[a] - last[b]).abs().max() / last[b].abs().max())
+
+    err = gap("flash", "plain")
+    agree = (last["flash"].argmax(-1) == last["plain"].argmax(-1)).tolist()
+    first = [o[0] for o in outputs] == last["flash"].argmax(-1).tolist()
+    prefill_ms = eng.stats["prefill_s"][0] * 1e3
+    decode_ms = statistics.median(eng.stats["decode_s"]) * 1e3
+    # the device's share of a prefill and of a decode step, from a trace
+    # (not counted: the launch counters were read above)
+    from repro_torch.models import decode_step
+    with torch.inference_mode():
+        pre = device_activity(torch, lambda: eng.prefill(tokens), reps=1)
+        cache = eng._splice(eng.prefill(tokens)[1], SERVE_REQUESTS)
+        cur = tokens[:, -1:]
+        dec = device_activity(torch, lambda: decode_step(
+            eng.params, cfg, cache, cur, SERVE_PROMPT), reps=4)
+        del cache
+    torch.cuda.empty_cache()
+    rec = dict(
+        arch=SERVE_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        params=n_params, requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
+        new_tokens=SERVE_NEW, init_s=init_s, wall_s=wall,
+        prefill_batches=batches, launches=launches, prefill_ms=prefill_ms,
+        decode_step_ms=decode_ms,
+        decode_step_ms_range=[min(eng.stats["decode_s"]) * 1e3,
+                              max(eng.stats["decode_s"]) * 1e3],
+        tokens_per_s=n_tokens / wall,
+        decode_tokens_per_s=SERVE_REQUESTS / (decode_ms / 1e3),
+        flash_share_of_prefill=flash_ms * launches["flash_attention"]
+        / batches / prefill_ms,
+        prefill_kernels=pre["kernels"], prefill_device_ms=pre["busy_ms"],
+        prefill_busy_share=pre["busy_ms"] / prefill_ms,
+        decode_kernels_per_step=dec["kernels"],
+        decode_device_ms_per_step=dec["busy_ms"],
+        decode_busy_share=dec["busy_ms"] / decode_ms,
+        logits_finite=finite, logits_max_rel_err=err,
+        logits_tol=SERVE_LOGITS_TOL, flash_vs_fp32=gap("flash", "fp32"),
+        plain_vs_fp32=gap("plain", "fp32"), argmax_agree=agree,
+        first_tokens_are_logits_argmax=first,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        outputs=outputs)
+    log(f"serving: {json.dumps(rec)}")
+    if not finite or not err <= SERVE_LOGITS_TOL:
+        raise SystemExit(f"serving: prefill logits with the kernel off the "
+                         f"plain path's by {err} (tol {SERVE_LOGITS_TOL}), "
+                         f"finite {finite}")
+    log(f"serving {SERVE_ARCH}: prefill {prefill_ms:.1f} ms for "
+        f"{SERVE_REQUESTS} x {SERVE_PROMPT} tokens, decode "
+        f"{decode_ms:.2f} ms per step, {rec['tokens_per_s']:.1f} tokens/s "
+        f"over the run; the flash kernel is {rec['flash_share_of_prefill']:.3f}"
+        f" of the prefill; device busy {rec['prefill_busy_share']:.3f} of "
+        f"the prefill, {rec['decode_busy_share']:.3f} of a decode step "
+        f"({rec['decode_kernels_per_step']:.0f} kernels per step)")
+    del eng, tokens, last
+    torch.cuda.empty_cache()
+    return rec
 
 
 def main() -> int:
@@ -889,6 +1127,9 @@ def main() -> int:
                                  f"{rec['tol']}")
         results[name].update(res)
 
+    # -- 2d. the flash-attention kernel --------------------------------------
+    flash = check_flash_kernel(torch, ops, ref)
+
     # -- 3b. the main path ----------------------------------------------------
     runs = [run_main_path(torch, repro_torch, ops, method, ell, stencil, b)
             for method in ("p-bicgsafe", "p-bicgsafe-rr")]
@@ -937,7 +1178,14 @@ def main() -> int:
     guarded["clean"]["kernels_per_step"] = step_kernels["guarded"]
     pre["solve_many"]["kernels_per_step"] = step_kernels["preconditioned"]
 
-    # -- 4. the kernel table and the result line ------------------------------
+    # -- 4. the serving path ---------------------------------------------------
+    del pc, ell, stencil, b, v, want
+    torch.cuda.empty_cache()
+    main_flash = flash[(FLASH_SHAPE, True, "bfloat16")]
+    serving = run_serving_path(torch, ops, main_flash["ms"])
+    path_launches.update(flash_attention=serving["launches"]["flash_attention"])
+
+    # -- 5. the kernel table and the result line ------------------------------
     kernels = []
     for kname in SINGLE + BATCHED + HEALTH + PRECOND:
         r64, r32 = results["float64"][kname], results["float32"][kname]
@@ -970,6 +1218,27 @@ def main() -> int:
             fp32_plain_ms=r32["plain_ms"],
             fp32_library_ms=r32["library_ms"],
             fp32_bound_ms=r32["bound"][0], **extra))
+    f32 = flash[(FLASH_SHAPE, True, "float32")]
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:68",
+        launches=path_launches["flash_attention"],
+        max_abs_err=main_flash["max_abs_err"], ms=main_flash["ms"],
+        plain_ms=main_flash["plain_ms"], bound_ms=main_flash["bound"][0],
+        bound_by=main_flash["bound"][1], library_ms=main_flash["library_ms"],
+        passed=True, dtype="bfloat16", shape_bhksd=list(FLASH_SHAPE),
+        causal=True, max_rel_err=main_flash["err"], tol=main_flash["tol"],
+        repeats_bitwise=main_flash["repeats_bitwise"],
+        library_call="scaled_dot_product_attention(is_causal=True, "
+                     "enable_gqa=True)",
+        fp32_max_rel_err=f32["err"], fp32_ms=f32["ms"],
+        fp32_plain_ms=f32["plain_ms"], fp32_library_ms=f32["library_ms"],
+        fp32_bound_ms=f32["bound"][0],
+        other_cases=[dict(shape=r["shape"], causal=r["causal"],
+                          dtype=r["dtype"], max_rel_err=r["err"])
+                     for key, r in flash.items()
+                     if r is not main_flash and r is not f32]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

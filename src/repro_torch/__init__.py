@@ -23,12 +23,24 @@ With ``precond=`` (:mod:`repro_torch.precond`: ``"jacobi"``,
 ``"block_jacobi"``, ``"neumann"``, ``"ssor"``) every solve runs on the
 left-preconditioned system; block-Jacobi's apply is a CUDA kernel too.
 
+The LM stack's dense family serves on the card too (:mod:`repro_torch
+.models`, :mod:`repro_torch.serve`, :mod:`repro_torch.configs`), its prefill
+through a hand-written CUDA flash-attention kernel under
+``cfg.use_flash_kernel``:
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+    eng = ServingEngine(get_config("qwen3-8b").replace(use_flash_kernel=True),
+                        ServeConfig(max_batch=4, max_len=1056))
+
 This package imports ``torch``, ``numpy`` and the standard library only —
 nothing of the JAX package :mod:`repro`, which stays its reference.
 """
 from . import precond
 from .api import LinearSolver, make_solver, solve
-from .convert import operator_from_numpy, preconditioner_from_numpy
+from .convert import (lm_params_from_numpy, operator_from_numpy,
+                      preconditioner_from_numpy)
 from .core import (GUARD_FIELDS, SOLVERS, SUBSTRATES, CSROperator,
                    DenseOperator, ELLOperator, SolveResult, SolverConfig,
                    SolveStatus, Stencil7Operator, get_substrate, init_state,
@@ -38,6 +50,7 @@ from .resilience import GuardedSolver, RecoveryPolicy
 
 __all__ = [
     "LinearSolver", "make_solver", "solve", "operator_from_numpy",
+    "lm_params_from_numpy",
     "preconditioner_from_numpy", "precond",
     "SOLVERS", "SUBSTRATES", "get_substrate",
     "SolveResult", "SolveStatus", "SolverConfig",

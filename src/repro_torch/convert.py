@@ -27,10 +27,19 @@ one:
 * ``"neumann"``      — ``inv_diag``, ``degree``, ``omega``, and the port's
   operator as ``op=``;
 * ``"ssor"``         — ``c``, ``nx``, ``ny``, ``nz``, ``omega``, ``terms``.
+
+An LM's weights are carried over from the JAX package's parameter tree,
+its leaves as float numpy arrays (the per-layer leaves stacked on a leading
+``L`` axis, as ``repro.models.init_params`` makes them):
+
+    model = lm_params_from_numpy(cfg, tree, device="cuda")
+
+A bf16 leaf passed as ``np.asarray(leaf.astype(jnp.float32))`` is exact,
+so the port's bf16 weights equal the JAX package's bit for bit.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -38,6 +47,7 @@ import torch
 from .core.linear_operator import (CSROperator, DenseOperator, ELLOperator,
                                    Stencil7Operator)
 from .core.types import resolve_device
+from .models import ModelConfig, Transformer
 from .precond import (BlockJacobiPreconditioner, JacobiPreconditioner,
                       NeumannPreconditioner, SSORPreconditioner)
 
@@ -119,3 +129,32 @@ def preconditioner_from_numpy(kind: str, arrays: Mapping, *, op=None,
     return SSORPreconditioner(fl("c"), int(arrays["nx"]), int(arrays["ny"]),
                               int(arrays["nz"]), float(arrays["omega"]),
                               int(arrays["terms"]))
+
+
+def lm_params_from_numpy(cfg: ModelConfig, params: Mapping[str, Any], *,
+                         device=None, dtype=None) -> Transformer:
+    """The port's :class:`~repro_torch.models.Transformer` for ``cfg`` with
+    the weights of the JAX package's tree ``params`` (nested dicts of float
+    arrays; ``layers`` stacked on a leading ``L`` axis), cast to ``dtype``
+    (``None``: ``cfg.param_dtype``) on ``device`` (``None`` means
+    ``"cuda"``)."""
+    device = resolve_device(device)
+    dtype = cfg.param_dtype if dtype is None else dtype
+
+    def tensor(a) -> torch.Tensor:
+        return torch.tensor(np.asarray(a), device=device).to(dtype)
+
+    def layer(tree, i: int):
+        if isinstance(tree, Mapping):
+            return {k: layer(v, i) for k, v in tree.items()}
+        return tensor(np.asarray(tree)[i])
+
+    stacked = params["layers"]
+    n = len(np.asarray(stacked["ln1"]))
+    if n != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: the tree has {n} layers, the config "
+                         f"{cfg.n_layers}")
+    tree = {k: tensor(params[k]) for k in ("embed", "final_norm", "lm_head")
+            if k in params}
+    tree["layers"] = [layer(stacked, i) for i in range(n)]
+    return Transformer(cfg, tree)

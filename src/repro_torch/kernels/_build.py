@@ -1,9 +1,10 @@
 """Build, load and launch the port's CUDA kernels.
 
 The sources in ``src/repro_torch/csrc/*.cu`` have a plain C interface.  At
-first use one ``nvcc`` call compiles them for ``sm_90a`` into a shared
-library under the repository's ``build/`` directory; the library is named by
-a digest of the sources and flags, so an edited source never loads a stale
+first use one ``nvcc`` per source, all started together, compiles them for
+``sm_90a`` into objects, and one more links those into a shared library
+under the repository's ``build/`` directory; the library is named by a
+digest of the sources and flags, so an edited source never loads a stale
 build.  ``ctypes`` binds it: every pointer and the stream go through
 ``c_void_p`` (a bare Python int would be cut to 32 bits).
 
@@ -28,14 +29,15 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+         "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 #: launches of each kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {
     "fused_dots": 0, "fused_axpy": 0, "spmv_ell": 0,
     "fused_dots_batched": 0, "fused_axpy_batched": 0, "spmv_ell_batched": 0,
     "fused_dots_health": 0, "fused_dots_health_batched": 0,
-    "block_jacobi_apply": 0, "block_jacobi_apply_batched": 0}
+    "block_jacobi_apply": 0, "block_jacobi_apply_batched": 0,
+    "flash_attention": 0}
 
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -67,7 +69,13 @@ _SIGNATURES = {
     # blocks, x, y, nb, bs, m, stream
     "repro_block_jacobi_apply_batched": [_VP] * 3 + [_I64, ctypes.c_int,
                                                      ctypes.c_int, _VP],
+    # q, k, v, o, B, H, K, S, hd, strides (12 int64), scale, causal, stream
+    "repro_flash_attention": [_VP] * 4 + [ctypes.c_int] * 5 + [
+        _VP, ctypes.c_float, ctypes.c_int, _VP],
 }
+#: the element types each stem is built for (``<stem>_<suffix>``)
+_SUFFIXES = {"repro_flash_attention": ("f32", "bf16")}
+_DEFAULT_SUFFIXES = ("f32", "f64")
 
 
 def reset_launches() -> None:
@@ -102,21 +110,44 @@ def library_path() -> Path:
     return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
 
 
-def nvcc_command(out: Path) -> List[str]:
-    return [nvcc(), *FLAGS, "-o", str(out), *map(str, sources())]
+def compile_command(src: Path, obj: Path) -> List[str]:
+    return [nvcc(), *FLAGS, "-c", str(src), "-o", str(obj)]
+
+
+def link_command(out: Path, objs: List[Path]) -> List[str]:
+    return [nvcc(), "-shared", "-o", str(out), *map(str, objs)]
 
 
 def build(out: Path) -> str:
-    """Compile every source into ``out`` with one ``nvcc`` call; returns the
-    compiler's report (registers and spills per kernel)."""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return proc.stdout + proc.stderr
+    """Compile every source into ``out``: one ``nvcc`` per source, all
+    running at once, then one link; returns the compiler's report
+    (registers and spills per kernel)."""
+    tmpdir = out.with_name(f"{out.name}.{os.getpid()}.tmp.d")
+    tmpdir.mkdir(parents=True, exist_ok=True)
+    try:
+        objs = [tmpdir / f"{src.stem}.o" for src in sources()]
+        procs = [subprocess.Popen(compile_command(src, obj),
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources(), objs)]
+        report, failed = [], []
+        for src, proc in zip(sources(), procs):
+            text = proc.communicate()[0]
+            report.append(text)
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{text}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = tmpdir / out.name
+        proc = subprocess.run(link_command(tmp, objs), capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    return "".join(report)
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,7 +158,7 @@ def library() -> ctypes.CDLL:
         build(path)
     lib = ctypes.CDLL(str(path))
     for stem, argtypes in _SIGNATURES.items():
-        for suffix in ("f32", "f64"):
+        for suffix in _SUFFIXES.get(stem, _DEFAULT_SUFFIXES):
             fn = getattr(lib, f"{stem}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

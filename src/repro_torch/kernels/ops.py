@@ -1,19 +1,22 @@
 """Public wrappers of the port's CUDA kernels (counterpart of
 ``repro.kernels.ops``).
 
-Each wrapper checks its operands (device, float32/float64, shapes,
-contiguity) and dispatches on the device they lie on: on a CUDA tensor it
-launches the hand-written kernel (or raises), on a CPU tensor it runs the
-plain version in :mod:`repro_torch.kernels.ref`.  There is no fallback from
-the kernel to the plain version.  Each takes single-RHS ``(n,)`` vectors
-or multi-RHS ``(n, m)`` row-major blocks, and an ``(n, m)`` block goes to
-the batched kernel, as in the JAX package's ``ops``; the dots wrappers
-send an ``(n, 1)`` block, an ``(n,)`` vector in memory, to the
-single-vector kernel, which is the faster of the two on one column.
+Each wrapper checks its operands (device, dtype, shapes, contiguity) and
+dispatches on the device they lie on: on a CUDA tensor it launches the
+hand-written kernel (or raises), on a CPU tensor it runs the plain version
+in :mod:`repro_torch.kernels.ref`.  There is no fallback from the kernel to
+the plain version.  The solver kernels' wrappers take float32/float64
+single-RHS ``(n,)`` vectors or multi-RHS ``(n, m)`` row-major blocks, and an
+``(n, m)`` block goes to the batched kernel, as in the JAX package's
+``ops``; the dots wrappers send an ``(n, 1)`` block, an ``(n,)`` vector in
+memory, to the single-vector kernel, which is the faster of the two on one
+column.  :func:`flash_attention` takes float32/bfloat16 tensors in the
+model stack's layout.
 
-These are the backing of the ``"cuda"`` compute substrate
-(:mod:`repro_torch.core.substrate`).  ``LAUNCHES`` counts the kernel
-launches (the CPU path counts nothing).
+The solver wrappers are the backing of the ``"cuda"`` compute substrate
+(:mod:`repro_torch.core.substrate`), :func:`flash_attention` that of the
+model stack's prefill (:mod:`repro_torch.models.attention`).  ``LAUNCHES``
+counts the kernel launches (the CPU path counts nothing).
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import torch
 
 from . import ref
 from ._build import LAUNCHES, reset_launches
+from .flash_attention import DTYPES as FLASH_DTYPES
+from .flash_attention import MAX_HEAD_DIM, flash_attention_cuda
 from .fused_axpy import IN_ORDER, fused_axpy_batched_cuda, fused_axpy_cuda
 from .fused_dots import (fused_dots_batched_cuda, fused_dots_cuda,
                          fused_dots_health_batched_cuda,
@@ -32,7 +37,8 @@ from .precond_apply import (block_jacobi_apply_batched_cuda,
 from .spmv_ell import spmv_ell_batched_cuda, spmv_ell_cuda
 
 __all__ = ["fused_dots", "fused_dots_health", "fused_axpy", "spmv_ell",
-           "block_jacobi_apply", "LAUNCHES", "reset_launches"]
+           "block_jacobi_apply", "flash_attention", "LAUNCHES",
+           "reset_launches"]
 
 
 def _check_vectors(name: str, vecs: dict):
@@ -208,3 +214,51 @@ def block_jacobi_apply(inv_blocks, x) -> torch.Tensor:
     if x.dim() == 2:
         return block_jacobi_apply_batched_cuda(inv_blocks, x)
     return block_jacobi_apply_cuda(inv_blocks, x)
+
+
+def flash_attention(qg, k, v, *, scale: float,
+                    causal: bool = True) -> torch.Tensor:
+    """Flash attention in the model stack's layout: ``qg`` ``(B, S, K, G,
+    hd)`` (query head ``k * G + g``), ``k`` / ``v`` ``(B, S, K, hd)``, all
+    contiguous, one dtype (float32 or bfloat16) and device; returns ``(B,
+    S, K * G * hd)`` in qg's dtype.  Causal unless ``causal=False``.  On
+    the card it is the hand-written kernel (``hd`` up to 128), which reads
+    the G query heads of a KV head from the one KV head: K/V are not
+    repeated."""
+    for key, t in (("qg", qg), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"flash_attention: {key} must be a tensor, got "
+                            f"{type(t).__name__}")
+        if t.dtype not in FLASH_DTYPES:
+            raise TypeError(f"flash_attention: {key} has dtype {t.dtype}; "
+                            "the kernel takes float32 or bfloat16")
+        if t.dtype != qg.dtype or t.device != qg.device:
+            raise ValueError(
+                f"flash_attention: {key} is {t.dtype} on {t.device}, qg "
+                f"{qg.dtype} on {qg.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {key} must be contiguous")
+    if qg.dim() != 5 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"flash_attention: expected qg (B, S, K, G, hd) and k, v (B, S, "
+            f"K, hd), got {tuple(qg.shape)}, {tuple(k.shape)}, "
+            f"{tuple(v.shape)}")
+    B, S, K, G, hd = qg.shape
+    if tuple(k.shape) != (B, S, K, hd):
+        raise ValueError(f"flash_attention: k, v must be {(B, S, K, hd)}, "
+                         f"got {tuple(k.shape)}")
+    if qg.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {qg.device}")
+    H = K * G
+    q = qg.view(B, S, H, hd).transpose(1, 2)             # (B, H, S, hd)
+    kk, vv = k.transpose(1, 2), v.transpose(1, 2)        # (B, K, S, hd)
+    if not qg.is_cuda:
+        o = ref.flash_attention(q, kk, vv, scale=scale, causal=causal)
+        return o.transpose(1, 2).reshape(B, S, H * hd)
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {hd} above the "
+                         f"kernel's {MAX_HEAD_DIM}")
+    out = torch.empty((B, S, H, hd), dtype=qg.dtype, device=qg.device)
+    flash_attention_cuda(q, kk, vv, out.transpose(1, 2), scale=scale,
+                         causal=causal)
+    return out.view(B, S, H * hd)

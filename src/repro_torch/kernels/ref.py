@@ -2,8 +2,8 @@
 ``repro.kernels.ref``).
 
 Each is the kernel's oracle on the card and the port's path on the CPU.
-Each takes a single right-hand side ``(n,)`` or a block of them ``(n, m)``,
-as the JAX package's oracles do.
+The solver kernels' versions take a single right-hand side ``(n,)`` or a
+block of them ``(n, m)``, as the JAX package's oracles do.
 """
 from __future__ import annotations
 
@@ -107,3 +107,21 @@ def fused_axpy(vecs: dict, scalars, mask=None) -> dict:
         for k in MASKED_OUT:
             out[k] = torch.where(mask, out[k], vecs[k])
     return out
+
+
+def flash_attention(q, k, v, scale: float, causal: bool = True):
+    """Attention with an f32 softmax.  q: ``(B, H, S, hd)``, k/v: ``(B, K,
+    S, hd)``, GQA with ``G = H // K`` (query head h reads KV head
+    ``h // G``); the output is ``(B, H, S, hd)`` in q's dtype."""
+    B, H, S, hd = q.shape
+    K = k.shape[1]
+    G = H // K
+    qg = q.reshape(B, K, G, S, hd)
+    logits = torch.einsum("bkgsh,bkth->bkgst", qg.float(), k.float()) * scale
+    if causal:
+        idx = torch.arange(S, device=q.device)
+        mask = idx[:, None] >= idx[None, :]
+        logits = torch.where(mask, logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bkgst,bkth->bkgsh", p, v.float())
+    return o.reshape(B, H, S, hd).to(q.dtype)

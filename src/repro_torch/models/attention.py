@@ -1,0 +1,164 @@
+"""GQA/MHA attention: prefill and cached decode (PyTorch port of
+``repro.models.attention``).
+
+Parameters are a mapping of tensors in the JAX package's layout (``x @
+W``: ``wq`` is ``(d, H * hd)``), so weights carry across as copies.  Three
+prefill branches, chosen as the JAX package chooses them: the flash kernel
+(``cfg.use_flash_kernel``, causal, no sliding window, ``S >= 256``), one
+block of plain attention (``S <= q_block``), and plain attention chunked
+over query blocks.  The plain branches are einsums and a softmax, never a
+library attention call: nothing on the path stands in for the kernel.
+Cross-attention (whisper) and M-RoPE (qwen2-vl) wait for the audio and VLM
+slices of the port.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops as kops
+
+from .common import ModelConfig, apply_rope, dense_init, rms_norm
+
+Params = Mapping[str, torch.Tensor]
+
+NEG_INF = -1e30
+
+
+def init_attention_params(generator: torch.Generator,
+                          cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    hd = cfg.hd
+    H, K, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_model
+    dev = generator.device
+    p = {
+        "wq": dense_init(generator, (d, H * hd), cfg.param_dtype),
+        "wk": dense_init(generator, (d, K * hd), cfg.param_dtype),
+        "wv": dense_init(generator, (d, K * hd), cfg.param_dtype),
+        "wo": dense_init(generator, (H * hd, d), cfg.param_dtype),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(H * hd, dtype=cfg.param_dtype, device=dev)
+        p["bk"] = torch.zeros(K * hd, dtype=cfg.param_dtype, device=dev)
+        p["bv"] = torch.zeros(K * hd, dtype=cfg.param_dtype, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, dtype=cfg.param_dtype, device=dev)
+        p["k_norm"] = torch.ones(hd, dtype=cfg.param_dtype, device=dev)
+    return p
+
+
+def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, S, _ = x.shape
+    hd, H, K = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, K, hd)
+    v = v.reshape(B, S, K, hd)
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa_block(q, k, v, mask: Optional[torch.Tensor], scale: float):
+    """q: (B, Sq, H, hd), k/v: (B, T, H, hd) (KV repeated to H heads).
+    The scores and the softmax in f32, the probabilities cast back to q's
+    dtype for the product with v, as in the JAX package."""
+    logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    if mask is not None:
+        logits = logits + torch.where(mask, 0.0, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+def _causal_mask(rows: torch.Tensor, cols: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    mask = rows[:, None] >= cols[None, :]
+    if cfg.sliding_window:
+        mask &= rows[:, None] - cols[None, :] < cfg.sliding_window
+    return mask
+
+
+def multihead_attention(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                        cfg: ModelConfig, *, causal: bool = True,
+                        q_block: int = 1024, return_kv: bool = False):
+    """Self-attention over a sequence (prefill).  x: (B, S, d); positions:
+    (B, S).  With ``return_kv`` also the un-repeated ``(k, v)``, each
+    ``(B, S, K, hd)``: what the decode cache stores."""
+    B, S, _ = x.shape
+    hd, H, K = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    G = H // K
+    scale = 1.0 / math.sqrt(hd)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+
+    if cfg.use_flash_kernel and causal and cfg.sliding_window == 0 \
+            and S >= 256:
+        # the kernel reads query head h's KV from head h // G: no repeat
+        o = kops.flash_attention(q.reshape(B, S, K, G, hd), k, v,
+                                 scale=scale, causal=True)
+    else:
+        kr = k.repeat_interleave(G, dim=2) if G > 1 else k
+        vr = v.repeat_interleave(G, dim=2) if G > 1 else v
+        idx = torch.arange(S, device=x.device)
+        if S <= q_block:
+            mask = _causal_mask(idx, idx, cfg) if causal else None
+            o = _sdpa_block(q, kr, vr, mask, scale)
+        else:
+            # q-block chunking: the (S x S) score matrix never exists
+            if S % q_block:
+                raise ValueError(f"S={S} not divisible by q_block={q_block}")
+            blocks = []
+            for i in range(S // q_block):
+                rows = idx[i * q_block:(i + 1) * q_block]
+                mask = _causal_mask(rows, idx, cfg) if causal else None
+                blocks.append(_sdpa_block(
+                    q[:, i * q_block:(i + 1) * q_block], kr, vr, mask, scale))
+            o = torch.cat(blocks, dim=1)
+        o = o.reshape(B, S, H * hd)
+    out = o @ p["wo"].to(x.dtype)
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def decode_attention(p: Params, x: torch.Tensor, position: torch.Tensor,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     cache_len: int, cfg: ModelConfig):
+    """Single-token decode against a (B, T, K, hd) KV cache.
+
+    The new token's K/V are written into the caches at ``cache_len`` in
+    place (the JAX package returns updated copies); returns ``(y, k_cache,
+    v_cache)`` as it does.  x: (B, 1, d); position: (B,) or (B, 1)."""
+    B = x.shape[0]
+    hd, H, K = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    G = H // K
+    T = k_cache.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    positions = position[:, None] if position.dim() == 1 else position
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    k_cache[:, cache_len] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, cache_len] = v_new[:, 0].to(v_cache.dtype)
+
+    qg = q.reshape(B, 1, K, G, hd)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg.float(),
+                          k_cache.to(x.dtype).float()) * scale
+    t_idx = torch.arange(T, device=x.device)
+    valid = t_idx <= cache_len
+    if cfg.sliding_window:
+        valid &= t_idx > cache_len - cfg.sliding_window
+    logits = torch.where(valid, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    o = torch.einsum("bkgst,btkh->bskgh", probs, v_cache.to(x.dtype))
+    y = o.reshape(B, 1, H * hd) @ p["wo"].to(x.dtype)
+    return y, k_cache, v_cache

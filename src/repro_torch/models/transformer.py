@@ -1,0 +1,250 @@
+"""The decoder LM, dense family (PyTorch port of ``repro.models.transformer``).
+
+A :class:`Transformer` module of :class:`DecoderBlock` modules, each with an
+:class:`Attention` and a :class:`DenseFFN` submodule.  Weights keep the JAX
+package's layout (``x @ W``), so a JAX parameter tree carries across as a
+copy (:func:`repro_torch.convert.lm_params_from_numpy`).  The entry points
+keep the JAX package's functional signatures, with the module as
+``params``:
+
+* ``init_params(cfg, generator)``                        a :class:`Transformer`
+* ``forward(params, cfg, batch)``                        ``(logits (B,S,V), aux)``
+* ``prefill_step(params, cfg, batch)``                   ``(logits, cache)``
+* ``init_cache(cfg, batch, max_len, device=)``           ``{"k", "v"}``
+* ``decode_step(params, cfg, cache, tokens, cache_len)`` ``(logits (B,1,V), cache)``
+
+The cache is ``{"k", "v"}``, each ``(L, B, T, K, hd)``; a decode step
+writes the new token's K/V into it in place.  Layers run in a Python loop
+(the JAX package's ``lax.scan``); its sharding constraints have no
+counterpart on one device.  The MoE, MLA, hybrid, SSM, audio and VLM
+families raise ``NotImplementedError`` and name the slice of the port that
+brings them.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple, Union
+
+import torch
+from torch import nn
+
+from repro_torch.core.types import resolve_device
+
+from .attention import (decode_attention, init_attention_params,
+                        multihead_attention)
+from .common import ModelConfig, dense_init, embed_init, rms_norm
+from .moe import dense_ffn, dense_ffn_init
+
+#: the slice of the port that brings each family the port does not run yet
+LATER_SLICES = {
+    "moe": "the MoE slice", "mla": "the MLA slice (after MoE)",
+    "hybrid": "the hybrid (Mamba2 + shared attention) slice",
+    "ssm": "the SSM (xLSTM) slice", "audio": "the audio (whisper) slice",
+    "vlm": "the VLM (M-RoPE) slice",
+}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what only later slices run."""
+    if cfg.family != "dense":
+        later = LATER_SLICES.get(cfg.family, "a later slice")
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family waits for {later} of "
+            "the PyTorch port; only the dense family runs so far")
+    for flag, key in ((cfg.use_mla, "mla"), (cfg.moe_experts, "moe"),
+                      (cfg.mrope_sections is not None, "vlm"),
+                      (cfg.is_encoder_decoder, "audio")):
+        if flag:
+            raise NotImplementedError(
+                f"{cfg.name}: {key} layers wait for {LATER_SLICES[key]} of "
+                "the PyTorch port")
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    # serving only: the training slice will let these take gradients
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _parameter_dict(params: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({k: _frozen(t) for k, t in params.items()})
+
+
+class Attention(nn.Module):
+    """Self-attention of one block; ``p`` holds ``wq, wk, wv, wo`` (and
+    ``bq, bk, bv`` with ``qkv_bias``, ``q_norm, k_norm`` with
+    ``qk_norm``)."""
+
+    def __init__(self, params: Mapping[str, torch.Tensor]):
+        super().__init__()
+        self.p = _parameter_dict(params)
+
+    def forward(self, x, positions, cfg: ModelConfig, **kw):
+        return multihead_attention(self.p, x, positions, cfg, **kw)
+
+    def decode(self, x, position, k_cache, v_cache, cache_len: int,
+               cfg: ModelConfig):
+        return decode_attention(self.p, x, position, k_cache, v_cache,
+                                cache_len, cfg)
+
+
+class DenseFFN(nn.Module):
+    """The SwiGLU MLP of one block; ``p`` holds ``wi, wg, wo``."""
+
+    def __init__(self, params: Mapping[str, torch.Tensor]):
+        super().__init__()
+        self.p = _parameter_dict(params)
+
+    def forward(self, x):
+        return dense_ffn(self.p, x)
+
+
+class DecoderBlock(nn.Module):
+    """Pre-norm block: ``x + attn(ln1(x))``, then ``+ mlp(ln2(.))``."""
+
+    def __init__(self, params: Mapping):
+        super().__init__()
+        self.ln1 = _frozen(params["ln1"])
+        self.ln2 = _frozen(params["ln2"])
+        self.attn = Attention(params["attn"])
+        self.mlp = DenseFFN(params["mlp"])
+
+    def forward(self, x, positions, cfg: ModelConfig,
+                return_kv: bool = False):
+        hn = rms_norm(self.ln1, x, cfg.norm_eps)
+        a = self.attn(hn, positions, cfg, causal=True, return_kv=return_kv)
+        a, kv = a if return_kv else (a, None)
+        x = x + a
+        x = x + self.mlp(rms_norm(self.ln2, x, cfg.norm_eps))
+        return (x, kv) if return_kv else x
+
+    def decode(self, x, position, k_cache, v_cache, cache_len: int,
+               cfg: ModelConfig):
+        a, _, _ = self.attn.decode(rms_norm(self.ln1, x, cfg.norm_eps),
+                                   position, k_cache, v_cache, cache_len, cfg)
+        x = x + a
+        return x + self.mlp(rms_norm(self.ln2, x, cfg.norm_eps))
+
+
+class Transformer(nn.Module):
+    """The dense decoder LM.  ``params`` is the JAX package's tree with the
+    stacked ``layers`` given as a list of per-layer trees: ``embed (V,
+    d)``, ``final_norm (d,)``, ``lm_head (d, V)`` (absent with
+    ``tie_embeddings``), and per layer ``ln1``, ``ln2``, ``attn`` and
+    ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, params: Mapping):
+        super().__init__()
+        check_supported(cfg)
+        if len(params["layers"]) != cfg.n_layers:
+            raise ValueError(f"{cfg.name}: {len(params['layers'])} layers "
+                             f"given, the config has {cfg.n_layers}")
+        self.cfg = cfg
+        self.embed = _frozen(params["embed"])
+        self.final_norm = _frozen(params["final_norm"])
+        self.lm_head = None if cfg.tie_embeddings \
+            else _frozen(params["lm_head"])
+        self.layers = nn.ModuleList(DecoderBlock(lp)
+                                    for lp in params["layers"])
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return forward(self, self.cfg, {"tokens": tokens})[0]
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> Transformer:
+    """A :class:`Transformer` with the JAX package's initial scales, drawn
+    from ``generator`` on its device."""
+    check_supported(cfg)            # before drawing the weights
+    g, dev, pdt = generator, generator.device, cfg.param_dtype
+
+    def ones(n):
+        return torch.ones(n, dtype=pdt, device=dev)
+
+    tree: Dict = {"embed": embed_init(g, (cfg.vocab_size, cfg.d_model), pdt),
+                  "final_norm": ones(cfg.d_model)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = dense_init(g, (cfg.d_model, cfg.vocab_size), pdt)
+    tree["layers"] = [{"ln1": ones(cfg.d_model), "ln2": ones(cfg.d_model),
+                       "attn": init_attention_params(g, cfg),
+                       "mlp": dense_ffn_init(g, cfg)}
+                      for _ in range(cfg.n_layers)]
+    return Transformer(cfg, tree)
+
+
+def _lm_head(params: Transformer, cfg: ModelConfig, x: torch.Tensor):
+    x = rms_norm(params.final_norm, x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        w = params.embed.to(x.dtype).T
+    else:
+        w = params.lm_head.to(x.dtype)
+    return x @ w
+
+
+def _embed_tokens(params: Transformer, cfg: ModelConfig, tokens):
+    return params.embed[tokens.long()].to(cfg.dtype)
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, device=device)[None].expand(B, S)
+
+
+def forward(params: Transformer, cfg: ModelConfig,
+            batch: Mapping[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns ``(logits (B, S, V), aux_loss)``; the dense family's aux
+    loss is 0."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = _embed_tokens(params, cfg, tokens)
+    positions = _positions(B, S, x.device)
+    for block in params.layers:
+        x = block(x, positions, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _lm_head(params, cfg, x), aux
+
+
+def prefill_step(params: Transformer, cfg: ModelConfig,
+                 batch: Mapping[str, torch.Tensor]):
+    """Forward pass that also returns the decode cache built from the
+    prompt: ``(logits (B, S, V), {"k", "v"})``, each ``(L, B, S, K, hd)``
+    (the serving engine pads it to its max length)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = _embed_tokens(params, cfg, tokens)
+    positions = _positions(B, S, x.device)
+    ks, vs = [], []
+    for block in params.layers:
+        x, (k, v) = block(x, positions, cfg, return_kv=True)
+        ks.append(k)
+        vs.append(v)
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return _lm_head(params, cfg, x), cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device=None) -> Dict[str, torch.Tensor]:
+    """An all-zero ``{"k", "v"}`` cache, each ``(L, batch, max_len, K,
+    hd)`` in ``cfg.dtype`` (``device=None`` means ``"cuda"``)."""
+    check_supported(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+
+
+def decode_step(params: Transformer, cfg: ModelConfig,
+                cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                cache_len: Union[int, torch.Tensor]):
+    """One-token decode.  tokens: (B, 1) -> ``(logits (B, 1, V), cache)``;
+    the new K/V are written into ``cache`` at ``cache_len`` in place."""
+    cache_len = int(cache_len)
+    B = tokens.shape[0]
+    x = _embed_tokens(params, cfg, tokens)
+    pos = torch.full((B,), cache_len, dtype=torch.int32, device=x.device)
+    for l, block in enumerate(params.layers):
+        x = block.decode(x, pos, cache["k"][l], cache["v"][l], cache_len,
+                         cfg)
+    return _lm_head(params, cfg, x), cache
+

@@ -354,7 +354,9 @@ def test_local_dots_and_sync_counter(x64):
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.kernels.ops, "
             "repro_torch.core.matrices, repro_torch.core.multirhs, "
-            "repro_torch.resilience, repro_torch.core.bicgstab\n"
+            "repro_torch.resilience, repro_torch.core.bicgstab, "
+            "repro_torch.models, repro_torch.serve, repro_torch.configs, "
+            "repro_torch.configs.qwen3_8b, repro_torch.launch.serve\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")

@@ -382,3 +382,97 @@ def test_block_jacobi_kernels_take_blocks_past_shared_memory(cuda, bs, m):
     assert float(((got - ref.block_jacobi_apply(inv, x)).abs()
                   / scale).max()) <= TOL[torch.float64]
     assert torch.equal(ops.block_jacobi_apply(inv, x), got)
+
+
+# -- flash attention (the LM serving slice) ---------------------------------------
+
+#: max |kernel - plain| over the output's max-abs: the tolerances of
+#: tests/test_kernels.py's flash test (bf16: the two round the same f32
+#: values at other points; fp32: another summation order and expf)
+TOL_FLASH = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+
+
+def flash_operands(B, K, G, S, hd, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=device).to(dtype)
+
+    return rnd(B, S, K, G, hd), rnd(B, S, K, hd), rnd(B, S, K, hd)
+
+
+def plain_flash(qg, k, v, scale, causal):
+    B, S, K, G, hd = qg.shape
+    o = ref.flash_attention(qg.reshape(B, S, K * G, hd).transpose(1, 2),
+                            k.transpose(1, 2), v.transpose(1, 2),
+                            scale=scale, causal=causal)
+    return o.transpose(1, 2).reshape(B, S, K * G * hd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("hd", [16, 64, 96, 128])
+def test_flash_kernel_matches_plain_version(cuda, hd, G, causal, dtype):
+    """S = 300: a ragged last tile (the kernel's tiles are 64 rows)."""
+    qg, k, v = flash_operands(2, 2, G, 300, hd, dtype, cuda, seed=hd + G)
+    scale = 1.0 / hd ** 0.5
+    before = dict(ops.LAUNCHES)
+    got = ops.flash_attention(qg, k, v, scale=scale, causal=causal)
+    torch.cuda.synchronize()
+    assert {n: ops.LAUNCHES[n] - before[n] for n in before} == \
+        launches(flash_attention=1)
+    assert got.dtype == dtype and tuple(got.shape) == (2, 300, 2 * G * hd)
+    want = plain_flash(qg, k, v, scale, causal).float()
+    err = float((got.float() - want).abs().max() / want.abs().max())
+    assert err <= TOL_FLASH[dtype]
+
+
+def test_flash_kernel_repeats_bitwise(cuda):
+    qg, k, v = flash_operands(2, 8, 4, 1024, 128, torch.bfloat16, cuda, 1)
+    first = ops.flash_attention(qg, k, v, scale=128 ** -0.5)
+    for _ in range(3):
+        assert torch.equal(ops.flash_attention(qg, k, v, scale=128 ** -0.5),
+                           first)
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    qg, k, v = flash_operands(1, 2, 2, 64, 16, torch.float32, cuda, 2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.flash_attention(qg.double(), k.double(), v.double(), scale=1.0)
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.flash_attention(qg, k.cpu(), v, scale=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(qg, k.transpose(1, 2).contiguous()
+                            .transpose(1, 2), v, scale=1.0)
+    big = flash_operands(1, 1, 1, 64, 160, torch.float32, cuda, 3)
+    with pytest.raises(ValueError, match="head_dim 160"):
+        ops.flash_attention(*big, scale=1.0)
+
+
+def test_small_engine_on_the_card_gives_the_cpu_tokens(cuda):
+    """fp32 (full-precision matmuls: TF32 off, PyTorch's default), the
+    flash path, 256-token prompts: the card's tokens equal the CPU's, and
+    the prefill launched the kernel once per layer."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = smoke_config("qwen3-8b").replace(
+        use_flash_kernel=True, dtype=torch.float32, param_dtype=torch.float32)
+    model = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, 256)))
+               for _ in range(3)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, ServeConfig(max_batch=3, max_len=264),
+                            params=model.to(dev), device=dev)
+        for p in prompts:
+            eng.submit(Request(prompt=p, max_new_tokens=4))
+        ops.reset_launches()
+        outs[dev] = [r.output for r in eng.run()]
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention"] == \
+            (cfg.n_layers if dev == "cuda" else 0)
+    assert outs["cuda"] == outs["cpu"]

@@ -190,15 +190,22 @@ def test_build_command_targets_sm90a(tmp_path, monkeypatch):
     fake.write_text("")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     out = tmp_path / "lib.so"
-    cmd = _build.nvcc_command(out)
-    assert cmd[0] == str(fake)
-    assert "-gencode=arch=compute_90a,code=sm_90a" in cmd
-    srcs = [c for c in cmd if c.endswith(".cu")]
-    assert {os.path.basename(s) for s in srcs} >= {
+    srcs = _build.sources()
+    objs = [tmp_path / f"{s.stem}.o" for s in srcs]
+    for src, obj in zip(srcs, objs):
+        cmd = _build.compile_command(src, obj)
+        assert cmd[0] == str(fake)
+        assert "-gencode=arch=compute_90a,code=sm_90a" in cmd
+        assert "-c" in cmd and str(src) in cmd
+        assert cmd[cmd.index("-o") + 1] == str(obj)
+    assert {s.name for s in srcs} >= {
         "fused_dots.cu", "fused_axpy.cu", "spmv_ell.cu",
         "fused_dots_batched.cu", "fused_axpy_batched.cu",
-        "spmv_ell_batched.cu"}
+        "spmv_ell_batched.cu", "flash_attention.cu"}
+    cmd = _build.link_command(out, objs)
+    assert cmd[0] == str(fake) and "-shared" in cmd
     assert cmd[cmd.index("-o") + 1] == str(out)
+    assert cmd[-len(objs):] == [str(o) for o in objs]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.parent.parent == _build.CSRC.parents[2]
