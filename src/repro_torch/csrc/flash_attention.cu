@@ -1,4 +1,5 @@
-// flash_attention: causal (or full) GQA attention forward, online softmax
+// flash_attention: causal (or full) GQA attention forward in fp32, online
+// softmax
 //
 //   o[b, s, h, :] = sum_t softmax_t(scale * q[b, s, h, :] . k[b, t, h / G, :])
 //                   * v[b, t, h / G, :],   t <= s when causal
@@ -7,20 +8,19 @@
 //   with any strides of the (b, h, s) axes and a contiguous hd axis: the
 //   model passes its (B, S, H, hd) layout without a transpose.
 //
-// Replaces src/repro/kernels/flash_attention.py:flash_attention_pallas.
-// As there, every product is taken in f32 (q, k, v, the scores and p are
-// f32 values; bf16 inputs are widened on the way into shared memory), a
+// This is the fp32 route; bf16 goes to flash_attention_mma.cu, on the
+// tensor cores.  Replaces src/repro/kernels/flash_attention.py:
+// flash_attention_pallas.  As there, every product is taken in f32, a
 // masked score is -1e30, and the row sum is clamped at 1e-30 before the
 // division.  Unlike the TPU kernel, S need not be a multiple of the tile:
 // a ragged last tile is bounds-checked (keys past S are masked, queries
 // past S are not stored).
 //
 // What bounds it on an H100: operations.  At the serving shape (B, H, K,
-// S, hd) = (4, 32, 8, 1024, 128) causal it does 34.4 GFLOP against 84 MB
-// of bf16 traffic, 400 flops per byte; this kernel does them as f32 FMAs
-// on the CUDA cores (67 TFLOP/s), not on the tensor cores (989 TFLOP/s in
-// bf16), so it stays far above the bound: a tensor-core design is later
-// work.
+// S, hd) = (4, 32, 8, 1024, 128) causal it does 34.4 GFLOP against 168 MB
+// of fp32 traffic; fp32 has no tensor-core route that keeps its digits
+// (TF32 keeps about three), so the bound is the CUDA cores' 67 TFLOP/s,
+// 0.51 ms, and this kernel does f32 FMAs there.
 //
 // Design.  One block of 128 threads per (64-row query tile, head, batch),
 // the longest causal rows scheduled first.  The query tile is staged once
@@ -43,7 +43,6 @@
 // two blocks fit on an SM.  The sums run in a fixed order with no atomics:
 // a repeat is bitwise equal.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,15 +62,6 @@ constexpr float kNegInf = -1e30f;
 struct Strides {
   int64_t b, h, s;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // floats of shared memory: qt, then kt (later pt in the same space), then vs
 template <int HD>
@@ -97,12 +87,13 @@ __device__ __forceinline__ float group8_sum(float v) {
   return v;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int G,
-                       int S, int hd, Strides qs, Strides ks, Strides vst,
-                       Strides os, float scale, int causal) {
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       int G, int S, int hd, Strides qs, Strides ks,
+                       Strides vst, Strides os, float scale, int causal) {
   constexpr int kJ = HD / 32;    // float4 groups of output columns a thread owns
   constexpr int kKtFloats = kt_floats<HD>();
   extern __shared__ __align__(16) float smem[];
@@ -118,14 +109,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid & 7;
   const int ty = tid >> 3;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vst.b + kvh * vst.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vst.b + kvh * vst.h;
 
   for (int e = tid; e < kBQ * HD; e += kThreads) {
     const int r = e / HD, d = e - r * HD;
     const int s = q0 + r;
-    qt[d * kQStride + r] = (s < S && d < hd) ? to_f32(qb[s * qs.s + d]) : 0.f;
+    qt[d * kQStride + r] = (s < S && d < hd) ? qb[s * qs.s + d] : 0.f;
   }
 
   float m[kRows], l[kRows], acc[kRows][kJ][4];
@@ -145,8 +136,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = e / HD, d = e - c * HD;
       const int s = k0 + c;
       const bool in = s < S && d < hd;
-      kt[d * kKStride + c] = in ? to_f32(kb[s * ks.s + d]) : 0.f;
-      vs[c * HD + d] = in ? to_f32(vb[s * vst.s + d]) : 0.f;
+      kt[d * kKStride + c] = in ? kb[s * ks.s + d] : 0.f;
+      vs[c * HD + d] = in ? vb[s * vst.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -233,7 +224,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = o + b * os.b + h * os.h;
+  float* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int s = q0 + ty * kRows + i;
@@ -244,34 +235,42 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int d = j * 32 + tx * 4 + e;
-        if (d < hd) store(ob + s * os.s + d, acc[i][j][e] * inv_l);
+        if (d < hd) ob[s * os.s + d] = acc[i][j][e] * inv_l;
       }
   }
 }
 
-template <typename T, int HD>
-int launch_hd(const T* q, const T* k, const T* v, T* o, int B, int H, int G,
-              int S, int hd, Strides qs, Strides ks, Strides vs, Strides os,
-              float scale, int causal, cudaStream_t stream) {
+template <int HD>
+int launch_hd(const float* q, const float* k, const float* v, float* o,
+              int B, int H, int G, int S, int hd, Strides qs, Strides ks,
+              Strides vs, Strides os, float scale, int causal,
+              cudaStream_t stream) {
   constexpr size_t bytes = smem_floats<HD>() * sizeof(float);
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, HD>,
+        flash_attention_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
   }
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
+  flash_attention_kernel<HD><<<grid, kThreads, bytes, stream>>>(
       q, k, v, o, G, S, hd, qs, ks, vs, os, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int K, int S, int hd, const int64_t* strides, float scale,
-           int causal, void* stream) {
+}  // namespace
+
+// q, k, v, o: device pointers to float; the logical shapes (B, H, S, hd)
+// for q and o, (B, K, S, hd) for k and v; strides: 12 element strides, the
+// (b, h, s) strides of q, k, v and o in that order (hd is contiguous).
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int repro_flash_attention_f32(const void* q, const void* k,
+                                         const void* v, void* o, int B,
+                                         int H, int K, int S, int hd,
+                                         const int64_t* strides, float scale,
+                                         int causal, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (H <= 0 || K <= 0 || H % K != 0 || hd <= 0 || hd > kMaxHd ||
       H > 65535 || B > 65535)
@@ -280,46 +279,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const Strides ks{strides[3], strides[4], strides[5]};
   const Strides vs{strides[6], strides[7], strides[8]};
   const Strides os{strides[9], strides[10], strides[11]};
-  const T* qq = static_cast<const T*>(q);
-  const T* kk = static_cast<const T*>(k);
-  const T* vv = static_cast<const T*>(v);
-  T* oo = static_cast<T*>(o);
+  const float* qq = static_cast<const float*>(q);
+  const float* kk = static_cast<const float*>(k);
+  const float* vv = static_cast<const float*>(v);
+  float* oo = static_cast<float*>(o);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = H / K;
   if (hd <= 32)
-    return launch_hd<T, 32>(qq, kk, vv, oo, B, H, G, S, hd, qs, ks, vs, os,
-                            scale, causal, s);
+    return launch_hd<32>(qq, kk, vv, oo, B, H, G, S, hd, qs, ks, vs, os,
+                         scale, causal, s);
   if (hd <= 64)
-    return launch_hd<T, 64>(qq, kk, vv, oo, B, H, G, S, hd, qs, ks, vs, os,
-                            scale, causal, s);
+    return launch_hd<64>(qq, kk, vv, oo, B, H, G, S, hd, qs, ks, vs, os,
+                         scale, causal, s);
   if (hd <= 96)
-    return launch_hd<T, 96>(qq, kk, vv, oo, B, H, G, S, hd, qs, ks, vs, os,
-                            scale, causal, s);
-  return launch_hd<T, 128>(qq, kk, vv, oo, B, H, G, S, hd, qs, ks, vs, os,
-                           scale, causal, s);
-}
-
-}  // namespace
-
-// q, k, v, o: device pointers; the logical shapes (B, H, S, hd) for q and
-// o, (B, K, S, hd) for k and v; strides: 12 element strides, the (b, h, s)
-// strides of q, k, v and o in that order (hd is contiguous).  Returns the
-// cudaError_t of the launch (0 on success).
-extern "C" int repro_flash_attention_f32(const void* q, const void* k,
-                                         const void* v, void* o, int B,
-                                         int H, int K, int S, int hd,
-                                         const int64_t* strides, float scale,
-                                         int causal, void* stream) {
-  return launch<float>(q, k, v, o, B, H, K, S, hd, strides, scale, causal,
-                       stream);
-}
-
-extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
-                                          const void* v, void* o, int B,
-                                          int H, int K, int S, int hd,
-                                          const int64_t* strides,
-                                          float scale, int causal,
-                                          void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, H, K, S, hd, strides, scale,
-                               causal, stream);
+    return launch_hd<96>(qq, kk, vv, oo, B, H, G, S, hd, qs, ks, vs, os,
+                         scale, causal, s);
+  return launch_hd<128>(qq, kk, vv, oo, B, H, G, S, hd, qs, ks, vs, os,
+                        scale, causal, s);
 }

@@ -1,16 +1,21 @@
-"""CUDA kernel: causal (or full) GQA flash attention, forward.
+"""CUDA kernels: causal (or full) GQA flash attention, forward.
 
-Counterpart of ``repro/kernels/flash_attention.py:flash_attention_pallas``;
-the source is ``src/repro_torch/csrc/flash_attention.cu``.  q and o are
-``(B, H, S, hd)`` and k and v ``(B, K, S, hd)`` as logical shapes with
-``H = K * G`` (query head h reads KV head ``h // G``), any strides on the
-first three axes and a contiguous last one, so the model's ``(B, S, H,
-hd)`` tensors go in as transposed views, without a copy.  Every product is
-taken in f32 and the output is stored in q's dtype (float32 or bfloat16),
-as the TPU kernel does; ``hd`` up to 128; any S (a ragged last tile is
-bounds-checked, where the TPU kernel asserts that its tiles divide S).
-Call it through :func:`repro_torch.kernels.ops.flash_attention`, which
-checks the operands and dispatches by device.
+Counterparts of ``repro/kernels/flash_attention.py:flash_attention_pallas``,
+one route per dtype, fixed: bfloat16 goes to
+``src/repro_torch/csrc/flash_attention_mma.cu`` (both products on the
+tensor cores, ``mma.sync`` bf16 -> f32, fed by a ``cp.async`` ring), float32
+to ``src/repro_torch/csrc/flash_attention.cu`` (f32 FMAs on the CUDA
+cores).  q and o are ``(B, H, S, hd)`` and k and v ``(B, K, S, hd)`` as
+logical shapes with ``H = K * G`` (query head h reads KV head ``h // G``),
+any strides on the first three axes and a contiguous last one, so the
+model's ``(B, S, H, hd)`` tensors go in as transposed views, without a
+copy.  The scores, the softmax and the sums are f32 and the output is
+stored in q's dtype, as the TPU kernel does; the bf16 route rounds the
+probabilities to bf16 before the product with V.  ``hd`` up to 128; any S
+(a ragged last tile is bounds-checked, where the TPU kernel asserts that
+its tiles divide S).  Call it through
+:func:`repro_torch.kernels.ops.flash_attention`, which checks the operands
+and dispatches by device.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import torch
 from . import _build
 
 NAME = "flash_attention"
-MAX_HEAD_DIM = 128     # kMaxHd in csrc/flash_attention.cu
+MAX_HEAD_DIM = 128     # kMaxHd in both sources
 DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -108,6 +108,15 @@ class ServingEngine:
     def _run_batch(self, reqs: List[Request]):
         B = len(reqs)
         plen = max(len(r.prompt) for r in reqs)
+        max_new = max(r.max_new_tokens for r in reqs)
+        # the last decode step writes cache row plen + max_new - 2; the JAX
+        # engine clamps that write and overwrites the last row, this one
+        # refuses the batch before it starts
+        if plen + max_new - 1 > self.scfg.max_len:
+            raise ValueError(
+                f"a prompt of {plen} tokens and {max_new} new tokens need "
+                f"{plen + max_new - 1} cache rows; max_len is "
+                f"{self.scfg.max_len}")
         toks = np.zeros((B, plen), np.int64)
         for i, r in enumerate(reqs):
             toks[i, -len(r.prompt):] = r.prompt      # left-pad
@@ -124,7 +133,6 @@ class ServingEngine:
         for i, r in enumerate(reqs):
             r.output.append(int(last[i]))
 
-        max_new = max(r.max_new_tokens for r in reqs)
         cache_len = plen
         active = np.ones(B, bool)
         for _ in range(max_new - 1):

@@ -201,7 +201,8 @@ def test_build_command_targets_sm90a(tmp_path, monkeypatch):
     assert {s.name for s in srcs} >= {
         "fused_dots.cu", "fused_axpy.cu", "spmv_ell.cu",
         "fused_dots_batched.cu", "fused_axpy_batched.cu",
-        "spmv_ell_batched.cu", "flash_attention.cu"}
+        "spmv_ell_batched.cu", "flash_attention.cu",
+        "flash_attention_mma.cu"}
     cmd = _build.link_command(out, objs)
     assert cmd[0] == str(fake) and "-shared" in cmd
     assert cmd[cmd.index("-o") + 1] == str(out)

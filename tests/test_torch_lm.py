@@ -369,6 +369,32 @@ def test_engine_gives_the_jax_engines_tokens():
     assert len(teng.stats["decode_s"]) == 3
 
 
+def test_engine_refuses_to_decode_past_max_len():
+    """An 8-token prompt and 8 new tokens need 15 cache rows.  At max_len
+    10 the JAX engine clamps its cache write and goes on; this engine
+    raises before the prefill.  At max_len 15 both give the same tokens."""
+    jc, tc = configs("qwen3-8b")
+    jparams, model = models(jc, tc, seed=3)
+    prompt = list(map(int, np.random.default_rng(7).integers(
+        1, jc.vocab_size, 8)))
+    short = ServingEngine(tc, ServeConfig(max_batch=1, max_len=10),
+                          params=model, device=CPU)
+    short.submit(Request(prompt=prompt, max_new_tokens=8))
+    with pytest.raises(ValueError, match="8 tokens and 8 new tokens need "
+                                         "15 cache rows; max_len is 10"):
+        short.run()
+    assert short.stats["prefill_s"] == []
+    jeng = JServingEngine(jc, JServeConfig(max_batch=1, max_len=15),
+                          params=jparams)
+    teng = ServingEngine(tc, ServeConfig(max_batch=1, max_len=15),
+                         params=model, device=CPU)
+    jeng.submit(JRequest(prompt=prompt, max_new_tokens=8))
+    teng.submit(Request(prompt=prompt, max_new_tokens=8))
+    want = jeng.run()[0].output
+    got = teng.run()[0].output
+    assert len(want) == 8 and got == want
+
+
 def test_serving_engine_batches_and_decodes():
     cfg = tsmoke("qwen3-8b")
     eng = ServingEngine(cfg, ServeConfig(max_batch=3, max_len=64),
