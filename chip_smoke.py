@@ -29,7 +29,9 @@ package is missing.  Phases, any failure of which fails the run:
    ``block_jacobi_apply`` on (n,) and ``block_jacobi_apply_batched`` on
    (n, 8) with its blocks, against their plain versions in fp64 and fp32,
    each repeated and required bitwise equal, timed beside the plain
-   version, one ``torch.bmm`` and the HBM bound;
+   version, one ``torch.bmm`` and the HBM bound, with the TB/s, the ratio
+   to ``bmm`` and the batched kernel's route (it must be "bulk": the
+   persistent bulk-copy kernel);
 3. main path: p-BiCGSafe and p-BiCGSafe-rr through
    ``repro_torch.make_solver(...).solve(b)`` on ``substrate="cuda"`` for
    the 1,259,712-row convection-diffusion system in ELL form, fp64,
@@ -523,7 +525,10 @@ def check_precond_kernels(torch, ops, ref, inv_blocks, dtype) -> dict:
     """Phase 2c: the block-Jacobi kernels against their plain versions on
     the card, in ``dtype``, with the main path's blocks; each repeated and
     required bitwise equal.  The library yardstick is one ``torch.bmm`` of
-    the blocks and x viewed as (nb, bs, m)."""
+    the blocks and x viewed as (nb, bs, m).  Each time is printed with its
+    TB/s, its ratio to ``bmm``'s and to the bound, and the batched kernel's
+    route (``precond_apply.batched_route``), which must be "bulk" here."""
+    from repro_torch.kernels import precond_apply
     name = str(dtype).replace("torch.", "")
     inv = inv_blocks.to(dtype).contiguous()
     nb, bs, _ = inv.shape
@@ -546,17 +551,31 @@ def check_precond_kernels(torch, ops, ref, inv_blocks, dtype) -> dict:
             raise SystemExit(f"{kname} {name}: a repeat is not bitwise equal")
         xb = x.view(nb, bs, -1)
         cols = 1 if m is None else m
+        nbytes = nb * bs * bs * item + 2 * n * cols * item
         out[kname] = dict(
             err=float(((got - want).abs() / scale).max()),
             max_abs_err=float((got - want).abs().max()),
             ms=device_ms(torch, lambda: ops.block_jacobi_apply(inv, x)),
             plain_ms=device_ms(torch, lambda: ref.block_jacobi_apply(inv, x)),
             library_ms=device_ms(torch, lambda: torch.bmm(inv, xb)),
-            bound=bound_ms(nb * bs * bs * item + 2 * n * cols * item,
-                           2 * n * bs * cols, name),
-            repeats_bitwise=repeats, bs=bs, nb=nb)
+            bound=bound_ms(nbytes, 2 * n * bs * cols, name),
+            repeats_bitwise=repeats, bs=bs, nb=nb, nbytes=nbytes,
+            route="block" if m is None else precond_apply.batched_route(
+                nb, bs, m, dtype, aligned=all(
+                    p % 16 == 0 for p in (inv.data_ptr(), x.data_ptr(),
+                                          got.data_ptr()))))
         del x, got, want, scale, xb
-    return finish(out, name)
+    finish(out, name)
+    for kname, rec in out.items():
+        log(f"kernel {kname:18s} {name}: route {rec['route']}, "
+            f"{rec['nbytes'] / rec['ms'] / 1e9:.3f} TB/s, "
+            f"{rec['ms'] / rec['library_ms']:.3f}x torch.bmm's time, "
+            f"{rec['ms'] / rec['bound'][0]:.3f}x the bound")
+    if out["block_jacobi_apply_batched"]["route"] != "bulk":
+        raise SystemExit(f"block_jacobi_apply_batched {name}: route "
+                         f"{out['block_jacobi_apply_batched']['route']} at "
+                         "the main path's shape, not bulk")
+    return out
 
 
 def run_main_path(torch, repro_torch, ops, method, ell, stencil, b):
@@ -1252,6 +1271,9 @@ def main() -> int:
                          bs=r64["bs"], nb=r64["nb"],
                          repeats_bitwise=r64["repeats_bitwise"],
                          library_call="torch.bmm")
+            if kname == "block_jacobi_apply_batched":
+                extra.update(route_variant=r64["route"],
+                             fp32_route_variant=r32["route"])
             if kname == "block_jacobi_apply":
                 extra["launches_rr"] = \
                     pre["p-bicgsafe-rr"]["launches"][kname]

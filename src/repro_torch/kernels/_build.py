@@ -66,9 +66,9 @@ _SIGNATURES = {
         _I64, ctypes.c_int, ctypes.c_int, _VP, ctypes.c_int, _VP, _VP],
     # blocks, x, y, nb, bs, stream
     "repro_block_jacobi_apply": [_VP] * 3 + [_I64, ctypes.c_int, _VP],
-    # blocks, x, y, nb, bs, m, stream
-    "repro_block_jacobi_apply_batched": [_VP] * 3 + [_I64, ctypes.c_int,
-                                                     ctypes.c_int, _VP],
+    # blocks, x, y, nb, bs, m, route, stream
+    "repro_block_jacobi_apply_batched": [_VP] * 3 + [_I64] + [
+        ctypes.c_int] * 3 + [_VP],
     # q, k, v, o, B, H, K, S, hd, strides (12 int64), scale, causal, stream
     "repro_flash_attention": [_VP] * 4 + [ctypes.c_int] * 5 + [
         _VP, ctypes.c_float, ctypes.c_int, _VP],

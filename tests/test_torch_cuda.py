@@ -290,12 +290,14 @@ def test_guarded_solve_many_on_the_card_matches_the_torch_substrate(cuda):
 # -- the block-Jacobi apply (preconditioning) ------------------------------------
 
 @pytest.mark.parametrize("m", [None, 1, 8, 17, 300])
-@pytest.mark.parametrize("bs", [4, 16, 64, 128])
+@pytest.mark.parametrize("bs", [4, 16, 64, 128, 3, 5])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_block_jacobi_kernels_match_plain_versions(cuda, dtype, bs, m):
     """m = None is the single kernel on (n,) vectors; an (n, m) block, m = 1
-    included, goes to the batched one (m = 17 and 300 tile the columns by
-    8 over the grid)."""
+    included, goes to the batched one: bs = 64 on its bulk routes (m = 17
+    and 300 loop over the column tiles while one B_g is held), bs = 3 and
+    5 (rows of no multiple of 16 bytes) and 4 and 16 on its rows route,
+    128 on either by dtype."""
     nb = 301 if m in (None, 1, 8) else 37
     g = torch.Generator(device=cuda).manual_seed(bs)
     inv = torch.randn(nb, bs, bs, generator=g, device=cuda,
@@ -313,6 +315,64 @@ def test_block_jacobi_kernels_match_plain_versions(cuda, dtype, bs, m):
     scale = ref.block_jacobi_apply(inv.abs(), x.abs())
     assert float(((got - ref.block_jacobi_apply(inv, x)).abs()
                   / scale).max()) <= TOL[dtype]
+
+
+#: (dtype, nb, bs, m, offset, route): each route of the batched kernel and
+#: each boundary between them (precond_apply.batched_route); offset shifts
+#: x by that many elements off its 16-byte aligned start; nb = 1 (the
+#: shared block, which ops keeps on torch.matmul) goes to the kernel's
+#: wrapper itself
+BATCHED_ROUTE_CASES = [
+    (torch.float64, 301, 3, 8, 0, "rows"),      # 24-byte rows
+    (torch.float32, 301, 5, 8, 0, "rows"),      # 20-byte rows
+    (torch.float64, 40, 30, 8, 0, "rows"),      # below 32 rows
+    (torch.float64, 40, 32, 8, 0, "bulk"),
+    (torch.float64, 40, 34, 8, 0, "bulk"),      # a warp's rows ragged
+    (torch.float64, 1000, 64, 8, 0, "bulk"),    # the main path's shape
+    (torch.float32, 1000, 64, 8, 0, "bulk"),
+    (torch.float64, 1000, 64, 8, 1, "rows"),    # x off 16 bytes
+    (torch.float64, 1, 64, 8, 0, "bulk"),       # nb below the grid
+    (torch.float64, 5, 64, 8, 0, "bulk"),
+    (torch.float32, 133, 64, 8, 0, "bulk"),     # nb no multiple of it
+    (torch.float64, 37, 64, 17, 0, "bulk"),     # column tiles, one B_g
+    (torch.float32, 37, 64, 17, 0, "bulk"),
+    (torch.float64, 10, 64, 159, 0, "bulk"),
+    (torch.float64, 10, 64, 160, 0, "bulk_x_direct"),
+    (torch.float64, 37, 64, 300, 0, "bulk_x_direct"),
+    (torch.float32, 37, 64, 300, 0, "bulk"),
+    (torch.float64, 20, 64, 301, 0, "bulk_x_direct"),
+    (torch.float64, 20, 96, 5, 0, "bulk"),      # two row passes, odd m
+    (torch.float32, 20, 128, 3, 0, "bulk"),
+    (torch.float64, 20, 116, 8, 0, "bulk_x_direct"),
+    (torch.float64, 20, 120, 8, 0, "rows"),     # B_g past the ring
+    (torch.float32, 20, 164, 8, 0, "bulk_x_direct"),
+    (torch.float32, 20, 172, 8, 0, "rows"),
+]
+
+
+@pytest.mark.parametrize("dtype,nb,bs,m,offset,route", BATCHED_ROUTE_CASES)
+def test_block_jacobi_batched_routes_match_plain_version(cuda, dtype, nb, bs,
+                                                         m, offset, route):
+    from repro_torch.kernels import precond_apply
+    g = torch.Generator(device=cuda).manual_seed(bs * 1000 + m)
+    inv = torch.randn(nb, bs, bs, generator=g, device=cuda,
+                      dtype=torch.float64).to(dtype)
+    buf = torch.randn(nb * bs * m + offset, generator=g, device=cuda,
+                      dtype=torch.float64).to(dtype)
+    x = buf[offset:].view(nb * bs, m)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (inv, x))
+    assert precond_apply.batched_route(nb, bs, m, dtype,
+                                       aligned=aligned) == route
+    before = ops.LAUNCHES["block_jacobi_apply_batched"]
+    got = precond_apply.block_jacobi_apply_batched_cuda(inv, x)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["block_jacobi_apply_batched"] == before + 1
+    assert got.shape == x.shape and got.is_contiguous()
+    scale = ref.block_jacobi_apply(inv.abs(), x.abs())
+    assert float(((got - ref.block_jacobi_apply(inv, x)).abs()
+                  / scale).max()) <= TOL[dtype]
+    assert torch.equal(precond_apply.block_jacobi_apply_batched_cuda(inv, x),
+                       got)
 
 
 @pytest.mark.parametrize("batched", [False, True])

@@ -120,6 +120,43 @@ def test_block_jacobi_apply_batched_matches_ref_and_pallas(nb, bs, m, dtype):
     _assert_apply_close(got[:, 0], col, scale[:, 0], dtype)
 
 
+#: (nb, bs, m, dtype, aligned, route) of the batched kernel: the main
+#: path's shape (n = 108**3 in blocks of 64, 8 columns) in both dtypes on
+#: the bulk route; rows of no multiple of 16 bytes, too few rows, unaligned
+#: pointers and blocks past the ring on the rows route; X_g past the ring
+#: on bulk_x_direct
+ROUTE_CASES = [
+    (19_683, 64, 8, torch.float64, True, "bulk"),
+    (19_683, 64, 8, torch.float32, True, "bulk"),
+    (19_683, 64, 1, torch.float64, True, "bulk"),
+    (37, 64, 17, torch.float64, True, "bulk"),
+    (37, 64, 159, torch.float64, True, "bulk"),
+    (37, 64, 160, torch.float64, True, "bulk_x_direct"),
+    (37, 64, 300, torch.float64, True, "bulk_x_direct"),
+    (37, 64, 300, torch.float32, True, "bulk"),
+    (301, 3, 8, torch.float64, True, "rows"),
+    (301, 5, 8, torch.float32, True, "rows"),
+    (301, 6, 8, torch.float32, True, "rows"),
+    (301, 30, 8, torch.float64, True, "rows"),
+    (301, 32, 8, torch.float64, True, "bulk"),
+    (19_683, 64, 8, torch.float64, False, "rows"),
+    (20, 116, 8, torch.float64, True, "bulk_x_direct"),
+    (20, 120, 8, torch.float64, True, "rows"),
+    (20, 164, 8, torch.float32, True, "bulk_x_direct"),
+    (20, 172, 8, torch.float32, True, "rows"),
+    (2, 1024, 8, torch.float64, True, "rows"),
+]
+
+
+@pytest.mark.parametrize("nb,bs,m,dtype,aligned,route", ROUTE_CASES)
+def test_batched_apply_route_follows_the_shape(nb, bs, m, dtype, aligned,
+                                               route):
+    """The batched kernel's route (kernels/precond_apply.py) is a pure
+    function of the shape, the dtype and the operands' alignment."""
+    from repro_torch.kernels.precond_apply import batched_route
+    assert batched_route(nb, bs, m, dtype, aligned=aligned) == route
+
+
 @pytest.mark.parametrize("shape", [(72,), (72, 4)])
 def test_shared_block_is_one_matmul(shape):
     """nb == 1: one block for every row block (a Stencil7 z-line block),
