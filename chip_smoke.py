@@ -58,9 +58,23 @@ package is missing.  Phases, any failure of which fails the run:
    every run converged with the preconditioned system's true residual
    within 100x its tol, the original system's residual printed, and the
    launch counters held to the steps (block-Jacobi applies = SpMVs + 1;
-   neumann adds 2 SpMVs per apply); then the kernels the card runs per
-   step of 3c, 3d and 3e's batched solve, counted from a
-   ``torch.profiler`` trace after every timed phase;
+   neumann adds 2 SpMVs per apply);
+3f. the paper's comparison: the seven methods of ``SOLVERS``
+   (p-BiCGSafe, -rr, ssBiCGSafe2, p-BiCGStab, BiCGStab, GPBi-CG, CGS)
+   through ``make_solver(m, ell, substrate="cuda").solve(b)`` on the same
+   system, fp64, tol 1e-8, maxiter 2,000: each converges with a true
+   relres within 1e-6, except CGS, which must end as the JAX package's
+   does on this system (MAXITER at 2,000, no breakdown: its residual
+   grows), ssBiCGSafe2 within 2 iterations of p-BiCGSafe, and
+   the launch counters match the steps queued (``method_launches``: the
+   fused dots once a step in ssBiCGSafe2, two SpMVs a step everywhere,
+   plus two at p-BiCGStab's set-up); then p-BiCGStab with 2c's
+   block-Jacobi preconditioner (applies = SpMVs + 1).  Each prints its
+   iterations, steps queued, reductions per iteration, true relres,
+   max|x - 1|, time to solution and per iteration;
+   then, after every timed phase, the kernels the card runs per step of
+   3c, 3d and 3e's batched solve and of each 3f solve, counted from
+   ``torch.profiler`` traces;
 2d. flash attention: ``flash_attention`` against its plain version on the
    card at qwen3-8b's prefill shape (B, H, K, S, hd) = (4, 32, 8, 1024,
    128), causal, in bf16 (``flash_attention_mma.cu``, the tensor cores) and
@@ -82,8 +96,10 @@ package is missing.  Phases, any failure of which fails the run:
 5. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Each path is driven with the launch counters set to 0 just before it and
-read just after; the kernels' checks and timings are not counted.
+The run goes 1, 3a (the matrix), 2, 2b, 2c, 2d, 3b-3f, the profiler's
+counts, 4, 5.  Each path is driven with the launch counters set to 0 just
+before it and read just after; the kernels' checks and timings are not
+counted.
 """
 from __future__ import annotations
 
@@ -176,6 +192,17 @@ SERVE_NEW = 16
 # it: the size of bf16's own noise at this depth)
 SERVE_LOGITS_TOL = 5e-2
 M = 8                       # columns of the batched path (ServiceConfig.max_batch)
+SOLVE_MAXITER = 2000        # maxiter of the single-RHS solves (3b, 3f)
+# phase 3f: the JAX package's seven methods, and the reduction phases each
+# runs per iteration (the paper's Table 3.1)
+COMPARISON = ("p-bicgsafe", "p-bicgsafe-rr", "ssbicgsafe2", "p-bicgstab",
+              "bicgstab", "gpbicg", "cgs")
+REDUCTIONS = {"p-bicgsafe": 1, "p-bicgsafe-rr": 1, "ssbicgsafe2": 1,
+              "p-bicgstab": 2, "bicgstab": 2, "gpbicg": 3, "cgs": 2}
+# the typed outcome of a 3f method that does not converge on this system:
+# the JAX package's CGS runs to maxiter here without a breakdown, its
+# residual growing (tools/reference_methods.py on the CPU; ROADMAP C14)
+EXPECT = {"cgs": "MAXITER"}
 STEP_REPS = 4               # solver steps queued per timing (see device_ms)
 
 
@@ -578,43 +605,132 @@ def check_precond_kernels(torch, ops, ref, inv_blocks, dtype) -> dict:
     return out
 
 
-def run_main_path(torch, repro_torch, ops, method, ell, stencil, b):
+def method_launches(method: str, steps: int, rr_steps: int = 0) -> dict:
+    """A single-RHS solve's kernel launches on the ELL operator for
+    ``steps`` queued steps (phase 3f's table): the fused dots only where
+    the method has the 9-dot phase, the update kernel only in p-BiCGSafe's,
+    and two SpMVs a step (p-BiCGSafe: plus its set-up's A r_0 and -rr's
+    four per replacement; p-BiCGStab: plus its set-up's two)."""
+    if method.startswith("p-bicgsafe"):
+        return dict(fused_dots=steps, fused_axpy=steps,
+                    spmv_ell=1 + 2 * steps + 4 * rr_steps)
+    if method == "ssbicgsafe2":
+        return dict(fused_dots=steps, spmv_ell=2 * steps)
+    if method == "p-bicgstab":
+        return dict(spmv_ell=2 + 2 * steps)
+    return dict(spmv_ell=2 * steps)
+
+
+def run_main_path(torch, repro_torch, ops, method, ell, stencil, b,
+                  label="main", precond=None, expect="CONVERGED"):
     """One measured solve through the front door, with the launch counters
-    set to 0 just before it and read just after."""
-    solver = repro_torch.make_solver(method, ell, substrate="cuda")
+    set to 0 just before it and read just after: it must converge with a
+    true relres within 1e-6 (of the preconditioned system, with
+    ``precond``, the block-Jacobi preconditioner of phase 2c) and launch
+    :func:`method_launches` (and one apply per SpMV plus b's) for the
+    steps it queued.  ``expect="MAXITER"``: it must instead end as the JAX
+    package's solve of this system does, at ``SOLVE_MAXITER`` without a
+    breakdown (``EXPECT``)."""
+    solver = repro_torch.make_solver(method, ell, substrate="cuda",
+                                     precond=precond)
     solver.solve(b, maxiter=32)                      # warm-up, not counted
     solver.stats.update(steps=0, rr_steps=0, host_reads=0)
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
-    res = solver.solve(b, tol=1e-8)
+    res = solver.solve(b, tol=1e-8, maxiter=SOLVE_MAXITER)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     it = int(res.iterations)
-    true_relres = float(torch.linalg.vector_norm(b - stencil.matvec(res.x))
+    resid = b - stencil.matvec(res.x)
+    true_relres = float(torch.linalg.vector_norm(resid)
                         / torch.linalg.vector_norm(b))
     steps, rr_steps = solver.stats["steps"], solver.stats["rr_steps"]
     rec = dict(method=method, iterations=it, converged=bool(res.converged),
+               status=repro_torch.SolveStatus(int(res.status)).name,
                relres=float(res.relres), true_relres=true_relres,
                max_err=float((res.x - 1.0).abs().max()), wall_s=wall,
                ms_per_iteration=wall / max(it, 1) * 1e3, steps=steps,
                rr_steps=rr_steps, host_reads=solver.stats["host_reads"],
+               reductions_per_iteration=REDUCTIONS[method],
                launches=launches)
-    log(f"main {method}: {json.dumps(rec)}")
-    want = dict.fromkeys(BATCHED + HEALTH + PRECOND + FLASH, 0)
-    want.update(fused_dots=steps, fused_axpy=steps,
-                spmv_ell=1 + 2 * steps + 4 * rr_steps)
-    if not rec["converged"] or true_relres > 1e-6:
-        raise SystemExit(f"{method} did not converge: {rec}")
-    if launches != want or min(launches[kn] for kn in SINGLE) == 0:
-        raise SystemExit(f"{method}: launches {launches} != {want}")
+    bar = true_relres
+    want = dict(dict.fromkeys(ops.LAUNCHES, 0),
+                **method_launches(method, steps, rr_steps))
+    if precond is not None:
+        papply = solver.precond.apply
+        bar = rec["precond_true_relres"] = float(
+            torch.linalg.vector_norm(papply(resid))
+            / torch.linalg.vector_norm(papply(b)))
+        rec["precond"] = solver.precond.name
+        want["block_jacobi_apply"] = want["spmv_ell"] + 1
+    log(f"{label} {method}: {json.dumps(rec)}")
+    if launches != want or steps == 0:
+        raise SystemExit(f"{label} {method}: launches {launches} != {want}")
+    if expect != "CONVERGED":
+        if rec["status"] != expect or bool(res.breakdown) \
+                or not it == steps == SOLVE_MAXITER:
+            raise SystemExit(f"{label} {method}: not the reference's "
+                             f"{expect} at {SOLVE_MAXITER}: {rec}")
+        return rec
+    if not rec["converged"] or bar > 1e-6:
+        raise SystemExit(f"{label} {method} did not converge: {rec}")
     # the steps queued are the iterations, the step that found convergence,
     # and the rest of its chunk
     from repro_torch.core.pipelined_bicgsafe import CHUNK
     if not it + 1 <= steps <= it + CHUNK:
-        raise SystemExit(f"{method}: {steps} steps for {it} iterations")
+        raise SystemExit(f"{label} {method}: {steps} steps for {it} "
+                         "iterations")
     return rec
+
+
+def run_comparison_path(torch, repro_torch, ops, ell, stencil, b, pc) -> dict:
+    """Phase 3f: the paper's comparison on the card.  The seven methods of
+    ``SOLVERS`` through ``make_solver(m, ell, substrate="cuda").solve(b)``
+    on the main path's system, each run with the launch counters set to 0
+    just before it and read just after (:func:`run_main_path`); then
+    p-BiCGStab with the block-Jacobi preconditioner of phase 2c.
+    ssBiCGSafe2, p-BiCGSafe in exact arithmetic, must stay within 2
+    iterations of it; CGS must end as the JAX package's does here
+    (``EXPECT``)."""
+    out = {m: run_main_path(torch, repro_torch, ops, m, ell, stencil, b,
+                            label="comparison",
+                            expect=EXPECT.get(m, "CONVERGED"))
+           for m in COMPARISON}
+    gap = out["ssbicgsafe2"]["iterations"] - out["p-bicgsafe"]["iterations"]
+    if abs(gap) > 2:
+        raise SystemExit(f"comparison: ssbicgsafe2 takes {gap:+d} iterations "
+                         "against p-bicgsafe's")
+    out["p-bicgstab block_jacobi"] = run_main_path(
+        torch, repro_torch, ops, "p-bicgstab", ell, stencil, b,
+        label="comparison block_jacobi", precond=pc)
+    torch.cuda.empty_cache()
+    return out
+
+
+def count_method_kernels(torch, repro_torch, ell, b, pc, runs: dict) -> None:
+    """Kernels per step on the card of each of 3f's solves, from profiler
+    traces of two solves with tol 0 (no step converges), 16 and 48 steps
+    long: the difference over 32 steps drops the set-up and keeps the
+    loop's share of its host reads.  Run after every timed phase; the
+    counts go into ``runs`` and one summary line is printed per solve."""
+    for key, rec in runs.items():
+        solver = repro_torch.make_solver(
+            rec["method"], ell, substrate="cuda",
+            precond=pc if "precond" in rec else None)
+        k = [device_activity(torch, lambda: solver.solve(
+            b, tol=0.0, maxiter=steps), reps=1)["kernels"]
+            for steps in (16, 48)]
+        rec["kernels_per_step"] = (k[1] - k[0]) / 32
+        log(f"comparison {key:24s}: {rec['status']} in "
+            f"{rec['iterations']} iterations "
+            f"({rec['steps']} steps queued; reductions per iteration "
+            f"{rec['reductions_per_iteration']}), true relres "
+            f"{rec['true_relres']:.3e}, "
+            f"max|x - 1| {rec['max_err']:.3e}, {rec['wall_s'] * 1e3:.1f} ms "
+            f"to solution, {rec['ms_per_iteration']:.3f} ms per iteration, "
+            f"{rec['kernels_per_step']:.2f} kernels per step")
 
 
 def batched_rhs(torch, b):
@@ -1248,7 +1364,16 @@ def main() -> int:
         block_jacobi_apply_batched=pre["solve_many"]["launches"][
             "block_jacobi_apply_batched"])
 
+    # -- 3f. the paper's comparison methods ----------------------------------
+    comparison = run_comparison_path(torch, repro_torch, ops, ell, stencil,
+                                     b, pc)
+    comparison_launches = {
+        kname: {key: rec["launches"][kname] for key, rec in comparison.items()
+                if rec["launches"][kname]}
+        for kname in ("fused_dots", "spmv_ell", "block_jacobi_apply")}
+
     step_kernels = count_step_kernels(torch, repro_torch, ell, b, pc)
+    count_method_kernels(torch, repro_torch, ell, b, pc, comparison)
     many["kernels_per_step"] = step_kernels["batched"]
     guarded["clean"]["kernels_per_step"] = step_kernels["guarded"]
     pre["solve_many"]["kernels_per_step"] = step_kernels["preconditioned"]
@@ -1266,6 +1391,8 @@ def main() -> int:
         r64, r32 = results["float64"][kname], results["float32"][kname]
         if kname in SINGLE:
             extra = dict(launches_rr=rr["launches"][kname])
+            if kname in comparison_launches:
+                extra["launches_3f"] = comparison_launches[kname]
         elif kname in PRECOND:
             extra = dict(m=M if kname.endswith("batched") else 1,
                          bs=r64["bs"], nb=r64["nb"],
@@ -1277,6 +1404,7 @@ def main() -> int:
             if kname == "block_jacobi_apply":
                 extra["launches_rr"] = \
                     pre["p-bicgsafe-rr"]["launches"][kname]
+                extra["launches_3f"] = comparison_launches[kname]
         elif kname in HEALTH:
             extra = dict(m=M if kname.endswith("batched") else 1,
                          rows_0_8_bitwise=r64["rows_0_8_bitwise"],

@@ -16,6 +16,11 @@ batched form:
     res = solver.solve(b)
     many = solver.solve_many(torch.stack([b, 2 * b], dim=1))   # (n, 2)
 
+``SOLVERS`` holds the JAX package's seven methods: beside p-BiCGSafe and
+-rr, the ones the paper compares them with, ssBiCGSafe2 (its one 9-dot
+phase on the same kernel), p-BiCGStab, BiCGStab, GPBi-CG and CGS, each
+through ``make_solver(method, op)``.
+
 With ``recovery=`` (:mod:`repro_torch.resilience`) the batched iteration is
 guarded: an (11, m) reduction with health rows, typed statuses and a
 chunked recovery driver.  BiCGStab (plain PyTorch) is its method fallback.

@@ -1,12 +1,19 @@
-"""repro_torch.core — the paper's method on PyTorch: pipelined BiCGSafe.
+"""repro_torch.core — the paper's method on PyTorch: pipelined BiCGSafe,
+and the methods the paper compares it with.
 
 FRONT DOOR: :mod:`repro_torch.api` —
 ``repro_torch.make_solver(method, op, substrate=...).solve(b)``.
 
-* Solvers (``(matvec, b, x0=None, *, config, r0_star, substrate)``):
+* Solvers (``(matvec, b, x0=None, *, config, r0_star, substrate,
+  precond, stats)``), the JAX package's seven, with their reductions per
+  iteration:
   - :func:`bicgstab_solve`        BiCGStab            (Alg. 2.1, 2 syncs)
+  - :func:`pbicgstab_solve`       pipelined BiCGStab  (Cools-Vanroose, 2 overlapped)
+  - :func:`gpbicg_solve`          GPBi-CG             (Alg. 2.2, 3 syncs)
+  - :func:`cgs_solve`             CGS                 (Sonneveld, 2 syncs)
+  - :func:`ssbicgsafe2_solve`     ssBiCGSafe2         (Alg. 2.3, 1 sync)
   - :func:`pbicgsafe_solve`       p-BiCGSafe          (Alg. 3.1, 1 overlapped sync)
-  - :func:`pbicgsafe_rr_solve`    p-BiCGSafe-rr       (Alg. 4.1)
+  - :func:`pbicgsafe_rr_solve`    p-BiCGSafe-rr       (Alg. 4.1, 1 overlapped sync)
   - :func:`solve_batched`         p-BiCGSafe on (n, m) right-hand sides, one
     (9, m) reduction per iteration; open-loop pieces :func:`init_state`,
     :func:`step_chunk`, :func:`splice_columns`, :func:`result_from_state`;
@@ -18,17 +25,25 @@ FRONT DOOR: :mod:`repro_torch.api` —
   (:mod:`repro_torch.core.substrate`).
 """
 from .bicgstab import bicgstab_solve
+from .cgs import cgs_solve
+from .gpbicg import gpbicg_solve
 from .linear_operator import (CSROperator, DenseOperator, ELLOperator,
                               Stencil7Operator, as_matvec)
 from .multirhs import (GUARD_FIELDS, init_state, result_from_state,
                        solve_batched, splice_columns, step_chunk)
 from .pipelined_bicgsafe import pbicgsafe_rr_solve, pbicgsafe_solve
+from .pipelined_bicgstab import pbicgstab_solve
+from .ssbicgsafe import ssbicgsafe2_solve
 from .substrate import (SUBSTRATES, CudaSubstrate, Substrate, TorchSubstrate,
                         get_substrate)
 from .types import SolveResult, SolveStatus, SolverConfig
 
 SOLVERS = {
     "bicgstab": bicgstab_solve,
+    "p-bicgstab": pbicgstab_solve,
+    "gpbicg": gpbicg_solve,
+    "cgs": cgs_solve,
+    "ssbicgsafe2": ssbicgsafe2_solve,
     "p-bicgsafe": pbicgsafe_solve,
     "p-bicgsafe-rr": pbicgsafe_rr_solve,
 }
@@ -39,7 +54,8 @@ __all__ = [
     "as_matvec",
     "Substrate", "TorchSubstrate", "CudaSubstrate", "SUBSTRATES",
     "get_substrate",
-    "bicgstab_solve", "pbicgsafe_solve", "pbicgsafe_rr_solve", "SOLVERS",
+    "bicgstab_solve", "pbicgstab_solve", "gpbicg_solve", "cgs_solve",
+    "ssbicgsafe2_solve", "pbicgsafe_solve", "pbicgsafe_rr_solve", "SOLVERS",
     "solve_batched", "init_state", "step_chunk", "splice_columns",
     "result_from_state", "GUARD_FIELDS",
 ]

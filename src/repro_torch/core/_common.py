@@ -11,7 +11,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from .types import SolveStatus
+from .types import SolveResult, SolveStatus, classify_status
 
 
 def local_dots(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -42,6 +42,57 @@ def tree_select(pred, on_true: dict, on_false: dict) -> dict:
     through without a copy."""
     return {k: a if a is on_false[k] else torch.where(pred, a, on_false[k])
             for k, a in on_true.items()}
+
+
+def hold_checked(st: dict, new: dict, active, relres, done,
+                 hist) -> dict:
+    """The state after one step of a method that checks the recurred
+    ``||r_i||`` it was given (BiCGStab, p-BiCGStab, GPBi-CG, CGS): ``new``
+    while the state runs and is not ``done``; else the JAX body's stopped
+    state (this check's relres, flag and history), and once stopped the
+    state as it was."""
+    held = dict(st)
+    held.update(relres=torch.where(active, relres, st["relres"]),
+                converged=torch.where(active, done, st["converged"]),
+                hist=hist)
+    return tree_select(active & ~done, new, held)
+
+
+def hold_in_step(st: dict, new: dict, active, relres, done, bad,
+                 hist) -> dict:
+    """The state after one step of a method that decides its stop from
+    the step's own dots (p-BiCGSafe, -rr, ssBiCGSafe2): ``new`` while the
+    state runs and the step found neither convergence nor a breakdown;
+    else the JAX body's stopped state (the state it was given, with this
+    step's relres, flags and history), and once stopped the state as it
+    was."""
+    held = dict(st)
+    held.update(relres=torch.where(active, relres, st["relres"]),
+                converged=torch.where(active, done, st["converged"]),
+                breakdown=torch.where(active, bad & ~done, st["breakdown"]),
+                hist=hist)
+    return tree_select(~active | done | bad, held, new)
+
+
+def state_result(st: dict) -> SolveResult:
+    """The result of such a method: the state's own flags and relres."""
+    return SolveResult(st["x"], st["i"], st["relres"], st["converged"],
+                       st["breakdown"], st["hist"],
+                       classify_status(st["converged"], st["breakdown"],
+                                       st["relres"]), None)
+
+
+def recurred_result(st: dict, norm_r0: torch.Tensor, tol: float
+                    ) -> SolveResult:
+    """The result of such a method: the loop may end on maxiter after an
+    unchecked update, so the final relres is derived again from the last
+    recurred ``||r||^2``."""
+    relres = torch.where(st["converged"], st["relres"],
+                         torch.sqrt(torch.abs(st["rr"])) / norm_r0)
+    converged = st["converged"] | (relres <= tol)
+    return SolveResult(st["x"], st["i"], relres, converged, st["breakdown"],
+                       st["hist"], classify_status(converged, st["breakdown"],
+                                                   relres), None)
 
 
 def _first(i, like: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,7 @@ substrate sends an ELL operator's matvec to the SpMV kernel).  It is the
 guarded driver's default method fallback
 (:class:`repro_torch.resilience.RecoveryPolicy`).
 
-The loop is the chunked one of :mod:`repro_torch.core.pipelined_bicgsafe`:
+The loop is :func:`repro_torch.core.pipelined_bicgsafe.run_chunked`:
 steps queued by the host in chunks of ``CHUNK``, one host read of the stop
 flag per chunk, and a state that has stopped carried unchanged.
 """
@@ -24,11 +24,11 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..precond.base import PrecondLike, preconditioned_system
-from . import pipelined_bicgsafe
-from ._common import init_guess, safe_div, tree_select
+from ._common import (hold_checked, init_guess, recurred_result,
+                      safe_div)
+from .pipelined_bicgsafe import run_chunked
 from .substrate import SubstrateLike, get_substrate
-from .types import (SolveResult, SolverConfig, classify_status, history_init,
-                    history_update)
+from .types import SolveResult, SolverConfig, history_init, history_update
 
 
 def bicgstab_solve(matvec: Callable,
@@ -51,9 +51,6 @@ def bicgstab_solve(matvec: Callable,
     """
     sub = get_substrate(substrate)
     matvec, b = preconditioned_system(sub, matvec, b, precond)
-    stats = {} if stats is None else stats
-    for key in ("steps", "host_reads"):
-        stats.setdefault(key, 0)
     eps = config.breakdown_threshold(b.dtype)
     x = init_guess(b, x0)
     r0 = b - matvec(x) if x0 is not None else b
@@ -76,7 +73,7 @@ def bicgstab_solve(matvec: Callable,
         converged=conv0, breakdown=false,
         hist=history_init(config, norm_r0.dtype, b.device))
 
-    def step(st):
+    def step(st, _i_host):
         """One iteration of the JAX loop body; a stopped state is kept."""
         active = ~st["converged"] & ~st["breakdown"]
         relres = torch.sqrt(torch.abs(st["rr"])) / norm_r0
@@ -102,30 +99,7 @@ def bicgstab_solve(matvec: Callable,
             rho=rho_next, alpha=alpha, omega=omega, rr=rr_next,
             i=st["i"] + 1, relres=relres, converged=false,
             breakdown=bad1 | bad2 | bad3, hist=hist)
-        held = dict(st)
-        held.update(relres=torch.where(active, relres, st["relres"]),
-                    converged=torch.where(active, done, st["converged"]),
-                    hist=hist)
-        stats["steps"] += 1
-        return tree_select(active & ~done, new, held)
+        return hold_checked(st, new, active, relres, done, hist)
 
-    i_host = 0
-    while i_host < config.maxiter:
-        stats["host_reads"] += 1
-        if bool(state["converged"] | state["breakdown"]):
-            break
-        n_steps = min(pipelined_bicgsafe.CHUNK, config.maxiter - i_host)
-        for _ in range(n_steps):
-            state = step(state)
-        i_host += n_steps
-
-    st = state
-    # the loop may end on maxiter after an unchecked update: re-derive the
-    # final relres from the last recurred ||r||^2
-    final_relres = torch.where(st["converged"], st["relres"],
-                               torch.sqrt(torch.abs(st["rr"])) / norm_r0)
-    converged = st["converged"] | (final_relres <= config.tol)
-    return SolveResult(st["x"], st["i"], final_relres, converged,
-                       st["breakdown"], st["hist"],
-                       classify_status(converged, st["breakdown"],
-                                       final_relres), None)
+    st = run_chunked(step, state, config.maxiter, stats)
+    return recurred_result(st, norm_r0, config.tol)

@@ -33,14 +33,40 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..precond.base import PrecondLike, preconditioned_system
-from ._common import (bicgsafe_coefficients, init_guess,
-                      pipelined_recurrence_tail, tree_select)
+from ._common import (bicgsafe_coefficients, hold_in_step, init_guess,
+                      pipelined_recurrence_tail, state_result)
 from .substrate import SubstrateLike, get_substrate
-from .types import (SolveResult, SolverConfig, classify_status, history_init,
-                    history_update)
+from .types import SolveResult, SolverConfig, history_init, history_update
 
 #: iterations queued between two host reads of the stop flag
 CHUNK = 16
+
+
+def run_chunked(step: Callable, state: dict, maxiter: int,
+                stats: Optional[Dict[str, int]]) -> dict:
+    """The host loop of every single-RHS solver of the port.
+
+    Queues ``step(state, i_host)`` in chunks of :data:`CHUNK`, reading the
+    stop flag (``converged | breakdown``) once before each chunk; a chunk
+    never runs past ``maxiter``.  ``i_host`` is the host's count of steps,
+    exact whenever the state has not stopped; a step must carry a stopped
+    state unchanged.  ``stats`` accumulates ``steps`` (queued, stopped
+    ones included) and ``host_reads``, when given.
+    """
+    stats = {} if stats is None else stats
+    for key in ("steps", "host_reads"):
+        stats.setdefault(key, 0)
+    i_host = 0
+    while i_host < maxiter:
+        stats["host_reads"] += 1
+        if bool(state["converged"] | state["breakdown"]):
+            break
+        n_steps = min(CHUNK, maxiter - i_host)
+        for j in range(n_steps):
+            state = step(state, i_host + j)
+        stats["steps"] += n_steps
+        i_host += n_steps
+    return state
 
 
 def _pipelined_solve(matvec, b, x0, config: SolverConfig, r0_star,
@@ -55,8 +81,7 @@ def _pipelined_solve(matvec, b, x0, config: SolverConfig, r0_star,
     sub = get_substrate(substrate)
     matvec, b = preconditioned_system(sub, matvec, b, precond)
     stats = {} if stats is None else stats
-    for key in ("steps", "rr_steps", "host_reads"):
-        stats.setdefault(key, 0)
+    stats.setdefault("rr_steps", 0)
     eps = config.breakdown_threshold(b.dtype)
     x = init_guess(b, x0)
     r0 = b - matvec(x) if x0 is not None else b          # MV (init)
@@ -135,32 +160,10 @@ def _pipelined_solve(matvec, b, x0, config: SolverConfig, r0_star,
             alpha=alpha, zeta=zeta, f=f,
             i=st["i"] + 1, relres=relres,
             converged=false, breakdown=false, hist=hist_i)
-        # the stopped state of the JAX body; a state that had already
-        # stopped keeps its flags and residual as well
-        held = dict(st)
-        held.update(relres=torch.where(active, relres, st["relres"]),
-                    converged=torch.where(active, done, st["converged"]),
-                    breakdown=torch.where(active, bad & ~done,
-                                          st["breakdown"]),
-                    hist=hist_i)
-        stats["steps"] += 1
-        return tree_select(~active | done | bad, held, new)
+        return hold_in_step(st, new, active, relres, done, bad, hist_i)
 
-    i_host = 0
-    while i_host < config.maxiter:
-        stats["host_reads"] += 1
-        if bool(state["converged"] | state["breakdown"]):
-            break
-        n_steps = min(CHUNK, config.maxiter - i_host)
-        for j in range(n_steps):
-            state = step(state, i_host + j)
-        i_host += n_steps
-
-    st = state
-    return SolveResult(st["x"], st["i"], st["relres"], st["converged"],
-                       st["breakdown"], st["hist"],
-                       classify_status(st["converged"], st["breakdown"],
-                                       st["relres"]), None)
+    st = run_chunked(step, state, config.maxiter, stats)
+    return state_result(st)
 
 
 def pbicgsafe_solve(matvec: Callable,

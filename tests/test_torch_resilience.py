@@ -299,6 +299,42 @@ def test_method_fallback_rescues_exhausted_column(substrate):
     assert_same_outcome(gs, res, ref)
 
 
+def test_policy_takes_every_method_as_fallback():
+    """Every name of the port's SOLVERS, the JAX package's seven, is a
+    fallback both packages accept; another name is refused by both."""
+    assert set(repro_torch.SOLVERS) == set(repro.SOLVERS)
+    for method in repro_torch.SOLVERS:
+        assert RecoveryPolicy(method_fallback=method).method_fallback \
+            == JPolicy(method_fallback=method).method_fallback == method
+    for bad in ("gmres", "P-BiCGStab", ""):
+        with pytest.raises(ValueError, match="method_fallback"):
+            RecoveryPolicy(method_fallback=bad)
+        with pytest.raises(ValueError, match="method_fallback"):
+            JPolicy(method_fallback=bad)
+
+
+@pytest.mark.parametrize("substrate", SUBSTRATES)
+@pytest.mark.parametrize("method", ["ssbicgsafe2", "p-bicgstab", "gpbicg",
+                                    "cgs"])
+def test_each_method_fallback_matches_jax(method, substrate):
+    """The scenario of test_method_fallback_rescues_exhausted_column with
+    each of the paper's comparison methods as the fallback: the typed
+    outcome and the ``method_fallback`` event as the JAX package's."""
+    a, b = problem()
+    shadow = np_(orthogonal_shadow(torch.from_numpy(b)))
+    kw = dict(policy_kw=dict(chunk=16, max_restarts=0,
+                             method_fallback=method),
+              cfg_kw=dict(tol=1e-2, maxiter=300, breakdown_eps=1e-12),
+              r0_star=shadow)
+    ref = run_jax(a, b, **kw)
+    gs, res = run_port(a, b, substrate=substrate,
+                       **dict(kw, r0_star=torch.from_numpy(shadow)))
+    fb = [e for e in gs.events if e["event"] == "method_fallback"]
+    assert len(fb) == 1 and fb[0]["method"] == method
+    assert fb[0]["from_status"] == "BREAKDOWN_RHO"
+    assert_same_outcome(gs, res, ref)
+
+
 def test_kernel_failure_degrades_substrate():
     """A kernel failure on ``"cuda"`` rebuilds the session on ``"torch"``
     on the same device and finishes from the same state, as the JAX
