@@ -96,6 +96,18 @@ package is missing.  Phases, any failure of which fails the run:
 5. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
+Every solve of phases 3b-3f runs through a session's programs: each
+solver chunk is a CUDA graph, captured on the session's first solve with
+the measured call's settings (that first solve's wall time, capture
+included, is printed on a line of its own, with the graphs captured) and
+replayed after.  3b's p-BiCGSafe solve and 3c's block are solved again
+through the eager chunk (``repro_torch.core.program._eager_chunks``), after
+their counters are read: the eager run's ms per iteration is printed
+beside the graph's with the card's name and power limit, and its ``x``,
+iterations and relres must equal the graph run's bit for bit.  The memory
+the allocator holds is printed after each solver phase, and the session
+cache is cleared before phase 4.
+
 The run goes 1, 3a (the matrix), 2, 2b, 2c, 2d, 3b-3f, the profiler's
 counts, 4, 5.  Each path is driven with the launch counters set to 0 just
 before it and read just after; the kernels' checks and timings are not
@@ -103,6 +115,8 @@ counted.
 """
 from __future__ import annotations
 
+import functools
+import gc
 import json
 import os
 import statistics
@@ -208,6 +222,59 @@ STEP_REPS = 4               # solver steps queued per timing (see device_ms)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@functools.lru_cache(maxsize=None)
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def log_memory(torch, label: str) -> None:
+    log(f"memory after {label}: {torch.cuda.memory_reserved() / 2**30:.2f} "
+        f"GiB reserved, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        "allocated")
+
+
+def first_solve(torch, label: str, session, call) -> float:
+    """Run a session's first solve with the measured call's settings (its
+    programs' capture included), print its wall time and the graphs the
+    session captured, and return the wall time in seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"{label}: first solve {wall * 1e3:.1f} ms (capture included), "
+        f"{session.stats['graphs']} graphs captured, "
+        f"{session.stats['programs']} programs")
+    return wall
+
+
+def eager_rerun(torch, label: str, call, graph_res, graph_ms: float,
+                per: str) -> float:
+    """The same solve through the eager chunk (not counted): it must equal
+    the graph run's result bit for bit; prints both times per ``per``
+    beside the card, and returns the eager ms per ``per``."""
+    from repro_torch.core.program import _eager_chunks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _eager_chunks():
+        res, n = call()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / n * 1e3
+    same = all(torch.equal(a, b) for a, b in (
+        (res.x, graph_res.x), (res.iterations, graph_res.iterations),
+        (res.relres, graph_res.relres)))
+    log(f"{label}: graph {graph_ms:.4f} ms per {per}, eager chunk "
+        f"{eager_ms:.4f} ms per {per} (x{eager_ms / graph_ms:.3f}); x "
+        f"bitwise equal: {same} [{card()}]")
+    if not same:
+        raise SystemExit(f"{label}: the graph run's result differs from the "
+                         "eager chunk's")
+    return eager_ms
 
 
 def device_ms(torch, fn, reps: int = 20, trials: int = 5) -> float:
@@ -622,7 +689,8 @@ def method_launches(method: str, steps: int, rr_steps: int = 0) -> dict:
 
 
 def run_main_path(torch, repro_torch, ops, method, ell, stencil, b,
-                  label="main", precond=None, expect="CONVERGED"):
+                  label="main", precond=None, expect="CONVERGED",
+                  eager=False):
     """One measured solve through the front door, with the launch counters
     set to 0 just before it and read just after: it must converge with a
     true relres within 1e-6 (of the preconditioned system, with
@@ -630,10 +698,13 @@ def run_main_path(torch, repro_torch, ops, method, ell, stencil, b,
     :func:`method_launches` (and one apply per SpMV plus b's) for the
     steps it queued.  ``expect="MAXITER"``: it must instead end as the JAX
     package's solve of this system does, at ``SOLVE_MAXITER`` without a
-    breakdown (``EXPECT``)."""
+    breakdown (``EXPECT``).  ``eager``: then the same solve through the
+    eager chunk, held to it bit for bit, with its time."""
     solver = repro_torch.make_solver(method, ell, substrate="cuda",
                                      precond=precond)
-    solver.solve(b, maxiter=32)                      # warm-up, not counted
+    first_s = first_solve(                           # warm-up, not counted
+        torch, f"{label} {method}", solver,
+        lambda: solver.solve(b, tol=1e-8, maxiter=SOLVE_MAXITER))
     solver.stats.update(steps=0, rr_steps=0, host_reads=0)
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -654,7 +725,9 @@ def run_main_path(torch, repro_torch, ops, method, ell, stencil, b,
                ms_per_iteration=wall / max(it, 1) * 1e3, steps=steps,
                rr_steps=rr_steps, host_reads=solver.stats["host_reads"],
                reductions_per_iteration=REDUCTIONS[method],
-               launches=launches)
+               launches=launches, first_solve_s=first_s,
+               graphs=solver.stats["graphs"],
+               traces=solver.stats["traces"])
     bar = true_relres
     want = dict(dict.fromkeys(ops.LAUNCHES, 0),
                 **method_launches(method, steps, rr_steps))
@@ -668,6 +741,11 @@ def run_main_path(torch, repro_torch, ops, method, ell, stencil, b,
     log(f"{label} {method}: {json.dumps(rec)}")
     if launches != want or steps == 0:
         raise SystemExit(f"{label} {method}: launches {launches} != {want}")
+    if eager:
+        rec["eager_ms_per_iteration"] = eager_rerun(
+            torch, f"{label} {method}",
+            lambda: (solver.solve(b, tol=1e-8, maxiter=SOLVE_MAXITER), it),
+            res, rec["ms_per_iteration"], "iteration")
     if expect != "CONVERGED":
         if rec["status"] != expect or bool(res.breakdown) \
                 or not it == steps == SOLVE_MAXITER:
@@ -750,7 +828,8 @@ def run_batched_path(torch, repro_torch, ops, ell, stencil, b, single_it):
     after."""
     B, tol = batched_rhs(torch, b)
     solver = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda")
-    solver.solve_many(B, maxiter=32)                 # warm-up, not counted
+    first_s = first_solve(torch, "batched solve_many", solver,  # not counted
+                          lambda: solver.solve_many(B, tol=tol))
     solver.stats.update(steps=0, host_reads=0)
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -771,7 +850,8 @@ def run_batched_path(torch, repro_torch, ops, ell, stencil, b, single_it):
                ms_per_step=wall / steps * 1e3,
                ms_per_iteration=wall / max(its) * 1e3, steps=steps,
                host_reads=solver.stats["host_reads"], launches=launches,
-               single_rhs_iterations=single_it)
+               single_rhs_iterations=single_it, first_solve_s=first_s,
+               graphs=solver.stats["graphs"])
     log(f"batched solve_many: {json.dumps(rec)}")
     if not all(rec["converged"]):
         raise SystemExit(f"solve_many: a column did not converge: {rec}")
@@ -785,6 +865,10 @@ def run_batched_path(torch, repro_torch, ops, ell, stencil, b, single_it):
                 spmv_ell_batched=1 + 2 * steps)
     if launches != want or steps == 0:
         raise SystemExit(f"solve_many: launches {launches} != {want}")
+    rec["eager_ms_per_step"] = eager_rerun(
+        torch, "batched solve_many",
+        lambda: (solver.solve_many(B, tol=tol), steps), res,
+        rec["ms_per_step"], "step")
     # the device time of one step with every column live, queued back to
     # back (no host gaps); over the solve's wall time per step it is the
     # device's busy share
@@ -810,7 +894,8 @@ def run_guarded_path(torch, repro_torch, ops, ell, stencil, b, many, main):
     gs = repro_torch.make_solver(
         "p-bicgsafe", ell, substrate="cuda",
         recovery=RecoveryPolicy(chunk=16, substrate_fallback=False))
-    gs.solve_many(B, maxiter=32)                     # warm-up, not counted
+    first_solve(torch, "guarded", gs,                # warm-ups, not counted
+                lambda: (gs.solve_many(B, tol=tol), gs.solve(b)))
 
     def measured(label, rhs, **kw):
         gs.events.clear()
@@ -833,7 +918,9 @@ def run_guarded_path(torch, repro_torch, ops, ell, stencil, b, many, main):
             true_relres=true.tolist(), finite=bool(torch.isfinite(X).all()),
             events=list(gs.events), wall_s=wall, steps=steps,
             ms_per_step=wall / max(steps, 1) * 1e3,
-            host_reads=gs.stats["host_reads"], launches=dict(ops.LAUNCHES))
+            host_reads=gs.stats["host_reads"], launches=dict(ops.LAUNCHES),
+            ms_per_iteration=wall / max(res.iterations.max().item(), 1) * 1e3,
+            graphs=gs.stats["graphs"])
         log(f"guarded {label}: {json.dumps(rec)}")
         tol_col = tol if rhs.dim() == 2 else torch.full_like(true, 1e-8)
         if rec["status"] != ["CONVERGED"] * len(rec["status"]) \
@@ -908,10 +995,10 @@ def run_precond_path(torch, repro_torch, ops, ell, stencil, b, pc, main,
     zero = dict.fromkeys(ops.LAUNCHES, 0)
 
     def measured(label, solver, rhs, want, **kw):
-        if rhs.dim() == 1:
-            solver.solve(rhs, maxiter=32)                # warm-up, not counted
-        else:
-            solver.solve_many(rhs, maxiter=32)
+        first_s = first_solve(                           # warm-up, not counted
+            torch, f"precond {label}", solver,
+            lambda: solver.solve(rhs, **kw) if rhs.dim() == 1
+            else solver.solve_many(rhs, **kw))
         solver.stats.update(steps=0, rr_steps=0, host_reads=0)
         torch.cuda.synchronize()
         ops.reset_launches()
@@ -945,7 +1032,9 @@ def run_precond_path(torch, repro_torch, ops, ell, stencil, b, pc, main,
             else None,
             wall_s=wall, steps=steps, rr_steps=rr_steps,
             ms_per_step=wall / max(steps, 1) * 1e3,
-            host_reads=solver.stats["host_reads"], launches=launches)
+            ms_per_iteration=wall / max(max(its), 1) * 1e3,
+            host_reads=solver.stats["host_reads"], launches=launches,
+            first_solve_s=first_s, graphs=solver.stats["graphs"])
         log(f"precond {label}: {json.dumps(rec)}")
         tol_col = tol if rhs.dim() == 2 else torch.full_like(prec_true, 1e-8)
         if not all(rec["converged"]) \
@@ -1251,10 +1340,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
 
     # -- 1. device and build ------------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    log(smi)                        # the card's name and power limit
+    log(card())                     # the card's name and power limit
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -1322,7 +1408,8 @@ def main() -> int:
     flash = check_flash_kernel(torch, ops, ref)
 
     # -- 3b. the main path ----------------------------------------------------
-    runs = [run_main_path(torch, repro_torch, ops, method, ell, stencil, b)
+    runs = [run_main_path(torch, repro_torch, ops, method, ell, stencil, b,
+                          eager=method == "p-bicgsafe")
             for method in ("p-bicgsafe", "p-bicgsafe-rr")]
     main, rr = runs
     share = sum(results["float64"][k]["ms"] * main["launches"][k]
@@ -1330,6 +1417,7 @@ def main() -> int:
     log(f"main p-bicgsafe: the three kernels' device time is {share:.3f} "
         "of the wall time")
     torch.cuda.empty_cache()
+    log_memory(torch, "3b")
 
     # -- 3c. the batched path ------------------------------------------------
     many = run_batched_path(torch, repro_torch, ops, ell, stencil, b,
@@ -1342,6 +1430,7 @@ def main() -> int:
         f"{kernel_ms / (many['wall_s'] * 1e3):.3f} of the wall time "
         f"({kernel_ms / many['steps']:.3f} ms per step)")
     torch.cuda.empty_cache()
+    log_memory(torch, "3c")
 
     # -- 3d. the guarded path -----------------------------------------------
     guarded = run_guarded_path(torch, repro_torch, ops, ell, stencil, b, many,
@@ -1354,6 +1443,7 @@ def main() -> int:
             "fused_dots_health_batched"])
 
     torch.cuda.empty_cache()
+    log_memory(torch, "3d")
 
     # -- 3e. the preconditioned path ------------------------------------------
     pre = run_precond_path(torch, repro_torch, ops, ell, stencil, b, pc, main,
@@ -1363,6 +1453,7 @@ def main() -> int:
         block_jacobi_apply=pre["p-bicgsafe"]["launches"]["block_jacobi_apply"],
         block_jacobi_apply_batched=pre["solve_many"]["launches"][
             "block_jacobi_apply_batched"])
+    log_memory(torch, "3e")
 
     # -- 3f. the paper's comparison methods ----------------------------------
     comparison = run_comparison_path(torch, repro_torch, ops, ell, stencil,
@@ -1377,10 +1468,15 @@ def main() -> int:
     many["kernels_per_step"] = step_kernels["batched"]
     guarded["clean"]["kernels_per_step"] = step_kernels["guarded"]
     pre["solve_many"]["kernels_per_step"] = step_kernels["preconditioned"]
+    log_memory(torch, "3f")
 
     # -- 4. the serving path ---------------------------------------------------
+    # the cached sessions hold their programs' buffers and graph pools
     del pc, ell, stencil, b, v, want
+    repro_torch.clear_session_cache()
+    gc.collect()
     torch.cuda.empty_cache()
+    log_memory(torch, "clearing the session cache")
     main_flash = flash[(FLASH_SHAPE, True, "bfloat16")]
     serving = run_serving_path(torch, ops, main_flash["ms"])
     path_launches.update(flash_attention=serving["launches"]["flash_attention"])

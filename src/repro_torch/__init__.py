@@ -43,7 +43,8 @@ This package imports ``torch``, ``numpy`` and the standard library only —
 nothing of the JAX package :mod:`repro`, which stays its reference.
 """
 from . import precond
-from .api import LinearSolver, make_solver, solve
+from .api import (LinearSolver, clear_session_cache, make_solver,
+                  operator_fingerprint, session_cache_info, solve)
 from .convert import (lm_params_from_numpy, operator_from_numpy,
                       preconditioner_from_numpy)
 from .core import (GUARD_FIELDS, SOLVERS, SUBSTRATES, CSROperator,
@@ -54,7 +55,8 @@ from .core import (GUARD_FIELDS, SOLVERS, SUBSTRATES, CSROperator,
 from .resilience import GuardedSolver, RecoveryPolicy
 
 __all__ = [
-    "LinearSolver", "make_solver", "solve", "operator_from_numpy",
+    "LinearSolver", "make_solver", "solve", "operator_fingerprint",
+    "clear_session_cache", "session_cache_info", "operator_from_numpy",
     "lm_params_from_numpy",
     "preconditioner_from_numpy", "precond",
     "SOLVERS", "SUBSTRATES", "get_substrate",

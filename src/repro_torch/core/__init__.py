@@ -23,17 +23,20 @@ FRONT DOOR: :mod:`repro_torch.api` —
 * Problem generators: :mod:`repro_torch.core.matrices`.
 * Compute substrates: ``substrate="torch"|"cuda"``
   (:mod:`repro_torch.core.substrate`).
+* Programs: :mod:`repro_torch.core.program`, a chunk of steps captured
+  as one CUDA graph (the counterpart of ``jax.jit``).
 """
-from .bicgstab import bicgstab_solve
-from .cgs import cgs_solve
-from .gpbicg import gpbicg_solve
+from .bicgstab import BICGSTAB, bicgstab_solve
+from .cgs import CGS, cgs_solve
+from .gpbicg import GPBICG, gpbicg_solve
 from .linear_operator import (CSROperator, DenseOperator, ELLOperator,
                               Stencil7Operator, as_matvec)
 from .multirhs import (GUARD_FIELDS, init_state, result_from_state,
                        solve_batched, splice_columns, step_chunk)
-from .pipelined_bicgsafe import pbicgsafe_rr_solve, pbicgsafe_solve
-from .pipelined_bicgstab import pbicgstab_solve
-from .ssbicgsafe import ssbicgsafe2_solve
+from .pipelined_bicgsafe import (PBICGSAFE, PBICGSAFE_RR,
+                                 pbicgsafe_rr_solve, pbicgsafe_solve)
+from .pipelined_bicgstab import PBICGSTAB, pbicgstab_solve
+from .ssbicgsafe import SSBICGSAFE2, ssbicgsafe2_solve
 from .substrate import (SUBSTRATES, CudaSubstrate, Substrate, TorchSubstrate,
                         get_substrate)
 from .types import SolveResult, SolveStatus, SolverConfig
@@ -48,6 +51,18 @@ SOLVERS = {
     "p-bicgsafe-rr": pbicgsafe_rr_solve,
 }
 
+#: each of ``SOLVERS`` as the chunked loop runs it (set-up, body, result):
+#: what a session's programs are built from
+CHUNKED = {
+    "bicgstab": BICGSTAB,
+    "p-bicgstab": PBICGSTAB,
+    "gpbicg": GPBICG,
+    "cgs": CGS,
+    "ssbicgsafe2": SSBICGSAFE2,
+    "p-bicgsafe": PBICGSAFE,
+    "p-bicgsafe-rr": PBICGSAFE_RR,
+}
+
 __all__ = [
     "SolveResult", "SolveStatus", "SolverConfig",
     "CSROperator", "DenseOperator", "ELLOperator", "Stencil7Operator",
@@ -56,6 +71,7 @@ __all__ = [
     "get_substrate",
     "bicgstab_solve", "pbicgstab_solve", "gpbicg_solve", "cgs_solve",
     "ssbicgsafe2_solve", "pbicgsafe_solve", "pbicgsafe_rr_solve", "SOLVERS",
+    "CHUNKED",
     "solve_batched", "init_state", "step_chunk", "splice_columns",
     "result_from_state", "GUARD_FIELDS",
 ]

@@ -24,9 +24,10 @@ Open-loop pieces, as in the JAX package (what its service drives):
 :func:`solve_batched` is init plus one chunk of ``config.maxiter`` steps.
 
 The loop.  PyTorch has no device-side while loop: :func:`step_chunk`
-queues steps in groups of ``pipelined_bicgsafe.CHUNK`` (16) and reads
-``any(active)`` on the host once per group, never queuing more than k
-steps in all.  A step queued after every column stopped must leave the
+queues steps in groups of ``pipelined_bicgsafe.CHUNK`` (16), each one run
+of a :class:`~repro_torch.core.program.Program` (a CUDA graph replay on the
+card, the eager steps on the CPU), and reads ``any(active)`` on the host
+once per group, never queuing more than k steps in all.  A step queued after every column stopped must leave the
 state bitwise as it was, as the JAX loop would no longer run its body: every
 field is a per-column select, and the global counter ``i`` (history slot)
 advances by ``any(active)``, not by 1.  The JAX package's ``dot_reduce``
@@ -51,6 +52,7 @@ from ..precond.base import PrecondLike, wrap_block_preconditioned
 from . import pipelined_bicgsafe
 from ._common import bicgsafe_coefficients, pipelined_recurrence_tail
 from .linear_operator import batched_matvec
+from .program import Program
 from .substrate import SubstrateLike, get_substrate
 from .types import (SolveResult, SolverConfig, SolveStatus, classify_status,
                     per_column)
@@ -387,22 +389,41 @@ def step_chunk(bmv: Callable,
 
     ``stats``, when given, accumulates ``steps`` (steps queued, frozen
     ones included) and ``host_reads`` (reads of ``any(active)``)."""
+    return run_chunks(batched_program(bmv, config, substrate, stats,
+                                      device=state["r"].device),
+                      state, k, stats)
+
+
+def batched_program(bmv: Callable, config: SolverConfig,
+                    substrate: SubstrateLike = "torch",
+                    stats: Optional[Dict[str, int]] = None, *, device,
+                    key=None) -> Program:
+    """A :class:`~repro_torch.core.program.Program` of the batched body
+    (what :func:`run_chunks` runs)."""
+    body = _make_body(get_substrate(substrate), bmv, config)
+    return Program(lambda st, _consts, _replace: body(st), device, key,
+                   stats=stats)
+
+
+def run_chunks(program: Program, state: dict, k: int,
+               stats: Optional[Dict[str, int]] = None) -> dict:
+    """:func:`step_chunk` on ``program``: loads ``state`` (which is left as
+    it was) and runs chunks of up to ``CHUNK`` steps while a column is
+    live, ``k`` steps at most; returns the new state."""
     stats = {} if stats is None else stats
     for key in ("steps", "host_reads"):
         stats.setdefault(key, 0)
-    body = _make_body(get_substrate(substrate), bmv, config)
-    st = dict(state, hist=state["hist"].clone())
+    program.load(state)
     queued = 0
     while queued < k:
         stats["host_reads"] += 1
-        if not bool(active_columns(st).any()):
+        if not bool(active_columns(program.state).any()):
             break
         n_steps = min(pipelined_bicgsafe.CHUNK, k - queued)
-        for _ in range(n_steps):
-            st = body(st)
+        program.run((False,) * n_steps)
         stats["steps"] += n_steps
         queued += n_steps
-    return st
+    return program.read()
 
 
 def result_from_state(state: dict) -> SolveResult:

@@ -15,26 +15,34 @@ t_{i-1}`` and ``r0*``, none of which depend on the iteration's matvec
 ``A s_i``.
 
 The loop.  PyTorch has no device-side while loop, so the iterations run in
-chunks of ``CHUNK`` steps queued by the host.  Each step computes the next
-state and the stopped state exactly as the JAX loop body does, and selects
-between them on the device (``tree_select``); a state that has already
-stopped (converged or broken down) is carried unchanged, as the JAX
-``while_loop`` would no longer run its body.  The host reads one flag per
-chunk, so ``iterations`` is exact and a chunk makes one host sync.  A chunk
-never runs past ``maxiter``.  The -rr replacement step is chosen on the
-host: it knows ``i`` for every step that has not stopped, and a stopped
-step's result is discarded anyway.  Steps queued after the state stopped,
-within its last chunk, still launch their kernels.
+chunks of ``CHUNK`` steps queued by the host (:func:`run_chunked`), each
+chunk one :class:`~repro_torch.core.program.Program` run: a CUDA graph
+replay on the card, the eager steps on the CPU.  Each step computes the
+next state and the stopped state exactly as the JAX loop body does, and
+selects between them on the device (``tree_select``); a state that has
+already stopped (converged or broken down) is carried unchanged, as the
+JAX ``while_loop`` would no longer run its body.  The host reads one flag
+per chunk, so ``iterations`` is exact and a chunk makes one host sync.  A
+chunk never runs past ``maxiter``.  The -rr replacement step is chosen on
+the host: it knows ``i`` for every step that has not stopped, and a
+stopped step's result is discarded anyway; each distinct pattern of
+replacement steps in a chunk is a program of its own.  Steps queued after
+the state stopped, within its last chunk, still launch their kernels.
+
+Every single-RHS method of the port is a :class:`ChunkedMethod` (its
+eager set-up, its loop body, its result) run by :func:`solve_chunked`.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import functools
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
 from ..precond.base import PrecondLike, preconditioned_system
 from ._common import (bicgsafe_coefficients, hold_in_step, init_guess,
                       pipelined_recurrence_tail, state_result)
+from .program import Program
 from .substrate import SubstrateLike, get_substrate
 from .types import SolveResult, SolverConfig, history_init, history_update
 
@@ -42,47 +50,91 @@ from .types import SolveResult, SolverConfig, history_init, history_update
 CHUNK = 16
 
 
-def run_chunked(step: Callable, state: dict, maxiter: int,
-                stats: Optional[Dict[str, int]]) -> dict:
+class ChunkedMethod(NamedTuple):
+    """A single-RHS method as :func:`solve_chunked` runs it.
+
+    * ``init(matvec, b, x0, r0_star, config, sub) -> (state, consts)``:
+      the eager set-up; ``consts`` are the per-solve tensors the body reads
+      and never changes;
+    * ``step(state, consts, replace, *, matvec, sub, config) -> state``:
+      one iteration of the JAX loop body, reading the device only;
+      ``replace`` is the host's choice of an -rr replacement step;
+    * ``result(state, consts, config) -> SolveResult``;
+    * ``replace(i_host, config) -> bool``: the steps that replace the
+      residual (``None``: the method has none)."""
+
+    init: Callable
+    step: Callable
+    result: Callable
+    replace: Optional[Callable] = None
+
+
+def run_chunked(program: Program, state: dict, consts: dict, maxiter: int,
+                stats: Optional[Dict[str, int]],
+                replace: Optional[Callable[[int], bool]] = None) -> dict:
     """The host loop of every single-RHS solver of the port.
 
-    Queues ``step(state, i_host)`` in chunks of :data:`CHUNK`, reading the
-    stop flag (``converged | breakdown``) once before each chunk; a chunk
-    never runs past ``maxiter``.  ``i_host`` is the host's count of steps,
-    exact whenever the state has not stopped; a step must carry a stopped
-    state unchanged.  ``stats`` accumulates ``steps`` (queued, stopped
-    ones included) and ``host_reads``, when given.
+    Loads ``state`` into ``program`` and runs it in chunks of
+    :data:`CHUNK` steps, reading the stop flag (``converged | breakdown``)
+    once before each chunk; a chunk never runs past ``maxiter``.  A chunk
+    is the tuple of ``replace(i_host)`` over its steps, ``i_host`` the
+    host's count of steps, exact whenever the state has not stopped; a
+    step must carry a stopped state unchanged.  ``stats`` accumulates
+    ``steps`` (queued, stopped ones included) and ``host_reads``, and with
+    ``replace`` ``rr_steps``, when given.  Returns the final state.
     """
     stats = {} if stats is None else stats
-    for key in ("steps", "host_reads"):
+    for key in ("steps", "host_reads") + (("rr_steps",) if replace else ()):
         stats.setdefault(key, 0)
+    program.load(state, consts)
     i_host = 0
     while i_host < maxiter:
         stats["host_reads"] += 1
-        if bool(state["converged"] | state["breakdown"]):
+        st = program.state
+        if bool(st["converged"] | st["breakdown"]):
             break
         n_steps = min(CHUNK, maxiter - i_host)
-        for j in range(n_steps):
-            state = step(state, i_host + j)
+        schedule = tuple(bool(replace and replace(i))
+                         for i in range(i_host, i_host + n_steps))
+        program.run(schedule)
         stats["steps"] += n_steps
+        if replace:
+            stats["rr_steps"] += sum(schedule)
         i_host += n_steps
-    return state
+    return program.read()
 
 
-def _pipelined_solve(matvec, b, x0, config: SolverConfig, r0_star,
-                     residual_replacement: bool, substrate: SubstrateLike,
-                     precond: PrecondLike = None,
-                     stats: Optional[Dict[str, int]] = None) -> SolveResult:
-    # Left preconditioning composes M^{-1} INTO the matvec, so every
-    # recurred A-image below is an (M^{-1}A)-image and the algebra is
-    # unchanged; the apply joins the in-flight compute (the dots still
-    # read none of it), and -rr's replacement recomputes the
-    # preconditioned residual b' - M^{-1}A x through the same composite.
+def solve_chunked(method: ChunkedMethod, matvec, b: torch.Tensor,
+                  x0: Optional[torch.Tensor] = None, *,
+                  config: SolverConfig, r0_star: Optional[torch.Tensor],
+                  substrate: SubstrateLike, precond: PrecondLike = None,
+                  stats: Optional[Dict[str, int]] = None,
+                  program: Optional[Callable[[Callable], Program]] = None
+                  ) -> SolveResult:
+    """Solve A x = b with ``method``: the left-preconditioned system's
+    set-up, then :func:`run_chunked`.  ``program(step)`` returns the
+    program to run the body on (a session's memoized one); by default a
+    program of this call alone."""
     sub = get_substrate(substrate)
     matvec, b = preconditioned_system(sub, matvec, b, precond)
-    stats = {} if stats is None else stats
-    stats.setdefault("rr_steps", 0)
-    eps = config.breakdown_threshold(b.dtype)
+    state, consts = method.init(matvec, b, x0, r0_star, config, sub)
+    step = functools.partial(method.step, matvec=matvec, sub=sub,
+                             config=config)
+    prog = Program(step, b.device, stats=stats) if program is None \
+        else program(step)
+    replace = None if method.replace is None \
+        else functools.partial(method.replace, config=config)
+    st = run_chunked(prog, state, consts, config.maxiter, stats, replace)
+    return method.result(st, consts, config)
+
+
+# Left preconditioning composes M^{-1} INTO the matvec, so every recurred
+# A-image below is an (M^{-1}A)-image and the algebra is unchanged; the
+# apply joins the in-flight compute (the dots still read none of it), and
+# -rr's replacement recomputes the preconditioned residual b' - M^{-1}A x
+# through the same composite.
+
+def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
     x = init_guess(b, x0)
     r0 = b - matvec(x) if x0 is not None else b          # MV (init)
     rs = r0 if r0_star is None else r0_star.to(b.dtype)
@@ -106,64 +158,82 @@ def _pipelined_solve(matvec, b, x0, config: SolverConfig, r0_star,
         relres=torch.where(conv0, 0.0, 1.0).to(norm_r0.dtype),
         converged=conv0,
         breakdown=false, hist=hist)
+    return state, dict(b=b, rs=rs, norm_r0=norm_r0, false=false)
 
-    def step(st, i_host: int):
-        """One iteration of the JAX loop body; ``i_host`` is the host's
-        count, exact whenever the state has not stopped."""
-        active = ~st["converged"] & ~st["breakdown"]
-        r, s, y, t_prev = st["r"], st["s"], st["y"], st["t"]
 
-        # MV #1 (A s_i) and the fused reduction are mutually independent:
-        # the dots read only {s, y, r, t_prev, rs}.
-        As = matvec(s)
-        dots = sub.bicgsafe_dots(s, y, r, t_prev, rs)
+def _step(st, c, replace: bool, *, matvec, sub, config: SolverConfig):
+    """One iteration of the JAX loop body; ``replace`` is the host's
+    choice of a replacement step (Alg. 4.1), exact whenever the state has
+    not stopped."""
+    eps = config.breakdown_threshold(st["x"].dtype)
+    active = ~st["converged"] & ~st["breakdown"]
+    r, s, y, t_prev = st["r"], st["s"], st["y"], st["t"]
 
-        beta, alpha, zeta, eta, f, rr, bad = bicgsafe_coefficients(
-            dots, st["i"], st["alpha"], st["zeta"], st["f"], eps)
-        relres = torch.sqrt(torch.abs(rr)) / norm_r0
-        done = relres <= config.tol
+    # MV #1 (A s_i) and the fused reduction are mutually independent:
+    # the dots read only {s, y, r, t_prev, rs}.
+    As = matvec(s)
+    dots = sub.bicgsafe_dots(s, y, r, t_prev, c["rs"])
 
-        # blocked vector-update phase (Alg. 3.1 lines 23-32): one substrate
-        # call covers all 10 recurrence updates
-        upd = sub.axpy_phase(
-            dict(r=r, p=st["p"], u=st["u"], t=t_prev, y=y, z=st["z"],
-                 s=s, l=st["l"], g=st["g"], w=st["w"], x=st["x"], As=As),
-            (alpha, beta, zeta, eta))
-        p, o, u, q, w = (upd[k] for k in ("p", "o", "u", "q", "w"))
-        t, z, y_next, x_next, r_next = (
-            upd[k] for k in ("t", "z", "y", "x", "r"))
+    beta, alpha, zeta, eta, f, rr, bad = bicgsafe_coefficients(
+        dots, st["i"], st["alpha"], st["zeta"], st["f"], eps)
+    relres = torch.sqrt(torch.abs(rr)) / c["norm_r0"]
+    done = relres <= config.tol
 
-        do_rr = residual_replacement and i_host % config.rr_epoch == 0 \
-            and 0 < i_host < config.rr_maxiter
-        if not do_rr:
-            Aw = matvec(w)                                # MV #2 (A w_i)
-            l, g_next, s_next = pipelined_recurrence_tail(
-                q, s, As, st["g"], Aw, alpha, zeta, eta)
-        else:
-            # Alg. 4.1 lines 26-33 + 38-45: w from a true matvec, then
-            # reset r, l, g, s to their true values (p, o, u, z keep their
-            # recurrence values — they are exact either way).
-            stats["rr_steps"] += 1
-            w = matvec(u)                                 # true A u_i
-            t = o - w
-            y_next = zeta * s + eta * y - alpha * w
-            x_next = st["x"] + alpha * p + z
-            r_next = b - matvec(x_next)
-            l = matvec(t)
-            g_next = matvec(y_next)
-            s_next = matvec(r_next)
+    # blocked vector-update phase (Alg. 3.1 lines 23-32): one substrate
+    # call covers all 10 recurrence updates
+    upd = sub.axpy_phase(
+        dict(r=r, p=st["p"], u=st["u"], t=t_prev, y=y, z=st["z"],
+             s=s, l=st["l"], g=st["g"], w=st["w"], x=st["x"], As=As),
+        (alpha, beta, zeta, eta))
+    p, o, u, q, w = (upd[k] for k in ("p", "o", "u", "q", "w"))
+    t, z, y_next, x_next, r_next = (
+        upd[k] for k in ("t", "z", "y", "x", "r"))
 
-        hist_i = history_update(st["hist"], st["i"], relres, config, active)
-        new = dict(
-            x=x_next, r=r_next, s=s_next, p=p, u=u, t=t, y=y_next, z=z,
-            w=w, l=l, g=g_next,
-            alpha=alpha, zeta=zeta, f=f,
-            i=st["i"] + 1, relres=relres,
-            converged=false, breakdown=false, hist=hist_i)
-        return hold_in_step(st, new, active, relres, done, bad, hist_i)
+    if not replace:
+        Aw = matvec(w)                                    # MV #2 (A w_i)
+        l, g_next, s_next = pipelined_recurrence_tail(
+            q, s, As, st["g"], Aw, alpha, zeta, eta)
+    else:
+        # Alg. 4.1 lines 26-33 + 38-45: w from a true matvec, then
+        # reset r, l, g, s to their true values (p, o, u, z keep their
+        # recurrence values — they are exact either way).
+        w = matvec(u)                                     # true A u_i
+        t = o - w
+        y_next = zeta * s + eta * y - alpha * w
+        x_next = st["x"] + alpha * p + z
+        r_next = c["b"] - matvec(x_next)
+        l = matvec(t)
+        g_next = matvec(y_next)
+        s_next = matvec(r_next)
 
-    st = run_chunked(step, state, config.maxiter, stats)
+    hist_i = history_update(st["hist"], st["i"], relres, config, active)
+    false = c["false"]
+    new = dict(
+        x=x_next, r=r_next, s=s_next, p=p, u=u, t=t, y=y_next, z=z,
+        w=w, l=l, g=g_next,
+        alpha=alpha, zeta=zeta, f=f,
+        i=st["i"] + 1, relres=relres,
+        converged=false, breakdown=false, hist=hist_i)
+    return hold_in_step(st, new, active, relres, done, bad, hist_i)
+
+
+def _result(st, c, config: SolverConfig) -> SolveResult:
     return state_result(st)
+
+
+def _no_replacement(i_host: int, *, config: SolverConfig) -> bool:
+    return False
+
+
+def _replacement(i_host: int, *, config: SolverConfig) -> bool:
+    """-rr's replacement steps: every ``rr_epoch``-th, below
+    ``rr_maxiter``."""
+    return i_host % config.rr_epoch == 0 and 0 < i_host < config.rr_maxiter
+
+
+#: p-BiCGSafe (Alg. 3.1) and p-BiCGSafe-rr (Alg. 4.1)
+PBICGSAFE = ChunkedMethod(_init, _step, _result, _no_replacement)
+PBICGSAFE_RR = ChunkedMethod(_init, _step, _result, _replacement)
 
 
 def pbicgsafe_solve(matvec: Callable,
@@ -185,9 +255,9 @@ def pbicgsafe_solve(matvec: Callable,
     ``stats``, when given, accumulates ``steps`` (iterations queued,
     stopped ones included), ``rr_steps`` and ``host_reads``.
     """
-    return _pipelined_solve(matvec, b, x0, config, r0_star,
-                            residual_replacement=False, substrate=substrate,
-                            precond=precond, stats=stats)
+    return solve_chunked(PBICGSAFE, matvec, b, x0, config=config,
+                         r0_star=r0_star, substrate=substrate,
+                         precond=precond, stats=stats)
 
 
 def pbicgsafe_rr_solve(matvec: Callable,
@@ -206,6 +276,6 @@ def pbicgsafe_rr_solve(matvec: Callable,
     ``precond`` the replacement step recomputes the residual of the
     preconditioned system, so recurred and replaced quantities agree.
     """
-    return _pipelined_solve(matvec, b, x0, config, r0_star,
-                            residual_replacement=True, substrate=substrate,
-                            precond=precond, stats=stats)
+    return solve_chunked(PBICGSAFE_RR, matvec, b, x0, config=config,
+                         r0_star=r0_star, substrate=substrate,
+                         precond=precond, stats=stats)

@@ -12,7 +12,8 @@ its output (the Table 3.1 "diamond"):
 
 Plain PyTorch on either substrate (the ``"cuda"`` substrate sends an ELL
 operator's matvec to the SpMV kernel).  The loop is
-:func:`repro_torch.core.pipelined_bicgsafe.run_chunked`; as in the JAX
+:func:`repro_torch.core.pipelined_bicgsafe.run_chunked` (a CUDA graph
+replay per chunk on the card); as in the JAX
 package, a step checks the recurred ``||r_i||`` it was given, and the
 final relres is derived again from the last recurred one.
 """
@@ -22,32 +23,15 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from ..precond.base import PrecondLike, preconditioned_system
+from ..precond.base import PrecondLike
 from ._common import (hold_checked, init_guess, recurred_result,
                       safe_div)
-from .pipelined_bicgsafe import run_chunked
-from .substrate import SubstrateLike, get_substrate
+from .pipelined_bicgsafe import ChunkedMethod, solve_chunked
+from .substrate import SubstrateLike
 from .types import SolveResult, SolverConfig, history_init, history_update
 
 
-def pbicgstab_solve(matvec: Callable,
-                    b: torch.Tensor,
-                    x0: Optional[torch.Tensor] = None,
-                    *,
-                    config: SolverConfig = SolverConfig(),
-                    r0_star: Optional[torch.Tensor] = None,
-                    substrate: SubstrateLike = "torch",
-                    precond: PrecondLike = None,
-                    stats: Optional[Dict[str, int]] = None) -> SolveResult:
-    """Solve A x = b with pipelined BiCGStab (Cools-Vanroose Alg. 5).
-
-    With ``precond`` set, the M^{-1}-applies ride inside each matvec and
-    both reduction phases keep their distance from the in-flight
-    preconditioned matvec (the dots never read its output).  Other
-    arguments as in :func:`repro_torch.core.bicgstab.bicgstab_solve`.
-    """
-    sub = get_substrate(substrate)
-    matvec, b = preconditioned_system(sub, matvec, b, precond)
+def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
     eps = config.breakdown_threshold(b.dtype)
     x = init_guess(b, x0)
     r0 = b - matvec(x) if x0 is not None else b
@@ -75,47 +59,76 @@ def pbicgstab_solve(matvec: Callable,
         relres=torch.where(conv0, 0.0, 1.0).to(norm_r0.dtype),
         converged=conv0, breakdown=bad0 & ~conv0,
         hist=history_init(config, norm_r0.dtype, b.device))
+    return state, dict(rs=rs, norm_r0=norm_r0, false=false)
 
-    def step(st, _i_host):
-        """One iteration of the JAX loop body; a stopped state is kept."""
-        active = ~st["converged"] & ~st["breakdown"]
-        relres = torch.sqrt(torch.abs(st["rr"])) / norm_r0
-        done = relres <= config.tol
-        hist = history_update(st["hist"], st["i"], relres, config, active)
 
-        beta, omega_p, alpha = st["beta"], st["omega"], st["alpha"]
-        r, w, t = st["r"], st["w"], st["t"]
-        p = r + beta * (st["p"] - omega_p * st["s"])
-        s = w + beta * (st["s"] - omega_p * st["z"])      # == A p
-        z = t + beta * (st["z"] - omega_p * st["v"])      # == A s
-        q = r - alpha * s
-        y = w - alpha * z                                 # == A q
+def _step(st, c, _replace, *, matvec, sub, config: SolverConfig):
+    """One iteration of the JAX loop body; a stopped state is kept."""
+    eps = config.breakdown_threshold(st["x"].dtype)
+    rs = c["rs"]
+    active = ~st["converged"] & ~st["breakdown"]
+    relres = torch.sqrt(torch.abs(st["rr"])) / c["norm_r0"]
+    done = relres <= config.tol
+    hist = history_update(st["hist"], st["i"], relres, config, active)
 
-        # phase 1 beside v = A z (= A^3 p): A y is t - alpha v, so the
-        # dots read none of this matvec's output
-        v = matvec(z)                                     # MV #1
-        d1 = sub.dots([(q, y), (y, y), (q, q)])
-        omega, bad1 = safe_div(d1[0], d1[1], eps)
-        x_next = st["x"] + alpha * p + omega * q
-        r_next = q - omega * y
-        rr_next = d1[2] - 2.0 * omega * d1[0] + omega * omega * d1[1]
-        w_next = y - omega * (t - alpha * v)
+    beta, omega_p, alpha = st["beta"], st["omega"], st["alpha"]
+    r, w, t = st["r"], st["w"], st["t"]
+    p = r + beta * (st["p"] - omega_p * st["s"])
+    s = w + beta * (st["s"] - omega_p * st["z"])          # == A p
+    z = t + beta * (st["z"] - omega_p * st["v"])          # == A s
+    q = r - alpha * s
+    y = w - alpha * z                                     # == A q
 
-        # phase 2 beside t_next = A w_next
-        t_next = matvec(w_next)                           # MV #2
-        d2 = sub.dots([(rs, r_next), (rs, w_next), (rs, s), (rs, z)])
-        rho_next = d2[0]
-        beta_next, bad2 = safe_div(alpha * rho_next, omega * st["rho"], eps)
-        alpha_next, bad3 = safe_div(
-            rho_next, d2[1] + beta_next * d2[2] - beta_next * omega * d2[3],
-            eps)
+    # phase 1 beside v = A z (= A^3 p): A y is t - alpha v, so the
+    # dots read none of this matvec's output
+    v = matvec(z)                                         # MV #1
+    d1 = sub.dots([(q, y), (y, y), (q, q)])
+    omega, bad1 = safe_div(d1[0], d1[1], eps)
+    x_next = st["x"] + alpha * p + omega * q
+    r_next = q - omega * y
+    rr_next = d1[2] - 2.0 * omega * d1[0] + omega * omega * d1[1]
+    w_next = y - omega * (t - alpha * v)
 
-        new = dict(
-            x=x_next, r=r_next, w=w_next, t=t_next, p=p, s=s, z=z, v=v,
-            alpha=alpha_next, beta=beta_next, omega=omega, rho=rho_next,
-            rr=rr_next, i=st["i"] + 1, relres=relres, converged=false,
-            breakdown=bad1 | bad2 | bad3, hist=hist)
-        return hold_checked(st, new, active, relres, done, hist)
+    # phase 2 beside t_next = A w_next
+    t_next = matvec(w_next)                               # MV #2
+    d2 = sub.dots([(rs, r_next), (rs, w_next), (rs, s), (rs, z)])
+    rho_next = d2[0]
+    beta_next, bad2 = safe_div(alpha * rho_next, omega * st["rho"], eps)
+    alpha_next, bad3 = safe_div(
+        rho_next, d2[1] + beta_next * d2[2] - beta_next * omega * d2[3],
+        eps)
 
-    st = run_chunked(step, state, config.maxiter, stats)
-    return recurred_result(st, norm_r0, config.tol)
+    new = dict(
+        x=x_next, r=r_next, w=w_next, t=t_next, p=p, s=s, z=z, v=v,
+        alpha=alpha_next, beta=beta_next, omega=omega, rho=rho_next,
+        rr=rr_next, i=st["i"] + 1, relres=relres, converged=c["false"],
+        breakdown=bad1 | bad2 | bad3, hist=hist)
+    return hold_checked(st, new, active, relres, done, hist)
+
+
+def _result(st, c, config: SolverConfig) -> SolveResult:
+    return recurred_result(st, c["norm_r0"], config.tol)
+
+
+PBICGSTAB = ChunkedMethod(_init, _step, _result)
+
+
+def pbicgstab_solve(matvec: Callable,
+                    b: torch.Tensor,
+                    x0: Optional[torch.Tensor] = None,
+                    *,
+                    config: SolverConfig = SolverConfig(),
+                    r0_star: Optional[torch.Tensor] = None,
+                    substrate: SubstrateLike = "torch",
+                    precond: PrecondLike = None,
+                    stats: Optional[Dict[str, int]] = None) -> SolveResult:
+    """Solve A x = b with pipelined BiCGStab (Cools-Vanroose Alg. 5).
+
+    With ``precond`` set, the M^{-1}-applies ride inside each matvec and
+    both reduction phases keep their distance from the in-flight
+    preconditioned matvec (the dots never read its output).  Other
+    arguments as in :func:`repro_torch.core.bicgstab.bicgstab_solve`.
+    """
+    return solve_chunked(PBICGSTAB, matvec, b, x0, config=config,
+                         r0_star=r0_star, substrate=substrate,
+                         precond=precond, stats=stats)

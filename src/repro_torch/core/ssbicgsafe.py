@@ -8,7 +8,8 @@ reduction cannot overlap with it.  Two matvecs per iteration (``A r_i``,
 ``A u_i``); the vector updates are plain PyTorch, as in the JAX package.
 
 The loop is :func:`repro_torch.core.pipelined_bicgsafe.run_chunked`: steps
-queued by the host in chunks, one host read of the stop flag per chunk,
+queued by the host in chunks (a CUDA graph replay each on the card), one
+host read of the stop flag per chunk,
 and a state that has stopped carried unchanged.  As in the JAX package the
 stop is decided inside a step, from that step's dots: the step that finds
 convergence (or a breakdown) keeps the state it was given.
@@ -19,29 +20,15 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from ..precond.base import PrecondLike, preconditioned_system
+from ..precond.base import PrecondLike
 from ._common import (bicgsafe_coefficients, hold_in_step, init_guess,
                       state_result)
-from .pipelined_bicgsafe import run_chunked
-from .substrate import SubstrateLike, get_substrate
+from .pipelined_bicgsafe import ChunkedMethod, solve_chunked
+from .substrate import SubstrateLike
 from .types import SolveResult, SolverConfig, history_init, history_update
 
 
-def ssbicgsafe2_solve(matvec: Callable,
-                      b: torch.Tensor,
-                      x0: Optional[torch.Tensor] = None,
-                      *,
-                      config: SolverConfig = SolverConfig(),
-                      r0_star: Optional[torch.Tensor] = None,
-                      substrate: SubstrateLike = "torch",
-                      precond: PrecondLike = None,
-                      stats: Optional[Dict[str, int]] = None) -> SolveResult:
-    """Solve A x = b with ssBiCGSafe2 (Alg. 2.3; left-preconditioned when
-    ``precond`` is set).  Arguments as in :func:`repro_torch.core
-    .bicgstab.bicgstab_solve`."""
-    sub = get_substrate(substrate)
-    matvec, b = preconditioned_system(sub, matvec, b, precond)
-    eps = config.breakdown_threshold(b.dtype)
+def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
     x = init_guess(b, x0)
     r0 = b - matvec(x) if x0 is not None else b
     rs = r0 if r0_star is None else r0_star.to(b.dtype)
@@ -63,36 +50,61 @@ def ssbicgsafe2_solve(matvec: Callable,
         alpha=zero, zeta=one, f=one, i=i0,
         relres=torch.where(conv0, 0.0, 1.0).to(norm_r0.dtype),
         converged=conv0, breakdown=false, hist=hist)
+    return state, dict(rs=rs, norm_r0=norm_r0, false=false)
 
-    def step(st, _i_host):
-        """One iteration of the JAX loop body; a stopped state is kept."""
-        active = ~st["converged"] & ~st["breakdown"]
-        r, y, t_prev = st["r"], st["y"], st["t"]
-        s = matvec(r)                                   # MV #1: s_i = A r_i
-        # the single fused reduction phase reads s: no overlap with MV #1
-        dots = sub.bicgsafe_dots(s, y, r, t_prev, rs)
-        beta, alpha, zeta, eta, f, rr, bad = bicgsafe_coefficients(
-            dots, st["i"], st["alpha"], st["zeta"], st["f"], eps)
-        relres = torch.sqrt(torch.abs(rr)) / norm_r0
-        done = relres <= config.tol
 
-        # vector updates (paper lines 23-30)
-        p = r + beta * (st["p"] - st["u"])
-        o = s + beta * t_prev
-        u = zeta * o + eta * (y + beta * st["u"])
-        w = matvec(u)                                   # MV #2: w_i = A u_i
-        t = o - w
-        z = zeta * r + eta * st["z"] - alpha * u
-        y_next = zeta * s + eta * y - alpha * w
-        x_next = st["x"] + alpha * p + z
-        r_next = r - alpha * o - y_next
+def _step(st, c, _replace, *, matvec, sub, config: SolverConfig):
+    """One iteration of the JAX loop body; a stopped state is kept."""
+    eps = config.breakdown_threshold(st["x"].dtype)
+    active = ~st["converged"] & ~st["breakdown"]
+    r, y, t_prev = st["r"], st["y"], st["t"]
+    s = matvec(r)                                       # MV #1: s_i = A r_i
+    # the single fused reduction phase reads s: no overlap with MV #1
+    dots = sub.bicgsafe_dots(s, y, r, t_prev, c["rs"])
+    beta, alpha, zeta, eta, f, rr, bad = bicgsafe_coefficients(
+        dots, st["i"], st["alpha"], st["zeta"], st["f"], eps)
+    relres = torch.sqrt(torch.abs(rr)) / c["norm_r0"]
+    done = relres <= config.tol
 
-        hist_i = history_update(st["hist"], st["i"], relres, config, active)
-        new = dict(
-            x=x_next, r=r_next, p=p, u=u, t=t, y=y_next, z=z,
-            alpha=alpha, zeta=zeta, f=f, i=st["i"] + 1, relres=relres,
-            converged=false, breakdown=false, hist=hist_i)
-        return hold_in_step(st, new, active, relres, done, bad, hist_i)
+    # vector updates (paper lines 23-30)
+    p = r + beta * (st["p"] - st["u"])
+    o = s + beta * t_prev
+    u = zeta * o + eta * (y + beta * st["u"])
+    w = matvec(u)                                       # MV #2: w_i = A u_i
+    t = o - w
+    z = zeta * r + eta * st["z"] - alpha * u
+    y_next = zeta * s + eta * y - alpha * w
+    x_next = st["x"] + alpha * p + z
+    r_next = r - alpha * o - y_next
 
-    st = run_chunked(step, state, config.maxiter, stats)
+    hist_i = history_update(st["hist"], st["i"], relres, config, active)
+    false = c["false"]
+    new = dict(
+        x=x_next, r=r_next, p=p, u=u, t=t, y=y_next, z=z,
+        alpha=alpha, zeta=zeta, f=f, i=st["i"] + 1, relres=relres,
+        converged=false, breakdown=false, hist=hist_i)
+    return hold_in_step(st, new, active, relres, done, bad, hist_i)
+
+
+def _result(st, c, config: SolverConfig) -> SolveResult:
     return state_result(st)
+
+
+SSBICGSAFE2 = ChunkedMethod(_init, _step, _result)
+
+
+def ssbicgsafe2_solve(matvec: Callable,
+                      b: torch.Tensor,
+                      x0: Optional[torch.Tensor] = None,
+                      *,
+                      config: SolverConfig = SolverConfig(),
+                      r0_star: Optional[torch.Tensor] = None,
+                      substrate: SubstrateLike = "torch",
+                      precond: PrecondLike = None,
+                      stats: Optional[Dict[str, int]] = None) -> SolveResult:
+    """Solve A x = b with ssBiCGSafe2 (Alg. 2.3; left-preconditioned when
+    ``precond`` is set).  Arguments as in :func:`repro_torch.core
+    .bicgstab.bicgstab_solve`."""
+    return solve_chunked(SSBICGSAFE2, matvec, b, x0, config=config,
+                         r0_star=r0_star, substrate=substrate,
+                         precond=precond, stats=stats)

@@ -26,8 +26,8 @@ compose them (``M^{-1} ∘ A``) themselves:
 ``precond=`` takes a :class:`Preconditioner` or a name from
 :data:`PRECONDITIONERS`; a name is built from the operator (its
 ``diagonal()`` / structure), so it needs an operator object, not a bare
-matvec callable.  The JAX package's ``operator_fingerprint`` belongs to the
-session cache, which is not ported yet.
+matvec callable.  A built preconditioner joins a session's cache key by
+its own tensors (:func:`repro_torch.api.operator_fingerprint`).
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@ edge to the in-flight matvec) and the host-side
 :class:`~repro_torch.resilience.RecoveryPolicy`:
 
 1. step the guarded state in chunks of ``policy.chunk`` iterations through
-   a bound :class:`repro_torch.api.LinearSolver` session;
+   a bound :class:`repro_torch.api.LinearSolver` session (its
+   ``step_chunk`` program: a CUDA graph replay per chunk on the card);
 2. read the (m,) health flags at each chunk boundary: the nine flags are
    stacked on the device and copied to the host in ONE transfer, counted
    in the session's ``stats["host_reads"]``;
@@ -229,12 +230,15 @@ class GuardedSolver:
     def _degrade(self, exc: SimulatedKernelFailure, chunk: int) -> None:
         """A simulated kernel failure: rebuild the session on ``"torch"`` on
         the same device and go on from the same state (a dict of tensors,
-        the same on either substrate)."""
+        the same on either substrate).  The degraded session counts into
+        the guarded session's ``stats``, so it is this driver's own: built
+        directly, never taken from or put into the session cache."""
         sess = self.session
-        self._active = api.make_solver(sess.method, sess.operator,
-                                       precond=sess.precond,
-                                       substrate="torch", config=sess.config,
-                                       device=sess.device)
+        self._active = api.LinearSolver(sess.method, sess.operator,
+                                        precond=sess.precond,
+                                        substrate="torch",
+                                        config=sess.config,
+                                        device=sess.device)
         self._active.stats = sess.stats
         self._log("substrate_degraded", chunk,
                   dict(error=repr(exc), to="torch"))

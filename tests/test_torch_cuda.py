@@ -15,6 +15,14 @@ from repro_torch.core.linear_operator import ELLOperator  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.fused_axpy import IN_ORDER, MASKED_OUT  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def fresh_sessions():
+    """Each test starts from an empty session cache: a session cached by an
+    earlier test would carry that test's counts in its ``stats``."""
+    repro_torch.clear_session_cache()
+
+
 pytestmark = pytest.mark.gpu
 
 #: max |kernel - plain| over the result's scale; fp64: FMA contraction and
@@ -574,3 +582,180 @@ def test_small_engine_on_the_card_gives_the_cpu_tokens(cuda):
         assert ops.LAUNCHES["flash_attention"] == \
             (cfg.n_layers if dev == "cuda" else 0)
     assert outs["cuda"] == outs["cpu"]
+
+
+# -- programs: each solver chunk a CUDA graph --------------------------------
+
+def graph_and_eager(run):
+    """``run()`` through the sessions' graph programs, then through the
+    eager chunk; each with the launch counters set to 0 just before and
+    read just after.  Returns ((result, launches) graph, (...) eager)."""
+    from repro_torch.core.program import _eager_chunks
+    out = []
+    for eager in (False, True):
+        ops.reset_launches()
+        if eager:
+            with _eager_chunks():
+                res = run()
+        else:
+            res = run()
+        torch.cuda.synchronize()
+        out.append((res, dict(ops.LAUNCHES)))
+    return out
+
+
+def assert_bitwise(a, b):
+    """Two results (or state dicts) equal bit for bit, NaN slots too."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        pairs = [(a[k], b[k]) for k in a]
+    else:
+        pairs = list(zip(a, b))
+    for x, y in pairs:
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x.nan_to_num(-1), y.nan_to_num(-1))
+
+
+@pytest.mark.parametrize("method", ["p-bicgsafe", "p-bicgsafe-rr",
+                                    "ssbicgsafe2", "p-bicgstab", "bicgstab",
+                                    "gpbicg", "cgs"])
+def test_graph_program_matches_the_eager_chunk(cuda, method):
+    """Each method's solve through its captured chunks equals the eager
+    chunk's bit for bit (x, iterations, relres, history), with the same
+    launches; repeat solves replay the program (``traces`` stays 1).
+    ``rr_epoch=20``: -rr crosses replacement steps, each pattern of them
+    in a chunk a graph of its own."""
+    op, b, _ = TM.convection_diffusion(24, peclet=1.0)
+    ell = TM.stencil_to_ell(op)
+    cfg = repro_torch.SolverConfig(rr_epoch=20, record_history=True)
+    solver = repro_torch.make_solver(method, ell, substrate="cuda",
+                                     config=cfg)
+    (graph, g_launches), (eager, e_launches) = graph_and_eager(
+        lambda: solver.solve(b))
+    assert bool(graph.converged)
+    assert_bitwise(graph, eager)
+    assert g_launches == e_launches
+    assert solver.stats["traces"] == solver.stats["programs"] == 1
+    graphs = solver.stats["graphs"]
+    assert graphs >= 1
+    if method == "p-bicgsafe-rr":
+        assert solver.stats["rr_steps"] >= 4 and graphs >= 2
+    again = solver.solve(2.0 * b)
+    torch.cuda.synchronize()
+    assert bool(again.converged)
+    assert solver.stats["traces"] == 1
+    assert_bitwise(solver.solve(b), graph)
+
+
+def test_graph_solve_many_matches_the_eager_chunk(cuda):
+    op, b, _ = TM.convection_diffusion(24, peclet=1.0)
+    ell = TM.stencil_to_ell(op)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B = torch.stack([b] + [torch.randn(b.shape[0], generator=g, device=cuda,
+                                       dtype=b.dtype) for _ in range(3)], 1)
+    tol = [1e-8, 1e-8, 1e-6, 1e-6]
+    solver = repro_torch.make_solver(
+        "p-bicgsafe", ell, substrate="cuda",
+        config=repro_torch.SolverConfig(record_history=True, maxiter=400))
+    (graph, g_launches), (eager, e_launches) = graph_and_eager(
+        lambda: solver.solve_many(B, tol=tol))
+    assert bool(graph.converged.all())
+    assert_bitwise(graph, eager)
+    assert g_launches == e_launches
+    solver.solve_many(2.0 * B, tol=tol)
+    assert solver.stats["traces"] == 1
+
+
+def test_graph_open_loop_matches_the_eager_chunk(cuda):
+    """``step_chunk`` + ``splice`` + ``step_chunk`` on the graph programs
+    equal the eager chunk's, and leave every state they were given or
+    returned as it was."""
+    op, b, _ = TM.convection_diffusion(24, peclet=1.0)
+    ell = TM.stencil_to_ell(op)
+    solver = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda")
+    B = torch.stack([b, 0.5 * b, b + 1.0], dim=1)
+    refill = torch.tensor([True, False, False], device=cuda)
+    st0 = solver.init(B, tol=1e-8)
+    snap0 = {k: v.clone() for k, v in st0.items()}
+
+    def run():
+        st1 = solver.step_chunk(st0, 16)
+        snap1 = {k: v.clone() for k, v in st1.items()}
+        st2 = solver.step_chunk(solver.splice(st1, refill, 2.0 * B), 40)
+        st3 = solver.step_chunk(st2, 5)
+        assert_bitwise(st1, snap1)
+        return st3
+    (graph, g_launches), (eager, e_launches) = graph_and_eager(run)
+    assert_bitwise(st0, snap0)
+    assert_bitwise(graph, eager)
+    assert g_launches == e_launches
+    assert solver.stats["traces"] == 1
+
+
+def test_graph_guarded_driver_matches_the_eager_chunk(cuda):
+    """The guarded driver with a NaN written into column 2 before chunk 1:
+    the same restart event, statuses and solution through the graphs as
+    through the eager chunk."""
+    from repro_torch.resilience import ChunkFaultInjector
+    op, b, _ = TM.convection_diffusion(24, peclet=1.0)
+    ell = TM.stencil_to_ell(op)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B = torch.stack([b] + [torch.randn(b.shape[0], generator=g, device=cuda,
+                                       dtype=b.dtype) for _ in range(3)], 1)
+    pol = repro_torch.RecoveryPolicy(chunk=16, substrate_fallback=False)
+    gs = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda",
+                                 recovery=pol)
+    events = []
+
+    def run():
+        gs.events.clear()
+        gs.inject = ChunkFaultInjector(nan_at={1: (2,)})
+        res = gs.solve_many(B, tol=1e-8)
+        events.append(list(gs.events))
+        return res
+    (graph, g_launches), (eager, e_launches) = graph_and_eager(run)
+    assert events[0] == events[1] == [dict(event="restart", chunk=2,
+                                           columns=[2])]
+    assert (graph.status == repro_torch.SolveStatus.CONVERGED).all()
+    assert_bitwise(graph, eager)
+    assert g_launches == e_launches
+
+
+def test_graph_block_jacobi_matches_the_eager_chunk(cuda):
+    """block_jacobi's kernels inside the captured chunks (the batched
+    one's bulk route included: its launcher queries the device on every
+    launch)."""
+    op, b, _ = TM.convection_diffusion(32, peclet=1.0)
+    ell = TM.stencil_to_ell(op)
+    solver = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda",
+                                     precond="block_jacobi")
+    B = torch.stack([b, 0.5 * b, b + 1.0, b - 1.0], dim=1)
+    (graph, g_launches), (eager, e_launches) = graph_and_eager(
+        lambda: (solver.solve(b), solver.solve_many(B)))
+    for g, e in zip(graph, eager):
+        assert bool(g.converged.all())
+        assert_bitwise(g, e)
+    assert g_launches == e_launches
+    assert g_launches["block_jacobi_apply"] > 0
+    assert g_launches["block_jacobi_apply_batched"] > 0
+
+
+def test_capture_refuses_a_host_read(cuda):
+    """A matvec that reads the device from the host cannot be captured:
+    the solve raises, naming the program, and does not run eagerly in its
+    place; the card is usable afterwards."""
+    op, b, _ = TM.convection_diffusion(12, peclet=1.0)
+    ell = TM.stencil_to_ell(op)
+    seen = []
+
+    def matvec(x):
+        seen.append(float(x.abs().max().item()))
+        return ell.matvec(x)
+    solver = repro_torch.make_solver("p-bicgsafe", matvec, substrate="cuda")
+    with pytest.raises(RuntimeError, match="capturing program"):
+        solver.solve(b)
+    assert seen                                 # the warm-up ran eagerly
+    assert solver.stats["steps"] == 0           # no chunk ran
+    res = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda"
+                                  ).solve(b)
+    assert bool(res.converged)

@@ -37,6 +37,14 @@ from repro_torch.core import pipelined_bicgsafe  # noqa: E402
 from repro_torch.core.substrate import CudaSubstrate  # noqa: E402
 from repro_torch.resilience import orthogonal_shadow  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def fresh_sessions():
+    """Each test starts from an empty session cache: a session cached by an
+    earlier test would carry that test's counts in its ``stats``."""
+    repro_torch.clear_session_cache()
+
+
 CPU = "cpu"
 ITER_SLACK = 2
 X_TOL = 1e-6

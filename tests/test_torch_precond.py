@@ -52,6 +52,14 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.resilience import (ChunkFaultInjector,  # noqa: E402
                                     RecoveryPolicy)
 
+
+@pytest.fixture(autouse=True)
+def fresh_sessions():
+    """Each test starts from an empty session cache: a session cached by an
+    earlier test would carry that test's counts in its ``stats``."""
+    repro_torch.clear_session_cache()
+
+
 CPU = "cpu"
 ITER_SLACK = 2
 COLUMN_SLACK = 3

@@ -39,6 +39,14 @@ from repro_torch.resilience import (ChunkFaultInjector,  # noqa: E402
                                     SimulatedKernelFailure, nan_columns,
                                     near_singular_dense, orthogonal_shadow)
 
+
+@pytest.fixture(autouse=True)
+def fresh_sessions():
+    """Each test starts from an empty session cache: a session cached by an
+    earlier test would carry that test's counts in its ``stats``."""
+    repro_torch.clear_session_cache()
+
+
 CPU = "cpu"
 ITER_SLACK = 2
 X_TOL = 1e-6

@@ -11,7 +11,9 @@ one block: the 0-d coefficient algebra, the freeze selects of the
 coefficients and flags); "vector" kernels (every other launch: the freeze
 selects of the state vectors and the recurrence tail); copies and sets.
 The device's busy share is the union of all device intervals over the
-profiled window.  Prints the summary as a JSON line and keeps it, with the
+profiled window.  The loop runs as the session runs it: each 16-step chunk
+one CUDA graph replay (the copies at a chunk's end, which move its result
+into the program's buffers, are "vector" kernels or copies).  Prints the summary as a JSON line and keeps it, with the
 raw trace, under ``build/profile/``; fails when the trace holds no kernel.
 """
 from __future__ import annotations
@@ -59,7 +61,9 @@ def main() -> int:
     stencil, b, _ = matrices.convection_diffusion(NX, peclet=0.5)
     ell = matrices.stencil_to_ell(stencil)
     solver = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda")
-    solver.solve(b, maxiter=32)                       # warm-up
+    # warm-up with the measured call's settings: the same program, whose
+    # chunks are captured as CUDA graphs here and replayed below
+    solver.solve(b, tol=0.0, maxiter=STEPS)
     solver.stats.update(steps=0, host_reads=0)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
