@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 Run from a checkout of the repository, on a machine with one NVIDIA H100.
 It exits non-zero, and prints no result, when no GPU is present or the
@@ -93,7 +93,30 @@ package is missing.  Phases, any failure of which fails the run:
    the prefill time, the time per decode step, tokens per second, the
    kernel's share of the prefill, and from a profiler trace the kernels
    and the device's busy time per prefill and per decode step;
-5. a ``{"kernels": [...]}`` JSON line, then the last line
+5. the solve service (run before 4): ``repro_torch.service.SolveEngine``
+   with ``ServiceConfig(max_batch=8, chunk=32, substrate="cuda", tol=1e-8,
+   maxiter=2000)`` on 3a's system; a burst of 32 right-hand sides from
+   ``--seed`` (numpy), queued at t = 0, tolerances alternating 1e-8 and
+   1e-6, served warm three ways: sequentially (``session.solve(b,
+   tol=...)``, one program for every tol: a third tol must leave one),
+   in static FIFO batches of 8 (``solve_many``, the standalone reference)
+   and by the engine; for each the throughput, p50 and p99 latency and the
+   mean chunks resident, for the engine also the graph replays and host
+   reads per chunk (1 and 1), the launches per step of the batched
+   kernels (exact) and the device's busy share (a profiled run); every
+   request CONVERGED with a true relres within 100x its tol and its
+   iterations within 2 of its static column, the engine's ``x`` within
+   1e-6 of it (relative); then the guarded engine
+   (``RecoveryPolicy(max_retries=1)``) on 16 requests with column 0
+   corrupted after the first chunk (the victim CONVERGED with one retry,
+   the rest within 2 iterations of their unguarded counts, the health
+   kernel on every step), a request with a 0.05 s deadline and tol 1e-14
+   (DEADLINE), 8 requests on an operator registered with 2c's
+   block-Jacobi (its batched apply launched), the session cache's bytes
+   under its budget, and C16: six (n, 8) sessions of scaled copies of the
+   operator under a budget of 2.2 sessions' bytes, after which the memory
+   reserved must be under the budget plus one session;
+6. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every solve of phases 3b-3f runs through a session's programs: each
@@ -109,7 +132,7 @@ the allocator holds is printed after each solver phase, and the session
 cache is cleared before phase 4.
 
 The run goes 1, 3a (the matrix), 2, 2b, 2c, 2d, 3b-3f, the profiler's
-counts, 4, 5.  Each path is driven with the launch counters set to 0 just
+counts, 5, 4, 6.  Each path is driven with the launch counters set to 0 just
 before it and read just after; the kernels' checks and timings are not
 counted.
 """
@@ -218,6 +241,12 @@ REDUCTIONS = {"p-bicgsafe": 1, "p-bicgsafe-rr": 1, "ssbicgsafe2": 1,
 # residual growing (tools/reference_methods.py on the CPU; ROADMAP C14)
 EXPECT = {"cgs": "MAXITER"}
 STEP_REPS = 4               # solver steps queued per timing (see device_ms)
+SERVICE_REQUESTS = 32       # phase 5's burst, queued at t = 0
+SERVICE_TOLS = (1e-8, 1e-6)  # alternating, as bench_service's tol_mix
+SERVICE_CHUNK = 32
+SERVICE_GUARDED = 16        # requests of the guarded run
+SERVICE_BJ = 8              # requests of the block-Jacobi-registered run
+SERVICE_SESSIONS = 6        # (n, M) sessions bound under a small budget
 
 
 def log(msg: str) -> None:
@@ -309,21 +338,22 @@ def device_ms(torch, fn, reps: int = 20, trials: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_activity(torch, fn, reps: int = 16) -> dict:
-    """What the device ran per call of ``fn``: a ``torch.profiler`` trace
-    of the card's activity over ``reps`` calls; ``kernels`` counts its
-    kernel events (copies and memsets are not kernels), ``busy_ms`` is
-    the union of its kernel, copy and memset intervals."""
-    fn()
-    torch.cuda.synchronize()
+def profile_device(torch, fn, trace: str) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` (the trace kept as
+    ``build/profile/<trace>.json``): ``kernels`` counts the card's kernel
+    events (copies and memsets are not kernels), ``busy_ms`` is the union
+    of its kernel, copy and memset intervals, ``wall_s`` the run's wall
+    time, synchronized."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     out_dir = os.path.join(ROOT, "build", "profile")
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "chip_smoke_step_trace.json")
+    path = os.path.join(out_dir, f"{trace}.json")
     prof.export_chrome_trace(path)
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
@@ -338,7 +368,19 @@ def device_activity(torch, fn, reps: int = 16) -> dict:
     for t0, t1 in device:
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
-    return dict(kernels=kernels / reps, busy_ms=busy / 1e3 / reps)
+    return dict(kernels=kernels, busy_ms=busy / 1e3, wall_s=wall)
+
+
+def device_activity(torch, fn, reps: int = 16) -> dict:
+    """What the device ran per call of ``fn``, from a profiler trace of
+    ``reps`` calls: kernels and busy ms per call."""
+    fn()
+
+    def calls():
+        for _ in range(reps):
+            fn()
+    rec = profile_device(torch, calls, "chip_smoke_step_trace")
+    return dict(kernels=rec["kernels"] / reps, busy_ms=rec["busy_ms"] / reps)
 
 
 
@@ -1122,6 +1164,322 @@ def count_step_kernels(torch, repro_torch, ell, b, pc) -> dict:
     return out
 
 
+def latency_stats(lat_s, wall_s: float, chunks) -> dict:
+    """Throughput over the burst, p50 / p99 latency and mean chunks
+    resident of one serving mode."""
+    lat = sorted(lat_s)
+    return dict(requests_per_s=len(lat) / wall_s, wall_s=wall_s,
+                p50_s=statistics.median(lat),
+                p99_s=lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+                mean_chunks_resident=sum(chunks) / len(chunks))
+
+
+def service_requests(n: int, seed: int):
+    """The burst: SERVICE_REQUESTS right-hand sides from ``seed`` (numpy),
+    the tolerances alternating SERVICE_TOLS."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    rhs = rng.standard_normal((SERVICE_REQUESTS, n))
+    tols = [SERVICE_TOLS[i % len(SERVICE_TOLS)]
+            for i in range(SERVICE_REQUESTS)]
+    return rhs, tols
+
+
+def check_requests(torch, label, stencil, rhs, tols, got, ref, *,
+                   batched: bool = True) -> None:
+    """The bar of every served request: CONVERGED and a true relres at
+    most 100x its tol; served by the batched iteration (``batched``), also
+    its iterations within 2 of the same RHS's standalone ``solve_many``
+    column (``ref``) and its ``x`` within 1e-6 of that column's, relative
+    to its max-abs.  The gap and the error are printed either way: the
+    sequential mode's single-RHS iteration rounds otherwise than the
+    batched one, and on these rough right-hand sides the two stop several
+    iterations apart in the JAX package as well
+    (``tools/iteration_gap.py``)."""
+    import numpy as np
+
+    from repro_torch import SolveStatus
+    bad = []
+    for i, r in enumerate(got):
+        dev = stencil.c.device
+        x = torch.from_numpy(r["x"]).to(dev)
+        b = torch.from_numpy(rhs[i]).to(dev)
+        true = float(torch.linalg.vector_norm(b - stencil.matvec(x))
+                     / torch.linalg.vector_norm(b))
+        xref = ref[i]["x"]
+        xerr = float(np.abs(r["x"] - xref).max() / np.abs(xref).max())
+        r.update(true_relres=true, x_rel_err=xerr)
+        if (r["status"] != SolveStatus.CONVERGED.name
+                or not true <= 100 * tols[i]
+                or (batched and (abs(r["iterations"]
+                                     - ref[i]["iterations"]) > 2
+                                 or not xerr <= 1e-6))):
+            bad.append((i, r["status"], r["iterations"],
+                        ref[i]["iterations"], true, xerr))
+    worst = max(r["x_rel_err"] for r in got)
+    log(f"service {label}: every request checked; worst true relres / tol "
+        f"{max(r['true_relres'] / t for r, t in zip(got, tols)):.3f}, "
+        f"worst x rel err {worst:.3e}, largest iteration gap "
+        f"{max(abs(r['iterations'] - f['iterations']) for r, f in zip(got, ref))}")
+    if bad:
+        raise SystemExit(f"service {label}: requests off their bar "
+                         f"(request, status, iterations, standalone, true "
+                         f"relres, x rel err): {bad}")
+
+
+def run_service_path(torch, repro_torch, ops, ell, stencil, pc, seed):
+    """Phase 5: the solve service at full size (see the module docstring):
+    the burst served sequentially, in static batches and by the engine,
+    the guarded run, the deadline, a block-Jacobi-registered run and the
+    session cache's byte budget.  The engine's run is driven with the
+    launch counters set to 0 just before it and read just after."""
+    import numpy as np
+
+    from repro_torch import SolverConfig, api
+    from repro_torch.resilience import RecoveryPolicy, corrupt_engine_block
+    from repro_torch.service import ServiceConfig, SolveEngine
+    n, dev = ell.n, ell.values.device
+    rhs, tols = service_requests(n, seed)
+    cfg = SolverConfig(tol=1e-8, maxiter=SOLVE_MAXITER)
+    scfg = dict(max_batch=M, chunk=SERVICE_CHUNK, substrate="cuda",
+                tol=1e-8, maxiter=SOLVE_MAXITER, device=dev)
+    session = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda",
+                                      config=cfg, device=dev)
+    out = {}
+
+    # -- sequential: session.solve(b, tol=...) one at a time -------------
+    def sequential():
+        res, done = [], []
+        t0 = time.perf_counter()
+        for b, tol in zip(rhs, tols):
+            steps0 = session.stats["steps"]
+            r = session.solve(torch.from_numpy(b).to(dev), tol=tol)
+            x = r.x.cpu().numpy()
+            done.append(time.perf_counter() - t0)
+            res.append(dict(x=x, iterations=int(r.iterations),
+                            status=repro_torch.SolveStatus(int(r.status)).name,
+                            chunks=(session.stats["steps"] - steps0)
+                            / SERVICE_CHUNK))
+        return res, done, time.perf_counter() - t0
+    session.solve(torch.from_numpy(rhs[0]).to(dev), tol=tols[0])   # warm
+    seq, seq_done, seq_wall = sequential()
+    session.solve(torch.from_numpy(rhs[0]).to(dev), tol=1e-10)
+    solve_programs = sum(1 for k in session._programs if k[0] == "solve")
+    out["sequential"] = latency_stats(seq_done, seq_wall,
+                                      [r["chunks"] for r in seq])
+    log(f"service sequential: {json.dumps(out['sequential'])}; solve "
+        f"programs after tol 1e-8, 1e-6 and 1e-10: {solve_programs}")
+    if solve_programs != 1:
+        raise SystemExit(f"three tol overrides built {solve_programs} solve "
+                         "programs, not 1")
+
+    # -- static: solve_many on FIFO batches of M ------------------------
+    def static():
+        res, done = [], []
+        t0 = time.perf_counter()
+        for lo in range(0, SERVICE_REQUESTS, M):
+            # one right-hand side per row on the host, transposed on the card
+            B = torch.from_numpy(rhs[lo:lo + M]).to(dev).t()
+            steps0 = session.stats["steps"]
+            r = session.solve_many(B, tol=torch.tensor(
+                tols[lo:lo + M], dtype=torch.float64, device=dev))
+            x = r.x.t().contiguous().cpu().numpy()
+            t = time.perf_counter() - t0
+            chunks = (session.stats["steps"] - steps0) / SERVICE_CHUNK
+            for j in range(x.shape[0]):
+                done.append(t)
+                res.append(dict(
+                    x=x[j], iterations=int(r.iterations[j]),
+                    status=repro_torch.SolveStatus(int(r.status[j])).name,
+                    chunks=chunks))
+        return res, done, time.perf_counter() - t0
+    static()                                                     # warm
+    ref, st_done, st_wall = static()
+    out["static"] = latency_stats(st_done, st_wall,
+                                  [r["chunks"] for r in ref])
+    log(f"service static: {json.dumps(out['static'])}")
+
+    # -- engine: SolveEngine.run() on the burst --------------------------
+    def engine_run(eng, name, k=SERVICE_REQUESTS, kw=None):
+        for i in range(k):
+            eng.submit(name, rhs[i], tol=tols[i], **(kw or {}))
+        t0 = time.perf_counter()
+        results = eng.run()
+        return results, time.perf_counter() - t0
+
+    eng = SolveEngine(ServiceConfig(**scfg))
+    name = eng.register(ell)
+    if eng.registry[name].session is not session:
+        raise SystemExit("the engine's registry did not reuse the session")
+    engine_run(eng, name, M + 3)             # warm: the chunk and the splice
+    eng.stats.update(dict.fromkeys(eng.stats, 0))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    results, eng_wall = engine_run(eng, name)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    stats = dict(eng.stats)
+    by_rid = {r.rid - (M + 3): r for r in results}
+    served = [dict(x=by_rid[i].x, iterations=by_rid[i].iterations,
+                   status=by_rid[i].status.name,
+                   chunks=by_rid[i].telemetry.chunks_resident)
+              for i in range(SERVICE_REQUESTS)]
+    out["engine"] = latency_stats(
+        [by_rid[i].telemetry.wall_s for i in range(SERVICE_REQUESTS)],
+        eng_wall, [r["chunks"] for r in served])
+    steps = stats["steps"]
+    per_step = {k: launches[k] / steps for k in (
+        "fused_dots_batched", "fused_axpy_batched", "spmv_ell_batched")}
+    out["engine"].update(
+        stats=stats, launches=launches, launches_per_step=per_step,
+        replays_per_chunk=stats["runs"] / stats["chunks"],
+        host_reads_per_chunk=stats["host_reads"] / stats["chunks"],
+        graphs=session.stats["graphs"])
+    want = dict.fromkeys(launches, 0)
+    want.update(fused_dots_batched=steps, fused_axpy_batched=steps,
+                spmv_ell_batched=2 * steps + stats["admissions"] + 1)
+    if launches != want or stats["runs"] != stats["chunks"] \
+            or stats["host_reads"] != stats["chunks"]:
+        raise SystemExit(f"service engine: launches {launches} != {want} "
+                         f"or a chunk was not one replay and one read "
+                         f"({stats})")
+    # the device's busy share, from a profiled run of the same burst (not
+    # the timed one)
+    prof = profile_device(torch, lambda: engine_run(eng, name),
+                          "chip_smoke_service_trace")
+    prof["share"] = prof["busy_ms"] / 1e3 / prof["wall_s"]
+    out["engine"]["busy"] = prof
+    log(f"service engine: {json.dumps(out['engine'])}")
+    log(f"service throughput: engine {out['engine']['requests_per_s']:.3f} "
+        f"req/s, static {out['static']['requests_per_s']:.3f}, sequential "
+        f"{out['sequential']['requests_per_s']:.3f} (engine / sequential "
+        f"x{out['engine']['requests_per_s'] / out['sequential']['requests_per_s']:.3f}"
+        f"); busy share {prof['share']:.3f} [{card()}]")
+    check_requests(torch, "engine", stencil, rhs, tols, served, ref)
+    # static is the reference: its own true residuals
+    check_requests(torch, "static", stencil, rhs, tols, ref, ref)
+    check_requests(torch, "sequential", stencil, rhs, tols, seq, ref,
+                   batched=False)
+
+    # -- guarded: corrupt column 0 after the first chunk ----------------
+    geng = SolveEngine(ServiceConfig(**scfg,
+                                     recovery=RecoveryPolicy(max_retries=1)))
+    gname = geng.register(ell)
+    engine_run(geng, gname, M + 3)                               # warm
+    geng.stats.update(dict.fromkeys(geng.stats, 0))
+    ops.reset_launches()
+    for i in range(SERVICE_GUARDED):
+        geng.submit(gname, rhs[i], tol=tols[i])
+    first = geng.poll()
+    corrupt_engine_block(geng, gname, cols=[0])
+    gres = {r.rid - (M + 3): r for r in first + geng.run()}
+    torch.cuda.synchronize()
+    glaunch = dict(ops.LAUNCHES)
+    victim = gres[0]
+    gap = max(abs(gres[i].iterations - served[i]["iterations"])
+              for i in range(1, SERVICE_GUARDED))
+    out["guarded"] = dict(
+        victim=dict(status=victim.status.name, retries=victim.retries,
+                    iterations=victim.iterations),
+        statuses=sorted({r.status.name for r in gres.values()}),
+        max_iteration_gap_to_unguarded=gap, launches=glaunch,
+        steps=geng.stats["steps"])
+    log(f"service guarded: {json.dumps(out['guarded'])}")
+    if victim.status.name != "CONVERGED" or victim.retries != 1 \
+            or out["guarded"]["statuses"] != ["CONVERGED"] or gap > 2 \
+            or glaunch["fused_dots_health_batched"] != geng.stats["steps"] \
+            or glaunch["fused_dots_batched"]:
+        raise SystemExit(f"service guarded run off its bar: "
+                         f"{out['guarded']}")
+
+    # -- deadline ----------------------------------------------------------
+    rid = eng.submit(name, rhs[0], tol=1e-14, deadline=0.05)
+    dres = {r.rid: r for r in eng.run()}[rid]
+    out["deadline"] = dict(status=dres.status.name,
+                           deadline_exceeded=dres.telemetry.deadline_exceeded,
+                           iterations=dres.iterations,
+                           wall_s=dres.telemetry.wall_s)
+    log(f"service deadline: {json.dumps(out['deadline'])}")
+    if dres.status.name != "DEADLINE" or not \
+            dres.telemetry.deadline_exceeded:
+        raise SystemExit(f"service deadline off its bar: {out['deadline']}")
+
+    # -- registered with 2c's block-Jacobi preconditioner ---------------
+    beng = SolveEngine(ServiceConfig(**scfg))
+    bname = beng.register(ell, precond=pc)
+    ops.reset_launches()
+    bres, _ = engine_run(beng, bname, SERVICE_BJ)
+    torch.cuda.synchronize()
+    out["block_jacobi"] = dict(
+        launches=dict(ops.LAUNCHES), steps=beng.stats["steps"],
+        statuses=sorted({r.status.name for r in bres}))
+    log(f"service block_jacobi: {json.dumps(out['block_jacobi'])}")
+    if out["block_jacobi"]["statuses"] != ["CONVERGED"] or \
+            ops.LAUNCHES["block_jacobi_apply_batched"] \
+            < 2 * beng.stats["steps"]:
+        raise SystemExit(f"service block_jacobi off its bar: "
+                         f"{out['block_jacobi']}")
+
+    info = api.session_cache_info()
+    budget = api._cache_budget(session)
+    out["cache"] = dict(info, budget=budget)
+    log(f"service: session cache {json.dumps(out['cache'])}")
+    if info["bytes"] > budget:
+        raise SystemExit("the cached sessions' programs exceed the budget")
+    log_memory(torch, "5 (the service)")
+    del eng, geng, beng, session
+    return out
+
+
+def check_session_budget(torch, repro_torch, ell) -> dict:
+    """C16 on the card: SERVICE_SESSIONS (n, M) sessions of distinct
+    operators (scaled copies of ``ell``) under a budget of about two
+    sessions' bytes; the memory reserved must fall back under the budget
+    plus one session."""
+    import dataclasses
+
+    from repro_torch import api
+    copies = [dataclasses.replace(ell, values=ell.values * (1.0 + i / 8))
+              for i in range(SERVICE_SESSIONS)]
+    dev = ell.values.device
+    B = torch.ones((ell.n, M), dtype=torch.float64, device=dev)
+    repro_torch.clear_session_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    first = repro_torch.make_solver("p-bicgsafe", copies[0],
+                                    substrate="cuda", device=dev)
+    first.solve_many(B, maxiter=32)
+    one = first.nbytes
+    budget = int(2.2 * one)
+    saved = api._SESSION_CACHE_BYTES
+    api._SESSION_CACHE_BYTES = budget
+    try:
+        peak = 0
+        for op in copies[1:]:
+            repro_torch.make_solver("p-bicgsafe", op, substrate="cuda",
+                                    device=dev).solve_many(B, maxiter=32)
+            peak = max(peak, torch.cuda.memory_reserved() - base)
+        info = api.session_cache_info()
+        del first
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved() - base
+    finally:
+        api._SESSION_CACHE_BYTES = saved
+    rec = dict(session_bytes=one, budget=budget, cache=info,
+               reserved_above_base=held, peak_reserved_above_base=peak,
+               base_reserved=base)
+    log(f"C16: {json.dumps(rec)} [{card()}]")
+    if info["bytes"] > budget or held > budget + one:
+        raise SystemExit(f"C16: the card holds {held} bytes above the "
+                         f"base, past the budget {budget} plus one "
+                         f"session {one}")
+    repro_torch.clear_session_cache()
+    return rec
+
+
 def flash_operands(torch, shape, dtype, seed):
     """qg (B, S, K, G, hd) and k, v (B, S, K, hd): the model's layout."""
     B, H, K, S, hd = shape
@@ -1326,6 +1684,11 @@ def run_serving_path(torch, ops, flash_ms: float) -> dict:
 
 
 def main() -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of phase 5's right-hand sides (numpy)")
+    args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1470,6 +1833,19 @@ def main() -> int:
     pre["solve_many"]["kernels_per_step"] = step_kernels["preconditioned"]
     log_memory(torch, "3f")
 
+    # -- 5. the solve service --------------------------------------------------
+    service = run_service_path(torch, repro_torch, ops, ell, stencil, pc,
+                               args.seed)
+    service_launches = dict(
+        fused_dots_batched=service["engine"]["launches"]["fused_dots_batched"],
+        fused_axpy_batched=service["engine"]["launches"]["fused_axpy_batched"],
+        spmv_ell_batched=service["engine"]["launches"]["spmv_ell_batched"],
+        fused_dots_health_batched=service["guarded"]["launches"][
+            "fused_dots_health_batched"],
+        block_jacobi_apply_batched=service["block_jacobi"]["launches"][
+            "block_jacobi_apply_batched"])
+    service["c16"] = check_session_budget(torch, repro_torch, ell)
+
     # -- 4. the serving path ---------------------------------------------------
     # the cached sessions hold their programs' buffers and graph pools
     del pc, ell, stencil, b, v, want
@@ -1481,7 +1857,7 @@ def main() -> int:
     serving = run_serving_path(torch, ops, main_flash["ms"])
     path_launches.update(flash_attention=serving["launches"]["flash_attention"])
 
-    # -- 5. the kernel table and the result line ------------------------------
+    # -- 6. the kernel table and the result line ------------------------------
     kernels = []
     for kname in SINGLE + BATCHED + HEALTH + PRECOND:
         r64, r32 = results["float64"][kname], results["float32"][kname]
@@ -1507,6 +1883,8 @@ def main() -> int:
                          library_omits="the probe row (row 10)")
         else:
             extra = dict(m=M)
+        if kname in service_launches:
+            extra["launches_service"] = service_launches[kname]
         kernels.append(dict(
             name=kname, route="cuda", source=SOURCE[kname],
             replaces=REPLACES[kname],

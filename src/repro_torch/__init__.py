@@ -53,6 +53,7 @@ from .core import (GUARD_FIELDS, SOLVERS, SUBSTRATES, CSROperator,
                    result_from_state, solve_batched, splice_columns,
                    step_chunk)
 from .resilience import GuardedSolver, RecoveryPolicy
+from .service import ServiceConfig, SolveEngine
 
 __all__ = [
     "LinearSolver", "make_solver", "solve", "operator_fingerprint",
@@ -64,4 +65,5 @@ __all__ = [
     "CSROperator", "DenseOperator", "ELLOperator", "Stencil7Operator",
     "solve_batched", "init_state", "step_chunk", "splice_columns",
     "result_from_state", "GUARD_FIELDS", "GuardedSolver", "RecoveryPolicy",
+    "ServiceConfig", "SolveEngine",
 ]

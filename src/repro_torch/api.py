@@ -40,9 +40,19 @@ memoizes one program per (entry point, derived config, argument
 structure, shapes and type): the counterpart of ``jax.jit``, a
 :class:`repro_torch.core.program.Program` whose solver chunks are CUDA
 graphs on the card (captured on first use, then replayed) and the eager
-steps on the CPU.  ``stats["programs"]`` counts the programs,
-``stats["traces"]`` their builds, ``stats["graphs"]`` the CUDA graphs
-captured.
+steps on the CPU.  ``tol`` and ``maxiter`` are not part of a program's
+key: the body reads ``tol`` from a constant buffer and the host bounds
+the loop, so every override runs the same program (``maxiter`` stays in
+the key only with ``record_history``, whose buffer it sizes).
+``stats["programs"]`` counts the programs, ``stats["traces"]`` their
+builds, ``stats["graphs"]`` the CUDA graphs captured.
+
+Unlike a jitted function, a program holds device memory between calls:
+its buffers and its graph pool.  The cache is therefore bounded by bytes
+as well (:data:`_SESSION_CACHE_BYTES`): past the budget, the least
+recently used sessions release their programs (and the card the memory)
+and leave the cache.  A session handed out before keeps working; its
+next call builds its programs again.
 
 The cache serves a session only for content that cannot have changed
 under it.  A ``jax.Array`` is immutable; a tensor is not, so the port's
@@ -71,7 +81,7 @@ from .core import CHUNKED, SOLVERS, multirhs
 from .core.pipelined_bicgsafe import solve_chunked
 from .core.program import Program
 from .core.substrate import SUBSTRATES, SubstrateLike, get_substrate
-from .core.types import SolveResult, SolverConfig, resolve_device
+from .core.types import SolveResult, SolverConfig, per_column, resolve_device
 from .precond.base import (PrecondLike, Preconditioner, resolve_precond,
                            validate_precond_spec)
 
@@ -200,6 +210,14 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to repro_torch yet")
 
 
+def _program_config(cfg: SolverConfig) -> SolverConfig:
+    """``cfg`` as a program key: without ``tol`` (a constant buffer of the
+    body) and ``maxiter`` (the host's loop bound), unless the history
+    buffer is sized by it."""
+    return dataclasses.replace(
+        cfg, tol=0.0, maxiter=cfg.maxiter if cfg.record_history else 0)
+
+
 def _operator_device(op) -> Optional[torch.device]:
     if isinstance(op, torch.Tensor):
         return op.device
@@ -233,11 +251,11 @@ class LinearSolver:
         (:func:`operator_fingerprint`; ``None`` for a bare callable, whose
         sessions are never cached).
       stats: ``{"solves", "steps", "rr_steps", "host_reads", "programs",
-        "traces", "graphs"}`` summed over this session's solves and
+        "traces", "graphs", "runs"}`` summed over this session's solves and
         open-loop chunks: iterations queued (stopped ones included),
         residual-replacement steps, host reads of the stop flag, programs
-        memoized, program builds (the JAX package's retraces) and CUDA
-        graphs captured.
+        memoized, program builds (the JAX package's retraces), CUDA
+        graphs captured and chunks run (on the card, graph replays).
     """
 
     def __init__(self, method: str, operator, *,
@@ -267,8 +285,9 @@ class LinearSolver:
         self.stats: Dict[str, int] = {"solves": 0, "steps": 0,
                                       "rr_steps": 0, "host_reads": 0,
                                       "programs": 0, "traces": 0,
-                                      "graphs": 0}
+                                      "graphs": 0, "runs": 0}
         self._programs: Dict[Hashable, Program] = {}
+        self._cache_key: Optional[Tuple] = None
 
     @property
     def precond(self) -> Optional[Preconditioner]:
@@ -316,9 +335,33 @@ class LinearSolver:
         return prog
 
     def _batched_program(self, key: Hashable, cfg: SolverConfig) -> Program:
+        bmv = self.block_matvec                  # binds the M^{-1} apply
         return self._program(key, lambda: multirhs.batched_program(
-            self.block_matvec, cfg, self.sub, self.stats,
-            device=self.device, key=key))
+            bmv, cfg, self.sub, self.stats, device=self.device, key=key,
+            prep=self._papply))
+
+    @property
+    def nbytes(self) -> int:
+        """The memory this session's programs hold (:attr:`repro_torch
+        .core.program.Program.nbytes`)."""
+        return sum(p.nbytes for p in self._programs.values())
+
+    def release(self) -> bool:
+        """Release every program (graphs, pools, buffers) and forget them;
+        the next call builds them again.  True when one was on the card."""
+        on_card = self.device.type == "cuda" and bool(self._programs)
+        for prog in self._programs.values():
+            prog.release()
+        self._programs.clear()
+        return on_card
+
+    def _used(self) -> None:
+        """After a call: mark the session most recently used, and keep the
+        cache's programs within the byte budget."""
+        hit = _SESSIONS.get(self._cache_key)
+        if hit is not None and hit[0] is self:
+            _SESSIONS.move_to_end(self._cache_key)
+        _trim_session_cache(self)
 
     def _derive(self, tol, maxiter) -> SolverConfig:
         cfg = self.config
@@ -345,15 +388,17 @@ class LinearSolver:
             raise _not_ported("solve(profile=...)")
         cfg = self._derive(tol, maxiter)
         b = self._tensor(b)
-        key = ("solve", cfg, x0 is None, r0_star is None, tuple(b.shape),
-               b.dtype)
+        key = ("solve", _program_config(cfg), x0 is None, r0_star is None,
+               tuple(b.shape), b.dtype)
         self.stats["solves"] += 1
-        return solve_chunked(
+        res = solve_chunked(
             CHUNKED[self.method], self.operator, b, self._tensor(x0),
             config=cfg, r0_star=self._tensor(r0_star), substrate=self.sub,
             precond=self.precond, stats=self.stats,
             program=lambda step: self._program(key, lambda: Program(
                 step, self.device, key, stats=self.stats)))
+        self._used()
+        return res
 
     # -- multi-RHS and the open-loop handles -------------------------------
 
@@ -397,8 +442,8 @@ class LinearSolver:
             cfg, maxiter = self._derive(None, maxiter), None
         else:
             cfg = self.config
-        key = ("solve_many", cfg, X0 is None, r0_star is None,
-               tuple(B.shape), B.dtype)
+        key = ("solve_many", _program_config(cfg), X0 is None,
+               r0_star is None, tuple(B.shape), B.dtype)
         self.stats["solves"] += 1
         st = multirhs.init_state(
             self.block_matvec, self._prep(B), self._tensor(X0), config=cfg,
@@ -406,6 +451,7 @@ class LinearSolver:
             maxiter=maxiter)
         st = multirhs.run_chunks(self._batched_program(key, cfg), st,
                                  cfg.maxiter, self.stats)
+        self._used()
         return multirhs.result_from_state(st)
 
     def init(self, B, X0=None, *, tol=None, maxiter=None,
@@ -418,14 +464,24 @@ class LinearSolver:
             config=self.config, r0_star=self._tensor(r0_star),
             substrate=self.sub, tol=tol, maxiter=maxiter)
 
-    def step_chunk(self, state: dict, k: int) -> dict:
-        """Advance every live column by up to ``k`` iterations; ``state``
-        and every state returned earlier are left as they were."""
-        self._require_pbicgsafe("step_chunk")
+    def _open_loop_program(self, state: dict) -> Program:
+        """The program of :meth:`step_chunk` and :meth:`splice_step` (one
+        for both) for states of ``state``'s structure."""
         key = ("step_chunk",) + tuple(
             (name, tuple(v.shape), v.dtype) for name, v in state.items())
-        return multirhs.run_chunks(self._batched_program(key, self.config),
-                                   state, int(k), self.stats)
+        return self._batched_program(key, self.config)
+
+    def step_chunk(self, state: dict, k: int, *,
+                   one_run: bool = False) -> dict:
+        """Advance every live column by up to ``k`` iterations; ``state``
+        and every state returned earlier are left as they were.
+        ``one_run`` queues the ``k`` steps as one chunk (one graph replay
+        on the card) with no host read: the service engine's chunk."""
+        self._require_pbicgsafe("step_chunk")
+        out = multirhs.run_chunks(self._open_loop_program(state), state,
+                                  int(k), self.stats, one_run=one_run)
+        self._used()
+        return out
 
     def splice(self, state: dict, refill, B_new, *, tol=None, maxiter=None,
                r0_star=None) -> dict:
@@ -441,11 +497,45 @@ class LinearSolver:
             maxiter=self.config.maxiter if maxiter is None else maxiter)
 
     def splice_step(self, state: dict, refill, B_new, tol, maxiter,
-                    k: int) -> dict:
-        """:meth:`splice`, then :meth:`step_chunk` of ``k``."""
+                    k: int, *, one_run: bool = False) -> dict:
+        """:meth:`splice`, then :meth:`step_chunk` of ``k``, fused: the
+        splice is the first step of the first chunk of :meth:`step_chunk`'s
+        program, its mask, block and budgets that program's constants, so
+        admission costs no run or host read of its own.  ``B_new`` may lie
+        on the host (a numpy array or a CPU tensor): it is copied to the
+        card once, into the program's constant buffer, which holds its
+        transpose, one right-hand side per row (an (n, m) host block whose
+        transpose is contiguous copies as it lies).  ``one_run`` as in
+        :meth:`step_chunk`."""
         self._require_pbicgsafe("splice_step")
-        state = self.splice(state, refill, B_new, tol=tol, maxiter=maxiter)
-        return self.step_chunk(state, k)
+        m = state["r"].shape[1]
+        if isinstance(B_new, (list, tuple)):
+            Bt = torch.stack([torch.as_tensor(c) for c in B_new])
+        else:
+            if isinstance(B_new, np.ndarray) and not B_new.flags.writeable:
+                B_new = B_new.copy()
+            B_new = torch.as_tensor(B_new)
+            if B_new.dim() != 2:
+                raise ValueError(f"B_new must be (n, {m}); got shape "
+                                 f"{tuple(B_new.shape)}")
+            Bt = B_new.t().contiguous()
+        if Bt.shape[0] != m:
+            raise ValueError(f"B_new must be (n, {m}); got shape "
+                             f"{tuple(Bt.t().shape)}")
+        dev = state["r"].device
+        consts = dict(
+            refill=torch.as_tensor(refill).to(dev, torch.bool),
+            Bt=Bt,
+            tol=per_column(self.config.tol if tol is None else tol, m,
+                           state["tol"].dtype, name="tol", device=dev),
+            maxiter=per_column(self.config.maxiter if maxiter is None
+                               else maxiter, m, torch.int32,
+                               name="maxiter", device=dev))
+        out = multirhs.run_chunks(self._open_loop_program(state), state,
+                                  int(k), self.stats, consts=consts,
+                                  one_run=one_run)
+        self._used()
+        return out
 
     def result(self, state: dict) -> SolveResult:
         """Package an open-loop state as a :class:`SolveResult`."""
@@ -465,6 +555,11 @@ class LinearSolver:
 #: until the card runs out of memory.  A session handed out keeps working
 #: after eviction; it is only no longer found by content.
 _SESSION_CACHE_MAX = 64
+#: the bytes the cached sessions' programs may hold together; past it the
+#: least recently used sessions release their programs and leave the
+#: cache.  ``None``: half the memory of the card the newest call ran on
+#: (no byte bound for sessions on the CPU).
+_SESSION_CACHE_BYTES: Optional[int] = None
 #: key -> (session, the versions of its bound tensors when it was made)
 _SESSIONS: "OrderedDict[Tuple, Tuple[LinearSolver, Tuple[int, ...]]]" = \
     OrderedDict()
@@ -558,9 +653,12 @@ def make_solver(method: str = "p-bicgsafe", operator=None, *,
                            config=config, device=dev,
                            fingerprint=fingerprint)
     if key is not None:
+        session._cache_key = key
         _SESSIONS[key] = (session, versions)
+        evicted = []
         while len(_SESSIONS) > _SESSION_CACHE_MAX:
-            _SESSIONS.popitem(last=False)
+            evicted.append(_SESSIONS.popitem(last=False)[1][0])
+        _release(evicted)
     return session
 
 
@@ -577,6 +675,45 @@ def solve(A, b, method: str = "p-bicgsafe", *, x0=None, tol=None,
     return session.solve(b, x0, tol=tol, maxiter=maxiter, r0_star=r0_star)
 
 
+def _release(sessions) -> None:
+    """Release the programs of ``sessions``; what they held on the card
+    goes back to it."""
+    on_card = False
+    for sess in sessions:
+        on_card |= sess.release()
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def _cache_budget(session: LinearSolver) -> Optional[int]:
+    if _SESSION_CACHE_BYTES is not None:
+        return _SESSION_CACHE_BYTES
+    if session.device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(session.device).total_memory // 2
+
+
+def _trim_session_cache(session: LinearSolver) -> None:
+    """Keep the cached sessions' program bytes within the budget: release
+    the least recently used sessions' programs and drop those sessions,
+    never ``session`` (the one just used)."""
+    budget = _cache_budget(session)
+    if budget is None:
+        return
+    total = sum(s.nbytes for s, _ in _SESSIONS.values())
+    evicted = []
+    for key in list(_SESSIONS):
+        if total <= budget:
+            break
+        sess = _SESSIONS[key][0]
+        if sess is session:
+            continue
+        total -= sess.nbytes
+        evicted.append(sess)
+        del _SESSIONS[key]
+    _release(evicted)
+
+
 def clear_session_cache() -> None:
     """Drop every cached session (tests; memory pressure: each holds its
     programs' buffers and CUDA graph pools)."""
@@ -584,5 +721,8 @@ def clear_session_cache() -> None:
 
 
 def session_cache_info() -> Dict[str, int]:
-    return {"sessions": len(_SESSIONS),
-            "programs": sum(len(s._programs) for s, _ in _SESSIONS.values())}
+    """The cached sessions, their programs and the bytes those hold."""
+    sessions = [s for s, _ in _SESSIONS.values()]
+    return {"sessions": len(sessions),
+            "programs": sum(len(s._programs) for s in sessions),
+            "bytes": sum(s.nbytes for s in sessions)}

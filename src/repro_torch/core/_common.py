@@ -82,7 +82,15 @@ def state_result(st: dict) -> SolveResult:
                                        st["relres"]), None)
 
 
-def recurred_result(st: dict, norm_r0: torch.Tensor, tol: float
+def tol_const(config, like: torch.Tensor) -> torch.Tensor:
+    """``config.tol`` as a 0-d tensor of ``like``'s type and device: a
+    method's stop test reads it from the program's constant buffers, so
+    one program serves every ``tol`` (the comparison against a Python
+    float casts it to the same type)."""
+    return torch.tensor(config.tol, dtype=like.dtype, device=like.device)
+
+
+def recurred_result(st: dict, norm_r0: torch.Tensor, tol: torch.Tensor
                     ) -> SolveResult:
     """The result of such a method: the loop may end on maxiter after an
     unchecked update, so the final relres is derived again from the last

@@ -17,7 +17,7 @@ import torch
 
 from ..precond.base import PrecondLike
 from ._common import (hold_checked, init_guess, recurred_result,
-                      safe_div)
+                      safe_div, tol_const)
 from .pipelined_bicgsafe import ChunkedMethod, solve_chunked
 from .substrate import SubstrateLike
 from .types import SolveResult, SolverConfig, history_init, history_update
@@ -41,7 +41,8 @@ def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
         relres=torch.where(conv0, 0.0, 1.0).to(norm_r0.dtype),
         converged=conv0, breakdown=false,
         hist=history_init(config, norm_r0.dtype, b.device))
-    return state, dict(rs=rs, norm_r0=norm_r0, false=false)
+    return state, dict(rs=rs, norm_r0=norm_r0, false=false,
+                       tol=tol_const(config, norm_r0))
 
 
 def _step(st, c, _replace, *, matvec, sub, config: SolverConfig):
@@ -50,7 +51,7 @@ def _step(st, c, _replace, *, matvec, sub, config: SolverConfig):
     rs = c["rs"]
     active = ~st["converged"] & ~st["breakdown"]
     relres = torch.sqrt(torch.abs(st["rr"])) / c["norm_r0"]
-    done = relres <= config.tol
+    done = relres <= c["tol"]
     hist = history_update(st["hist"], st["i"], relres, config, active)
 
     p, u, r = st["p"], st["u"], st["r"]
@@ -75,7 +76,7 @@ def _step(st, c, _replace, *, matvec, sub, config: SolverConfig):
 
 
 def _result(st, c, config: SolverConfig) -> SolveResult:
-    return recurred_result(st, c["norm_r0"], config.tol)
+    return recurred_result(st, c["norm_r0"], c["tol"])
 
 
 CGS = ChunkedMethod(_init, _step, _result)

@@ -22,6 +22,11 @@ Open-loop pieces, as in the JAX package (what its service drives):
 * :func:`result_from_state` — package a state as a :class:`SolveResult`.
 
 :func:`solve_batched` is init plus one chunk of ``config.maxiter`` steps.
+The splice is also the first step of a chunk's schedule (:data:`SPLICE`,
+:func:`run_chunks` with ``consts``): the mask, the fresh block and the
+fresh budgets go in as the program's constant buffers, so a chunk that
+admits right-hand sides is one run of the same program as one that does
+not (the JAX package's fused ``splice_step``).
 
 The loop.  PyTorch has no device-side while loop: :func:`step_chunk`
 queues steps in groups of ``pipelined_bicgsafe.CHUNK`` (16), each one run
@@ -57,14 +62,22 @@ from .substrate import SubstrateLike, get_substrate
 from .types import (SolveResult, SolverConfig, SolveStatus, classify_status,
                     per_column)
 
-__all__ = ["GUARD_FIELDS", "active_columns", "batched_matvec", "init_state",
-           "splice_columns", "step_chunk", "result_from_state",
-           "solve_batched"]
+__all__ = ["GUARD_FIELDS", "SPLICE", "active_columns", "batched_matvec",
+           "init_state", "splice_columns", "step_chunk", "run_chunks",
+           "result_from_state", "solve_batched"]
 
 #: Per-column health fields of a guarded state (``SolverConfig.guard``);
 #: their presence marks a state as guarded.
 GUARD_FIELDS = ("status", "drift", "drift_flag", "stall", "best_relres",
                 "stagnant", "replacements", "restarts")
+
+#: the schedule entry of a batched program that splices: the columns of the
+#: constant ``refill`` take the right-hand sides of the constant ``Bt``
+#: ((m, n): one per row, so a host block fills row by row and copies to
+#: the card as it lies; after the program's ``prep``, M^{-1} under
+#: preconditioning) with budgets ``tol`` and ``maxiter``, as
+#: :func:`splice_columns` does
+SPLICE = "splice"
 
 
 def _not_ported(what: str):
@@ -397,32 +410,55 @@ def step_chunk(bmv: Callable,
 def batched_program(bmv: Callable, config: SolverConfig,
                     substrate: SubstrateLike = "torch",
                     stats: Optional[Dict[str, int]] = None, *, device,
-                    key=None) -> Program:
+                    key=None, prep: Optional[Callable] = None) -> Program:
     """A :class:`~repro_torch.core.program.Program` of the batched body
-    (what :func:`run_chunks` runs)."""
-    body = _make_body(get_substrate(substrate), bmv, config)
-    return Program(lambda st, _consts, _replace: body(st), device, key,
-                   stats=stats)
+    (what :func:`run_chunks` runs); its :data:`SPLICE` step refills
+    columns from its constants, ``prep`` (M^{-1}) applied to ``B``."""
+    sub = get_substrate(substrate)
+    body = _make_body(sub, bmv, config)
+
+    def step(st, c, entry):
+        if entry == SPLICE:
+            B = c["Bt"].t().contiguous()
+            B = B if prep is None else prep(B)
+            return splice_columns(bmv, st, c["refill"], B, substrate=sub,
+                                  tol=c["tol"], maxiter=c["maxiter"])
+        return body(st)
+
+    return Program(step, device, key, stats=stats)
 
 
 def run_chunks(program: Program, state: dict, k: int,
-               stats: Optional[Dict[str, int]] = None) -> dict:
+               stats: Optional[Dict[str, int]] = None, *,
+               consts: Optional[dict] = None,
+               one_run: bool = False) -> dict:
     """:func:`step_chunk` on ``program``: loads ``state`` (which is left as
     it was) and runs chunks of up to ``CHUNK`` steps while a column is
-    live, ``k`` steps at most; returns the new state."""
+    live, ``k`` steps at most; returns the new state.
+
+    ``consts`` (``refill``, ``Bt``, ``tol``, ``maxiter``) opens the first
+    chunk with the :data:`SPLICE` step.  ``one_run`` queues all ``k``
+    steps as one chunk, one graph replay on the card, and reads nothing
+    back: the service's chunk, whose one read of the flags follows it.
+    Otherwise ``any(active)`` is read before each chunk but one that
+    splices, whose columns were just made live."""
     stats = {} if stats is None else stats
     for key in ("steps", "host_reads"):
         stats.setdefault(key, 0)
-    program.load(state)
+    program.load(state, consts)
+    lead = () if consts is None else (SPLICE,)
+    group = k if one_run else pipelined_bicgsafe.CHUNK
     queued = 0
-    while queued < k:
-        stats["host_reads"] += 1
-        if not bool(active_columns(program.state).any()):
-            break
-        n_steps = min(pipelined_bicgsafe.CHUNK, k - queued)
-        program.run((False,) * n_steps)
+    while lead or queued < k:
+        if not lead and not one_run:
+            stats["host_reads"] += 1
+            if not bool(active_columns(program.state).any()):
+                break
+        n_steps = min(group, k - queued)
+        program.run(lead + (False,) * n_steps)
         stats["steps"] += n_steps
         queued += n_steps
+        lead = ()
     return program.read()
 
 

@@ -41,7 +41,7 @@ import torch
 
 from ..precond.base import PrecondLike, preconditioned_system
 from ._common import (bicgsafe_coefficients, hold_in_step, init_guess,
-                      pipelined_recurrence_tail, state_result)
+                      pipelined_recurrence_tail, state_result, tol_const)
 from .program import Program
 from .substrate import SubstrateLike, get_substrate
 from .types import SolveResult, SolverConfig, history_init, history_update
@@ -158,7 +158,8 @@ def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
         relres=torch.where(conv0, 0.0, 1.0).to(norm_r0.dtype),
         converged=conv0,
         breakdown=false, hist=hist)
-    return state, dict(b=b, rs=rs, norm_r0=norm_r0, false=false)
+    return state, dict(b=b, rs=rs, norm_r0=norm_r0, false=false,
+                       tol=tol_const(config, norm_r0))
 
 
 def _step(st, c, replace: bool, *, matvec, sub, config: SolverConfig):
@@ -177,7 +178,7 @@ def _step(st, c, replace: bool, *, matvec, sub, config: SolverConfig):
     beta, alpha, zeta, eta, f, rr, bad = bicgsafe_coefficients(
         dots, st["i"], st["alpha"], st["zeta"], st["f"], eps)
     relres = torch.sqrt(torch.abs(rr)) / c["norm_r0"]
-    done = relres <= config.tol
+    done = relres <= c["tol"]
 
     # blocked vector-update phase (Alg. 3.1 lines 23-32): one substrate
     # call covers all 10 recurrence updates

@@ -33,6 +33,18 @@ makes it run eagerly there.
 :meth:`Program.read` hands out copies of the buffers, so a state that was
 returned stays as it was whatever the program replays later; a state
 handed back unchanged is not copied in again (:meth:`Program.load`).
+
+A schedule's entries are what the step receives as its third argument:
+``replace`` flags for the single-RHS loops, and for the batched loop also
+:data:`repro_torch.core.multirhs.SPLICE`, the refill of a masked set of
+columns from constant buffers, so that a chunk that admits fresh
+right-hand sides is one replay as a chunk without.
+
+A program knows the card memory it holds (:attr:`Program.nbytes`): its
+buffers exactly, and its graph pool as the rise of
+``torch.cuda.memory_reserved()`` across each capture.  :meth:`Program
+.release` drops its graphs, pool and buffers (the session cache's byte
+budget calls it); the program rebuilds them on its next load.
 """
 from __future__ import annotations
 
@@ -69,14 +81,20 @@ def _side_stream(device: torch.device) -> "torch.cuda.Stream":
     return _SIDE_STREAMS[device]
 
 
+def _nbytes(tensors: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors.values())
+
+
 class Program:
     """One loop body, run a chunk at a time (see the module's docstring).
 
     ``step(state, consts, replace)`` returns the next state, a dict of
     tensors with the same keys, shapes and types; ``consts`` are the
-    per-solve tensors the body reads but never changes (``norm_r0``, the
-    shadow residual, -rr's ``b``).  ``stats``, when given, counts the
-    graphs captured under ``"graphs"``.
+    per-solve tensors the body reads but never changes (``norm_r0``,
+    ``tol``, the shadow residual, -rr's ``b``; a splice's mask, block and
+    budgets).  ``stats``, when given, counts the graphs captured under
+    ``"graphs"`` and the chunks run under ``"runs"`` (on the card, graph
+    replays).
     """
 
     #: the state's fields a step writes in place (the residual history):
@@ -100,34 +118,68 @@ class Program:
         self._const_buffers: Dict[str, torch.Tensor] = {}
         self._handed: Dict[str, tuple] = {}
         self._pool = None
+        self._pool_bytes = 0
+        self._eager_bytes = 0
         self._graphed = False
+
+    @property
+    def nbytes(self) -> int:
+        """The memory the program holds: its state and constant buffers,
+        and on the card its graphs' pool.  The eager chunk (the CPU) keeps
+        no buffers of its own: it counts the state and constants it was
+        last loaded with, what its buffers would hold."""
+        if self.device.type != "cuda":
+            return self._eager_bytes
+        return _nbytes(self._buffers) + _nbytes(self._const_buffers) \
+            + self._pool_bytes
+
+    def release(self) -> None:
+        """Drop the graphs, their pool and the buffers; the next
+        :meth:`load` allocates them again and the next chunks capture
+        again."""
+        self.graphs.clear()
+        self._pool = None
+        self._pool_bytes = self._eager_bytes = 0
+        self._buffers.clear()
+        self._const_buffers.clear()
+        self.state, self.consts, self._handed = {}, {}, {}
 
     # -- the state ------------------------------------------------------------
 
     def load(self, state: dict, consts: Optional[dict] = None) -> None:
-        """Start from ``state`` (with ``consts``); the caller's tensors are
-        never written."""
-        consts = {} if consts is None else consts
+        """Start from ``state`` (with ``consts``; ``None`` keeps the
+        constants loaded last); the caller's tensors are never written.
+        A constant may lie on the host: it is copied to the device once,
+        into its buffer on the card."""
         self._graphed = self.device.type == "cuda" and not _EAGER[0]
         if not self._graphed:
             self.state = {k: v.clone() if k in self.INPLACE else v
                           for k, v in state.items()}
-            self.consts = dict(consts)
+            if consts is not None:
+                self.consts = {k: v.to(self.device)
+                               for k, v in consts.items()}
+            self._eager_bytes = _nbytes(state) + _nbytes(self.consts)
             return
         handed, self._handed = self._handed, {}
         self.state = self._fill(self._buffers, state, handed)
-        self.consts = self._fill(self._const_buffers, consts, {})
+        if consts is not None:
+            self.consts = self._fill(self._const_buffers, consts, {})
 
     def _fill(self, bufs: dict, src: dict, handed: dict) -> dict:
+        """Copy ``src`` into ``bufs``.  Once a graph is captured, its
+        buffers keep their addresses: the state must keep its fields,
+        shapes and types; a constant no graph read yet may be added."""
+        is_state = bufs is self._buffers
         if bufs.keys() != src.keys():
-            if self.graphs:
+            if self.graphs and is_state:
                 raise ValueError(f"program {self.key!r}: state fields "
                                  f"{sorted(src)}, not {sorted(bufs)}")
-            bufs.clear()
+            if not self.graphs:
+                bufs.clear()
         for k, v in src.items():
             buf = bufs.get(k)
             if buf is None or buf.shape != v.shape or buf.dtype != v.dtype:
-                if self.graphs:
+                if self.graphs and buf is not None:
                     raise ValueError(
                         f"program {self.key!r}: {k} is {tuple(v.shape)} "
                         f"{v.dtype}, its captured buffer "
@@ -156,8 +208,12 @@ class Program:
         """Advance the state by ``len(schedule)`` steps."""
         if not self._graphed:
             self.state = self._steps(self.state, schedule)
+            if self.stats is not None:
+                self.stats["runs"] = self.stats.get("runs", 0) + 1
             return
         self._handed = {}
+        if self.stats is not None:
+            self.stats["runs"] = self.stats.get("runs", 0) + 1
         entry = self.graphs.get(schedule)
         if entry is None:
             entry = self.graphs[schedule] = self._capture(schedule)
@@ -211,8 +267,14 @@ class Program:
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
             warm = dict(LAUNCHES)
+            # entering a capture empties the allocator's cache anyway; done
+            # first, what the capture reserves is its pool's growth
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
             with torch.cuda.graph(graph, pool=self._pool, stream=side):
                 self._write_back(self._steps(dict(self._buffers), schedule))
+            self._pool_bytes += max(
+                0, torch.cuda.memory_reserved(self.device) - reserved)
             launches = {k: LAUNCHES[k] - warm[k] for k in LAUNCHES
                         if LAUNCHES[k] != warm[k]}
         except Exception as exc:

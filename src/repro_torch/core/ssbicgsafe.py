@@ -22,7 +22,7 @@ import torch
 
 from ..precond.base import PrecondLike
 from ._common import (bicgsafe_coefficients, hold_in_step, init_guess,
-                      state_result)
+                      state_result, tol_const)
 from .pipelined_bicgsafe import ChunkedMethod, solve_chunked
 from .substrate import SubstrateLike
 from .types import SolveResult, SolverConfig, history_init, history_update
@@ -50,7 +50,8 @@ def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
         alpha=zero, zeta=one, f=one, i=i0,
         relres=torch.where(conv0, 0.0, 1.0).to(norm_r0.dtype),
         converged=conv0, breakdown=false, hist=hist)
-    return state, dict(rs=rs, norm_r0=norm_r0, false=false)
+    return state, dict(rs=rs, norm_r0=norm_r0, false=false,
+                       tol=tol_const(config, norm_r0))
 
 
 def _step(st, c, _replace, *, matvec, sub, config: SolverConfig):
@@ -64,7 +65,7 @@ def _step(st, c, _replace, *, matvec, sub, config: SolverConfig):
     beta, alpha, zeta, eta, f, rr, bad = bicgsafe_coefficients(
         dots, st["i"], st["alpha"], st["zeta"], st["f"], eps)
     relres = torch.sqrt(torch.abs(rr)) / c["norm_r0"]
-    done = relres <= config.tol
+    done = relres <= c["tol"]
 
     # vector updates (paper lines 23-30)
     p = r + beta * (st["p"] - st["u"])

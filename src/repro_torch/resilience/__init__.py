@@ -13,14 +13,16 @@
   ``"cuda"`` -> ``"torch"`` degradation after a simulated kernel
   failure.
 * **Injection** (:mod:`repro_torch.resilience.inject`): NaN insertion,
-  near-singular operators and simulated kernel failures.
+  near-singular operators, simulated kernel failures and corruption of a
+  solve engine's resident block.
 
 Front door: ``repro_torch.make_solver(..., recovery=RecoveryPolicy())``.
 """
 from ..core.types import SolveStatus
 from .guard import GuardedSolver, guarded_config
-from .inject import (ChunkFaultInjector, SimulatedKernelFailure, nan_columns,
-                     near_singular_dense, orthogonal_shadow)
+from .inject import (ChunkFaultInjector, SimulatedKernelFailure, TickingClock,
+                     corrupt_engine_block, nan_columns, near_singular_dense,
+                     orthogonal_shadow)
 from .policy import RecoveryPolicy
 from .recover import replace_columns, restart_columns
 
@@ -28,5 +30,6 @@ __all__ = [
     "SolveStatus", "RecoveryPolicy", "GuardedSolver", "guarded_config",
     "replace_columns", "restart_columns",
     "ChunkFaultInjector", "SimulatedKernelFailure", "nan_columns",
-    "near_singular_dense", "orthogonal_shadow",
+    "near_singular_dense", "orthogonal_shadow", "corrupt_engine_block",
+    "TickingClock",
 ]

@@ -11,10 +11,11 @@ Deterministic, host-controlled faults:
   smallest singular value, built in numpy with the JAX package's random
   calls, so its matrix equals the JAX package's bit for bit;
 * :func:`orthogonal_shadow` — a shadow residual orthogonal to r0 (zero
-  initial rho: the BREAKDOWN_RHO scenario).
-
-The service's virtual clock and block corruption (``TickingClock``,
-``corrupt_engine_block``) belong to the service, which is not ported yet.
+  initial rho: the BREAKDOWN_RHO scenario);
+* :func:`corrupt_engine_block` — NaN written in place into columns of a
+  solve engine's resident block;
+* :class:`TickingClock` — the virtual clock (re-exported from
+  :mod:`repro_torch.observe.clock`, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.linear_operator import DenseOperator
+from ..observe.clock import TickingClock  # noqa: F401  (re-exported)
 
 
 class SimulatedKernelFailure(RuntimeError):
@@ -106,3 +108,21 @@ def orthogonal_shadow(r0: torch.Tensor) -> torch.Tensor:
     alt[1] -= 1.0
     use_alt = torch.sqrt(torch.dot(shadow, shadow)) == 0
     return torch.where(use_alt, alt, shadow)
+
+
+def corrupt_engine_block(engine, operator: str, cols: Sequence[int],
+                         field: str = "r") -> None:
+    """Poison columns of a solve engine's resident block, in place.
+
+    Simulates memory corruption inside the serving layer: NaN is written
+    into ``cols`` of the block state's ``field``.  The write is in place,
+    so it bumps the tensor's version and the block's program copies the
+    state in again on the next chunk (a state it handed out unchanged it
+    would skip).  The engine's next chunk must retire the affected
+    requests NONFINITE and scrub the columns before their slots are
+    reused.
+    """
+    blk = engine._blocks.get(engine.registry[operator].name)
+    if blk is None or blk.state is None:
+        raise ValueError(f"operator {operator!r} has no resident block")
+    blk.state[field][..., list(cols)] = float("nan")

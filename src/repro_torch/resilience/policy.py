@@ -18,9 +18,9 @@ column at a chunk boundary:
   rebuilds the session on ``"torch"``, on the same device, and continues
   from the same state; a real one is raised.
 
-The service's retries (``max_retries`` and the backoff) are fields of the
-policy here as in the JAX package; the service is not ported yet, so a
-value other than the default raises ``NotImplementedError``.
+* **service retries** — the solve engine re-enqueues failed requests with
+  a capped exponential backoff (:mod:`repro_torch.service`).
+
 :class:`repro_torch.resilience.GuardedSolver` interprets the policy and
 logs every action in its ``events``.
 """
@@ -30,9 +30,6 @@ import dataclasses
 from typing import Optional
 
 from ..core import SOLVERS
-
-#: fields only the (not yet ported) service reads
-_SERVICE_FIELDS = ("max_retries", "retry_backoff_s", "retry_backoff_cap_s")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,9 +49,10 @@ class RecoveryPolicy:
       substrate_fallback: rebuild on ``"torch"`` after a simulated kernel
         failure.
       chunk: iterations between two host reads of the health flags.
-      max_retries, retry_backoff_s, retry_backoff_cap_s: the service's
-        retries; the service is not ported yet, so only the defaults are
-        taken.
+      max_retries: how often the solve engine re-enqueues a failed
+        request (its rid stays).
+      retry_backoff_s / retry_backoff_cap_s: the engine's retry backoff,
+        ``retry_backoff_s * 2**(attempt - 1)`` seconds, at most the cap.
     """
 
     max_restarts: int = 2
@@ -79,10 +77,3 @@ class RecoveryPolicy:
         for name in ("max_restarts", "max_replacements", "max_retries"):
             if getattr(self, name) < 0:
                 raise ValueError(f"{name} must be >= 0")
-        for name in _SERVICE_FIELDS:
-            default = type(self).__dataclass_fields__[name].default
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"RecoveryPolicy({name}=...): the service's retries are "
-                    "not ported yet; leave it at its default "
-                    f"({default!r})")

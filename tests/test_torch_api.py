@@ -133,8 +133,9 @@ def assert_c4(res, ref):
 
 def test_second_solve_does_not_retrace(x64):
     """Solve #2 with a new b reuses the program (``traces`` stays 1) and
-    the built preconditioner; a new static override builds its own
-    program, once."""
+    the built preconditioner.  A ``tol`` override builds a program of its
+    own, once, in the JAX package; in the port it runs the same program
+    (the body reads ``tol`` from a constant buffer: ROADMAP C16)."""
     seen, first = {}, {}
     _, _, b = poisson(8)
     for side in BOTH:
@@ -151,7 +152,8 @@ def test_second_solve_does_not_retrace(x64):
         session.solve(side.vec(2.0 * b), tol=1e-4)
         counts.append(session.stats["traces"])
         seen[side] = counts
-    assert seen[Port] == seen[Jax] == [1, 1, 2]
+    assert seen[Jax] == [1, 1, 2]
+    assert seen[Port] == [1, 1, 1]
     assert_c4(first[Port], first[Jax])
 
 

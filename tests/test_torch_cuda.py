@@ -4,6 +4,8 @@ machine without it:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -759,3 +761,118 @@ def test_capture_refuses_a_host_read(cuda):
     res = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda"
                                   ).solve(b)
     assert bool(res.converged)
+
+
+# -- the solve service and the session cache's byte budget ---------------------
+
+
+def serve_on_card(ell, rhs, substrate, *, precond=None, recovery=None,
+                  corrupt=False, max_batch=4, chunk=16, tols=(1e-8, 1e-6)):
+    """Serve ``rhs`` (numpy columns) through a ``SolveEngine`` on the card;
+    returns ``({rid: result}, engine, launches)``."""
+    from repro_torch.resilience import corrupt_engine_block
+    from repro_torch.service import ServiceConfig, SolveEngine
+    eng = SolveEngine(ServiceConfig(max_batch=max_batch, chunk=chunk,
+                                    substrate=substrate, maxiter=2000,
+                                    recovery=recovery))
+    name = eng.register(ell, precond=precond)
+    for i, b in enumerate(rhs):
+        eng.submit(name, b, tol=tols[i % len(tols)])
+    ops.LAUNCHES.update(dict.fromkeys(ops.LAUNCHES, 0))
+    first = []
+    if corrupt:
+        first = eng.poll()
+        corrupt_engine_block(eng, name, cols=[0])
+    out = {r.rid: r for r in first + eng.run()}
+    torch.cuda.synchronize()
+    return out, eng, dict(ops.LAUNCHES)
+
+
+def service_rhs(n, count, seed=11):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(n) for _ in range(count)]
+
+
+@pytest.mark.parametrize("precond", [None, "block_jacobi"])
+def test_engine_on_cuda_matches_the_torch_substrate(cuda, precond):
+    """The engine on "cuda" launches the batched kernels on every step
+    (and, registered with block_jacobi, the batched block-Jacobi apply)
+    and serves what the same engine on "torch" serves on the card; a
+    chunk is one graph replay and one host read."""
+    op, _, _ = TM.convection_diffusion(24, peclet=1.0)
+    ell = TM.stencil_to_ell(op)
+    rhs = service_rhs(ell.n, 10)
+    got, eng, launches = serve_on_card(ell, rhs, "cuda", precond=precond)
+    want, _, plain = serve_on_card(ell, rhs, "torch", precond=precond)
+    assert sorted(got) == sorted(want) == list(range(10))
+    for rid, r in got.items():
+        w = want[rid]
+        assert r.status == w.status == repro_torch.SolveStatus.CONVERGED
+        assert abs(r.iterations - w.iterations) <= 2
+        assert np.max(np.abs(r.x - w.x)) <= 1e-6
+    st = eng.stats
+    assert st["runs"] == st["host_reads"] == st["chunks"]
+    assert st["admissions"] > 0
+    steps = st["steps"]
+    assert launches["fused_dots_batched"] == steps
+    assert launches["fused_axpy_batched"] == steps
+    # two per step, one per admission's splice and one at the initial fill
+    assert launches["spmv_ell_batched"] == 2 * steps + st["admissions"] + 1
+    if precond:
+        assert launches["block_jacobi_apply_batched"] >= 2 * steps
+    assert not any(plain.values())
+    assert eng.registry.entries()[0].session.stats["graphs"] == 2
+
+
+def test_engine_corruption_scrub_and_retry_on_the_card(cuda):
+    """NaN written into the resident block on the card (the state the
+    program handed out, written in place): the victim retires NONFINITE,
+    is scrubbed and served again (``retries == 1``), and the guarded
+    kernels ran."""
+    from repro_torch.resilience import RecoveryPolicy
+    op, _, _ = TM.convection_diffusion(24, peclet=1.0)
+    ell = TM.stencil_to_ell(op)
+    rhs = service_rhs(ell.n, 4)
+    got, eng, launches = serve_on_card(
+        ell, rhs, "cuda", recovery=RecoveryPolicy(max_retries=1),
+        corrupt=True)
+    clean, _, _ = serve_on_card(ell, rhs, "cuda",
+                                recovery=RecoveryPolicy(max_retries=1))
+    assert got[0].retries == 1
+    for rid, r in got.items():
+        assert r.status == repro_torch.SolveStatus.CONVERGED
+        assert np.isfinite(r.x).all()
+        assert abs(r.iterations - clean[rid].iterations) <= 2
+    assert launches["fused_dots_health_batched"] == eng.stats["steps"]
+    assert launches["fused_dots_batched"] == 0
+
+
+def test_session_cache_budget_returns_card_memory(cuda, monkeypatch):
+    """Sessions bound past the byte budget release their programs: the
+    memory reserved falls back under the budget plus one session, and
+    ``tol`` overrides run one program."""
+    from repro_torch import api
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    op, _, _ = TM.convection_diffusion(32, peclet=1.0)
+    ells = [TM.stencil_to_ell(dataclasses.replace(op, c=op.c * (1.0 + i)))
+            for i in range(6)]
+    B = torch.ones((ells[0].n, 8), dtype=torch.float64, device=cuda)
+    first = repro_torch.make_solver("p-bicgsafe", ells[0], substrate="cuda")
+    for tol in (1e-4, 1e-6, 1e-8):
+        first.solve_many(B, tol=tol, maxiter=32)
+    assert first.stats["programs"] == 1
+    one = first.nbytes
+    assert one > 0
+    budget = int(2.5 * one)
+    monkeypatch.setattr(api, "_SESSION_CACHE_BYTES", budget)
+    for ell in ells[1:]:
+        repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda"
+                                ).solve_many(B, maxiter=32)
+    info = api.session_cache_info()
+    assert info["bytes"] <= budget and info["programs"] == 2
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()             # the allocator's free blocks
+    assert torch.cuda.memory_reserved() - base <= budget + one
+    assert not first._programs
+    assert bool(first.solve_many(B, maxiter=32).iterations.eq(32).all())

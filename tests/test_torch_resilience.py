@@ -146,11 +146,14 @@ def test_policy_validation_matches_jax():
                                          ("retry_backoff_s", 0.5),
                                          ("retry_backoff_cap_s", 2.0)])
 def test_policy_refuses_unported_service_retries(field, value):
-    """The service's retry fields exist for parity with the JAX policy,
-    but nothing in the port reads them: setting one raises."""
-    JPolicy(**{field: value})                    # valid in the JAX package
-    with pytest.raises(NotImplementedError, match=field):
-        RecoveryPolicy(**{field: value})
+    """The service's retry fields, refused while the service was not
+    ported, are taken now as the JAX policy takes them (the solve engine
+    reads them); a negative ``max_retries`` is refused by both."""
+    assert getattr(JPolicy(**{field: value}), field) == value
+    assert getattr(RecoveryPolicy(**{field: value}), field) == value
+    for Policy in (JPolicy, RecoveryPolicy):
+        with pytest.raises(ValueError, match="max_retries"):
+            Policy(max_retries=-1)
 
 
 def test_make_solver_recovery_returns_guarded():
@@ -536,3 +539,169 @@ def test_bicgstab_edges_match_jax():
                                want["residual_history"], rtol=1e-9)
     np.testing.assert_allclose(float(res.relres), float(want["relres"]),
                                rtol=1e-9)
+
+
+# -- service-level resilience, against the JAX engine -------------------------
+# (tests/test_resilience.py's engine cases through both packages: the same
+# rids, typed statuses and retries, iterations within ±2, x within 1e-6)
+
+
+def guarded_engines(a, policy_kw, *, clock=None, substrate="torch",
+                    max_batch=3, chunk=8, tol=1e-8, maxiter=600):
+    """The JAX and the port's guarded engines on the dense operator ``a``,
+    each with its own ``clock()`` (a fresh ``TickingClock`` per engine)."""
+    from repro.service import ServiceConfig as JServiceConfig
+    from repro.service import SolveEngine as JSolveEngine
+    from repro_torch.service import ServiceConfig, SolveEngine
+    scfg = dict(max_batch=max_batch, chunk=chunk, tol=tol, maxiter=maxiter)
+    jkw = {} if clock is None else dict(clock=clock())
+    tkw = {} if clock is None else dict(clock=clock())
+    jeng = JSolveEngine(JServiceConfig(recovery=JPolicy(**policy_kw),
+                                       **scfg), **jkw)
+    teng = SolveEngine(ServiceConfig(recovery=RecoveryPolicy(**policy_kw),
+                                     substrate=substrate, device=CPU,
+                                     **scfg), **tkw)
+    jname = jeng.register(repro.core.DenseOperator(jnp.asarray(a)))
+    tname = teng.register(DenseOperator(torch.from_numpy(a)))
+    return (jeng, jname), (teng, tname)
+
+
+def drive(engines, rhs, *, corrupt=False, submit_kw=None, advance=0.0):
+    """Submit ``rhs`` to both engines, poll one chunk, corrupt column 0 of
+    each resident block (``corrupt``), advance their clocks, and drain.
+    Returns the two ``{rid: result}`` maps and the port's engine."""
+    from repro_torch.resilience import corrupt_engine_block
+    out = []
+    submit_kw = submit_kw or [{}] * len(rhs)
+    for (eng, name), corrupt_fn in zip(
+            engines, (jinject.corrupt_engine_block, corrupt_engine_block)):
+        is_jax = corrupt_fn is jinject.corrupt_engine_block
+        rids = [eng.submit(name, jnp.asarray(v) if is_jax else v, **kw)
+                for v, kw in zip(rhs, submit_kw)]
+        assert rids == list(range(len(rhs)))
+        first = []
+        if corrupt:
+            first = eng.poll()
+            assert not first
+            corrupt_fn(eng, name, cols=[0])
+        if advance:
+            eng._clock.advance(advance)
+        out.append({r.rid: r for r in first + eng.run()})
+    return out[0], out[1], engines[1][0]
+
+
+def assert_engines_agree(jres, tres):
+    assert sorted(jres) == sorted(tres)
+    for rid, j in jres.items():
+        t = tres[rid]
+        assert t.status == j.status, (rid, t.status, j.status)
+        assert t.retries == j.retries and t.converged == j.converged, rid
+        assert abs(t.iterations - j.iterations) <= ITER_SLACK, rid
+        assert np.isfinite(t.x).all()
+        assert np.max(np.abs(t.x - np.asarray(j.x))) <= X_TOL, rid
+
+
+@pytest.mark.parametrize("substrate", SUBSTRATES)
+def test_engine_clean_guarded_traffic(x64, substrate):
+    """Guarded serving on clean traffic: every result CONVERGED, no
+    retries, the JAX engine's answers."""
+    a, b = problem()
+    engines = guarded_engines(a, {}, substrate=substrate)
+    jres, tres, _ = drive(engines, [b, 0.5 * b, b + 0.1, 2.0 * b])
+    assert_engines_agree(jres, tres)
+    for r in tres.values():
+        assert r.status == SolveStatus.CONVERGED and r.retries == 0
+
+
+@pytest.mark.parametrize("substrate", SUBSTRATES)
+def test_engine_corruption_scrub_and_retry(x64, substrate):
+    """NaN written into the resident block mid-flight: the guarded chunk
+    retires the victim NONFINITE, its column is scrubbed before reuse, the
+    request runs again and converges (``retries == 1``); the other keeps
+    its unguarded course."""
+    a, b = problem()
+    engines = guarded_engines(a, dict(max_retries=1), substrate=substrate)
+    jres, tres, eng = drive(engines, [b, 0.6 * b], corrupt=True)
+    assert_engines_agree(jres, tres)
+    assert [tres[0].retries, tres[1].retries] == [1, 0]
+    for r in tres.values():
+        assert r.converged and r.status == SolveStatus.CONVERGED
+    clean = repro_torch.make_solver(
+        "p-bicgsafe", DenseOperator(torch.from_numpy(a)), device=CPU,
+        config=SolverConfig(tol=1e-8, maxiter=600)).solve_many(
+            torch.from_numpy(0.6 * b)[:, None])
+    assert abs(tres[1].iterations - int(clean.iterations[0])) <= ITER_SLACK
+    blk = eng._blocks[engines[1][1]]
+    assert blk is None or np.isfinite(blk.state["x"].numpy()).all()
+
+
+def test_engine_corruption_retries_exhausted_is_typed(x64):
+    """max_retries=0: the corrupted request retires once, NONFINITE, with
+    a finite (sanitized) iterate."""
+    a, b = problem()
+    engines = guarded_engines(a, dict(max_retries=0))
+    jres, tres, _ = drive(engines, [b], corrupt=True)
+    assert_engines_agree(jres, tres)
+    r = tres[0]
+    assert r.status == SolveStatus.NONFINITE and not r.converged
+    assert r.retries == 0 and np.isfinite(r.x).all()
+
+
+def test_engine_deadline_is_typed(x64):
+    """Deadline expiry under a virtual clock retires with the typed
+    DEADLINE status; the other request converges."""
+    from repro_torch.resilience import TickingClock
+    a, b = problem()
+    engines = guarded_engines(a, {}, clock=lambda: TickingClock(dt=0.05),
+                              maxiter=2000, tol=1e-14)
+    jres, tres, _ = drive(engines, [b, 0.5 * b],
+                          submit_kw=[dict(tol=1e-6), dict(deadline=0.01)],
+                          advance=1.0)
+    assert_engines_agree(jres, tres)
+    assert tres[1].status == SolveStatus.DEADLINE
+    assert tres[1].telemetry.deadline_exceeded
+    assert tres[0].status == SolveStatus.CONVERGED
+
+
+def test_engine_retry_backoff_window(x64):
+    """A re-enqueued request inside its backoff window rotates to the back
+    of the queue instead of being dropped, and still completes."""
+    from repro_torch.resilience import TickingClock
+    a, b = problem()
+    engines = guarded_engines(
+        a, dict(max_retries=2, retry_backoff_s=0.5,
+                retry_backoff_cap_s=2.0),
+        clock=lambda: TickingClock(dt=0.001))
+    jres, tres, _ = drive(engines, [b], corrupt=True)
+    assert_engines_agree(jres, tres)
+    assert tres[0].retries >= 1
+    assert tres[0].converged and tres[0].status == SolveStatus.CONVERGED
+
+
+def test_corrupted_block_state_is_copied_into_the_program():
+    """``corrupt_engine_block`` writes in place, which bumps the field's
+    version: the program copies that field into its buffer again, where a
+    state it handed out unchanged is skipped (the graph path on the card,
+    rehearsed here through the program's buffer filling)."""
+    from repro_torch.core.program import Program
+    from repro_torch.resilience import corrupt_engine_block
+    from repro_torch.service import ServiceConfig, SolveEngine
+    a, b = problem()
+    eng = SolveEngine(ServiceConfig(max_batch=2, chunk=4, device=CPU,
+                                    recovery=RecoveryPolicy()))
+    name = eng.register(DenseOperator(torch.from_numpy(a)))
+    eng.submit(name, b)
+    assert not eng.poll()
+    blk = eng._blocks[name]
+    prog = Program(lambda st, c, e: st, CPU)
+    prog._graphed = True                   # the card's buffer path
+    prog.state = prog._fill(prog._buffers, blk.state, {})
+    handed = prog.read()
+    prog._buffers["r"].fill_(7.0)          # a marker: skipped fields keep it
+    prog._fill(prog._buffers, handed, prog._handed)
+    assert bool((prog._buffers["r"] == 7.0).all())
+    blk.state = handed
+    corrupt_engine_block(eng, name, cols=[0])
+    prog._fill(prog._buffers, handed, prog._handed)
+    assert bool(prog._buffers["r"][:, 0].isnan().all())
+    assert not bool(prog._buffers["r"][:, 1].isnan().any())
