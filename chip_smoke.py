@@ -75,6 +75,20 @@ package is missing.  Phases, any failure of which fails the run:
    then, after every timed phase, the kernels the card runs per step of
    3c, 3d and 3e's batched solve and of each 3f solve, counted from
    ``torch.profiler`` traces;
+3g. the distributed driver at world 1: a one-rank NCCL process group
+   (``file://`` store under ``build/``) and its ``(1,)`` DeviceMesh; the
+   Stencil7 form of the same system through ``make_solver(m, stencil,
+   substrate="cuda").on_mesh(mesh)``, held to the same session's
+   single-process solve: p-BiCGSafe bit for bit (x and iterations), true
+   relres within 1e-6, ``fused_dots`` and ``fused_axpy`` once a step, one
+   all-reduce started per step (the binding's ``SyncCounter``) and at most
+   one NCCL kernel per step (profiled chunks of 16 and 32 steps), the graph
+   run bit for bit the eager chunk's; the seven methods with their
+   iterations, statuses and Table 3.1's all-reduces per step; ``solve_many``
+   of 3c's block (tol 1e-8) and the same guarded, bit for bit, one (9, 8) /
+   (11, 8) all-reduce per step; block-Jacobi bit for bit.  Printed: ms
+   per iteration on the mesh and single-process, whether the chunks are
+   graphs, and which kernels the NCCL kernel overlaps;
 2d. flash attention: ``flash_attention`` against its plain version on the
    card at qwen3-8b's prefill shape (B, H, K, S, hd) = (4, 32, 8, 1024,
    128), causal, in bf16 (``flash_attention_mma.cu``, the tensor cores) and
@@ -132,7 +146,7 @@ the allocator holds is printed after each solver phase, and the session
 cache is cleared before phase 4.
 
 The run goes 1, 3a (the matrix), 2, 2b, 2c, 2d, 3b-3f, the profiler's
-counts, 5, 4, 6.  Each path is driven with the launch counters set to 0 just
+counts, 3g, 5, 4, 6.  Each path is driven with the launch counters set to 0 just
 before it and read just after; the kernels' checks and timings are not
 counted.
 """
@@ -341,9 +355,9 @@ def device_ms(torch, fn, reps: int = 20, trials: int = 5) -> float:
 def profile_device(torch, fn, trace: str) -> dict:
     """Run ``fn`` once under ``torch.profiler`` (the trace kept as
     ``build/profile/<trace>.json``): ``kernels`` counts the card's kernel
-    events (copies and memsets are not kernels), ``busy_ms`` is the union
-    of its kernel, copy and memset intervals, ``wall_s`` the run's wall
-    time, synchronized."""
+    events (copies and memsets are not kernels; ``kernel_events`` are
+    they), ``busy_ms`` is the union of its kernel, copy and memset
+    intervals, ``wall_s`` the run's wall time, synchronized."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -360,15 +374,16 @@ def profile_device(torch, fn, trace: str) -> dict:
     device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                     if e.get("ph") == "X" and e.get("cat") in (
                         "kernel", "gpu_memcpy", "gpu_memset"))
-    kernels = sum(1 for e in events
-                  if e.get("ph") == "X" and e.get("cat") == "kernel")
-    if kernels == 0:
+    kernel_events = [e for e in events
+                     if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    if not kernel_events:
         raise SystemExit("the profiler's trace holds no kernel")
     busy, end = 0.0, float("-inf")
     for t0, t1 in device:
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
-    return dict(kernels=kernels, busy_ms=busy / 1e3, wall_s=wall)
+    return dict(kernels=len(kernel_events), busy_ms=busy / 1e3, wall_s=wall,
+                kernel_events=kernel_events)
 
 
 def device_activity(torch, fn, reps: int = 16) -> dict:
@@ -1227,6 +1242,260 @@ def check_requests(torch, label, stencil, rhs, tols, got, ref, *,
                          f"relres, x rel err): {bad}")
 
 
+def chunk_profile(torch, solve, trace: str) -> dict:
+    """Kernels and device busy ms per step of ``solve(maxiter)`` (tol 0:
+    no step stops), from profiled solves of 16 and 32 steps, the
+    difference over 16; and from the second, the NCCL kernels (their names
+    hold "nccl") and for each the other kernels whose intervals overlap it
+    (the compute stream's, which between an all-reduce's start and its
+    wait are the matvec's)."""
+    recs = [profile_device(torch, lambda: solve(n), f"{trace}_{n}")
+            for n in (16, 32)]
+    nccl = [[e for e in r["kernel_events"] if "nccl" in e["name"].lower()]
+            for r in recs]
+    events = recs[1]["kernel_events"]
+    return dict(
+        kernels_per_step=(recs[1]["kernels"] - recs[0]["kernels"]) / 16,
+        busy_ms_per_step=(recs[1]["busy_ms"] - recs[0]["busy_ms"]) / 16,
+        nccl_kernels_per_step=(len(nccl[1]) - len(nccl[0])) / 16,
+        nccl_kernel_names=sorted({e["name"][:60] for e in nccl[1]}),
+        nccl_overlapped_kernels=[
+            sum(1 for k in events if k is not e
+                and k["ts"] < e["ts"] + e["dur"]
+                and e["ts"] < k["ts"] + k["dur"]) for e in nccl[1]])
+
+
+def run_mesh_path(torch, repro_torch, ops, stencil, b) -> dict:
+    """Phase 3g: the distributed driver on the card at world 1.  A
+    one-rank NCCL process group (``file://`` store under ``build/``) and
+    its ``(1,)`` DeviceMesh; the Stencil7 form of 3a's system through
+    ``make_solver(...).on_mesh(mesh)``, each solve run with the launch
+    counters set to 0 just before it and read just after, and held to the
+    same session's single-process solve: p-BiCGSafe bitwise, with its
+    launches, one all-reduce started per step (the binding's
+    ``SyncCounter``) and the NCCL kernels per step from profiled chunks;
+    the seven methods (iterations, status and Table 3.1's reductions per
+    step); ``solve_many`` of 3c's block, plain and guarded, bitwise, one
+    (9, M) / (11, M) all-reduce per step; block-Jacobi bitwise.  Printed:
+    ms per iteration, kernels and device ms per step on the mesh against
+    single-process, and whether the NCCL kernel overlaps the matvec's."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    store = os.path.join(ROOT, "build", "nccl_store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    log(f"mesh: NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, "
+        f"NCCL_SOCKET_IFNAME={os.environ.get('NCCL_SOCKET_IFNAME')}")
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    sessions = []
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("rows",))
+        out = _mesh_cases(torch, repro_torch, ops, stencil, b, mesh,
+                          sessions)
+    finally:
+        for sess in sessions:            # their programs hold the group
+            sess.release()
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_solve(torch, ops, session, dsolver, call):
+    """One measured mesh solve: counters, steps and reductions set to 0
+    just before it and read just after."""
+    session.stats.update(steps=0, rr_steps=0, host_reads=0)
+    dsolver.syncs.calls = 0
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = session.stats["steps"]
+    rec = dict(wall_s=wall, steps=steps, launches=dict(ops.LAUNCHES),
+               syncs=dsolver.syncs.calls,
+               syncs_per_step=(dsolver.syncs.calls - 1) / max(steps, 1))
+    return res, rec
+
+
+def _mesh_cases(torch, repro_torch, ops, stencil, b, mesh, sessions):
+    grid = b.reshape(NX, NX, NX)
+    kw = dict(tol=1e-8, maxiter=SOLVE_MAXITER)
+    zero = dict.fromkeys(ops.LAUNCHES, 0)
+    out = {}
+
+    # -- p-BiCGSafe: bitwise, launches, one all-reduce per step ------------
+    solver = repro_torch.make_solver("p-bicgsafe", stencil, substrate="cuda")
+    sessions.append(solver)
+    first_solve(torch, "mesh p-bicgsafe single-process", solver,
+                lambda: solver.solve(b, **kw))
+    graphs = solver.stats["graphs"]
+    dsolver = solver.on_mesh(mesh)
+    first_solve(torch, "mesh p-bicgsafe on_mesh", solver,
+                lambda: dsolver.solve(grid, **kw))
+    mesh_graphs = solver.stats["graphs"] - graphs
+    single = solver.solve(b, **kw)
+    res, rec = _mesh_solve(torch, ops, solver, dsolver,
+                           lambda: dsolver.solve(grid, **kw))
+    steps = rec["steps"]
+    x = res.x.reshape(-1)
+    true = float(torch.linalg.vector_norm(b - stencil.matvec(x))
+                 / torch.linalg.vector_norm(b))
+    rec.update(iterations=int(res.iterations), true_relres=true,
+               bitwise=bool(torch.equal(x, single.x)
+                            and torch.equal(res.iterations,
+                                            single.iterations)),
+               chunks="CUDA graphs" if mesh_graphs else "eager",
+               graphs=mesh_graphs)
+    # ms per iteration, single-process and mesh in turns (s, m, m, s)
+    times = {"single": [], "mesh": []}
+    for mode in ("single", "mesh", "mesh", "single"):
+        call = (lambda: solver.solve(b, **kw)) if mode == "single" \
+            else (lambda: dsolver.solve(grid, **kw))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times[mode].append((time.perf_counter() - t0)
+                           / rec["iterations"] * 1e3)
+    rec["ms_per_iteration"] = statistics.mean(times["mesh"])
+    rec["single_ms_per_iteration"] = statistics.mean(times["single"])
+    rec["eager_ms_per_iteration"] = eager_rerun(
+        torch, "mesh p-bicgsafe",
+        lambda: (dsolver.solve(grid, **kw), rec["iterations"]), res,
+        rec["ms_per_iteration"], "iteration")
+    # the device per step, single-process and mesh; the NCCL kernels
+    single_prof = chunk_profile(
+        torch, lambda n: solver.solve(b, tol=0.0, maxiter=n),
+        "chip_smoke_single")
+    rec.update(chunk_profile(
+        torch, lambda n: dsolver.solve(grid, tol=0.0, maxiter=n),
+        "chip_smoke_mesh"))
+    rec["single_kernels_per_step"] = single_prof["kernels_per_step"]
+    rec["single_busy_ms_per_step"] = single_prof["busy_ms_per_step"]
+    want = dict(zero, fused_dots=steps, fused_axpy=steps)
+    log(f"mesh p-bicgsafe: {json.dumps(rec)}")
+    log(f"mesh p-bicgsafe: {rec['ms_per_iteration']:.4f} ms per iteration "
+        f"on the mesh against {rec['single_ms_per_iteration']:.4f} "
+        f"single-process (x{rec['ms_per_iteration'] / rec['single_ms_per_iteration']:.4f}"
+        f", world 1); device per step {rec['busy_ms_per_step']:.4f} ms and "
+        f"{rec['kernels_per_step']:.2f} kernels against "
+        f"{rec['single_busy_ms_per_step']:.4f} ms and "
+        f"{rec['single_kernels_per_step']:.2f}; chunks run as "
+        f"{rec['chunks']} ({mesh_graphs} captured, the NCCL all-reduce in "
+        f"them); {rec['syncs_per_step']:.3f} all-reduces started and "
+        f"{rec['nccl_kernels_per_step']:.3f} NCCL kernels per step; the NCCL "
+        f"kernels overlap {rec['nccl_overlapped_kernels'] or 'no'} other "
+        "kernels" + ("" if rec["nccl_kernel_names"] else
+                     " (NCCL launches no kernel for an in-place sum over "
+                     "one rank)") + f" [{card()}]")
+    if not rec["bitwise"] or not res.converged or true > 1e-6:
+        raise SystemExit(f"mesh p-bicgsafe: not the single-process solve "
+                         f"bit for bit, or not converged: {rec}")
+    if rec["launches"] != want or steps == 0:
+        raise SystemExit(f"mesh p-bicgsafe: launches {rec['launches']} != "
+                         f"{want}")
+    if rec["syncs"] != 1 + steps:
+        raise SystemExit(f"mesh p-bicgsafe: {rec['syncs']} all-reduces for "
+                         f"{steps} steps and the set-up's one")
+    if rec["nccl_kernels_per_step"] > 1:
+        raise SystemExit(f"mesh p-bicgsafe: {rec['nccl_kernels_per_step']} "
+                         "NCCL kernels per step, more than the one "
+                         "all-reduce started")
+    out["p-bicgsafe"] = rec
+
+    # -- the seven methods -------------------------------------------------
+    out["methods"] = {}
+    for method in COMPARISON:
+        sess = repro_torch.make_solver(method, stencil, substrate="cuda")
+        sessions.append(sess)
+        single = sess.solve(b, **kw)
+        d = sess.on_mesh(mesh)
+        d.solve(grid, **kw)                          # captures, not counted
+        res, m_rec = _mesh_solve(torch, ops, sess, d,
+                                 lambda: d.solve(grid, **kw))
+        status = repro_torch.SolveStatus(int(res.status)).name
+        m_rec.update(
+            iterations=int(res.iterations), status=status,
+            single_iterations=int(single.iterations),
+            single_status=repro_torch.SolveStatus(int(single.status)).name,
+            bitwise=bool(torch.equal(res.x.reshape(-1), single.x)),
+            ms_per_iteration=m_rec["wall_s"] / max(int(res.iterations), 1)
+            * 1e3)
+        log(f"mesh {method:14s}: {status} in {m_rec['iterations']} "
+            f"iterations (single-process {m_rec['single_status']} in "
+            f"{m_rec['single_iterations']}), {m_rec['syncs_per_step']:.3f} "
+            f"all-reduces per step (Table 3.1: {REDUCTIONS[method]}), x "
+            f"bitwise {m_rec['bitwise']}, {m_rec['ms_per_iteration']:.4f} ms "
+            f"per iteration [{card()}]")
+        if (m_rec["iterations"], status) != (m_rec["single_iterations"],
+                                             m_rec["single_status"]) \
+                or m_rec["syncs_per_step"] != REDUCTIONS[method]:
+            raise SystemExit(f"mesh {method}: {m_rec}")
+        out["methods"][method] = m_rec
+
+    # -- solve_many, plain and guarded ---------------------------------------
+    B, _ = batched_rhs(torch, b)
+    B_grid = B.reshape(NX, NX, NX, M)
+    for guard in (False, True):
+        label = "guarded solve_many" if guard else "solve_many"
+        sess = repro_torch.make_solver(
+            "p-bicgsafe", stencil, substrate="cuda",
+            config=repro_torch.SolverConfig(guard=guard))
+        sessions.append(sess)
+        single = sess.solve_many(B, **kw)
+        d = sess.on_mesh(mesh)
+        d.syncs.shapes.clear()       # what the capture and the init start
+        d.solve_many(B_grid, **kw)                   # captures, not counted
+        res, m_rec = _mesh_solve(torch, ops, sess, d,
+                                 lambda: d.solve_many(B_grid, **kw))
+        steps = m_rec["steps"]
+        rows = 11 if guard else 9
+        m_rec.update(
+            iterations=[int(v) for v in res.iterations],
+            converged=bool(res.converged.all()),
+            bitwise=bool(torch.equal(res.x.reshape(B.shape), single.x)
+                         and torch.equal(res.iterations, single.iterations)),
+            shapes=sorted(d.syncs.shapes),
+            ms_per_step=m_rec["wall_s"] / max(steps, 1) * 1e3)
+        want = dict(zero, fused_axpy_batched=steps)
+        want["fused_dots_health_batched" if guard
+             else "fused_dots_batched"] = steps
+        log(f"mesh {label}: {json.dumps(m_rec)}")
+        if not m_rec["bitwise"] or not m_rec["converged"] \
+                or m_rec["shapes"] != [(1, M), (rows, M)] \
+                or m_rec["syncs"] != 1 + steps \
+                or m_rec["launches"] != want or steps == 0:
+            raise SystemExit(f"mesh {label}: {m_rec}; launches want {want}")
+        out[label] = m_rec
+
+    # -- block-Jacobi, shard-local ----------------------------------------
+    sess = repro_torch.make_solver("p-bicgsafe", stencil, substrate="cuda",
+                                   precond="block_jacobi")
+    sessions.append(sess)
+    single = sess.solve(b, **kw)
+    d = sess.on_mesh(mesh)
+    d.solve(grid, **kw)                              # captures, not counted
+    res, m_rec = _mesh_solve(torch, ops, sess, d,
+                             lambda: d.solve(grid, **kw))
+    m_rec.update(iterations=int(res.iterations),
+                 single_iterations=int(single.iterations),
+                 bitwise=bool(torch.equal(res.x.reshape(-1), single.x)),
+                 block=tuple(sess.precond.inv_blocks.shape))
+    log(f"mesh block_jacobi: {json.dumps(m_rec)} (Stencil7's block-Jacobi "
+        "is one shared z-line block, applied by torch.matmul)")
+    if not m_rec["bitwise"] or m_rec["iterations"] != \
+            m_rec["single_iterations"] or not res.converged \
+            or m_rec["syncs"] != 1 + m_rec["steps"]:
+        raise SystemExit(f"mesh block_jacobi: {m_rec}")
+    out["block_jacobi"] = m_rec
+    return out
+
+
 def run_service_path(torch, repro_torch, ops, ell, stencil, pc, seed):
     """Phase 5: the solve service at full size (see the module docstring):
     the burst served sequentially, in static batches and by the engine,
@@ -1833,6 +2102,19 @@ def main() -> int:
     pre["solve_many"]["kernels_per_step"] = step_kernels["preconditioned"]
     log_memory(torch, "3f")
 
+    # -- 3g. the distributed driver at world 1 -------------------------------
+    mesh = run_mesh_path(torch, repro_torch, ops, stencil, b)
+    mesh_launches = dict(
+        fused_dots=mesh["p-bicgsafe"]["launches"]["fused_dots"],
+        fused_axpy=mesh["p-bicgsafe"]["launches"]["fused_axpy"],
+        fused_dots_batched=mesh["solve_many"]["launches"][
+            "fused_dots_batched"],
+        fused_axpy_batched=mesh["solve_many"]["launches"][
+            "fused_axpy_batched"],
+        fused_dots_health_batched=mesh["guarded solve_many"]["launches"][
+            "fused_dots_health_batched"])
+    log_memory(torch, "3g")
+
     # -- 5. the solve service --------------------------------------------------
     service = run_service_path(torch, repro_torch, ops, ell, stencil, pc,
                                args.seed)
@@ -1885,6 +2167,8 @@ def main() -> int:
             extra = dict(m=M)
         if kname in service_launches:
             extra["launches_service"] = service_launches[kname]
+        if kname in mesh_launches:
+            extra["launches_mesh"] = mesh_launches[kname]
         kernels.append(dict(
             name=kname, route="cuda", source=SOURCE[kname],
             replaces=REPLACES[kname],

@@ -21,6 +21,12 @@ batched form:
 phase on the same kernel), p-BiCGStab, BiCGStab, GPBi-CG and CGS, each
 through ``make_solver(method, op)``.
 
+A session bound to a :class:`Stencil7Operator` solves on a
+``torch.distributed`` mesh too, every rank holding an x-slab
+(:mod:`repro_torch.core.distributed`: halo exchange, one asynchronous
+all-reduce per reduction phase, started before the matvec it hides
+behind): ``make_solver(method, stencil).on_mesh(mesh).solve(b_grid)``.
+
 With ``recovery=`` (:mod:`repro_torch.resilience`) the batched iteration is
 guarded: an (11, m) reduction with health rows, typed statuses and a
 chunked recovery driver.  BiCGStab (plain PyTorch) is its method fallback.
@@ -43,8 +49,9 @@ This package imports ``torch``, ``numpy`` and the standard library only —
 nothing of the JAX package :mod:`repro`, which stays its reference.
 """
 from . import precond
-from .api import (LinearSolver, clear_session_cache, make_solver,
-                  operator_fingerprint, session_cache_info, solve)
+from .api import (DistributedSolver, LinearSolver, clear_session_cache,
+                  make_solver, operator_fingerprint, session_cache_info,
+                  solve)
 from .convert import (lm_params_from_numpy, operator_from_numpy,
                       preconditioner_from_numpy)
 from .core import (GUARD_FIELDS, SOLVERS, SUBSTRATES, CSROperator,
@@ -56,7 +63,8 @@ from .resilience import GuardedSolver, RecoveryPolicy
 from .service import ServiceConfig, SolveEngine
 
 __all__ = [
-    "LinearSolver", "make_solver", "solve", "operator_fingerprint",
+    "LinearSolver", "DistributedSolver", "make_solver", "solve",
+    "operator_fingerprint",
     "clear_session_cache", "session_cache_info", "operator_from_numpy",
     "lm_params_from_numpy",
     "preconditioner_from_numpy", "precond",

@@ -63,8 +63,21 @@ bar does not see is one through memory a tensor shares with something
 else (a CPU tensor from ``torch.from_numpy``, written through the numpy
 array); the port's own constructors copy (ROADMAP C15).
 
+Distributed solves, as in the JAX package: a session bound to a
+:class:`~repro_torch.core.Stencil7Operator` goes onto a mesh with
+:meth:`LinearSolver.on_mesh` (a ``torch.distributed`` DeviceMesh or process
+group, every rank making the same calls), whose ``solve`` / ``solve_many``
+shard the grid by x-slabs (:mod:`repro_torch.core.distributed`: halo
+exchange, one all-reduce of the stacked partials per reduction phase) on
+programs the session memoizes.
+
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("rows",))
+    dsolver = repro_torch.make_solver("p-bicgsafe", stencil,
+                                      substrate="cuda").on_mesh(mesh)
+    res = dsolver.solve(b_grid)             # res.x: this rank's x-slab
+
 Not ported yet, and raising :class:`NotImplementedError`: ``trace=`` and
-``profile=`` of ``solve`` and ``solve_many``, and ``on_mesh``.
+``profile=`` of ``solve`` and ``solve_many``, on a mesh too.
 """
 from __future__ import annotations
 
@@ -72,21 +85,26 @@ import dataclasses
 import hashlib
 import weakref
 from collections import OrderedDict
-from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
+from typing import (Any, Callable, Dict, Hashable, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
 from .core import CHUNKED, SOLVERS, multirhs
+from .core._common import SyncCounter, as_reducer
+from .core.linear_operator import Stencil7Operator
 from .core.pipelined_bicgsafe import solve_chunked
 from .core.program import Program
 from .core.substrate import SUBSTRATES, SubstrateLike, get_substrate
-from .core.types import SolveResult, SolverConfig, per_column, resolve_device
+from .core.types import (DotReduce, SolveResult, SolverConfig,
+                         derive_config, per_column, resolve_device)
 from .precond.base import (PrecondLike, Preconditioner, resolve_precond,
                            validate_precond_spec)
 
-__all__ = ["LinearSolver", "make_solver", "solve", "operator_fingerprint",
-           "clear_session_cache", "session_cache_info"]
+__all__ = ["LinearSolver", "DistributedSolver", "make_solver", "solve",
+           "operator_fingerprint", "clear_session_cache",
+           "session_cache_info"]
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +268,9 @@ class LinearSolver:
       fingerprint: the content hash the session is cached under
         (:func:`operator_fingerprint`; ``None`` for a bare callable, whose
         sessions are never cached).
+      blocked: the operator is an ``(n, m) -> (n, m)`` block matvec, taken
+        as given by the multi-RHS and open-loop entry points (``solve``
+        raises).
       stats: ``{"solves", "steps", "rr_steps", "host_reads", "programs",
         "traces", "graphs", "runs"}`` summed over this session's solves and
         open-loop chunks: iterations queued (stopped ones included),
@@ -263,6 +284,8 @@ class LinearSolver:
                  substrate: SubstrateLike = "torch",
                  config: SolverConfig = SolverConfig(),
                  device=None,
+                 dot_reduce: Optional[DotReduce] = None,
+                 blocked: bool = False,
                  fingerprint: Optional[str] = None):
         if method not in SOLVERS:
             raise ValueError(f"unknown method {method!r}; expected one of "
@@ -273,6 +296,10 @@ class LinearSolver:
         self.device = resolve_device(device)
         _check_device(operator, self.device)
         self.sub = get_substrate(substrate)
+        self.blocked = bool(blocked)
+        #: the bound reduction hook as given (``None``: the identity)
+        self.dot_reduce = dot_reduce
+        self._reduce = as_reducer(dot_reduce)
         # checked now (a bad spec fails at make_solver), built on first use:
         # a block-Jacobi build at full size takes seconds
         validate_precond_spec(precond, operator)
@@ -288,6 +315,7 @@ class LinearSolver:
                                       "graphs": 0, "runs": 0}
         self._programs: Dict[Hashable, Program] = {}
         self._cache_key: Optional[Tuple] = None
+        self._mesh_bindings: Dict[Any, "DistributedSolver"] = {}
 
     @property
     def precond(self) -> Optional[Preconditioner]:
@@ -301,7 +329,8 @@ class LinearSolver:
     def block_matvec(self) -> Callable:
         """The substrate's block matvec, composed once with M^{-1}."""
         if self._bmv is None:
-            raw = self.sub.as_block_matvec(self.operator)
+            raw = self.operator if self.blocked \
+                else self.sub.as_block_matvec(self.operator)
             pc = self.precond
             if pc is None:
                 self._bmv = raw
@@ -338,17 +367,28 @@ class LinearSolver:
         bmv = self.block_matvec                  # binds the M^{-1} apply
         return self._program(key, lambda: multirhs.batched_program(
             bmv, cfg, self.sub, self.stats, device=self.device, key=key,
-            prep=self._papply))
+            prep=self._papply, dot_reduce=self._reduce))
 
     @property
     def nbytes(self) -> int:
-        """The memory this session's programs hold (:attr:`repro_torch
-        .core.program.Program.nbytes`)."""
+        """The memory this session's own programs hold (:attr:`repro_torch
+        .core.program.Program.nbytes`); its mesh bindings' are theirs
+        (:attr:`DistributedSolver.nbytes`)."""
         return sum(p.nbytes for p in self._programs.values())
 
     def release(self) -> bool:
-        """Release every program (graphs, pools, buffers) and forget them;
-        the next call builds them again.  True when one was on the card."""
+        """Release every program (graphs, pools, buffers), its mesh
+        bindings' too, and forget them; the next call builds them again.
+        True when one was on the card.  With a mesh binding, every rank
+        calls it together."""
+        on_card = self._release_own()
+        for binding in self._mesh_bindings.values():
+            on_card |= binding.release()
+        return on_card
+
+    def _release_own(self) -> bool:
+        """Release the session's own programs, never a mesh binding's: what
+        the cache's evictions release (each rank evicts on its own)."""
         on_card = self.device.type == "cuda" and bool(self._programs)
         for prog in self._programs.values():
             prog.release()
@@ -364,12 +404,7 @@ class LinearSolver:
         _trim_session_cache(self)
 
     def _derive(self, tol, maxiter) -> SolverConfig:
-        cfg = self.config
-        if tol is not None:
-            cfg = dataclasses.replace(cfg, tol=float(tol))
-        if maxiter is not None:
-            cfg = dataclasses.replace(cfg, maxiter=int(maxiter))
-        return cfg
+        return derive_config(self.config, tol, maxiter)
 
     def _tensor(self, v):
         if v is None:
@@ -386,6 +421,10 @@ class LinearSolver:
             raise _not_ported("solve(trace=...)")
         if profile is not None:
             raise _not_ported("solve(profile=...)")
+        if self.blocked:
+            raise ValueError(
+                "this session wraps a block matvec (blocked=True); use "
+                "solve_many / the open-loop handles")
         cfg = self._derive(tol, maxiter)
         b = self._tensor(b)
         key = ("solve", _program_config(cfg), x0 is None, r0_star is None,
@@ -394,7 +433,7 @@ class LinearSolver:
         res = solve_chunked(
             CHUNKED[self.method], self.operator, b, self._tensor(x0),
             config=cfg, r0_star=self._tensor(r0_star), substrate=self.sub,
-            precond=self.precond, stats=self.stats,
+            precond=self.precond, dot_reduce=self._reduce, stats=self.stats,
             program=lambda step: self._program(key, lambda: Program(
                 step, self.device, key, stats=self.stats)))
         self._used()
@@ -448,7 +487,7 @@ class LinearSolver:
         st = multirhs.init_state(
             self.block_matvec, self._prep(B), self._tensor(X0), config=cfg,
             r0_star=self._tensor(r0_star), substrate=self.sub, tol=tol,
-            maxiter=maxiter)
+            maxiter=maxiter, dot_reduce=self._reduce)
         st = multirhs.run_chunks(self._batched_program(key, cfg), st,
                                  cfg.maxiter, self.stats)
         self._used()
@@ -462,7 +501,8 @@ class LinearSolver:
             self.block_matvec, self._prep(self._as_block(B)),
             self._tensor(X0),
             config=self.config, r0_star=self._tensor(r0_star),
-            substrate=self.sub, tol=tol, maxiter=maxiter)
+            substrate=self.sub, tol=tol, maxiter=maxiter,
+            dot_reduce=self._reduce)
 
     def _open_loop_program(self, state: dict) -> Program:
         """The program of :meth:`step_chunk` and :meth:`splice_step` (one
@@ -494,7 +534,8 @@ class LinearSolver:
             self._prep(self._as_block(B_new)), r0_star=self._tensor(r0_star),
             substrate=self.sub,
             tol=self.config.tol if tol is None else tol,
-            maxiter=self.config.maxiter if maxiter is None else maxiter)
+            maxiter=self.config.maxiter if maxiter is None else maxiter,
+            dot_reduce=self._reduce)
 
     def splice_step(self, state: dict, refill, B_new, tol, maxiter,
                     k: int, *, one_run: bool = False) -> dict:
@@ -541,8 +582,138 @@ class LinearSolver:
         """Package an open-loop state as a :class:`SolveResult`."""
         return multirhs.result_from_state(state)
 
-    def on_mesh(self, *args, **kwargs):
-        raise _not_ported("on_mesh (distributed solves)")
+    def on_mesh(self, mesh, *, shard_axes: Optional[Sequence[str]] = None
+                ) -> "DistributedSolver":
+        """Bind this session to a mesh (a ``torch.distributed`` DeviceMesh
+        or process group; every rank calls it): returns a
+        :class:`DistributedSolver` whose solves shard the grid by x-slabs
+        (halo-exchange matvec, one all-reduce of the stacked partials per
+        reduction phase) on programs the binding memoizes.
+
+        The binding is memoized per ``(mesh, shard_axes)``, so calling
+        ``on_mesh`` in a loop reuses its programs.  A custom ``dot_reduce``
+        cannot be honoured here (the driver brings its own all-reduce), so
+        binding one raises rather than drops it."""
+        if self.dot_reduce is not None:
+            raise ValueError(
+                "this session binds a custom dot_reduce, which the "
+                "distributed driver replaces with its own all-reduce; "
+                "bind the session without dot_reduce= to use .on_mesh")
+        from .core.distributed import check_mesh
+        check_mesh(mesh)
+        key = (mesh, None if shard_axes is None else tuple(shard_axes))
+        hit = self._mesh_bindings.get(key)
+        if hit is None:
+            hit = self._mesh_bindings[key] = DistributedSolver(
+                self, mesh, shard_axes)
+        return hit
+
+
+class DistributedSolver:
+    """A session bound to a mesh: sharded solves from the same front door.
+
+    Wraps :func:`repro_torch.core.distributed.build_stencil_solver` /
+    ``build_stencil_solver_batched``, memoizing the built solves per
+    program configuration (``tol`` and ``maxiter`` run the same one).  The
+    operator must be a :class:`~repro_torch.core.Stencil7Operator` (the
+    row-sharded halo format); a name-spec preconditioner is built
+    shard-locally, an instance passed through.  On the card each chunk is
+    a CUDA graph with the NCCL all-reduce captured in it.
+
+    The programs live in this binding, outside the session cache's byte
+    budget: no rank ever releases them on its own (a rebuild runs its
+    first chunk eagerly, collectives included, which the other ranks
+    would not pair).  They go with :meth:`release` (or the session's),
+    which every rank calls together, as it makes every call here.
+
+    Attributes:
+      syncs: the :class:`~repro_torch.core._common.SyncCounter` of the
+        binding's all-reduces: its ``calls`` count the reductions started
+        (a graph replay adds what its capture started), its ``shapes``
+        their shapes.
+    """
+
+    def __init__(self, session: LinearSolver, mesh,
+                 shard_axes: Optional[Sequence[str]] = None):
+        if not isinstance(session.operator, Stencil7Operator):
+            raise TypeError(
+                "on_mesh requires a Stencil7Operator-bound session (the "
+                f"row-sharded halo format); got "
+                f"{type(session.operator).__name__}")
+        self.session = session
+        self.mesh = mesh
+        self.shard_axes = None if shard_axes is None else tuple(shard_axes)
+        self.syncs = SyncCounter()
+        self._solves: Dict[Any, Callable] = {}
+
+    def _built(self, key, build) -> Callable:
+        fn = self._solves.get(key)
+        if fn is None:
+            fn = self._solves[key] = build()
+        return fn
+
+    def solve(self, b_grid, *, tol=None, maxiter=None, trace=None,
+              profile=None) -> SolveResult:
+        """Sharded single-RHS solve of the bound method: ``b_grid`` is the
+        global ``(nx, ny, nz)`` grid (on every rank); ``x`` of the result
+        is this rank's slab, every other field equal on all ranks."""
+        if trace:
+            raise _not_ported("on_mesh(...).solve(trace=...)")
+        if profile is not None:
+            raise _not_ported("on_mesh(...).solve(profile=...)")
+        from .core.distributed import build_stencil_solver
+        s = self.session
+        cfg = s._derive(tol, maxiter)
+        fn = self._built(("dsolve", _program_config(cfg)),
+                         lambda: build_stencil_solver(
+                             SOLVERS[s.method], s.operator, self.mesh,
+                             shard_axes=self.shard_axes, config=cfg,
+                             substrate=s.sub, precond=s.precond_spec,
+                             stats=s.stats, syncs=self.syncs))
+        s.stats["solves"] += 1
+        res = fn(b_grid, tol=cfg.tol, maxiter=cfg.maxiter)
+        s._used()
+        return res
+
+    def solve_many(self, B_grid, *, tol=None, maxiter=None,
+                   trace=None) -> SolveResult:
+        """Sharded batched solve: ``(nx, ny, nz, m)`` right-hand sides, one
+        ``(9, m)`` all-reduce per iteration whatever m is (``(11, m)``
+        with ``SolverConfig(guard=True)``); ``x`` is this rank's
+        ``(nx // shards, ny, nz, m)`` slab."""
+        s = self.session
+        s._require_pbicgsafe("on_mesh(...).solve_many")
+        if trace:
+            raise _not_ported("on_mesh(...).solve_many(trace=...)")
+        from .core.distributed import build_stencil_solver_batched
+        cfg = s._derive(tol, maxiter)
+        fn = self._built(("dsolve_many", _program_config(cfg)),
+                         lambda: build_stencil_solver_batched(
+                             s.operator, self.mesh,
+                             shard_axes=self.shard_axes, config=cfg,
+                             substrate=s.sub, precond=s.precond_spec,
+                             stats=s.stats, syncs=self.syncs))
+        s.stats["solves"] += 1
+        res = fn(B_grid, tol=cfg.tol, maxiter=cfg.maxiter)
+        s._used()
+        return res
+
+    @property
+    def nbytes(self) -> int:
+        """The memory this binding's programs hold."""
+        return sum(p.nbytes for fn in self._solves.values()
+                   for p in fn.programs.values())
+
+    def release(self) -> bool:
+        """Release every program of this binding (every rank together);
+        the next call builds them again.  True when one was on the card."""
+        on_card = False
+        for fn in self._solves.values():
+            for prog in fn.programs.values():
+                on_card |= prog.device.type == "cuda"
+                prog.release()
+            fn.programs.clear()
+        return on_card
 
 
 # ---------------------------------------------------------------------------
@@ -587,10 +758,19 @@ def make_solver(method: str = "p-bicgsafe", operator=None, *,
                 substrate: SubstrateLike = "torch",
                 config: SolverConfig = SolverConfig(),
                 device=None,
+                dot_reduce: Optional[DotReduce] = None,
+                blocked: bool = False,
                 recovery=None):
     """Bind ``method`` (a name from :data:`repro_torch.core.SOLVERS`) to
     ``operator`` (Dense/CSR/ELL/Stencil7, a dense matrix, or a matvec
     callable) on ``device`` (``None`` means ``"cuda"``).
+
+    ``dot_reduce``: a reduction hook, ``partials -> reduced``, applied to
+    every phase of inner products (the JAX package's; a session with one
+    is never cached: a callable is not content-addressable).  ``blocked``:
+    ``operator`` is already an ``(n, m) -> (n, m)`` block matvec
+    (multi-RHS and open-loop entry points only: the session analogue of
+    ``solve_batched(blocked=True)``).
 
     ``precond``: ``None``, a name of :data:`repro_torch.precond
     .PRECONDITIONERS` (built from ``operator``, which must then be an
@@ -625,7 +805,8 @@ def make_solver(method: str = "p-bicgsafe", operator=None, *,
         inner = make_solver(method, operator, precond=precond,
                             substrate=substrate,
                             config=guarded_config(config, policy),
-                            device=device)
+                            device=device, dot_reduce=dot_reduce,
+                            blocked=blocked)
         return GuardedSolver(inner, policy)
     if method not in SOLVERS:
         raise ValueError(f"unknown method {method!r}; expected one of "
@@ -640,7 +821,8 @@ def make_solver(method: str = "p-bicgsafe", operator=None, *,
         fingerprint = versions = None          # a bare callable
     key = None
     name = _substrate_cache_name(sub)
-    if fingerprint is not None and versions is not None and name is not None:
+    if fingerprint is not None and versions is not None and name is not None \
+            and dot_reduce is None and not blocked:
         key = (method, fingerprint, name, config, dev)
         hit = _SESSIONS.get(key)
         if hit is not None:
@@ -650,8 +832,8 @@ def make_solver(method: str = "p-bicgsafe", operator=None, *,
                 return hit[0]
             del _SESSIONS[key]     # its tensors were written in place
     session = LinearSolver(method, operator, precond=precond, substrate=sub,
-                           config=config, device=dev,
-                           fingerprint=fingerprint)
+                           config=config, device=dev, dot_reduce=dot_reduce,
+                           blocked=blocked, fingerprint=fingerprint)
     if key is not None:
         session._cache_key = key
         _SESSIONS[key] = (session, versions)
@@ -666,12 +848,15 @@ def solve(A, b, method: str = "p-bicgsafe", *, x0=None, tol=None,
           maxiter=None, r0_star=None, precond: PrecondLike = None,
           substrate: SubstrateLike = "torch",
           config: SolverConfig = SolverConfig(),
-          device=None) -> SolveResult:
-    """One-shot convenience: ``repro_torch.solve(A, b)`` (``precond=`` as
-    in :func:`make_solver`).  It goes through the session cache, so a
-    second call against equal content reuses the session's programs."""
+          device=None,
+          dot_reduce: Optional[DotReduce] = None) -> SolveResult:
+    """One-shot convenience: ``repro_torch.solve(A, b)`` (``precond=`` and
+    ``dot_reduce=`` as in :func:`make_solver`).  It goes through the
+    session cache, so a second call against equal content reuses the
+    session's programs."""
     session = make_solver(method, A, precond=precond, substrate=substrate,
-                          config=config, device=device)
+                          config=config, device=device,
+                          dot_reduce=dot_reduce)
     return session.solve(b, x0, tol=tol, maxiter=maxiter, r0_star=r0_star)
 
 
@@ -680,7 +865,7 @@ def _release(sessions) -> None:
     goes back to it."""
     on_card = False
     for sess in sessions:
-        on_card |= sess.release()
+        on_card |= sess._release_own()
     if on_card:
         torch.cuda.empty_cache()
 

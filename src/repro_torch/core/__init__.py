@@ -25,6 +25,11 @@ FRONT DOOR: :mod:`repro_torch.api` —
   (:mod:`repro_torch.core.substrate`).
 * Programs: :mod:`repro_torch.core.program`, a chunk of steps captured
   as one CUDA graph (the counterpart of ``jax.jit``).
+* Every solver takes ``dot_reduce`` (the JAX package's hook, or a
+  :class:`~repro_torch.core._common.Reducer`: a start and a wait); the
+  distributed driver :mod:`repro_torch.core.distributed` passes its
+  asynchronous all-reduce (imported on use: it needs
+  ``torch.distributed``).
 """
 from .bicgstab import BICGSTAB, bicgstab_solve
 from .cgs import CGS, cgs_solve
@@ -39,7 +44,7 @@ from .pipelined_bicgstab import PBICGSTAB, pbicgstab_solve
 from .ssbicgsafe import SSBICGSAFE2, ssbicgsafe2_solve
 from .substrate import (SUBSTRATES, CudaSubstrate, Substrate, TorchSubstrate,
                         get_substrate)
-from .types import SolveResult, SolveStatus, SolverConfig
+from .types import SolveResult, SolveStatus, SolverConfig, identity_reduce
 
 SOLVERS = {
     "bicgstab": bicgstab_solve,
@@ -64,7 +69,7 @@ CHUNKED = {
 }
 
 __all__ = [
-    "SolveResult", "SolveStatus", "SolverConfig",
+    "SolveResult", "SolveStatus", "SolverConfig", "identity_reduce",
     "CSROperator", "DenseOperator", "ELLOperator", "Stencil7Operator",
     "as_matvec",
     "Substrate", "TorchSubstrate", "CudaSubstrate", "SUBSTRATES",

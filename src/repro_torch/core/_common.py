@@ -7,11 +7,12 @@ host: a chunk of iterations queues its work without a sync.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from .types import SolveResult, SolveStatus, classify_status
+from .types import (SolveResult, SolveStatus, classify_status,
+                    identity_reduce)
 
 
 def local_dots(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -198,13 +199,71 @@ def pipelined_recurrence_tail(q, s, As, g, Aw, alpha, zeta, eta):
     return l, g_next, s_next
 
 
-class SyncCounter:
-    """Counter of dot-reduce invocations (sync phases per iteration)."""
+def _identity(handle):
+    return handle
 
-    def __init__(self, reduce_fn):
-        self._fn = reduce_fn
+
+class Reducer:
+    """One reduction phase as two calls: ``start(partials) -> handle``
+    issues it, ``wait(handle) -> reduced`` returns the global values.  A
+    solver body starts the reduction, queues the work that reads none of
+    it (the iteration's matvec, where the body allows), then waits: the
+    window in which an asynchronous collective hides
+    (:mod:`repro_torch.core.distributed`).  Calling a reducer does both at
+    once, the JAX package's ``dot_reduce(partials)``."""
+
+    def __init__(self, start: Callable, wait: Optional[Callable] = None):
+        self.start = start
+        self.wait = _identity if wait is None else wait
+
+    def __call__(self, partials: torch.Tensor) -> torch.Tensor:
+        return self.wait(self.start(partials))
+
+
+#: the single-process reduction: the local partials are the global values
+IDENTITY = Reducer(identity_reduce)
+
+
+def as_reducer(dot_reduce) -> Reducer:
+    """``None`` -> :data:`IDENTITY`; a :class:`Reducer` as it is; any
+    other callable ``f`` (a user's ``dot_reduce``) -> start = ``f``, wait =
+    the identity, so it computes what the JAX package's hook computes."""
+    if dot_reduce is None:
+        return IDENTITY
+    if isinstance(dot_reduce, Reducer):
+        return dot_reduce
+    return Reducer(dot_reduce)
+
+
+class SyncCounter(Reducer):
+    """Counter of the reductions started (sync phases per iteration)
+    around any ``dot_reduce`` (a callable or a :class:`Reducer`);
+    ``shapes`` holds the shapes of the partials it started.  Under a CUDA
+    graph the steps run without Python: a
+    :class:`~repro_torch.core.program.Program` given the counter adds the
+    starts its capture recorded on every replay, so ``calls`` reads as it
+    would for the eager chunk."""
+
+    def __init__(self, reduce_fn=None):
+        self._inner = as_reducer(reduce_fn)
         self.calls = 0
+        self.shapes = set()
+        super().__init__(self._start, self._inner.wait)
 
-    def __call__(self, partials):
+    def _start(self, partials: torch.Tensor):
+        self._count(partials)
+        return self._inner.start(partials)
+
+    def _count(self, partials: torch.Tensor) -> None:
         self.calls += 1
-        return self._fn(partials)
+        self.shapes.add(tuple(partials.shape))
+
+    def around(self, reduce_fn) -> Reducer:
+        """``reduce_fn`` as a :class:`Reducer` whose starts this counter
+        counts (one counter for the reductions of several solves)."""
+        inner = as_reducer(reduce_fn)
+
+        def start(partials: torch.Tensor):
+            self._count(partials)
+            return inner.start(partials)
+        return Reducer(start, inner.wait)

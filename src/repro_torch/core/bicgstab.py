@@ -29,15 +29,16 @@ from ._common import (hold_checked, init_guess, recurred_result,
                       safe_div, tol_const)
 from .pipelined_bicgsafe import ChunkedMethod, solve_chunked
 from .substrate import SubstrateLike
-from .types import SolveResult, SolverConfig, history_init, history_update
+from .types import (DotReduce, SolveResult, SolverConfig, history_init,
+                    history_update)
 
 
-def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
+def _init(matvec, b, x0, r0_star, config: SolverConfig, sub, reduce):
     x = init_guess(b, x0)
     r0 = b - matvec(x) if x0 is not None else b
     rs = r0 if r0_star is None else r0_star.to(b.dtype)
 
-    init = sub.dots([(r0, r0), (rs, r0)])
+    init = reduce(sub.dots([(r0, r0), (rs, r0)]))
     norm_r0 = torch.sqrt(init[0])
     # ||r_0|| == 0 (zero rhs, or exact initial guess): converge at t=0
     # instead of dividing by zero in the relres checks
@@ -57,7 +58,7 @@ def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
                        tol=tol_const(config, norm_r0))
 
 
-def _step(st, c, _replace, *, matvec, sub, config: SolverConfig):
+def _step(st, c, _replace, *, matvec, sub, config: SolverConfig, reduce):
     """One iteration of the JAX loop body; a stopped state is kept."""
     eps = config.breakdown_threshold(st["x"].dtype)
     rs = c["rs"]
@@ -68,11 +69,11 @@ def _step(st, c, _replace, *, matvec, sub, config: SolverConfig):
 
     r, p = st["r"], st["p"]
     ap = matvec(p)
-    d1 = sub.dots([(rs, ap)])                           # phase 1: (r0*, Ap)
+    d1 = reduce(sub.dots([(rs, ap)]))                   # phase 1: (r0*, Ap)
     alpha, bad1 = safe_div(st["rho"], d1[0], eps)
     t = r - alpha * ap
     at = matvec(t)
-    d2 = sub.dots([(at, t), (at, at), (rs, t), (rs, at), (t, t)])
+    d2 = reduce(sub.dots([(at, t), (at, at), (rs, t), (rs, at), (t, t)]))
     omega, bad2 = safe_div(d2[0], d2[1], eps)           # phase 2: 5 dots
     rho_next = d2[2] - omega * d2[3]
     rr_next = d2[4] - 2.0 * omega * d2[0] + omega * omega * d2[1]
@@ -103,6 +104,7 @@ def bicgstab_solve(matvec: Callable,
                    r0_star: Optional[torch.Tensor] = None,
                    substrate: SubstrateLike = "torch",
                    precond: PrecondLike = None,
+                   dot_reduce: Optional[DotReduce] = None,
                    stats: Optional[Dict[str, int]] = None) -> SolveResult:
     """Solve A x = b with BiCGStab.
 
@@ -115,4 +117,5 @@ def bicgstab_solve(matvec: Callable,
     """
     return solve_chunked(BICGSTAB, matvec, b, x0, config=config,
                          r0_star=r0_star, substrate=substrate,
-                         precond=precond, stats=stats)
+                         precond=precond, dot_reduce=dot_reduce,
+                         stats=stats)

@@ -20,15 +20,16 @@ from ._common import (hold_checked, init_guess, recurred_result,
                       safe_div, tol_const)
 from .pipelined_bicgsafe import ChunkedMethod, solve_chunked
 from .substrate import SubstrateLike
-from .types import SolveResult, SolverConfig, history_init, history_update
+from .types import (DotReduce, SolveResult, SolverConfig, history_init,
+                    history_update)
 
 
-def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
+def _init(matvec, b, x0, r0_star, config: SolverConfig, sub, reduce):
     x = init_guess(b, x0)
     r0 = b - matvec(x) if x0 is not None else b
     rs = r0 if r0_star is None else r0_star.to(b.dtype)
 
-    init = sub.dots([(r0, r0), (rs, r0)])
+    init = reduce(sub.dots([(r0, r0), (rs, r0)]))
     norm_r0 = torch.sqrt(init[0])
     # ||r_0|| == 0: converge at t=0 instead of dividing by zero
     conv0 = norm_r0 == 0
@@ -45,7 +46,7 @@ def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
                        tol=tol_const(config, norm_r0))
 
 
-def _step(st, c, _replace, *, matvec, sub, config: SolverConfig):
+def _step(st, c, _replace, *, matvec, sub, config: SolverConfig, reduce):
     """One iteration of the JAX loop body; a stopped state is kept."""
     eps = config.breakdown_threshold(st["x"].dtype)
     rs = c["rs"]
@@ -56,13 +57,13 @@ def _step(st, c, _replace, *, matvec, sub, config: SolverConfig):
 
     p, u, r = st["p"], st["u"], st["r"]
     vp = matvec(p)
-    d1 = sub.dots([(rs, vp)])                         # phase 1
+    d1 = reduce(sub.dots([(rs, vp)]))                 # phase 1
     alpha, bad1 = safe_div(st["rho"], d1[0], eps)
     q = u - alpha * vp
     uq = u + q
     x_next = st["x"] + alpha * uq
     r_next = r - alpha * matvec(uq)
-    d2 = sub.dots([(rs, r_next), (r_next, r_next)])   # phase 2
+    d2 = reduce(sub.dots([(rs, r_next), (r_next, r_next)]))   # phase 2
     rho_next = d2[0]
     beta, bad2 = safe_div(rho_next, st["rho"], eps)
     u_next = r_next + beta * q
@@ -90,10 +91,12 @@ def cgs_solve(matvec: Callable,
               r0_star: Optional[torch.Tensor] = None,
               substrate: SubstrateLike = "torch",
               precond: PrecondLike = None,
+              dot_reduce: Optional[DotReduce] = None,
               stats: Optional[Dict[str, int]] = None) -> SolveResult:
     """Solve A x = b with CGS (left-preconditioned when ``precond`` is
     set).  Arguments as in :func:`repro_torch.core.bicgstab
     .bicgstab_solve`."""
     return solve_chunked(CGS, matvec, b, x0, config=config,
                          r0_star=r0_star, substrate=substrate,
-                         precond=precond, stats=stats)
+                         precond=precond, dot_reduce=dot_reduce,
+                         stats=stats)

@@ -20,15 +20,16 @@ from ._common import (_first, hold_checked, init_guess, recurred_result,
                       safe_div, tol_const)
 from .pipelined_bicgsafe import ChunkedMethod, solve_chunked
 from .substrate import SubstrateLike
-from .types import SolveResult, SolverConfig, history_init, history_update
+from .types import (DotReduce, SolveResult, SolverConfig, history_init,
+                    history_update)
 
 
-def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
+def _init(matvec, b, x0, r0_star, config: SolverConfig, sub, reduce):
     x = init_guess(b, x0)
     r0 = b - matvec(x) if x0 is not None else b
     rs = r0 if r0_star is None else r0_star.to(b.dtype)
 
-    init = sub.dots([(r0, r0), (rs, r0)])
+    init = reduce(sub.dots([(r0, r0), (rs, r0)]))
     norm_r0 = torch.sqrt(init[0])
     # ||r_0|| == 0: converge at t=0 instead of dividing by zero
     conv0 = norm_r0 == 0
@@ -48,7 +49,7 @@ def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
                        tol=tol_const(config, norm_r0))
 
 
-def _step(st, c, _replace, *, matvec, sub, config: SolverConfig):
+def _step(st, c, _replace, *, matvec, sub, config: SolverConfig, reduce):
     """One iteration of the JAX loop body; a stopped state is kept."""
     eps = config.breakdown_threshold(st["x"].dtype)
     rs = c["rs"]
@@ -64,15 +65,15 @@ def _step(st, c, _replace, *, matvec, sub, config: SolverConfig):
 
     p = r + beta * (st["p"] - u_prev)                 # line 7
     ap = matvec(p)                                    # line 8
-    d1 = sub.dots([(rs, ap)])                         # phase 1: alpha
+    d1 = reduce(sub.dots([(rs, ap)]))                 # phase 1: alpha
     alpha, bad1 = safe_div(st["rho"], d1[0], eps)
 
     y = t_prev - r - alpha * w_prev + alpha * ap      # line 10
     t = r - alpha * ap                                # line 11
     at = matvec(t)                                    # line 12
     # phase 2: a..e for (zeta, eta)
-    a_, b_, c_, d_, e_ = sub.dots(
-        [(y, y), (at, t), (y, t), (at, y), (at, at)]).unbind(0)
+    a_, b_, c_, d_, e_ = reduce(sub.dots(
+        [(y, y), (at, t), (y, t), (at, y), (at, at)])).unbind(0)
     zeta0, badz0 = safe_div(b_, e_, eps)              # line 15
     den = e_ * a_ - d_ * d_
     zeta_g, badzg = safe_div(a_ * b_ - c_ * d_, den, eps)   # line 18
@@ -86,7 +87,7 @@ def _step(st, c, _replace, *, matvec, sub, config: SolverConfig):
     x_next = st["x"] + alpha * p + z                        # line 23
     r_next = t - eta * y - zeta * at                        # line 24
     # phase 3: beta and the residual norm
-    d3 = sub.dots([(rs, r_next), (r_next, r_next)])
+    d3 = reduce(sub.dots([(rs, r_next), (r_next, r_next)]))
     rho_next = d3[0]
     beta_next, bad3 = safe_div(alpha * rho_next, zeta * st["rho"], eps)
     w = at + beta_next * ap                                 # line 26
@@ -114,10 +115,12 @@ def gpbicg_solve(matvec: Callable,
                  r0_star: Optional[torch.Tensor] = None,
                  substrate: SubstrateLike = "torch",
                  precond: PrecondLike = None,
+                 dot_reduce: Optional[DotReduce] = None,
                  stats: Optional[Dict[str, int]] = None) -> SolveResult:
     """Solve A x = b with GPBi-CG (Alg. 2.2; left-preconditioned when
     ``precond`` is set).  Arguments as in :func:`repro_torch.core
     .bicgstab.bicgstab_solve`."""
     return solve_chunked(GPBICG, matvec, b, x0, config=config,
                          r0_star=r0_star, substrate=substrate,
-                         precond=precond, stats=stats)
+                         precond=precond, dot_reduce=dot_reduce,
+                         stats=stats)

@@ -35,8 +35,14 @@ card, the eager steps on the CPU), and reads ``any(active)`` on the host
 once per group, never queuing more than k steps in all.  A step queued after every column stopped must leave the
 state bitwise as it was, as the JAX loop would no longer run its body: every
 field is a per-column select, and the global counter ``i`` (history slot)
-advances by ``any(active)``, not by 1.  The JAX package's ``dot_reduce``
-(the sharded solve's psum) is not part of the port yet.
+advances by ``any(active)``, not by 1.
+
+The reduction.  Every dot phase (the set-up's ``||r_0||``, a splice's
+norms, the step's fused block) goes through ``dot_reduce``, the JAX
+package's hook (``None``: the local dots are global): the step starts its
+one reduction before the block matvec ``A S`` and waits on it after, the
+window in which the sharded solve's all-reduce
+(:mod:`repro_torch.core.distributed`) hides.
 
 The guard.  With ``SolverConfig.guard`` the fused phase is the ``(11, m)``
 health variant (still one reduction, still no edge to ``A S``: its extra
@@ -55,12 +61,13 @@ import torch
 
 from ..precond.base import PrecondLike, wrap_block_preconditioned
 from . import pipelined_bicgsafe
-from ._common import bicgsafe_coefficients, pipelined_recurrence_tail
+from ._common import (IDENTITY, Reducer, as_reducer,
+                      bicgsafe_coefficients, pipelined_recurrence_tail)
 from .linear_operator import batched_matvec
 from .program import Program
 from .substrate import SubstrateLike, get_substrate
-from .types import (SolveResult, SolverConfig, SolveStatus, classify_status,
-                    per_column)
+from .types import (DotReduce, SolveResult, SolverConfig, SolveStatus,
+                    classify_status, per_column)
 
 __all__ = ["GUARD_FIELDS", "SPLICE", "active_columns", "batched_matvec",
            "init_state", "splice_columns", "step_chunk", "run_chunks",
@@ -78,10 +85,6 @@ GUARD_FIELDS = ("status", "drift", "drift_flag", "stall", "best_relres",
 #: preconditioning) with budgets ``tol`` and ``maxiter``, as
 #: :func:`splice_columns` does
 SPLICE = "splice"
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet")
 
 
 def _guard_init(m: int, rdtype, conv0: torch.Tensor) -> dict:
@@ -103,9 +106,29 @@ def _guard_init(m: int, rdtype, conv0: torch.Tensor) -> dict:
 def _masked(mask_cols: torch.Tensor, new: torch.Tensor, old: torch.Tensor
             ) -> torch.Tensor:
     """Per-column select: ``mask_cols`` is (m,); the operands are (m,) or
-    (n, m).  (The JAX package's broadcast of a squeezed m = 1 operand
-    serves a user ``dot_reduce``, which the port does not take.)"""
+    (n, m)."""
     return torch.where(mask_cols, new, old)
+
+
+def _wait(reduce: Reducer, pending, partials: torch.Tensor) -> torch.Tensor:
+    """The reduced block, in the partials' shape.  A user ``dot_reduce``
+    may squeeze the degenerate ``(k, 1)`` block of m = 1 to ``(k,)``: the
+    state block's shape is authoritative, so it is put back (as the JAX
+    package broadcasts it back).  Any other change of shape raises: one
+    column's coefficients must never reach all m."""
+    red = reduce.wait(pending)
+    if red.shape == partials.shape:
+        return red
+    if partials.shape[-1] == 1 and red.dim() < partials.dim() \
+            and red.numel() == partials.numel():
+        return red.reshape(partials.shape)
+    raise ValueError(f"dot_reduce turned the {tuple(partials.shape)} "
+                     f"partials into {tuple(red.shape)}")
+
+
+def _reduced(reduce: Reducer, partials: torch.Tensor) -> torch.Tensor:
+    """A reduction with nothing to run beside it: started and waited on."""
+    return _wait(reduce, reduce.start(partials), partials)
 
 
 def active_columns(state: dict) -> torch.Tensor:
@@ -132,7 +155,8 @@ def init_state(bmv: Callable,
                r0_star: Optional[torch.Tensor] = None,
                substrate: SubstrateLike = "torch",
                tol=None,
-               maxiter=None) -> dict:
+               maxiter=None,
+               dot_reduce: Optional[DotReduce] = None) -> dict:
     """Build the batched p-BiCGSafe state for ``A X = B``.
 
     ``bmv`` is the ``(n, m) -> (n, m)`` block matvec; ``B`` the (n, m)
@@ -141,10 +165,12 @@ def init_state(bmv: Callable,
     them); ``X0`` optional (n, m) initial guesses.  ``tol`` and
     ``maxiter`` are per column, a scalar or ``(m,)``; they default to
     ``config.tol`` / ``config.maxiter``.  Costs one block matvec
-    (``S_0 = A R_0``; two with an ``X0``) and one ``(1, m)`` dot phase.
-    With ``config.guard`` the state also holds :data:`GUARD_FIELDS`.
+    (``S_0 = A R_0``; two with an ``X0``) and one ``(1, m)`` dot phase,
+    reduced through ``dot_reduce``.  With ``config.guard`` the state also
+    holds :data:`GUARD_FIELDS`.
     """
     sub = get_substrate(substrate)
+    reduce = as_reducer(dot_reduce)
     B = B.contiguous()
     n, m = B.shape
     X = torch.zeros_like(B) if X0 is None else X0.to(B.dtype).contiguous()
@@ -152,7 +178,7 @@ def init_state(bmv: Callable,
     RS = R0 if r0_star is None else _shadow(r0_star, B)
     S0 = bmv(R0)                                  # block MV (init): A R_0
 
-    norm_r0 = torch.sqrt(sub.dots([(R0, R0)])[0])             # (m,)
+    norm_r0 = torch.sqrt(_reduced(reduce, sub.dots([(R0, R0)]))[0])  # (m,)
     # ||r_0|| == 0 (zero column, or exact X0): that column already solves
     # its system; it is converged at t=0 and never advances
     conv0 = norm_r0 == 0
@@ -194,21 +220,23 @@ def splice_columns(bmv: Callable,
                    r0_star: Optional[torch.Tensor] = None,
                    substrate: SubstrateLike = "torch",
                    tol=None,
-                   maxiter=None) -> dict:
+                   maxiter=None,
+                   dot_reduce: Optional[DotReduce] = None) -> dict:
     """Refill the columns where ``refill`` ((m,) bool) is True with the
     same columns of ``B_new`` (n, m), from x0 = 0; every other column is
     carried through bit for bit (columns are independent).  ``tol`` and
     ``maxiter`` (scalar or (m,)) and ``r0_star`` ((n,) or (n, m)) apply to
     the fresh columns.  Costs one block matvec on the whole block (the kept
-    columns ride along as zeros) and one ``(1, m)`` dot phase; the global
-    counter ``i`` is kept."""
+    columns ride along as zeros) and one ``(1, m)`` dot phase, reduced
+    through ``dot_reduce``; the global counter ``i`` is kept."""
     m = state["r"].shape[1]
     sub = get_substrate(substrate)
     dt, dev = state["r"].dtype, state["r"].device
     refill = torch.as_tensor(refill, device=dev).to(torch.bool)
     B_live = torch.where(refill, B_new.to(dt), 0.0).contiguous()
     S0 = bmv(B_live)              # zero columns stay zero: bmv is linear
-    norm_new = torch.sqrt(sub.dots([(B_live, B_live)])[0])
+    norm_new = torch.sqrt(_reduced(as_reducer(dot_reduce),
+                                   sub.dots([(B_live, B_live)]))[0])
     RS_new = B_live if r0_star is None else _shadow(r0_star, B_live)
     tol_col = per_column(state["tol"] if tol is None else tol, m,
                          state["tol"].dtype, name="tol", device=dev)
@@ -249,12 +277,14 @@ def splice_columns(bmv: Callable,
     return out
 
 
-def _make_body(sub, bmv: Callable, config: SolverConfig) -> Callable:
+def _make_body(sub, bmv: Callable, config: SolverConfig,
+               reduce: Reducer = IDENTITY) -> Callable:
     """One batched p-BiCGSafe iteration: state dict -> state dict.  It
     reads nothing back to the host.  ``hist`` is written in place: the
     caller hands the body a history it owns.  With ``config.guard`` the
     fused phase is the (11, m) health variant and the guard fields are
-    updated (as the JAX package's body does)."""
+    updated (as the JAX package's body does).  The one reduction of the
+    fused phase goes through ``reduce``."""
     guard = config.guard
 
     def body(st):
@@ -264,13 +294,16 @@ def _make_body(sub, bmv: Callable, config: SolverConfig) -> Callable:
 
         # block MV and the single fused (9, m) reduction: independent, as
         # in the single-RHS iteration; the guarded (11, m) phase also reads
-        # the previous iterate x (loop-carried, no edge to As)
-        As = bmv(s)
+        # the previous iterate x (loop-carried, no edge to As).  So the
+        # reduction is started first and waited on after A S.
         if guard:
-            dots = sub.bicgsafe_dots_health(s, y, r, t_prev, st["rs"],
-                                            st["x"])
+            parts = sub.bicgsafe_dots_health(s, y, r, t_prev, st["rs"],
+                                             st["x"])
         else:
-            dots = sub.bicgsafe_dots(s, y, r, t_prev, st["rs"])
+            parts = sub.bicgsafe_dots(s, y, r, t_prev, st["rs"])
+        pending = reduce.start(parts)
+        As = bmv(s)
+        dots = _wait(reduce, pending, parts)
 
         # each column's i = 0 branch keys off its own iteration count, so
         # a column spliced into a running block starts correctly.  Guarded,
@@ -392,7 +425,8 @@ def step_chunk(bmv: Callable,
                *,
                config: SolverConfig = SolverConfig(),
                substrate: SubstrateLike = "torch",
-               stats: Optional[Dict[str, int]] = None) -> dict:
+               stats: Optional[Dict[str, int]] = None,
+               dot_reduce: Optional[DotReduce] = None) -> dict:
     """Advance every live column by up to ``k`` iterations; stops early
     once every column is frozen (converged, broken down, or past its own
     budget).  One (9, m) dot phase per step ((11, m) when guarded).  The
@@ -403,29 +437,36 @@ def step_chunk(bmv: Callable,
     ``stats``, when given, accumulates ``steps`` (steps queued, frozen
     ones included) and ``host_reads`` (reads of ``any(active)``)."""
     return run_chunks(batched_program(bmv, config, substrate, stats,
-                                      device=state["r"].device),
+                                      device=state["r"].device,
+                                      dot_reduce=dot_reduce),
                       state, k, stats)
 
 
 def batched_program(bmv: Callable, config: SolverConfig,
                     substrate: SubstrateLike = "torch",
                     stats: Optional[Dict[str, int]] = None, *, device,
-                    key=None, prep: Optional[Callable] = None) -> Program:
+                    key=None, prep: Optional[Callable] = None,
+                    dot_reduce: Optional[DotReduce] = None,
+                    counters=()) -> Program:
     """A :class:`~repro_torch.core.program.Program` of the batched body
     (what :func:`run_chunks` runs); its :data:`SPLICE` step refills
-    columns from its constants, ``prep`` (M^{-1}) applied to ``B``."""
+    columns from its constants, ``prep`` (M^{-1}) applied to ``B``.
+    ``counters`` go to the program (a :class:`~repro_torch.core._common
+    .SyncCounter` among them counts on every replay)."""
     sub = get_substrate(substrate)
-    body = _make_body(sub, bmv, config)
+    reduce = as_reducer(dot_reduce)
+    body = _make_body(sub, bmv, config, reduce)
 
     def step(st, c, entry):
         if entry == SPLICE:
             B = c["Bt"].t().contiguous()
             B = B if prep is None else prep(B)
             return splice_columns(bmv, st, c["refill"], B, substrate=sub,
-                                  tol=c["tol"], maxiter=c["maxiter"])
+                                  tol=c["tol"], maxiter=c["maxiter"],
+                                  dot_reduce=reduce)
         return body(st)
 
-    return Program(step, device, key, stats=stats)
+    return Program(step, device, key, stats=stats, counters=counters)
 
 
 def run_chunks(program: Program, state: dict, k: int,
@@ -499,11 +540,14 @@ def solve_batched(matvec: Callable,
                   blocked: bool = False,
                   precond: PrecondLike = None,
                   tol=None,
+                  dot_reduce: Optional[DotReduce] = None,
                   stats: Optional[Dict[str, int]] = None) -> SolveResult:
     """Solve A X = B with p-BiCGSafe for all m columns of ``B`` at once.
 
     ``matvec`` is an operator or a single-vector matvec, lifted to column
-    blocks by the substrate (the block ELL kernel on ``"cuda"``).  ``B`` is
+    blocks by the substrate (the block ELL kernel on ``"cuda"``); with
+    ``blocked=True`` it is already an ``(n, m) -> (n, m)`` block matvec and
+    is taken as given (the sharded solve's halo-exchange matvec).  ``B`` is
     (n, m); ``X0`` optional (n, m); ``r0_star`` an (n,) shadow shared by
     every column or an (n, m) block; ``tol`` a scalar or (m,).  One (9, m)
     dot phase per iteration whatever m is ((11, m) with ``config.guard``),
@@ -511,18 +555,17 @@ def solve_batched(matvec: Callable,
     :class:`repro_torch.precond.Preconditioner`) runs every column on the
     left-preconditioned system M^{-1} A X = M^{-1} B, the apply composed
     into the block matvec; ``relres``/``tol`` are then in the
-    preconditioned norm.  ``blocked=True`` (the sharded solve's) raises
-    :class:`NotImplementedError`.
+    preconditioned norm.  ``dot_reduce`` reduces every dot phase: one
+    call per iteration whatever m is.
     """
     if B.dim() != 2:
         raise ValueError(f"B must be (n, m); got shape {tuple(B.shape)}")
-    if blocked:
-        raise _not_ported("solve_batched(blocked=True)")
     sub = get_substrate(substrate)
-    bmv, B = wrap_block_preconditioned(sub, sub.as_block_matvec(matvec),
-                                       B.contiguous(), precond, matvec)
+    raw = matvec if blocked else sub.as_block_matvec(matvec)
+    bmv, B = wrap_block_preconditioned(sub, raw, B.contiguous(), precond,
+                                       matvec)
     state = init_state(bmv, B, X0, config=config, r0_star=r0_star,
-                       substrate=sub, tol=tol)
+                       substrate=sub, tol=tol, dot_reduce=dot_reduce)
     state = step_chunk(bmv, state, config.maxiter, config=config,
-                       substrate=sub, stats=stats)
+                       substrate=sub, stats=stats, dot_reduce=dot_reduce)
     return result_from_state(state)

@@ -40,11 +40,13 @@ from typing import Callable, Dict, NamedTuple, Optional
 import torch
 
 from ..precond.base import PrecondLike, preconditioned_system
-from ._common import (bicgsafe_coefficients, hold_in_step, init_guess,
-                      pipelined_recurrence_tail, state_result, tol_const)
+from ._common import (as_reducer, bicgsafe_coefficients, hold_in_step,
+                      init_guess, pipelined_recurrence_tail, state_result,
+                      tol_const)
 from .program import Program
 from .substrate import SubstrateLike, get_substrate
-from .types import SolveResult, SolverConfig, history_init, history_update
+from .types import (DotReduce, SolveResult, SolverConfig, history_init,
+                    history_update)
 
 #: iterations queued between two host reads of the stop flag
 CHUNK = 16
@@ -53,12 +55,16 @@ CHUNK = 16
 class ChunkedMethod(NamedTuple):
     """A single-RHS method as :func:`solve_chunked` runs it.
 
-    * ``init(matvec, b, x0, r0_star, config, sub) -> (state, consts)``:
-      the eager set-up; ``consts`` are the per-solve tensors the body reads
-      and never changes;
-    * ``step(state, consts, replace, *, matvec, sub, config) -> state``:
-      one iteration of the JAX loop body, reading the device only;
-      ``replace`` is the host's choice of an -rr replacement step;
+    * ``init(matvec, b, x0, r0_star, config, sub, reduce) -> (state,
+      consts)``: the eager set-up; ``consts`` are the per-solve tensors the
+      body reads and never changes;
+    * ``step(state, consts, replace, *, matvec, sub, config, reduce) ->
+      state``: one iteration of the JAX loop body, reading the device
+      only; ``replace`` is the host's choice of an -rr replacement step;
+
+    Every inner product of both goes through ``reduce`` (a
+    :class:`~repro_torch.core._common.Reducer`): started, then waited on
+    after whatever matvec the JAX body lets it run beside.
     * ``result(state, consts, config) -> SolveResult``;
     * ``replace(i_host, config) -> bool``: the steps that replace the
       residual (``None``: the method has none)."""
@@ -108,18 +114,22 @@ def solve_chunked(method: ChunkedMethod, matvec, b: torch.Tensor,
                   x0: Optional[torch.Tensor] = None, *,
                   config: SolverConfig, r0_star: Optional[torch.Tensor],
                   substrate: SubstrateLike, precond: PrecondLike = None,
+                  dot_reduce: Optional[DotReduce] = None,
                   stats: Optional[Dict[str, int]] = None,
                   program: Optional[Callable[[Callable], Program]] = None
                   ) -> SolveResult:
     """Solve A x = b with ``method``: the left-preconditioned system's
-    set-up, then :func:`run_chunked`.  ``program(step)`` returns the
-    program to run the body on (a session's memoized one); by default a
-    program of this call alone."""
+    set-up, then :func:`run_chunked`.  ``dot_reduce`` (a callable or a
+    :class:`~repro_torch.core._common.Reducer`; ``None``: the local dots
+    are global) reduces every phase of inner products.  ``program(step)``
+    returns the program to run the body on (a session's memoized one); by
+    default a program of this call alone."""
     sub = get_substrate(substrate)
+    reduce = as_reducer(dot_reduce)
     matvec, b = preconditioned_system(sub, matvec, b, precond)
-    state, consts = method.init(matvec, b, x0, r0_star, config, sub)
+    state, consts = method.init(matvec, b, x0, r0_star, config, sub, reduce)
     step = functools.partial(method.step, matvec=matvec, sub=sub,
-                             config=config)
+                             config=config, reduce=reduce)
     prog = Program(step, b.device, stats=stats) if program is None \
         else program(step)
     replace = None if method.replace is None \
@@ -134,13 +144,13 @@ def solve_chunked(method: ChunkedMethod, matvec, b: torch.Tensor,
 # -rr's replacement recomputes the preconditioned residual b' - M^{-1}A x
 # through the same composite.
 
-def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
+def _init(matvec, b, x0, r0_star, config: SolverConfig, sub, reduce):
     x = init_guess(b, x0)
     r0 = b - matvec(x) if x0 is not None else b          # MV (init)
     rs = r0 if r0_star is None else r0_star.to(b.dtype)
     s0 = matvec(r0)                                      # MV (init): s_0 = A r_0
 
-    norm_r0 = torch.sqrt(sub.dots([(r0, r0)])[0])
+    norm_r0 = torch.sqrt(reduce(sub.dots([(r0, r0)]))[0])
     # ||r_0|| == 0 (zero rhs, or exact initial guess): x already solves
     # the system — converge at t=0 instead of dividing by zero below.
     conv0 = norm_r0 == 0
@@ -162,7 +172,8 @@ def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
                        tol=tol_const(config, norm_r0))
 
 
-def _step(st, c, replace: bool, *, matvec, sub, config: SolverConfig):
+def _step(st, c, replace: bool, *, matvec, sub, config: SolverConfig,
+          reduce):
     """One iteration of the JAX loop body; ``replace`` is the host's
     choice of a replacement step (Alg. 4.1), exact whenever the state has
     not stopped."""
@@ -171,9 +182,11 @@ def _step(st, c, replace: bool, *, matvec, sub, config: SolverConfig):
     r, s, y, t_prev = st["r"], st["s"], st["y"], st["t"]
 
     # MV #1 (A s_i) and the fused reduction are mutually independent:
-    # the dots read only {s, y, r, t_prev, rs}.
+    # the dots read only {s, y, r, t_prev, rs}.  So the reduction is
+    # started first, runs while A s_i is computed, and is waited on after.
+    pending = reduce.start(sub.bicgsafe_dots(s, y, r, t_prev, c["rs"]))
     As = matvec(s)
-    dots = sub.bicgsafe_dots(s, y, r, t_prev, c["rs"])
+    dots = reduce.wait(pending)
 
     beta, alpha, zeta, eta, f, rr, bad = bicgsafe_coefficients(
         dots, st["i"], st["alpha"], st["zeta"], st["f"], eps)
@@ -245,6 +258,7 @@ def pbicgsafe_solve(matvec: Callable,
                     r0_star: Optional[torch.Tensor] = None,
                     substrate: SubstrateLike = "torch",
                     precond: PrecondLike = None,
+                    dot_reduce: Optional[DotReduce] = None,
                     stats: Optional[Dict[str, int]] = None) -> SolveResult:
     """Solve A x = b with p-BiCGSafe (paper Alg. 3.1).
 
@@ -253,12 +267,17 @@ def pbicgsafe_solve(matvec: Callable,
     .Preconditioner`) runs the left-preconditioned system M^{-1} A x =
     M^{-1} b, the apply inside the overlap window of the one reduction per
     iteration; ``relres``/``tol`` are then in the preconditioned norm.
+    ``dot_reduce`` (the JAX package's hook, ``partials -> reduced``, or a
+    :class:`~repro_torch.core._common.Reducer`) reduces the one fused
+    phase per iteration and the set-up's norm; the distributed driver's
+    all-reduce is started before ``A s_i`` and waited on after it.
     ``stats``, when given, accumulates ``steps`` (iterations queued,
     stopped ones included), ``rr_steps`` and ``host_reads``.
     """
     return solve_chunked(PBICGSAFE, matvec, b, x0, config=config,
                          r0_star=r0_star, substrate=substrate,
-                         precond=precond, stats=stats)
+                         precond=precond, dot_reduce=dot_reduce,
+                         stats=stats)
 
 
 def pbicgsafe_rr_solve(matvec: Callable,
@@ -269,6 +288,7 @@ def pbicgsafe_rr_solve(matvec: Callable,
                        r0_star: Optional[torch.Tensor] = None,
                        substrate: SubstrateLike = "torch",
                        precond: PrecondLike = None,
+                       dot_reduce: Optional[DotReduce] = None,
                        stats: Optional[Dict[str, int]] = None) -> SolveResult:
     """Solve A x = b with p-BiCGSafe-rr (paper Alg. 4.1).
 
@@ -279,4 +299,5 @@ def pbicgsafe_rr_solve(matvec: Callable,
     """
     return solve_chunked(PBICGSAFE_RR, matvec, b, x0, config=config,
                          r0_star=r0_star, substrate=substrate,
-                         precond=precond, stats=stats)
+                         precond=precond, dot_reduce=dot_reduce,
+                         stats=stats)

@@ -28,10 +28,11 @@ from ._common import (hold_checked, init_guess, recurred_result,
                       safe_div, tol_const)
 from .pipelined_bicgsafe import ChunkedMethod, solve_chunked
 from .substrate import SubstrateLike
-from .types import SolveResult, SolverConfig, history_init, history_update
+from .types import (DotReduce, SolveResult, SolverConfig, history_init,
+                    history_update)
 
 
-def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
+def _init(matvec, b, x0, r0_star, config: SolverConfig, sub, reduce):
     eps = config.breakdown_threshold(b.dtype)
     x = init_guess(b, x0)
     r0 = b - matvec(x) if x0 is not None else b
@@ -39,7 +40,7 @@ def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
 
     w0 = matvec(r0)
     t0 = matvec(w0)
-    init = sub.dots([(r0, r0), (rs, r0), (rs, w0)])
+    init = reduce(sub.dots([(r0, r0), (rs, r0), (rs, w0)]))
     norm_r0 = torch.sqrt(init[0])
     # ||r_0|| == 0: converge at t=0, and do not report the set-up's
     # alpha_0 = 0/0 as a breakdown of an already-solved system
@@ -63,7 +64,7 @@ def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
                        tol=tol_const(config, norm_r0))
 
 
-def _step(st, c, _replace, *, matvec, sub, config: SolverConfig):
+def _step(st, c, _replace, *, matvec, sub, config: SolverConfig, reduce):
     """One iteration of the JAX loop body; a stopped state is kept."""
     eps = config.breakdown_threshold(st["x"].dtype)
     rs = c["rs"]
@@ -81,18 +82,22 @@ def _step(st, c, _replace, *, matvec, sub, config: SolverConfig):
     y = w - alpha * z                                     # == A q
 
     # phase 1 beside v = A z (= A^3 p): A y is t - alpha v, so the
-    # dots read none of this matvec's output
+    # dots read none of this matvec's output; started before it, waited
+    # on after it
+    pending = reduce.start(sub.dots([(q, y), (y, y), (q, q)]))
     v = matvec(z)                                         # MV #1
-    d1 = sub.dots([(q, y), (y, y), (q, q)])
+    d1 = reduce.wait(pending)
     omega, bad1 = safe_div(d1[0], d1[1], eps)
     x_next = st["x"] + alpha * p + omega * q
     r_next = q - omega * y
     rr_next = d1[2] - 2.0 * omega * d1[0] + omega * omega * d1[1]
     w_next = y - omega * (t - alpha * v)
 
-    # phase 2 beside t_next = A w_next
+    # phase 2 beside t_next = A w_next, in the same way
+    pending = reduce.start(
+        sub.dots([(rs, r_next), (rs, w_next), (rs, s), (rs, z)]))
     t_next = matvec(w_next)                               # MV #2
-    d2 = sub.dots([(rs, r_next), (rs, w_next), (rs, s), (rs, z)])
+    d2 = reduce.wait(pending)
     rho_next = d2[0]
     beta_next, bad2 = safe_div(alpha * rho_next, omega * st["rho"], eps)
     alpha_next, bad3 = safe_div(
@@ -122,6 +127,7 @@ def pbicgstab_solve(matvec: Callable,
                     r0_star: Optional[torch.Tensor] = None,
                     substrate: SubstrateLike = "torch",
                     precond: PrecondLike = None,
+                    dot_reduce: Optional[DotReduce] = None,
                     stats: Optional[Dict[str, int]] = None) -> SolveResult:
     """Solve A x = b with pipelined BiCGStab (Cools-Vanroose Alg. 5).
 
@@ -132,4 +138,5 @@ def pbicgstab_solve(matvec: Callable,
     """
     return solve_chunked(PBICGSTAB, matvec, b, x0, config=config,
                          r0_star=r0_star, substrate=substrate,
-                         precond=precond, stats=stats)
+                         precond=precond, dot_reduce=dot_reduce,
+                         stats=stats)

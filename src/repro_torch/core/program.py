@@ -22,7 +22,10 @@ set-up and readies PyTorch's own lazy state, none of which may happen
 under capture.  The warm-up's launches and the capture's recorded ones are
 taken back out of :data:`repro_torch.kernels.ops.LAUNCHES` when the build
 ends, and every replay adds what its capture recorded: the counters read as
-they would for the eager chunk.
+they would for the eager chunk.  The same holds for the ``counters`` a
+program is given (objects with a ``calls`` count, such as the
+:class:`~repro_torch.core._common.SyncCounter` of a mesh session's
+reductions).
 
 A capture that fails (a step that reads the device from the host, such as
 a matvec calling ``.item()``) raises, naming the program's key.  A program
@@ -50,7 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import weakref
-from typing import Callable, Dict, Hashable, Optional, Tuple
+from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
 
 import torch
 
@@ -94,7 +97,8 @@ class Program:
     ``tol``, the shadow residual, -rr's ``b``; a splice's mask, block and
     budgets).  ``stats``, when given, counts the graphs captured under
     ``"graphs"`` and the chunks run under ``"runs"`` (on the card, graph
-    replays).
+    replays).  ``counters``: objects whose ``calls`` the steps count; a
+    replay adds what its capture counted.
     """
 
     #: the state's fields a step writes in place (the residual history):
@@ -104,14 +108,18 @@ class Program:
 
     def __init__(self, step: Callable[[dict, dict, bool], dict], device,
                  key: Hashable = None, *,
-                 stats: Optional[Dict[str, int]] = None):
+                 stats: Optional[Dict[str, int]] = None,
+                 counters: Sequence = ()):
         self.step = step
+        self.counters = tuple(counters)
         self.device = torch.device(device)
         self.key = key
         self.stats = stats
-        #: schedule -> (CUDA graph, launches one replay makes)
+        #: schedule -> (CUDA graph, launches one replay makes, the calls
+        #: one replay adds to each of ``counters``)
         self.graphs: Dict[Schedule, Tuple["torch.cuda.CUDAGraph",
-                                          Dict[str, int]]] = {}
+                                          Dict[str, int],
+                                          Tuple[int, ...]]] = {}
         self.state: Dict[str, torch.Tensor] = {}
         self.consts: Dict[str, torch.Tensor] = {}
         self._buffers: Dict[str, torch.Tensor] = {}
@@ -219,10 +227,12 @@ class Program:
             entry = self.graphs[schedule] = self._capture(schedule)
             if self.stats is not None:
                 self.stats["graphs"] = self.stats.get("graphs", 0) + 1
-        graph, launches = entry
+        graph, launches, calls = entry
         graph.replay()
         for name, count in launches.items():
             LAUNCHES[name] += count
+        for counter, count in zip(self.counters, calls):
+            counter.calls += count
 
     def _steps(self, state: dict, schedule: Schedule) -> dict:
         for replace in schedule:
@@ -254,6 +264,7 @@ class Program:
 
     def _capture(self, schedule: Schedule):
         before = dict(LAUNCHES)
+        calls_before = [c.calls for c in self.counters]
         side = _side_stream(self.device)
         cur = torch.cuda.current_stream(self.device)
         try:
@@ -267,6 +278,7 @@ class Program:
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
             warm = dict(LAUNCHES)
+            calls_warm = [c.calls for c in self.counters]
             # entering a capture empties the allocator's cache anyway; done
             # first, what the capture reserves is its pool's growth
             torch.cuda.empty_cache()
@@ -277,6 +289,8 @@ class Program:
                 0, torch.cuda.memory_reserved(self.device) - reserved)
             launches = {k: LAUNCHES[k] - warm[k] for k in LAUNCHES
                         if LAUNCHES[k] != warm[k]}
+            calls = tuple(c.calls - w
+                          for c, w in zip(self.counters, calls_warm))
         except Exception as exc:
             raise RuntimeError(
                 f"capturing program {self.key!r} (a chunk of "
@@ -284,4 +298,6 @@ class Program:
             ) from exc
         finally:
             LAUNCHES.update(before)
-        return graph, launches
+            for c, n in zip(self.counters, calls_before):
+                c.calls = n
+        return graph, launches, calls

@@ -25,15 +25,16 @@ from ._common import (bicgsafe_coefficients, hold_in_step, init_guess,
                       state_result, tol_const)
 from .pipelined_bicgsafe import ChunkedMethod, solve_chunked
 from .substrate import SubstrateLike
-from .types import SolveResult, SolverConfig, history_init, history_update
+from .types import (DotReduce, SolveResult, SolverConfig, history_init,
+                    history_update)
 
 
-def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
+def _init(matvec, b, x0, r0_star, config: SolverConfig, sub, reduce):
     x = init_guess(b, x0)
     r0 = b - matvec(x) if x0 is not None else b
     rs = r0 if r0_star is None else r0_star.to(b.dtype)
 
-    norm_r0 = torch.sqrt(sub.dots([(r0, r0)])[0])
+    norm_r0 = torch.sqrt(reduce(sub.dots([(r0, r0)]))[0])
     # ||r_0|| == 0: converge at t=0 instead of dividing by zero
     conv0 = norm_r0 == 0
     norm_r0 = torch.where(conv0, torch.ones_like(norm_r0), norm_r0)
@@ -54,14 +55,14 @@ def _init(matvec, b, x0, r0_star, config: SolverConfig, sub):
                        tol=tol_const(config, norm_r0))
 
 
-def _step(st, c, _replace, *, matvec, sub, config: SolverConfig):
+def _step(st, c, _replace, *, matvec, sub, config: SolverConfig, reduce):
     """One iteration of the JAX loop body; a stopped state is kept."""
     eps = config.breakdown_threshold(st["x"].dtype)
     active = ~st["converged"] & ~st["breakdown"]
     r, y, t_prev = st["r"], st["y"], st["t"]
     s = matvec(r)                                       # MV #1: s_i = A r_i
     # the single fused reduction phase reads s: no overlap with MV #1
-    dots = sub.bicgsafe_dots(s, y, r, t_prev, c["rs"])
+    dots = reduce(sub.bicgsafe_dots(s, y, r, t_prev, c["rs"]))
     beta, alpha, zeta, eta, f, rr, bad = bicgsafe_coefficients(
         dots, st["i"], st["alpha"], st["zeta"], st["f"], eps)
     relres = torch.sqrt(torch.abs(rr)) / c["norm_r0"]
@@ -102,10 +103,12 @@ def ssbicgsafe2_solve(matvec: Callable,
                       r0_star: Optional[torch.Tensor] = None,
                       substrate: SubstrateLike = "torch",
                       precond: PrecondLike = None,
+                      dot_reduce: Optional[DotReduce] = None,
                       stats: Optional[Dict[str, int]] = None) -> SolveResult:
     """Solve A x = b with ssBiCGSafe2 (Alg. 2.3; left-preconditioned when
     ``precond`` is set).  Arguments as in :func:`repro_torch.core
     .bicgstab.bicgstab_solve`."""
     return solve_chunked(SSBICGSAFE2, matvec, b, x0, config=config,
                          r0_star=r0_star, substrate=substrate,
-                         precond=precond, stats=stats)
+                         precond=precond, dot_reduce=dot_reduce,
+                         stats=stats)

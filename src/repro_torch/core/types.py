@@ -117,6 +117,26 @@ class SolverConfig:
 # A matvec is any callable Tensor -> Tensor preserving shape/dtype.
 MatVec = Callable[[torch.Tensor], torch.Tensor]
 
+# A user's reduction hook, the JAX package's signature: the stacked local
+# dot partials of one reduction phase -> their global values.  Inside the
+# port a reduction is a start and a wait (:class:`repro_torch.core._common
+# .Reducer`), so a collective can run while the iteration's matvec does.
+DotReduce = Callable[[torch.Tensor], torch.Tensor]
+
+
+def identity_reduce(partials: torch.Tensor) -> torch.Tensor:
+    return partials
+
+
+def derive_config(config: SolverConfig, tol=None, maxiter=None
+                  ) -> SolverConfig:
+    """``config`` with a call's ``tol`` / ``maxiter`` overrides."""
+    if tol is not None:
+        config = dataclasses.replace(config, tol=float(tol))
+    if maxiter is not None:
+        config = dataclasses.replace(config, maxiter=int(maxiter))
+    return config
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means ``"cuda"``.  A CUDA device with no GPU present raises:

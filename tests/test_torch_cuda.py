@@ -876,3 +876,92 @@ def test_session_cache_budget_returns_card_memory(cuda, monkeypatch):
     assert torch.cuda.memory_reserved() - base <= budget + one
     assert not first._programs
     assert bool(first.solve_many(B, maxiter=32).iterations.eq(32).all())
+
+
+# -- the distributed driver at world 1: NCCL, the collective in the graph ----
+
+MESH_REDUCTIONS = {"p-bicgsafe": 1, "p-bicgsafe-rr": 1, "ssbicgsafe2": 1,
+                   "p-bicgstab": 2, "bicgstab": 2, "gpbicg": 3, "cgs": 2}
+
+
+@pytest.fixture(scope="module")
+def mesh1(tmp_path_factory):
+    """A one-rank NCCL process group (``file://`` store) and its
+    ``(1,)`` DeviceMesh; destroyed after the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1,), mesh_dim_names=("rows",))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("method", sorted(MESH_REDUCTIONS))
+def test_mesh_solve_at_world_1_is_bitwise_the_single_process_solve(
+        cuda, mesh1, method):
+    """One rank: the all-reduce is the identity and both halos are zeros,
+    so ``on_mesh(mesh).solve`` is the session's own ``solve`` bit for bit,
+    with the same launches, Table 3.1's reductions per step, and each
+    chunk one graph with the NCCL collective in it."""
+    op, b, _ = TM.convection_diffusion(24, peclet=1.0)
+    solver = repro_torch.make_solver(method, op, substrate="cuda")
+    ops.reset_launches()
+    single = solver.solve(b)
+    torch.cuda.synchronize()
+    single_launches = dict(ops.LAUNCHES)
+    dsolver = solver.on_mesh(mesh1)
+    assert solver.on_mesh(mesh1) is dsolver
+    graphs = solver.stats["graphs"]
+    steps = solver.stats["steps"]
+    dsolver.syncs.calls = 0
+    ops.reset_launches()
+    res = dsolver.solve(b.reshape(24, 24, 24))
+    torch.cuda.synchronize()
+    assert torch.equal(res.x.reshape(-1), single.x)
+    assert int(res.iterations) == int(single.iterations)
+    assert dict(ops.LAUNCHES) == single_launches
+    assert solver.stats["graphs"] > graphs
+    steps = solver.stats["steps"] - steps
+    assert dsolver.syncs.calls == 1 + MESH_REDUCTIONS[method] * steps
+
+
+def test_mesh_graph_program_matches_the_eager_chunk(cuda, mesh1):
+    op, b, _ = TM.convection_diffusion(24, peclet=1.0)
+    dsolver = repro_torch.make_solver("p-bicgsafe", op, substrate="cuda",
+                                      config=repro_torch.SolverConfig(
+                                          record_history=True)
+                                      ).on_mesh(mesh1)
+    calls = []
+
+    def run():
+        dsolver.syncs.calls = 0
+        res = dsolver.solve(b.reshape(24, 24, 24))
+        calls.append(dsolver.syncs.calls)
+        return res
+    (graph, g_launches), (eager, e_launches) = graph_and_eager(run)
+    assert bool(graph.converged)
+    assert_bitwise(graph, eager)
+    assert g_launches == e_launches
+    assert calls[0] == calls[1]
+
+
+@pytest.mark.parametrize("guard", [False, True])
+def test_mesh_solve_many_at_world_1_is_bitwise(cuda, mesh1, guard):
+    op, b, _ = TM.convection_diffusion(24, peclet=1.0)
+    B = torch.stack([b, 0.5 * b, b + 1.0], dim=1)
+    solver = repro_torch.make_solver(
+        "p-bicgsafe", op, substrate="cuda",
+        config=repro_torch.SolverConfig(guard=guard, maxiter=400))
+    single = solver.solve_many(B)
+    dsolver = solver.on_mesh(mesh1)
+    dsolver.syncs.shapes.clear()
+    res = dsolver.solve_many(B.reshape(24, 24, 24, 3))
+    torch.cuda.synchronize()
+    assert torch.equal(res.x.reshape(B.shape), single.x)
+    assert torch.equal(res.iterations, single.iterations)
+    assert dsolver.syncs.shapes == {(1, 3), (11 if guard else 9, 3)}

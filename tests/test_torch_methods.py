@@ -392,9 +392,10 @@ def test_pbicgstab_phases_never_read_the_matvec_beside_them(monkeypatch):
     log, steps = _recorded_solve("p-bicgstab", monkeypatch)
     loop = log[next(k for k, (kind, _) in enumerate(log)
                     if kind == "dots") + 1:]
-    # each step: MV #1, phase 1, MV #2, phase 2
-    assert [kind for kind, _ in loop] == ["matvec", "dots"] * (2 * steps)
-    for (_, (_x, out)), (_, operands) in zip(loop[0::2], loop[1::2]):
+    # each step: phase 1 issued before MV #1, phase 2 before MV #2 (the
+    # reduction is started ahead of the matvec it runs beside)
+    assert [kind for kind, _ in loop] == ["dots", "matvec"] * (2 * steps)
+    for (_, operands), (_, (_x, out)) in zip(loop[0::2], loop[1::2]):
         assert not any(v is out for v in operands)
 
 

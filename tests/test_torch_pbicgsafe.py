@@ -282,16 +282,19 @@ def test_later_slices_raise_not_implemented(call):
             repro_torch.make_solver("p-bicgsafe", op.matvec, device=CPU,
                                     precond="jacobi")
         return
+    if call == "on_mesh":
+        # ported: a mesh is a DeviceMesh or a process group
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            repro_torch.make_solver("p-bicgsafe", op, device=CPU).on_mesh(
+                [b])
+        return
     with pytest.raises(NotImplementedError):
         if call in ("trace", "profile"):
             repro_torch.make_solver("p-bicgsafe", op, device=CPU).solve(
                 b, **{call: True})
-        elif call == "solve_many":      # ported; its trace ring is not
+        else:                           # ported; its trace ring is not
             repro_torch.make_solver("p-bicgsafe", op, device=CPU).solve_many(
                 [b], trace=True)
-        else:
-            getattr(repro_torch.make_solver("p-bicgsafe", op, device=CPU),
-                    call)([b])
 
 
 def test_session_checks_method_and_device():
