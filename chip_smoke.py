@@ -130,6 +130,33 @@ package is missing.  Phases, any failure of which fails the run:
    under its budget, and C16: six (n, 8) sessions of scaled copies of the
    operator under a budget of 2.2 sessions' bytes, after which the memory
    reserved must be under the budget plus one session;
+3h. traces and profiles (run after 5 and C16, before 4), on 3a's system:
+   p-BiCGSafe, -rr and ssBiCGSafe2 ``solve(b, trace=True)`` bitwise their
+   untraced solves (x, iterations, relres, status) with the same launches,
+   the trace's first row (0, 1.0), its iteration channel stepping by 1,
+   its last row (iterations, relres, CONVERGED), ``steps`` = iterations +
+   1, the relres channel bitwise a ``record_history`` solve's history, and
+   ``trace=64`` the last 64 rows of the full trace; ms per iteration and
+   kernels per step (profiled chunks) traced and untraced; 3c's block
+   through ``solve_many(trace=True)`` and the guarded ``solve_many`` and
+   ``solve(b)`` with ``SolverConfig(trace_cap=2000)``, each bitwise its
+   untraced run, every column's trace from (0, 1.0) to its iterations; the
+   traced
+   Stencil7 solve at world 1 (one NCCL rank) bitwise the single-process
+   traced solve, ring included, one all-reduce per step; ``solve(b,
+   profile=...)`` and ``solve_many(B, profile=...)`` under
+   ``build/observe/profile/``: device time > 0 in matvec, reduce and axpy,
+   the reduce-phase kernels the fused dots' two per launch, the overlap
+   efficiency, exposed time per iteration and unmapped ops printed, and
+   the phase totals the name rules alone give on the same timeline; phase
+   5's burst served with ``ServiceConfig(trace_cap=64)`` (1.00 replay and
+   host read per chunk, every request CONVERGED with the iterations of 5's
+   engine and its trace ending there, req/s against 5's), once more with
+   ``trace_cap=2000`` (every request's whole residency: no row in a
+   reused slot's column from before its admission chunk, each trace from
+   (0, 1.0) to its iterations), then a profiled
+   engine run (``profile_dir``); and ``python -m repro_torch.observe smoke``
+   writing its four artifacts with their schemas;
 6. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -146,12 +173,13 @@ the allocator holds is printed after each solver phase, and the session
 cache is cleared before phase 4.
 
 The run goes 1, 3a (the matrix), 2, 2b, 2c, 2d, 3b-3f, the profiler's
-counts, 3g, 5, 4, 6.  Each path is driven with the launch counters set to 0 just
+counts, 3g, 5, 3h, 4, 6.  Each path is driven with the launch counters set to 0 just
 before it and read just after; the kernels' checks and timings are not
 counted.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -261,6 +289,11 @@ SERVICE_CHUNK = 32
 SERVICE_GUARDED = 16        # requests of the guarded run
 SERVICE_BJ = 8              # requests of the block-Jacobi-registered run
 SERVICE_SESSIONS = 6        # (n, M) sessions bound under a small budget
+# phase 3h: the traced methods, the ring of trace=N and of the traced
+# service, and where its profiles and the CLI's artifacts go
+OBSERVE_METHODS = ("p-bicgsafe", "p-bicgsafe-rr", "ssbicgsafe2")
+OBSERVE_RING = 64
+OBSERVE_DIR = os.path.join(ROOT, "build", "observe")
 
 
 def log(msg: str) -> None:
@@ -1279,29 +1312,38 @@ def run_mesh_path(torch, repro_torch, ops, stencil, b) -> dict:
     (9, M) / (11, M) all-reduce per step; block-Jacobi bitwise.  Printed:
     ms per iteration, kernels and device ms per step on the mesh against
     single-process, and whether the NCCL kernel overlaps the matvec's."""
+    log(f"mesh: NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, "
+        f"NCCL_SOCKET_IFNAME={os.environ.get('NCCL_SOCKET_IFNAME')}")
+    sessions = []
+    with one_rank_mesh(sessions) as mesh:
+        out = _mesh_cases(torch, repro_torch, ops, stencil, b, mesh,
+                          sessions)
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def one_rank_mesh(sessions: list):
+    """A one-rank NCCL process group (``file://`` store under ``build/``)
+    and its ``(1,)`` DeviceMesh, for the length of a ``with``; the
+    sessions put in ``sessions`` are released before the group goes
+    (their programs hold it)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     store = os.path.join(ROOT, "build", "nccl_store")
     os.makedirs(os.path.dirname(store), exist_ok=True)
     if os.path.exists(store):
         os.remove(store)
-    log(f"mesh: NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, "
-        f"NCCL_SOCKET_IFNAME={os.environ.get('NCCL_SOCKET_IFNAME')}")
     dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
                             world_size=1)
-    sessions = []
     try:
-        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("rows",))
-        out = _mesh_cases(torch, repro_torch, ops, stencil, b, mesh,
-                          sessions)
+        yield init_device_mesh("cuda", (1,), mesh_dim_names=("rows",))
     finally:
-        for sess in sessions:            # their programs hold the group
+        for sess in sessions:
             sess.release()
         dist.destroy_process_group()
         if os.path.exists(store):
             os.remove(store)
-    torch.cuda.empty_cache()
-    return out
 
 
 def _mesh_solve(torch, ops, session, dsolver, call):
@@ -1600,6 +1642,7 @@ def run_service_path(torch, repro_torch, ops, ell, stencil, pc, seed):
     per_step = {k: launches[k] / steps for k in (
         "fused_dots_batched", "fused_axpy_batched", "spmv_ell_batched")}
     out["engine"].update(
+        iterations=[r["iterations"] for r in served],
         stats=stats, launches=launches, launches_per_step=per_step,
         replays_per_chunk=stats["runs"] / stats["chunks"],
         host_reads_per_chunk=stats["host_reads"] / stats["chunks"],
@@ -1617,6 +1660,7 @@ def run_service_path(torch, repro_torch, ops, ell, stencil, pc, seed):
     prof = profile_device(torch, lambda: engine_run(eng, name),
                           "chip_smoke_service_trace")
     prof["share"] = prof["busy_ms"] / 1e3 / prof["wall_s"]
+    del prof["kernel_events"]           # tens of MB of JSON on the log
     out["engine"]["busy"] = prof
     log(f"service engine: {json.dumps(out['engine'])}")
     log(f"service throughput: engine {out['engine']['requests_per_s']:.3f} "
@@ -1697,6 +1741,439 @@ def run_service_path(torch, repro_torch, ops, ell, stencil, pc, seed):
         raise SystemExit("the cached sessions' programs exceed the budget")
     log_memory(torch, "5 (the service)")
     del eng, geng, beng, session
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3h: traces and profiles
+# ---------------------------------------------------------------------------
+
+def _bitwise(torch, a, b) -> bool:
+    """x, iterations, relres and status of two results, bit for bit."""
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("x", "iterations", "relres", "status"))
+
+
+def check_trace(label: str, trace, iterations: int, relres=None,
+                complete: bool = True) -> None:
+    """A single column's trace: the iteration channel stepping by 1 (a
+    reused slot's predecessor would break it), the last row (iterations,
+    the result's relres, CONVERGED), and with ``complete`` (the ring held
+    the whole solve) the first row: iteration 0, relres 1.0 up to the two
+    reductions' rounding (||r_0|| comes from the set-up's dot, the first
+    relres from the fused dots)."""
+    import numpy as np
+    from repro_torch.core.types import TRACE_CHANNELS
+    ch = {n: i for i, n in enumerate(TRACE_CHANNELS)}
+    rows = trace.per_iteration()
+    it = rows[:, ch["iteration"]] if len(rows) else np.zeros(0)
+    ok = bool(len(rows)) and (not complete or (
+        it[0] == 0 and abs(rows[0, ch["relres"]] - 1.0) <= 1e-12)) \
+        and bool((np.diff(it) == 1).all()) and it[-1] == iterations \
+        and rows[-1, ch["status"]] == 1 \
+        and (relres is None or rows[-1, ch["relres"]] == relres)
+    if not ok:
+        raise SystemExit(f"{label}: the trace's rows are off: first "
+                         f"{rows[:1].tolist()}, last {rows[-1:].tolist()}, "
+                         f"{iterations} iterations, relres {relres}")
+
+
+def check_splice_reset(label: str, results, chunk: int, slots: int) -> int:
+    """The engine's traces from a ring that held the block's whole run (no
+    wrap): in each request's column no finite row lies before its admission
+    chunk (the block's step count advances by at most ``chunk`` a chunk,
+    so the admission slot is at least ``steps - chunks_resident * chunk``;
+    a predecessor's leaked rows would start a whole chunk before it), the
+    finite rows are one unbroken run, and ``check_trace`` holds with its
+    first row.  Returns how many requests reused a slot (their first row
+    after slot 0), which must be all but the first fill's ``slots``."""
+    import numpy as np
+    from repro_torch.core.types import TRACE_CHANNELS
+    it_ch = TRACE_CHANNELS.index("iteration")
+    reused = 0
+    for r in results:
+        tr = r.trace
+        it = tr.rows()[:, it_ch]
+        live = np.flatnonzero(np.isfinite(it))
+        earliest = tr.steps - r.telemetry.chunks_resident * chunk
+        ok = tr.steps <= tr.cap and len(live) > 0 \
+            and live[0] >= earliest \
+            and len(live) == live[-1] - live[0] + 1 \
+            and len(tr.per_iteration()) == r.iterations + 1
+        if not ok:
+            raise SystemExit(
+                f"{label} request {r.rid}: a reused slot kept rows from "
+                f"before its admission (first row at slot "
+                f"{live[:1].tolist()}, admitted at slot {earliest} or "
+                f"later, {len(live)} rows for {r.iterations} iterations)")
+        check_trace(f"{label} request {r.rid}", tr, r.iterations, r.relres)
+        reused += bool(live[0] > 0)
+    if reused < len(results) - slots:
+        raise SystemExit(f"{label}: only {reused} of {len(results)} requests "
+                         "reused a slot")
+    return reused
+
+
+def run_observe_path(torch, repro_torch, ops, ell, stencil, b, main, many,
+                     service, seed) -> dict:
+    """Phase 3h: the trace ring and the profiles on 3a's system (see the
+    module docstring).  Each traced run is driven with the launch counters
+    set to 0 just before it and read just after."""
+    import numpy as np
+
+    from repro_torch import SolverConfig
+    from repro_torch.observe import profile as oprofile
+    from repro_torch.resilience import RecoveryPolicy
+    from repro_torch.service import ServiceConfig, SolveEngine
+    kw = dict(tol=1e-8, maxiter=SOLVE_MAXITER)
+    zero = dict.fromkeys(ops.LAUNCHES, 0)
+    out = {"single": {}, "launches": {}}
+
+    def counted(call):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, dict(ops.LAUNCHES)
+
+    # -- traced single-RHS solves ------------------------------------------
+    for method in OBSERVE_METHODS:
+        solver = repro_torch.make_solver(method, ell, substrate="cuda")
+        solver.solve(b, **kw)                      # warm: the captures
+        solver.solve(b, trace=True, **kw)
+        # untraced and traced in turns (u, t, t, u), each counted
+        runs = {False: [], True: []}
+        for traced in (False, True, True, False):
+            runs[traced].append(counted(
+                lambda: solver.solve(b, trace=traced or None, **kw)))
+        (res0, _, l0), (res1, _, l1) = runs[False][0], runs[True][0]
+        wall0 = statistics.mean(r[1] for r in runs[False])
+        wall1 = statistics.mean(r[1] for r in runs[True])
+        it = int(res0.iterations)
+        hist = repro_torch.make_solver(
+            method, ell, substrate="cuda",
+            config=SolverConfig(record_history=True)).solve(b, **kw)
+        ring = solver.solve(b, trace=OBSERVE_RING, **kw)
+        plain_prof = chunk_profile(
+            torch, lambda n: solver.solve(b, tol=0.0, maxiter=n),
+            f"chip_smoke_observe_{method}_plain")
+        traced_prof = chunk_profile(
+            torch, lambda n: solver.solve(b, tol=0.0, maxiter=n,
+                                          trace=OBSERVE_RING),
+            f"chip_smoke_observe_{method}_traced")
+        tr = res1.trace
+        rec = dict(
+            iterations=it, bitwise=_bitwise(torch, res0, res1),
+            trace_steps=tr.steps, cap=tr.cap,
+            relres_is_history=bool(np.array_equal(
+                tr.channel("relres")[:it + 1],
+                hist.residual_history[:it + 1].cpu().numpy())),
+            ring_is_the_last_rows=bool(
+                _bitwise(torch, res0, ring) and ring.trace.steps == tr.steps
+                and np.array_equal(ring.trace.rows(),
+                                   tr.rows()[-OBSERVE_RING:],
+                                   equal_nan=True)),
+            first_relres=float(tr.per_iteration()[0, 1]),
+            launches=l0, traced_launches=l1,
+            ms_per_iteration=wall0 / it * 1e3,
+            traced_ms_per_iteration=wall1 / it * 1e3,
+            kernels_per_step=plain_prof["kernels_per_step"],
+            traced_kernels_per_step=traced_prof["kernels_per_step"],
+            busy_ms_per_step=plain_prof["busy_ms_per_step"],
+            traced_busy_ms_per_step=traced_prof["busy_ms_per_step"])
+        log(f"observe {method}: {json.dumps(rec)}")
+        log(f"observe {method}: traced {rec['traced_ms_per_iteration']:.4f} "
+            f"ms per iteration against {rec['ms_per_iteration']:.4f} "
+            f"untraced; {rec['traced_kernels_per_step']:.2f} kernels per "
+            f"step against {rec['kernels_per_step']:.2f} [{card()}]")
+        check_trace(f"observe {method}", tr, it, float(res0.relres))
+        if not (rec["bitwise"] and rec["relres_is_history"]
+                and rec["ring_is_the_last_rows"] and l1 == l0
+                and tr.steps == it + 1 and res0.converged
+                and all(l1[k] for k in ("fused_dots", "spmv_ell"))):
+            raise SystemExit(f"observe {method}: {rec}")
+        out["single"][method] = rec
+        if method == "p-bicgsafe":
+            out["launches"].update({k: l1[k] for k in SINGLE})
+    torch.cuda.empty_cache()
+
+    # -- traced batched and guarded solves ------------------------------------
+    B, tol = batched_rhs(torch, b)
+    solver = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda")
+    solver.solve_many(B, tol=tol, trace=True)                 # warm
+    plain = solver.solve_many(B, tol=tol)
+    traced, _, lb = counted(lambda: solver.solve_many(B, tol=tol, trace=True))
+    rec = dict(bitwise=_bitwise(torch, plain, traced),
+               iterations=[int(v) for v in traced.iterations],
+               steps=traced.trace.steps, launches=lb)
+    for j in range(M):
+        check_trace(f"observe solve_many column {j}", traced.trace.column(j),
+                    int(traced.iterations[j]), float(traced.relres[j]))
+    out["launches"].update({k: lb[k] for k in BATCHED})
+    # the guarded ring holds the whole solve (SOLVE_MAXITER rows), so its
+    # first rows are checked too
+    guarded = {}
+    for cap in (0, SOLVE_MAXITER):
+        g = repro_torch.make_solver(
+            "p-bicgsafe", ell, substrate="cuda",
+            config=SolverConfig(trace_cap=cap),
+            recovery=RecoveryPolicy(chunk=16))
+        many_g, _, lg = counted(lambda: g.solve_many(B, tol=tol))
+        single_g, _, ls = counted(lambda: g.solve(b, **kw))
+        guarded[cap] = (many_g, single_g, g.events)
+    (m0, s0, e0), (m1, s1, e1) = guarded[0], guarded[SOLVE_MAXITER]
+    rec.update(guarded_bitwise=_bitwise(torch, m0, m1)
+               and _bitwise(torch, s0, s1), guarded_events=e0 + e1,
+               guarded_launches=lg, guarded_single_launches=ls,
+               guarded_whole=m1.trace.steps <= m1.trace.cap
+               and s1.trace.steps <= s1.trace.cap)
+    for j in range(M):
+        check_trace(f"observe guarded column {j}", m1.trace.column(j),
+                    int(m1.iterations[j]), float(m1.relres[j]),
+                    complete=m1.trace.steps <= m1.trace.cap)
+    check_trace("observe guarded solve(b)", s1.trace, int(s1.iterations),
+                float(s1.relres), complete=s1.trace.steps <= s1.trace.cap)
+    out["launches"].update(
+        fused_dots_health_batched=lg["fused_dots_health_batched"],
+        fused_dots_health=ls["fused_dots_health"])
+    log(f"observe batched and guarded: {json.dumps(rec)}")
+    if not (rec["bitwise"] and rec["guarded_bitwise"]
+            and rec["guarded_whole"]) or e0 or e1 \
+            or not all(lb[k] for k in BATCHED) \
+            or not lg["fused_dots_health_batched"] \
+            or not ls["fused_dots_health"]:
+        raise SystemExit(f"observe batched and guarded: {rec}")
+    out["batched"] = rec
+    del plain, traced, guarded, m0, m1, s0, s1
+    torch.cuda.empty_cache()
+
+    # -- the traced mesh at world 1 -------------------------------------------
+    grid = b.reshape(NX, NX, NX)
+    sessions = []
+    with one_rank_mesh(sessions) as mesh:
+        sess = repro_torch.make_solver("p-bicgsafe", stencil,
+                                       substrate="cuda")
+        sessions.append(sess)
+        single = sess.solve(b, trace=True, **kw)
+        d = sess.on_mesh(mesh)
+        d.solve(grid, trace=True, **kw)              # captures, not counted
+        res, m_rec = _mesh_solve(torch, ops, sess, d,
+                                 lambda: d.solve(grid, trace=True, **kw))
+        m_rec.update(
+            iterations=int(res.iterations),
+            ring_bitwise=bool(res.trace.steps == single.trace.steps
+                              and np.array_equal(res.trace.buffer,
+                                                 single.trace.buffer,
+                                                 equal_nan=True)),
+            x_bitwise=bool(torch.equal(res.x.reshape(-1), single.x)))
+        log(f"observe mesh: {json.dumps(m_rec)}")
+        if not (m_rec["ring_bitwise"] and m_rec["x_bitwise"]) \
+                or m_rec["syncs"] != 1 + m_rec["steps"]:
+            raise SystemExit(f"observe mesh: {m_rec}")
+        out["mesh"] = m_rec
+    torch.cuda.empty_cache()
+
+    # -- profiles -------------------------------------------------------------
+    out["profiles"] = {}
+    solver = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda")
+    for entry, call, dots, ref in (
+            ("solve", lambda **k: solver.solve(b, **kw, **k), "fused_dots",
+             main),
+            ("solve_many", lambda **k: solver.solve_many(B, tol=tol, **k),
+             "fused_dots_batched", many)):
+        res, _, lp = counted(call)
+        where = os.path.join(OBSERVE_DIR, "profile", entry)
+        prof_res = call(profile=where)
+        rep = solver.last_profile
+        with open(os.path.join(where, "kernel_map.json")) as fh:
+            kmap = json.load(fh)["kernels"]
+        events = oprofile.phase_events(rep.timeline_path, kmap)
+        reduce_kernels = sum(e["phase"] == "reduce" for e in events)
+        # what the learnt map buys over the name rules alone: the mapped
+        # names the rules class otherwise, and their device time here
+        rules = oprofile.analyze_timeline(rep.timeline_path,
+                                          iterations=rep.iterations)
+        differ = {n: oprofile.classify_op(n, t) for n, t in kmap.items()
+                  if oprofile.classify_op(n, t) != oprofile.classify_op(n)}
+        moved_us = {}
+        for e in events:
+            if e["name"] in differ:
+                key = f"{differ[e['name']]}: {e['name'][:72]}"
+                moved_us[key] = moved_us.get(key, 0.0) + e["dur"]
+        its = int(res.iterations.max())
+        p_rec = dict(
+            label=rep.label, device_wall_us=rep.device_wall_us,
+            phase_us=rep.phase_us, phase_ops=rep.phase_ops,
+            n_device_events=rep.n_device_events,
+            unmapped_ops=rep.unmapped_ops,
+            overlap_efficiency=rep.overlap_efficiency,
+            exposed_per_iter_us=rep.exposed_per_iter_us,
+            iterations=rep.iterations, reduce_kernels=reduce_kernels,
+            dots_launches=lp[dots], mapped_kernels=len(kmap),
+            device_ms_per_iteration=rep.device_wall_us / 1e3 / its,
+            wall_ms_per_iteration=ref["ms_per_iteration"],
+            bitwise=_bitwise(torch, res, prof_res),
+            name_rules_phase_us=rules.phase_us,
+            name_rules_unmapped_ops=rules.unmapped_ops,
+            map_moves_us=moved_us)
+        log(f"observe profile {entry}: {json.dumps(p_rec)}")
+        log(f"observe profile {entry}: the kernel map moves "
+            f"{sum(moved_us.values()) / 1e3:.3f} ms of "
+            f"{rep.device_wall_us / 1e3:.3f} ms device time to another "
+            f"phase ({len(differ)} names); by the name rules alone: "
+            + ", ".join(f"{k} {v / 1e3:.3f} ms"
+                        for k, v in rules.phase_us.items()))
+        log(f"observe profile {entry}: overlap efficiency "
+            f"{rep.overlap_efficiency}, exposed per iteration "
+            f"{rep.exposed_per_iter_us} us, {rep.unmapped_ops} unmapped ops "
+            f"of {rep.n_device_events}; device "
+            f"{p_rec['device_ms_per_iteration']:.4f} ms per iteration "
+            f"against the untraced run's wall "
+            f"{ref['ms_per_iteration']:.4f} [{card()}]")
+        log(rep.render())
+        if rep.n_device_events == 0 or rep.device_wall_us <= 0 \
+                or not all(rep.phase_us[k] > 0
+                           for k in ("matvec", "reduce", "axpy")) \
+                or reduce_kernels != 2 * lp[dots] or not p_rec["bitwise"]:
+            raise SystemExit(f"observe profile {entry}: {p_rec} (the reduce "
+                             f"kernels must be the {dots} launches' two "
+                             "kernels each)")
+        out["profiles"][entry] = p_rec
+    torch.cuda.empty_cache()
+
+    # -- the service: phase 5's burst, traced; then a profiled run ------------
+    rhs, tols = service_requests(ell.n, seed)
+    scfg = dict(max_batch=M, chunk=SERVICE_CHUNK, substrate="cuda",
+                tol=1e-8, maxiter=SOLVE_MAXITER, device=ell.values.device)
+
+    def engine_run(eng, name, k):
+        for i in range(k):
+            eng.submit(name, rhs[i], tol=tols[i])
+        t0 = time.perf_counter()
+        results = eng.run()
+        return results, time.perf_counter() - t0
+
+    engines = {}
+    for cap in (0, OBSERVE_RING, SOLVE_MAXITER):
+        eng = SolveEngine(ServiceConfig(**scfg, trace_cap=cap))
+        name = eng.register(ell)
+        engine_run(eng, name, M + 3)               # warm, as phase 5's
+        engines[cap] = (eng, name)
+    # the burst untraced and traced in turns (u, t, t, u); the first traced
+    # one counted and checked
+    walls = {0: [], OBSERVE_RING: []}
+    for cap in (0, OBSERVE_RING, OBSERVE_RING, 0):
+        eng, name = engines[cap]
+        eng.stats.update(dict.fromkeys(eng.stats, 0))
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        got, wall = engine_run(eng, name, SERVICE_REQUESTS)
+        torch.cuda.synchronize()
+        walls[cap].append(wall)
+        if cap and len(walls[cap]) == 1:
+            results, stats = got, dict(eng.stats)
+            launches = dict(ops.LAUNCHES)
+    by_rid = {r.rid - (M + 3): r for r in results}
+    for i in range(SERVICE_REQUESTS):
+        r = by_rid[i]
+        if r.status.name != "CONVERGED":
+            raise SystemExit(f"observe service: request {i} {r.status}")
+        # the ring holds the last OBSERVE_RING steps of the block: all of a
+        # request's only when it was resident for no more steps than that
+        check_trace(f"observe service request {i}", r.trace, r.iterations,
+                    r.relres, complete=r.telemetry.chunks_resident
+                    * SERVICE_CHUNK <= OBSERVE_RING)
+    s_rec = dict(
+        requests_per_s=[SERVICE_REQUESTS / w for w in walls[OBSERVE_RING]],
+        untraced_requests_per_s=[SERVICE_REQUESTS / w for w in walls[0]],
+        replays_per_chunk=stats["runs"] / stats["chunks"],
+        host_reads_per_chunk=stats["host_reads"] / stats["chunks"],
+        iterations=[by_rid[i].iterations for i in range(SERVICE_REQUESTS)],
+        stats=stats, launches=launches)
+    s_rec["iterations_as_untraced"] = \
+        s_rec["iterations"] == service["engine"]["iterations"]
+    # the burst once more, its ring holding every request's whole residency
+    # (SOLVE_MAXITER rows against some 900 steps): the splice's reset of
+    # each reused slot, checked on every request
+    eng, name = engines[SOLVE_MAXITER]
+    eng.stats.update(dict.fromkeys(eng.stats, 0))
+    whole, _ = engine_run(eng, name, SERVICE_REQUESTS)
+    s_rec["reused_slots"] = check_splice_reset(
+        "observe service, whole ring", whole, SERVICE_CHUNK, M)
+    s_rec["whole_ring_iterations"] = sorted(
+        (r.rid - (M + 3), r.iterations) for r in whole)
+    s_rec["whole_ring_reads_per_chunk"] = \
+        eng.stats["host_reads"] / eng.stats["chunks"]
+    log(f"observe service: {json.dumps(s_rec)}")
+    log(f"observe service: traced "
+        f"{statistics.mean(s_rec['requests_per_s']):.3f} req/s against "
+        f"{statistics.mean(s_rec['untraced_requests_per_s']):.3f} untraced "
+        f"(each the mean of two runs in turns); "
+        f"{s_rec['replays_per_chunk']:.2f} replays and "
+        f"{s_rec['host_reads_per_chunk']:.2f} host reads per chunk "
+        f"[{card()}]")
+    if stats["runs"] != stats["chunks"] \
+            or stats["host_reads"] != stats["chunks"] \
+            or s_rec["whole_ring_reads_per_chunk"] != 1 \
+            or [it for _, it in s_rec["whole_ring_iterations"]] \
+            != service["engine"]["iterations"] \
+            or not s_rec["iterations_as_untraced"] \
+            or s_rec["launches"]["fused_dots_batched"] != stats["steps"]:
+        raise SystemExit(f"observe service: {s_rec}")
+    out["service"] = s_rec
+    del engines, eng, results, by_rid, whole
+    peng = SolveEngine(ServiceConfig(**scfg))
+    pname = peng.register(ell)
+    engine_run(peng, pname, M + 3)                 # warm: its captures
+    where = os.path.join(OBSERVE_DIR, "profile", "engine")
+    peng = SolveEngine(ServiceConfig(**scfg, profile_dir=where))
+    pname = peng.register(ell)
+    presults, _ = engine_run(peng, pname, M)
+    rep = peng.last_profile
+    e_rec = dict(label=rep.label, device_wall_us=rep.device_wall_us,
+                 phase_us=rep.phase_us, n_device_events=rep.n_device_events,
+                 unmapped_ops=rep.unmapped_ops,
+                 overlap_efficiency=rep.overlap_efficiency,
+                 statuses=sorted({r.status.name for r in presults}))
+    log(f"observe profile engine: {json.dumps(e_rec)}")
+    if rep.n_device_events == 0 or e_rec["statuses"] != ["CONVERGED"] \
+            or not all(rep.phase_us[k] > 0
+                       for k in ("matvec", "reduce", "axpy")):
+        raise SystemExit(f"observe profile engine: {e_rec}")
+    out["profiles"]["engine"] = e_rec
+    del peng
+
+    # -- the CLI --------------------------------------------------------------
+    cli_dir = os.path.join(OBSERVE_DIR, "cli")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.observe", "smoke", "--out",
+         cli_dir], env=dict(os.environ, PYTHONPATH=SRC), cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    log(f"observe CLI: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s: {proc.stdout.strip()}")
+    schemas = {}
+    for fname, key in (("convergence.json", None), ("metrics.json", None),
+                       ("spans.trace.json", "metadata")):
+        path = os.path.join(cli_dir, fname)
+        if os.path.exists(path):
+            with open(path) as fh:
+                data = json.load(fh)
+            schemas[fname] = (data[key] if key else data).get("schema")
+    prom = os.path.join(cli_dir, "metrics.prom")
+    schemas["metrics.prom"] = os.path.exists(prom) and \
+        os.path.getsize(prom) > 0
+    log(f"observe CLI artifacts: {json.dumps(schemas)}")
+    if proc.returncode != 0 or schemas != {
+            "convergence.json": "repro.observe/convergence-trace/v1",
+            "metrics.json": "repro.observe/metrics-snapshot/v1",
+            "spans.trace.json": "repro.observe/chrome-trace/v1",
+            "metrics.prom": True}:
+        raise SystemExit(f"observe CLI: exit {proc.returncode}, artifacts "
+                         f"{schemas}; stderr {proc.stderr[-2000:]}")
+    out["cli"] = schemas
+    log_memory(torch, "3h")
     return out
 
 
@@ -2115,7 +2592,7 @@ def main() -> int:
             "fused_dots_health_batched"])
     log_memory(torch, "3g")
 
-    # -- 5. the solve service --------------------------------------------------
+    # -- 5. the solve service -------------------------------------------------
     service = run_service_path(torch, repro_torch, ops, ell, stencil, pc,
                                args.seed)
     service_launches = dict(
@@ -2128,7 +2605,11 @@ def main() -> int:
             "block_jacobi_apply_batched"])
     service["c16"] = check_session_budget(torch, repro_torch, ell)
 
-    # -- 4. the serving path ---------------------------------------------------
+    # -- 3h. traces and profiles (after 5: it serves 5's burst traced) -------
+    observe = run_observe_path(torch, repro_torch, ops, ell, stencil, b,
+                               main, many, service, args.seed)
+
+    # -- 4. the serving path --------------------------------------------------
     # the cached sessions hold their programs' buffers and graph pools
     del pc, ell, stencil, b, v, want
     repro_torch.clear_session_cache()
@@ -2169,6 +2650,8 @@ def main() -> int:
             extra["launches_service"] = service_launches[kname]
         if kname in mesh_launches:
             extra["launches_mesh"] = mesh_launches[kname]
+        if kname in observe["launches"]:
+            extra["launches_observe"] = observe["launches"][kname]
         kernels.append(dict(
             name=kname, route="cuda", source=SOURCE[kname],
             replaces=REPLACES[kname],

@@ -76,13 +76,21 @@ programs the session memoizes.
                                       substrate="cuda").on_mesh(mesh)
     res = dsolver.solve(b_grid)             # res.x: this rank's x-slab
 
-Not ported yet, and raising :class:`NotImplementedError`: ``trace=`` and
-``profile=`` of ``solve`` and ``solve_many``, on a mesh too.
+Observability, as in the JAX package: ``trace=True`` (a ring of
+``maxiter`` rows) or ``trace=N`` (the last N iterations) on ``solve``,
+``solve_many`` and a mesh's solves records the per-iteration trace on the
+device (``SolveResult.trace``, a :class:`repro_torch.observe
+.ConvergenceTrace`; a traced solve is the untraced one bit for bit, and a
+program of its own).  ``profile=DIR`` on ``solve``, ``solve_many`` and a
+mesh's ``solve`` warms the programs, runs the solve again inside a
+``torch.profiler`` window and sets ``last_profile``, a
+:class:`repro_torch.observe.ProfileReport` (also ``DIR/profile.json``).
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
 import weakref
 from collections import OrderedDict
 from typing import (Any, Callable, Dict, Hashable, List, Optional, Sequence,
@@ -99,6 +107,8 @@ from .core.program import Program
 from .core.substrate import SUBSTRATES, SubstrateLike, get_substrate
 from .core.types import (DotReduce, SolveResult, SolverConfig,
                          derive_config, per_column, resolve_device)
+from .observe import profile as _profile
+from .observe.trace import wrap_trace
 from .precond.base import (PrecondLike, Preconditioner, resolve_precond,
                            validate_precond_spec)
 
@@ -224,10 +234,6 @@ def operator_fingerprint(op, precond: PrecondLike = None) -> str:
     return h.hexdigest()
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet")
-
-
 def _program_config(cfg: SolverConfig) -> SolverConfig:
     """``cfg`` as a program key: without ``tol`` (a constant buffer of the
     body) and ``maxiter`` (the host's loop bound), unless the history
@@ -277,6 +283,8 @@ class LinearSolver:
         residual-replacement steps, host reads of the stop flag, programs
         memoized, program builds (the JAX package's retraces), CUDA
         graphs captured and chunks run (on the card, graph replays).
+      last_profile: the :class:`~repro_torch.observe.ProfileReport` of the
+        latest ``profile=`` call (``None`` before one).
     """
 
     def __init__(self, method: str, operator, *,
@@ -316,6 +324,7 @@ class LinearSolver:
         self._programs: Dict[Hashable, Program] = {}
         self._cache_key: Optional[Tuple] = None
         self._mesh_bindings: Dict[Any, "DistributedSolver"] = {}
+        self.last_profile = None
 
     @property
     def precond(self) -> Optional[Preconditioner]:
@@ -403,8 +412,40 @@ class LinearSolver:
             _SESSIONS.move_to_end(self._cache_key)
         _trim_session_cache(self)
 
-    def _derive(self, tol, maxiter) -> SolverConfig:
-        return derive_config(self.config, tol, maxiter)
+    def _derive(self, tol, maxiter, trace=None) -> SolverConfig:
+        """The bound config with a call's overrides; ``trace=True`` sizes
+        the ring to the iteration budget (a full record), an int ``N``
+        keeps the last N iterations, ``False`` turns it off."""
+        cfg = derive_config(self.config, tol, maxiter)
+        if trace is not None:
+            cap = cfg.maxiter if trace is True else int(trace)
+            cfg = dataclasses.replace(cfg, trace_cap=cap)
+        return cfg
+
+    @staticmethod
+    def _wrap_trace(res: SolveResult) -> SolveResult:
+        """The ring's payload as a :class:`~repro_torch.observe
+        .ConvergenceTrace` (one copy to the host), when it has one."""
+        if res.trace is None:
+            return res
+        return res._replace(trace=wrap_trace(res.trace))
+
+    def _profiled_run(self, call: Callable[[], SolveResult],
+                      profile_dir: str, entry: str) -> SolveResult:
+        """Warm ``call``'s programs (their captures stay out of the
+        window), learn the kernel map from one eager run, run ``call``
+        again inside a profile capture, and keep the analysed report as
+        :attr:`last_profile` and ``profile_dir/profile.json``."""
+        call()
+        with _profile.capture(profile_dir, learn=call) as cap:
+            res = call()
+        rep = cap.analyze(
+            iterations=int(torch.as_tensor(res.iterations).max()) or None,
+            label=f"{self.method}/{self.sub.name}/{entry}")
+        rep.save(os.path.join(profile_dir, "profile.json"))
+        cap.save_kernel_map()
+        self.last_profile = rep
+        return res
 
     def _tensor(self, v):
         if v is None:
@@ -416,28 +457,34 @@ class LinearSolver:
     def solve(self, b, x0=None, *, tol=None, maxiter=None, r0_star=None,
               trace=None, profile=None) -> SolveResult:
         """Solve A x = b.  ``tol``/``maxiter`` override the bound config;
-        ``x0``/``r0_star`` as for the free functions."""
-        if trace:
-            raise _not_ported("solve(trace=...)")
-        if profile is not None:
-            raise _not_ported("solve(profile=...)")
+        ``x0``/``r0_star`` as for the free functions.  ``trace`` (``True``
+        or a capacity) records the per-iteration trace
+        (``SolveResult.trace``, a :class:`~repro_torch.observe
+        .ConvergenceTrace`; p-BiCGSafe, -rr and ssBiCGSafe2, ``None`` for
+        the other methods, as in the JAX package); ``profile=DIR`` profiles
+        the solve (:attr:`last_profile`)."""
         if self.blocked:
             raise ValueError(
                 "this session wraps a block matvec (blocked=True); use "
                 "solve_many / the open-loop handles")
-        cfg = self._derive(tol, maxiter)
+        cfg = self._derive(tol, maxiter, trace)
         b = self._tensor(b)
+        x0, r0_star = self._tensor(x0), self._tensor(r0_star)
         key = ("solve", _program_config(cfg), x0 is None, r0_star is None,
                tuple(b.shape), b.dtype)
         self.stats["solves"] += 1
-        res = solve_chunked(
-            CHUNKED[self.method], self.operator, b, self._tensor(x0),
-            config=cfg, r0_star=self._tensor(r0_star), substrate=self.sub,
-            precond=self.precond, dot_reduce=self._reduce, stats=self.stats,
-            program=lambda step: self._program(key, lambda: Program(
-                step, self.device, key, stats=self.stats)))
+
+        def call() -> SolveResult:
+            return solve_chunked(
+                CHUNKED[self.method], self.operator, b, x0, config=cfg,
+                r0_star=r0_star, substrate=self.sub, precond=self.precond,
+                dot_reduce=self._reduce, stats=self.stats,
+                program=lambda step: self._program(key, lambda: Program(
+                    step, self.device, key, stats=self.stats)))
+        res = call() if profile is None \
+            else self._profiled_run(call, profile, "solve")
         self._used()
-        return res
+        return self._wrap_trace(res)
 
     # -- multi-RHS and the open-loop handles -------------------------------
 
@@ -470,28 +517,32 @@ class LinearSolver:
         and ``maxiter`` are scalars or (m,).  A scalar ``maxiter`` also
         bounds the loop; (m,) budgets are capped by ``config.maxiter``.
         The result's fields are per column (see :func:`repro_torch.core
-        .multirhs.result_from_state`)."""
+        .multirhs.result_from_state`).  ``trace`` and ``profile`` as in
+        :meth:`solve`; the trace is batched (``.column(j)`` for one
+        column's view)."""
         self._require_pbicgsafe("solve_many")
-        if trace:
-            raise _not_ported("solve_many(trace=...)")
-        if profile is not None:
-            raise _not_ported("solve_many(profile=...)")
         B = self._as_block(B)
-        if maxiter is not None and np.ndim(maxiter) == 0:
-            cfg, maxiter = self._derive(None, maxiter), None
-        else:
-            cfg = self.config
+        scalar = maxiter is not None and np.ndim(maxiter) == 0
+        cfg = self._derive(None, maxiter if scalar else None, trace)
+        if scalar:
+            maxiter = None
         key = ("solve_many", _program_config(cfg), X0 is None,
                r0_star is None, tuple(B.shape), B.dtype)
         self.stats["solves"] += 1
-        st = multirhs.init_state(
-            self.block_matvec, self._prep(B), self._tensor(X0), config=cfg,
-            r0_star=self._tensor(r0_star), substrate=self.sub, tol=tol,
-            maxiter=maxiter, dot_reduce=self._reduce)
-        st = multirhs.run_chunks(self._batched_program(key, cfg), st,
-                                 cfg.maxiter, self.stats)
+        X0, r0_star = self._tensor(X0), self._tensor(r0_star)
+
+        def call() -> SolveResult:
+            st = multirhs.init_state(
+                self.block_matvec, self._prep(B), X0, config=cfg,
+                r0_star=r0_star, substrate=self.sub, tol=tol,
+                maxiter=maxiter, dot_reduce=self._reduce)
+            return multirhs.result_from_state(multirhs.run_chunks(
+                self._batched_program(key, cfg), st, cfg.maxiter,
+                self.stats))
+        res = call() if profile is None \
+            else self._profiled_run(call, profile, "solve_many")
         self._used()
-        return multirhs.result_from_state(st)
+        return self._wrap_trace(res)
 
     def init(self, B, X0=None, *, tol=None, maxiter=None,
              r0_star=None) -> dict:
@@ -579,8 +630,11 @@ class LinearSolver:
         return out
 
     def result(self, state: dict) -> SolveResult:
-        """Package an open-loop state as a :class:`SolveResult`."""
-        return multirhs.result_from_state(state)
+        """Package an open-loop state as a :class:`SolveResult`.  Open-loop
+        tracing is the bound config's (``SolverConfig(trace_cap=...)``):
+        every chunk carries the ring, wrapped here as a batched
+        :class:`~repro_torch.observe.ConvergenceTrace`."""
+        return self._wrap_trace(multirhs.result_from_state(state))
 
     def on_mesh(self, mesh, *, shard_axes: Optional[Sequence[str]] = None
                 ) -> "DistributedSolver":
@@ -656,14 +710,14 @@ class DistributedSolver:
               profile=None) -> SolveResult:
         """Sharded single-RHS solve of the bound method: ``b_grid`` is the
         global ``(nx, ny, nz)`` grid (on every rank); ``x`` of the result
-        is this rank's slab, every other field equal on all ranks."""
-        if trace:
-            raise _not_ported("on_mesh(...).solve(trace=...)")
-        if profile is not None:
-            raise _not_ported("on_mesh(...).solve(profile=...)")
+        is this rank's slab, every other field equal on all ranks.
+        ``trace`` as in :meth:`LinearSolver.solve`: the ring is built from
+        the all-reduced dots, the same on every rank, and adds no
+        collective; ``profile=DIR`` as there (every rank profiles its own
+        part; the report goes to the session's ``last_profile``)."""
         from .core.distributed import build_stencil_solver
         s = self.session
-        cfg = s._derive(tol, maxiter)
+        cfg = s._derive(tol, maxiter, trace)
         fn = self._built(("dsolve", _program_config(cfg)),
                          lambda: build_stencil_solver(
                              SOLVERS[s.method], s.operator, self.mesh,
@@ -671,22 +725,25 @@ class DistributedSolver:
                              substrate=s.sub, precond=s.precond_spec,
                              stats=s.stats, syncs=self.syncs))
         s.stats["solves"] += 1
-        res = fn(b_grid, tol=cfg.tol, maxiter=cfg.maxiter)
+
+        def call() -> SolveResult:
+            return fn(b_grid, tol=cfg.tol, maxiter=cfg.maxiter)
+        res = call() if profile is None \
+            else s._profiled_run(call, profile, "mesh_solve")
         s._used()
-        return res
+        return s._wrap_trace(res)
 
     def solve_many(self, B_grid, *, tol=None, maxiter=None,
                    trace=None) -> SolveResult:
         """Sharded batched solve: ``(nx, ny, nz, m)`` right-hand sides, one
         ``(9, m)`` all-reduce per iteration whatever m is (``(11, m)``
         with ``SolverConfig(guard=True)``); ``x`` is this rank's
-        ``(nx // shards, ny, nz, m)`` slab."""
+        ``(nx // shards, ny, nz, m)`` slab.  ``trace`` as in :meth:`solve`
+        (batched)."""
         s = self.session
         s._require_pbicgsafe("on_mesh(...).solve_many")
-        if trace:
-            raise _not_ported("on_mesh(...).solve_many(trace=...)")
         from .core.distributed import build_stencil_solver_batched
-        cfg = s._derive(tol, maxiter)
+        cfg = s._derive(tol, maxiter, trace)
         fn = self._built(("dsolve_many", _program_config(cfg)),
                          lambda: build_stencil_solver_batched(
                              s.operator, self.mesh,
@@ -696,7 +753,7 @@ class DistributedSolver:
         s.stats["solves"] += 1
         res = fn(B_grid, tol=cfg.tol, maxiter=cfg.maxiter)
         s._used()
-        return res
+        return s._wrap_trace(res)
 
     @property
     def nbytes(self) -> int:

@@ -7,12 +7,30 @@ host: a chunk of iterations queues its work without a sync.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from .types import (SolveResult, SolveStatus, classify_status,
-                    identity_reduce)
+                    identity_reduce, trace_init, trace_record)
+
+#: whether the step bodies tag their phases (:func:`phase`): on only while
+#: a :func:`repro_torch.observe.profile.capture` is open
+_TAGS = [False]
+_UNTAGGED = contextlib.nullcontext()
+
+
+def phase(name: str):
+    """A ``torch.profiler.record_function`` range named ``name``
+    (``repro.matvec`` / ``repro.reduce`` / ``repro.axpy``, and
+    ``repro.step`` around a whole step) while a profile capture is open,
+    else a no-op: the counterpart of the JAX package's
+    ``jax.named_scope`` tags, which cost an unprofiled solve nothing.  The
+    ranges enclose the eager launches; a graph replay carries none, so
+    :mod:`repro_torch.observe.profile` maps kernel names to phases from an
+    eager run."""
+    return torch.profiler.record_function(name) if _TAGS[0] else _UNTAGGED
 
 
 def local_dots(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -60,27 +78,80 @@ def hold_checked(st: dict, new: dict, active, relres, done,
 
 
 def hold_in_step(st: dict, new: dict, active, relres, done, bad,
-                 hist) -> dict:
+                 logs: dict) -> dict:
     """The state after one step of a method that decides its stop from
     the step's own dots (p-BiCGSafe, -rr, ssBiCGSafe2): ``new`` while the
     state runs and the step found neither convergence nor a breakdown;
     else the JAX body's stopped state (the state it was given, with this
-    step's relres, flags and history), and once stopped the state as it
-    was."""
+    step's relres, flags and ``logs``: the history, and the trace ring of
+    :func:`trace_row`), and once stopped the state as it was (the logs
+    keep their slots themselves)."""
     held = dict(st)
     held.update(relres=torch.where(active, relres, st["relres"]),
                 converged=torch.where(active, done, st["converged"]),
                 breakdown=torch.where(active, bad & ~done, st["breakdown"]),
-                hist=hist)
+                **logs)
+    new.update(logs)
     return tree_select(~active | done | bad, held, new)
 
 
+def trace_row(st: dict, dots: torch.Tensor, beta, relres, done, bad,
+              active) -> dict:
+    """Record one single-RHS iteration into the state's trace ring, when
+    it has one (``SolverConfig.trace_cap``; the JAX package's
+    ``_trace_row``), and return the logs :func:`hold_in_step` carries
+    (``{}`` without a ring).  Every channel re-expresses a value the step
+    already computed, beside it: nothing here feeds the iteration, so a
+    traced step is the untraced one bit for bit.
+
+    The iteration channel is the number of COMPLETED updates when relres
+    was measured (the history's indexing): the first row is ``(0, 1.0,
+    ...)`` and the terminal row ``(iterations, final relres, ...,
+    CONVERGED/BREAKDOWN)``.  ``trace_steps`` counts the rows written: a
+    step queued after the state stopped (``active`` false) writes none."""
+    if "trace" not in st:
+        return {}
+    status = torch.where(done, SolveStatus.CONVERGED.value,
+                         torch.where(bad, SolveStatus.BREAKDOWN.value,
+                                     SolveStatus.RUNNING.value))
+    trace_record(st["trace"], st["i"], trace_channels(
+        dots, beta, st["i"], relres, st, torch.zeros_like(relres), status),
+        active)
+    return dict(trace=st["trace"],
+                trace_steps=st["trace_steps"] + active.to(torch.int32))
+
+
+def trace_channels(dots: torch.Tensor, beta, count, relres, st: dict,
+                   drift, status) -> tuple:
+    """The :data:`~repro_torch.core.types.TRACE_CHANNELS` of one step, from
+    the values it computed: ``count`` the completed updates (``i``, or
+    each column's ``iterations``), the rho denominator ``zeta * f`` of the
+    state it was given, the alpha denominator ``g + beta h`` and the omega
+    one (``a`` on the first step, else ``a b - c^2``), re-expressed as
+    ``bicgsafe_coefficients`` forms them."""
+    a_d, b_d, c_d, g_d, h_d = (dots[k] for k in (0, 1, 2, 6, 7))
+    return (count, relres, st["zeta"] * st["f"], g_d + beta * h_d,
+            torch.where(count == 0, a_d, a_d * b_d - c_d * c_d), drift,
+            status)
+
+
+def trace_state(config, dtype, device) -> dict:
+    """The ring fields a single-RHS state starts with (``{}`` untraced)."""
+    if not config.trace_cap:
+        return {}
+    return dict(trace=trace_init(config, dtype, device),
+                trace_steps=torch.zeros((), dtype=torch.int32, device=device))
+
+
 def state_result(st: dict) -> SolveResult:
-    """The result of such a method: the state's own flags and relres."""
+    """The result of such a method: the state's own flags and relres, and
+    the trace ring's payload when it has one."""
+    trace = {"buffer": st["trace"], "steps": st["trace_steps"]} \
+        if "trace" in st else None
     return SolveResult(st["x"], st["i"], st["relres"], st["converged"],
                        st["breakdown"], st["hist"],
                        classify_status(st["converged"], st["breakdown"],
-                                       st["relres"]), None)
+                                       st["relres"]), trace)
 
 
 def tol_const(config, like: torch.Tensor) -> torch.Tensor:

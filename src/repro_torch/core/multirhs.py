@@ -62,12 +62,13 @@ import torch
 from ..precond.base import PrecondLike, wrap_block_preconditioned
 from . import pipelined_bicgsafe
 from ._common import (IDENTITY, Reducer, as_reducer,
-                      bicgsafe_coefficients, pipelined_recurrence_tail)
+                      bicgsafe_coefficients, phase, pipelined_recurrence_tail,
+                      trace_channels)
 from .linear_operator import batched_matvec
 from .program import Program
 from .substrate import SubstrateLike, get_substrate
 from .types import (DotReduce, SolveResult, SolverConfig, SolveStatus,
-                    classify_status, per_column)
+                    classify_status, per_column, trace_init, trace_record)
 
 __all__ = ["GUARD_FIELDS", "SPLICE", "active_columns", "batched_matvec",
            "init_state", "splice_columns", "step_chunk", "run_chunks",
@@ -209,6 +210,8 @@ def init_state(bmv: Callable,
         hist=hist)
     if config.guard:
         st.update(_guard_init(m, norm_r0.dtype, conv0))
+    if config.trace_cap:
+        st["trace"] = trace_init(config, norm_r0.dtype, dev, m)
     return st
 
 
@@ -270,6 +273,10 @@ def splice_columns(bmv: Callable,
         col_maxiter=sca(maxiter_col, state["col_maxiter"]))
     if state["hist"].shape[0]:
         out["hist"] = torch.where(refill, float("nan"), state["hist"])
+    if "trace" in state:
+        # a refilled column starts a fresh trajectory: its rows are NaN'd
+        # (as its history is); the ring goes on at the block's global slot
+        out["trace"] = torch.where(refill, float("nan"), state["trace"])
     if "status" in state:
         fresh = _guard_init(m, state["norm_r0"].dtype, conv_new)
         for k in GUARD_FIELDS:
@@ -296,14 +303,17 @@ def _make_body(sub, bmv: Callable, config: SolverConfig,
         # in the single-RHS iteration; the guarded (11, m) phase also reads
         # the previous iterate x (loop-carried, no edge to As).  So the
         # reduction is started first and waited on after A S.
-        if guard:
-            parts = sub.bicgsafe_dots_health(s, y, r, t_prev, st["rs"],
-                                             st["x"])
-        else:
-            parts = sub.bicgsafe_dots(s, y, r, t_prev, st["rs"])
-        pending = reduce.start(parts)
-        As = bmv(s)
-        dots = _wait(reduce, pending, parts)
+        with phase("repro.reduce"):
+            if guard:
+                parts = sub.bicgsafe_dots_health(s, y, r, t_prev, st["rs"],
+                                                 st["x"])
+            else:
+                parts = sub.bicgsafe_dots(s, y, r, t_prev, st["rs"])
+            pending = reduce.start(parts)
+        with phase("repro.matvec"):
+            As = bmv(s)
+        with phase("repro.reduce"):
+            dots = _wait(reduce, pending, parts)
 
         # each column's i = 0 branch keys off its own iteration count, so
         # a column spliced into a running block starts correctly.  Guarded,
@@ -324,14 +334,18 @@ def _make_body(sub, bmv: Callable, config: SolverConfig,
 
         # the update phase freezes the columns that do not advance (in the
         # kernel on "cuda"): no (n, m) select afterwards for its outputs
-        upd = sub.axpy_phase(
-            dict(r=r, p=st["p"], u=st["u"], t=t_prev, y=y, z=st["z"],
-                 s=s, l=st["l"], g=st["g"], w=st["w"], x=st["x"], As=As),
-            (alpha, beta, zeta, eta), mask=advance)
+        with phase("repro.axpy"):
+            upd = sub.axpy_phase(
+                dict(r=r, p=st["p"], u=st["u"], t=t_prev, y=y, z=st["z"],
+                     s=s, l=st["l"], g=st["g"], w=st["w"], x=st["x"],
+                     As=As),
+                (alpha, beta, zeta, eta), mask=advance)
 
-        Aw = bmv(upd["w"])                                  # block MV #2
-        l, g_next, s_next = pipelined_recurrence_tail(
-            upd["q"], s, As, st["g"], Aw, alpha, zeta, eta)
+        with phase("repro.matvec"):
+            Aw = bmv(upd["w"])                              # block MV #2
+        with phase("repro.axpy"):
+            l, g_next, s_next = pipelined_recurrence_tail(
+                upd["q"], s, As, st["g"], Aw, alpha, zeta, eta)
 
         # the recurrence tail (l, g, s) and the per-column carries have no
         # in-kernel mask: freeze them here
@@ -370,9 +384,35 @@ def _make_body(sub, bmv: Callable, config: SolverConfig,
             out.update(_guard_update(config, st, dots, normr, relres, active,
                                      done, bad, nonfinite, code[0], advance,
                                      iters_next))
+        if "trace" in st:
+            out["trace"] = _trace_row(st, out, dots, beta, relres_out,
+                                      active)
         return out
 
     return body
+
+
+def _trace_row(st: dict, out: dict, dots, beta, relres_out, active
+               ) -> torch.Tensor:
+    """Write one batched row into the trace ring at slot ``i % cap`` of
+    the block's global ``i`` (the JAX body's row), beside the step: every
+    channel re-expresses a value it computed, and nothing here feeds the
+    iteration.  A step with no active column (the JAX loop not running)
+    writes nothing.  The iteration channel is each column's completed
+    updates when relres was measured, so a frozen column repeats its
+    terminal row (``ConvergenceTrace.per_iteration`` collapses it); drift
+    and status are the guard's when it is on."""
+    if "status" in out:
+        drift, status = out["drift"], out["status"]
+    else:
+        drift = torch.zeros_like(relres_out)
+        status = torch.where(
+            out["converged"], SolveStatus.CONVERGED.value,
+            torch.where(out["breakdown"], SolveStatus.BREAKDOWN.value,
+                        SolveStatus.RUNNING.value))
+    return trace_record(st["trace"], st["i"], trace_channels(
+        dots, beta, st["iterations"], relres_out, st, drift, status),
+        active.any())
 
 
 def _guard_update(config: SolverConfig, st: dict, dots, normr, relres,
@@ -507,9 +547,11 @@ def result_from_state(state: dict) -> SolveResult:
     """Package a state as a :class:`SolveResult` with per-column fields:
     ``x`` (n, m); ``iterations``, ``relres``, ``converged``,
     ``breakdown``, ``status`` (m,); ``residual_history`` (maxiter+1, m)
-    when recorded.  A guarded state's typed status is finalised (a column
-    still RUNNING past its budget becomes MAXITER); otherwise a column
-    still active (an open-loop state mid-flight) has status RUNNING."""
+    when recorded; ``trace`` the ring's payload when the state has one
+    (``steps``: the block's global ``i``).  A guarded state's typed status
+    is finalised (a column still RUNNING past its budget becomes
+    MAXITER); otherwise a column still active (an open-loop state
+    mid-flight) has status RUNNING."""
     if "status" in state:
         sts = state["status"]
         running = sts == SolveStatus.RUNNING.value
@@ -525,9 +567,11 @@ def result_from_state(state: dict) -> SolveResult:
                           classify_status(state["converged"],
                                           state["breakdown"],
                                           state["relres"]))
+    trace = {"buffer": state["trace"], "steps": state["i"]} \
+        if "trace" in state else None
     return SolveResult(state["x"], state["iterations"], state["relres"],
                        state["converged"], state["breakdown"], state["hist"],
-                       sts.to(torch.int32), None)
+                       sts.to(torch.int32), trace)
 
 
 def solve_batched(matvec: Callable,

@@ -41,8 +41,8 @@ import torch
 
 from ..precond.base import PrecondLike, preconditioned_system
 from ._common import (as_reducer, bicgsafe_coefficients, hold_in_step,
-                      init_guess, pipelined_recurrence_tail, state_result,
-                      tol_const)
+                      init_guess, phase, pipelined_recurrence_tail,
+                      state_result, tol_const, trace_row, trace_state)
 from .program import Program
 from .substrate import SubstrateLike, get_substrate
 from .types import (DotReduce, SolveResult, SolverConfig, history_init,
@@ -167,7 +167,8 @@ def _init(matvec, b, x0, r0_star, config: SolverConfig, sub, reduce):
         i=torch.zeros((), dtype=torch.int32, device=b.device),
         relres=torch.where(conv0, 0.0, 1.0).to(norm_r0.dtype),
         converged=conv0,
-        breakdown=false, hist=hist)
+        breakdown=false, hist=hist,
+        **trace_state(config, norm_r0.dtype, b.device))
     return state, dict(b=b, rs=rs, norm_r0=norm_r0, false=false,
                        tol=tol_const(config, norm_r0))
 
@@ -184,9 +185,13 @@ def _step(st, c, replace: bool, *, matvec, sub, config: SolverConfig,
     # MV #1 (A s_i) and the fused reduction are mutually independent:
     # the dots read only {s, y, r, t_prev, rs}.  So the reduction is
     # started first, runs while A s_i is computed, and is waited on after.
-    pending = reduce.start(sub.bicgsafe_dots(s, y, r, t_prev, c["rs"]))
-    As = matvec(s)
-    dots = reduce.wait(pending)
+    # The phase tags are no-ops unless a profile capture is open.
+    with phase("repro.reduce"):
+        pending = reduce.start(sub.bicgsafe_dots(s, y, r, t_prev, c["rs"]))
+    with phase("repro.matvec"):
+        As = matvec(s)
+    with phase("repro.reduce"):
+        dots = reduce.wait(pending)
 
     beta, alpha, zeta, eta, f, rr, bad = bicgsafe_coefficients(
         dots, st["i"], st["alpha"], st["zeta"], st["f"], eps)
@@ -195,40 +200,47 @@ def _step(st, c, replace: bool, *, matvec, sub, config: SolverConfig,
 
     # blocked vector-update phase (Alg. 3.1 lines 23-32): one substrate
     # call covers all 10 recurrence updates
-    upd = sub.axpy_phase(
-        dict(r=r, p=st["p"], u=st["u"], t=t_prev, y=y, z=st["z"],
-             s=s, l=st["l"], g=st["g"], w=st["w"], x=st["x"], As=As),
-        (alpha, beta, zeta, eta))
+    with phase("repro.axpy"):
+        upd = sub.axpy_phase(
+            dict(r=r, p=st["p"], u=st["u"], t=t_prev, y=y, z=st["z"],
+                 s=s, l=st["l"], g=st["g"], w=st["w"], x=st["x"], As=As),
+            (alpha, beta, zeta, eta))
     p, o, u, q, w = (upd[k] for k in ("p", "o", "u", "q", "w"))
     t, z, y_next, x_next, r_next = (
         upd[k] for k in ("t", "z", "y", "x", "r"))
 
     if not replace:
-        Aw = matvec(w)                                    # MV #2 (A w_i)
-        l, g_next, s_next = pipelined_recurrence_tail(
-            q, s, As, st["g"], Aw, alpha, zeta, eta)
+        with phase("repro.matvec"):
+            Aw = matvec(w)                                # MV #2 (A w_i)
+        with phase("repro.axpy"):
+            l, g_next, s_next = pipelined_recurrence_tail(
+                q, s, As, st["g"], Aw, alpha, zeta, eta)
     else:
         # Alg. 4.1 lines 26-33 + 38-45: w from a true matvec, then
         # reset r, l, g, s to their true values (p, o, u, z keep their
         # recurrence values — they are exact either way).
-        w = matvec(u)                                     # true A u_i
+        with phase("repro.matvec"):
+            w = matvec(u)                                 # true A u_i
         t = o - w
         y_next = zeta * s + eta * y - alpha * w
         x_next = st["x"] + alpha * p + z
-        r_next = c["b"] - matvec(x_next)
-        l = matvec(t)
-        g_next = matvec(y_next)
-        s_next = matvec(r_next)
+        with phase("repro.matvec"):
+            r_next = c["b"] - matvec(x_next)
+            l = matvec(t)
+            g_next = matvec(y_next)
+            s_next = matvec(r_next)
 
-    hist_i = history_update(st["hist"], st["i"], relres, config, active)
+    logs = dict(hist=history_update(st["hist"], st["i"], relres, config,
+                                    active),
+                **trace_row(st, dots, beta, relres, done, bad, active))
     false = c["false"]
     new = dict(
         x=x_next, r=r_next, s=s_next, p=p, u=u, t=t, y=y_next, z=z,
         w=w, l=l, g=g_next,
         alpha=alpha, zeta=zeta, f=f,
         i=st["i"] + 1, relres=relres,
-        converged=false, breakdown=false, hist=hist_i)
-    return hold_in_step(st, new, active, relres, done, bad, hist_i)
+        converged=false, breakdown=false)
+    return hold_in_step(st, new, active, relres, done, bad, logs)
 
 
 def _result(st, c, config: SolverConfig) -> SolveResult:

@@ -19,10 +19,12 @@ A capture is preceded by a warm-up: the chunk runs once, eagerly, on a
 scratch copy of the buffers, on the stream the capture then uses.  It
 builds and loads the kernel library, runs each launcher's first-launch
 set-up and readies PyTorch's own lazy state, none of which may happen
-under capture.  The warm-up's launches and the capture's recorded ones are
-taken back out of :data:`repro_torch.kernels.ops.LAUNCHES` when the build
-ends, and every replay adds what its capture recorded: the counters read as
-they would for the eager chunk.  The same holds for the ``counters`` a
+under capture.  The capture itself runs with Python's cyclic garbage
+collector held off (:func:`_collector_held`).  The warm-up's launches and
+the capture's recorded ones are taken back out of
+:data:`repro_torch.kernels.ops.LAUNCHES` when the build ends, and every
+replay adds what its capture recorded: the counters read as they would for
+the eager chunk.  The same holds for the ``counters`` a
 program is given (objects with a ``calls`` count, such as the
 :class:`~repro_torch.core._common.SyncCounter` of a mesh session's
 reductions).
@@ -52,18 +54,42 @@ budget calls it); the program rebuilds them on its next load.
 from __future__ import annotations
 
 import contextlib
+import gc
 import weakref
 from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
 
 import torch
 
 from ..kernels._build import LAUNCHES
+from ._common import phase
 
 #: a chunk: one ``replace`` flag per step
 Schedule = Tuple[bool, ...]
 
 _EAGER = [False]
 _SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+@contextlib.contextmanager
+def _collector_held():
+    """Python's cyclic garbage collector held off for the length of a
+    capture (ROADMAP C17).  A session bound to a mesh and its binding
+    refer to each other, so a dropped one is left to the collector, which
+    may run at any allocation, a capture's too, and ``torch.cuda.graph``
+    no longer collects before a capture.  On the card a capture with a
+    collector run inside it failed ("operation failed due to a previous
+    error during capture"): ``tools/capture_mode_probe.py`` counts 4 of 42
+    fresh sessions failed under the "global" and the "thread_local" error
+    modes, each failure with one collector run inside a capture, and 0 of
+    42 with the collector held.  Which CUDA call of the freed objects
+    invalidates the capture is not known."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 @contextlib.contextmanager
@@ -101,10 +127,10 @@ class Program:
     replay adds what its capture counted.
     """
 
-    #: the state's fields a step writes in place (the residual history):
-    #: the eager chunk works on a copy of them, so the caller's state is
-    #: left as it was
-    INPLACE = ("hist",)
+    #: the state's fields a step writes in place (the residual history and
+    #: the iteration-trace ring): the eager chunk works on a copy of them,
+    #: so the caller's state is left as it was
+    INPLACE = ("hist", "trace")
 
     def __init__(self, step: Callable[[dict, dict, bool], dict], device,
                  key: Hashable = None, *,
@@ -236,7 +262,8 @@ class Program:
 
     def _steps(self, state: dict, schedule: Schedule) -> dict:
         for replace in schedule:
-            state = self.step(state, self.consts, replace)
+            with phase("repro.step"):
+                state = self.step(state, self.consts, replace)
         return state
 
     def _write_back(self, out: dict) -> None:
@@ -283,7 +310,8 @@ class Program:
             # first, what the capture reserves is its pool's growth
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(self.device)
-            with torch.cuda.graph(graph, pool=self._pool, stream=side):
+            with _collector_held(), torch.cuda.graph(
+                    graph, pool=self._pool, stream=side):
                 self._write_back(self._steps(dict(self._buffers), schedule))
             self._pool_bytes += max(
                 0, torch.cuda.memory_reserved(self.device) - reserved)

@@ -22,7 +22,7 @@ import torch
 
 from ..precond.base import PrecondLike
 from ._common import (bicgsafe_coefficients, hold_in_step, init_guess,
-                      state_result, tol_const)
+                      phase, state_result, tol_const, trace_row, trace_state)
 from .pipelined_bicgsafe import ChunkedMethod, solve_chunked
 from .substrate import SubstrateLike
 from .types import (DotReduce, SolveResult, SolverConfig, history_init,
@@ -50,7 +50,8 @@ def _init(matvec, b, x0, r0_star, config: SolverConfig, sub, reduce):
         x=x, r=r0, p=z0, u=z0, t=z0, y=z0, z=z0,
         alpha=zero, zeta=one, f=one, i=i0,
         relres=torch.where(conv0, 0.0, 1.0).to(norm_r0.dtype),
-        converged=conv0, breakdown=false, hist=hist)
+        converged=conv0, breakdown=false, hist=hist,
+        **trace_state(config, norm_r0.dtype, b.device))
     return state, dict(rs=rs, norm_r0=norm_r0, false=false,
                        tol=tol_const(config, norm_r0))
 
@@ -60,32 +61,39 @@ def _step(st, c, _replace, *, matvec, sub, config: SolverConfig, reduce):
     eps = config.breakdown_threshold(st["x"].dtype)
     active = ~st["converged"] & ~st["breakdown"]
     r, y, t_prev = st["r"], st["y"], st["t"]
-    s = matvec(r)                                       # MV #1: s_i = A r_i
+    with phase("repro.matvec"):
+        s = matvec(r)                                   # MV #1: s_i = A r_i
     # the single fused reduction phase reads s: no overlap with MV #1
-    dots = reduce(sub.bicgsafe_dots(s, y, r, t_prev, c["rs"]))
+    with phase("repro.reduce"):
+        dots = reduce(sub.bicgsafe_dots(s, y, r, t_prev, c["rs"]))
     beta, alpha, zeta, eta, f, rr, bad = bicgsafe_coefficients(
         dots, st["i"], st["alpha"], st["zeta"], st["f"], eps)
     relres = torch.sqrt(torch.abs(rr)) / c["norm_r0"]
     done = relres <= c["tol"]
 
     # vector updates (paper lines 23-30)
-    p = r + beta * (st["p"] - st["u"])
-    o = s + beta * t_prev
-    u = zeta * o + eta * (y + beta * st["u"])
-    w = matvec(u)                                       # MV #2: w_i = A u_i
-    t = o - w
-    z = zeta * r + eta * st["z"] - alpha * u
-    y_next = zeta * s + eta * y - alpha * w
-    x_next = st["x"] + alpha * p + z
-    r_next = r - alpha * o - y_next
+    with phase("repro.axpy"):
+        p = r + beta * (st["p"] - st["u"])
+        o = s + beta * t_prev
+        u = zeta * o + eta * (y + beta * st["u"])
+    with phase("repro.matvec"):
+        w = matvec(u)                                   # MV #2: w_i = A u_i
+    with phase("repro.axpy"):
+        t = o - w
+        z = zeta * r + eta * st["z"] - alpha * u
+        y_next = zeta * s + eta * y - alpha * w
+        x_next = st["x"] + alpha * p + z
+        r_next = r - alpha * o - y_next
 
-    hist_i = history_update(st["hist"], st["i"], relres, config, active)
+    logs = dict(hist=history_update(st["hist"], st["i"], relres, config,
+                                    active),
+                **trace_row(st, dots, beta, relres, done, bad, active))
     false = c["false"]
     new = dict(
         x=x_next, r=r_next, p=p, u=u, t=t, y=y_next, z=z,
         alpha=alpha, zeta=zeta, f=f, i=st["i"] + 1, relres=relres,
-        converged=false, breakdown=false, hist=hist_i)
-    return hold_in_step(st, new, active, relres, done, bad, hist_i)
+        converged=false, breakdown=false)
+    return hold_in_step(st, new, active, relres, done, bad, logs)
 
 
 def _result(st, c, config: SolverConfig) -> SolveResult:

@@ -50,6 +50,16 @@ def classify_status(converged: torch.Tensor, breakdown: torch.Tensor,
     return s.to(torch.int32)
 
 
+#: Channel layout of the on-device iteration-trace ring buffer
+#: (``SolverConfig.trace_cap``; see :mod:`repro_torch.observe`), the JAX
+#: package's.  Every channel is a value the fused reduction phase already
+#: computes: the trace is written and never read by the iteration, so
+#: recording adds no host read and no dependency edge to the in-flight
+#: matvec.
+TRACE_CHANNELS = ("iteration", "relres", "rho_denom", "alpha_denom",
+                  "omega_denom", "drift", "status")
+
+
 class SolveResult(NamedTuple):
     """Result of an iterative solve (the fields of the JAX package's).
 
@@ -63,7 +73,10 @@ class SolveResult(NamedTuple):
         ``iterations``) when ``SolverConfig.record_history`` is set,
         otherwise a (0,) tensor.
       status: int32 :class:`SolveStatus` code.
-      trace: always ``None`` here (the trace ring is not ported yet).
+      trace: ``None``, or with ``SolverConfig.trace_cap`` the ring's
+        payload ``{"buffer": (cap, C[, m]) tensor, "steps": rows written}``
+        (the session front door wraps it as a :class:`repro_torch.observe
+        .ConvergenceTrace`).
     """
 
     x: torch.Tensor
@@ -80,9 +93,8 @@ class SolveResult(NamedTuple):
 class SolverConfig:
     """Static configuration for a solve; fields and defaults as in the JAX
     package (see ``repro.core.types.SolverConfig`` for each field).
-
-    ``trace_cap > 0`` raises :class:`NotImplementedError`: the on-device
-    trace ring is not part of the port yet.
+    ``trace_cap > 0`` carries a ring of the last ``trace_cap`` iterations'
+    :data:`TRACE_CHANNELS` through the loop state.
     """
 
     tol: float = 1e-8
@@ -95,12 +107,6 @@ class SolverConfig:
     stagnation_window: int = 0
     drift_scale: float = 0.0  # 0 → 1.0 (bound reaches the abs tolerance)
     trace_cap: int = 0  # 0 → no iteration tracing
-
-    def __post_init__(self):
-        if self.trace_cap:
-            raise NotImplementedError(
-                "SolverConfig.trace_cap > 0: the iteration-trace ring is "
-                "not ported to repro_torch yet")
 
     def breakdown_threshold(self, dtype) -> float:
         if self.breakdown_eps:
@@ -183,3 +189,24 @@ def history_update(hist: torch.Tensor, i: torch.Tensor, relres: torch.Tensor,
                       hist.index_select(0, idx))
     hist.index_copy_(0, idx, val)
     return hist
+
+
+def trace_init(cfg: SolverConfig, dtype, device, m=None) -> torch.Tensor:
+    """A fresh NaN-filled iteration-trace ring: ``(cap, C)`` for a
+    single-RHS solve, ``(cap, C, m)`` batched (``C = len(TRACE_CHANNELS)``).
+    Call only when ``cfg.trace_cap > 0``."""
+    shape = (cfg.trace_cap, len(TRACE_CHANNELS)) + (() if m is None else (m,))
+    return torch.full(shape, float("nan"), dtype=dtype, device=device)
+
+
+def trace_record(buf: torch.Tensor, i: torch.Tensor, channels,
+                 active: torch.Tensor) -> torch.Tensor:
+    """Write one row of ``channels`` (matching :data:`TRACE_CHANNELS`; 0-d
+    tensors, or ``(m,)`` batched) at ring slot ``i % cap``, in place, with
+    a device index (no host read); a step with ``active`` false (a 0-d
+    bool: one queued after the state stopped) keeps the old slot."""
+    idx = torch.remainder(i.to(torch.int64), buf.shape[0]).reshape(1)
+    row = torch.stack([c.to(buf.dtype) for c in channels]).unsqueeze(0)
+    buf.index_copy_(0, idx, torch.where(active, row,
+                                        buf.index_select(0, idx)))
+    return buf

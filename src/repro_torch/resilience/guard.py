@@ -120,7 +120,8 @@ class GuardedSolver:
     def solve(self, b, x0=None, *, tol=None, maxiter=None,
               r0_star=None) -> SolveResult:
         """Guarded single-RHS solve: the m = 1 batched guarded iteration,
-        with the result's fields taken out of their column."""
+        with the result's fields taken out of their column (the trace, with
+        ``SolverConfig.trace_cap`` bound, its column 0)."""
         sess = self.session
         X0 = None if x0 is None else sess._tensor(x0)[:, None]
         rs = None if r0_star is None else sess._tensor(r0_star)[:, None]
@@ -129,15 +130,18 @@ class GuardedSolver:
         hist = res.residual_history
         if hist.dim() == 2:
             hist = hist[:, 0]
+        trace = None if res.trace is None else res.trace.column(0)
         return SolveResult(res.x[:, 0], res.iterations[0], res.relres[0],
                            res.converged[0], res.breakdown[0], hist,
-                           res.status[0], None)
+                           res.status[0], trace)
 
     def solve_many(self, B, X0=None, *, tol=None, maxiter=None,
                    r0_star=None) -> SolveResult:
         """Guarded multi-RHS solve with the policy's recovery.  A clean
         solve is the unguarded ``session.solve_many`` numerically; the
-        result differs in its typed statuses and in surviving faults."""
+        result differs in its typed statuses and in surviving faults.
+        With ``SolverConfig.trace_cap`` bound, ``trace`` is the block's
+        :class:`~repro_torch.observe.ConvergenceTrace`."""
         sess = self.session
         B = sess._as_block(B)
         n, m = B.shape
@@ -294,7 +298,7 @@ class GuardedSolver:
                                  torch.full_like(relres, float("inf")))
         return SolveResult(x, iters, relres, conv, brk, res.residual_history,
                            torch.as_tensor(status.astype(np.int32),
-                                           device=x.device), None)
+                                           device=x.device), res.trace)
 
 
 def guarded_config(config: SolverConfig,

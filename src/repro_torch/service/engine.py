@@ -26,8 +26,14 @@ when the slots being filled are written into one host block (pinned on
 the card; one right-hand side per row, so each is one contiguous copy)
 that is copied to the device once, into the program's constant buffer.
 After each chunk the engine reads the (m,) flag vectors as one (k, m)
-tensor, one copy to the host, and the ``x`` columns of the requests it
-retires, transposed on the device, in one more.
+tensor, one copy to the host (with ``ServiceConfig.trace_cap`` the block's
+trace ring and its step count ride in the same copy, concatenated below
+the flags), and the ``x`` columns of the requests it retires, transposed
+on the device, in one more.
+
+Observability (``ServiceConfig.profile_dir``): :meth:`SolveEngine.run`
+drains inside a device profile capture and leaves the analysed report on
+``last_profile``.
 
 Resilience (``ServiceConfig.recovery``): the blocks step guarded (the
 (11, m) health rows), every retirement carries a typed
@@ -39,6 +45,7 @@ requests are re-enqueued with capped exponential backoff up to
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from collections import deque
 from typing import Deque, Dict, List, Optional
@@ -48,7 +55,9 @@ import torch
 
 from ..core.types import SolveStatus
 from ..observe import metrics as _metrics
+from ..observe import profile as _profile
 from ..observe.spans import span as _span
+from ..observe.trace import ConvergenceTrace
 from .registry import OperatorRegistry, RegisteredOperator
 from .types import (RequestResult, RequestTelemetry, ServiceConfig,
                     SolveRequest)
@@ -104,7 +113,8 @@ class SolveEngine:
         self._expired: List[RequestResult] = []
         self.stats: Dict[str, int] = dict(chunks=0, admissions=0, runs=0,
                                           host_reads=0, x_reads=0, steps=0)
-        #: the JAX engine's profile of a profiled run; not ported (A7)
+        #: the :class:`~repro_torch.observe.ProfileReport` of the latest
+        #: profiled :meth:`run` (``ServiceConfig.profile_dir``)
         self.last_profile = None
 
     # -- registration / submission ---------------------------------------
@@ -149,7 +159,25 @@ class SolveEngine:
 
     def run(self) -> List[RequestResult]:
         """Drain all queues and blocks; completed requests in retirement
-        order."""
+        order.
+
+        With ``ServiceConfig.profile_dir`` set, the drain runs inside a
+        :mod:`repro_torch.observe.profile` capture, and the analysed report
+        lands on :attr:`last_profile` and ``profile_dir/profile.json``.  The
+        chunks are graph replays, so their kernels are attributed by name
+        (no eager run of the drain teaches a kernel map).  Results are the
+        same."""
+        if not self.scfg.profile_dir:
+            return self._drain()
+        with _profile.capture(self.scfg.profile_dir) as cap:
+            out = self._drain()
+        sub = self.scfg.substrate
+        rep = cap.analyze(label=f"engine/{getattr(sub, 'name', sub)}")
+        rep.save(os.path.join(self.scfg.profile_dir, "profile.json"))
+        self.last_profile = rep
+        return out
+
+    def _drain(self) -> List[RequestResult]:
         out: List[RequestResult] = []
         while self.has_work():
             out.extend(self.poll())
@@ -320,18 +348,28 @@ class SolveEngine:
                 req.chunks_resident += 1
 
         # 2) retire finished / deadline-blown columns: ONE host read of the
-        # (m,) flag vectors (and the typed status of a guarded block),
-        # stacked into one tensor
+        # (m,) flag vectors (and the typed status of a guarded block, and
+        # the trace ring with its step count when tracing is on), stacked
+        # into one tensor
         st = blk.state
         guarded = "status" in st
         fields = _FLAGS + (("status",) if guarded else ())
         with _span("engine.retire", operator=name):
-            got = torch.stack([st[k].to(torch.float64)
-                               for k in fields]).cpu().numpy()
+            rows = torch.stack([st[k].to(torch.float64) for k in fields])
+            if "trace" in st:
+                rows = torch.cat([rows,
+                                  st["i"].to(torch.float64).expand(1, m),
+                                  st["trace"].reshape(-1, m)
+                                  .to(torch.float64)])
+            got = rows.cpu().numpy()
         self.stats["host_reads"] += 1
         conv, brk = got[0] != 0, got[1] != 0
         iters, relres, budget = got[2].astype(np.int64), got[3], got[4]
         status_arr = got[5].astype(np.int64) if guarded else None
+        ring, ring_steps = None, 0
+        if "trace" in st:
+            ring = got[len(fields) + 1:].reshape(st["trace"].shape)
+            ring_steps = int(got[len(fields), 0])
         recovery = self.scfg.recovery
         now = self._clock()
         retiring = []              # (slot, request, status, expired)
@@ -393,6 +431,10 @@ class SolveEngine:
                 # (the typed status says why)
                 xj = np.where(np.isfinite(xj), xj, 0.0)
             rr_j = float(relres[j])
+            # the column of the block's ring: a refilled column's earlier
+            # rows were NaN'd by its splice, which per_iteration() drops
+            trace = None if ring is None else ConvergenceTrace(
+                np.ascontiguousarray(ring[:, :, j]), ring_steps)
             res = RequestResult(
                 rid=req.rid, operator=name, x=xj,
                 iterations=int(iters[j]),
@@ -404,7 +446,7 @@ class SolveEngine:
                     wall_s=now - req.t_submit,
                     chunks_resident=req.chunks_resident,
                     deadline_exceeded=expired),
-                status=sts, retries=req.retries)
+                status=sts, retries=req.retries, trace=trace)
             self._observe_result(res)
             results.append(res)
 

@@ -79,7 +79,8 @@ class OperatorRegistry:
 
     def _make_session(self, op, precond: PrecondLike) -> LinearSolver:
         scfg = self._scfg
-        cfg = SolverConfig(tol=scfg.tol, maxiter=scfg.maxiter)
+        cfg = SolverConfig(tol=scfg.tol, maxiter=scfg.maxiter,
+                           trace_cap=scfg.trace_cap)
         if scfg.recovery is not None:
             # guarded serving: the programs step with the (11, m) health
             # reduction and carry typed per-column statuses

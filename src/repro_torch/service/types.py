@@ -46,9 +46,17 @@ class ServiceConfig:
         are scrubbed before their slot is reused, and failed requests are
         re-enqueued up to ``recovery.max_retries`` times with capped
         exponential backoff.
-      trace_cap / profile_dir: the JAX package's iteration-trace ring and
-        device profiles; not ported yet (ROADMAP A7): anything but the
-        defaults raises :class:`NotImplementedError`.
+      trace_cap: per-column iteration-trace ring capacity
+        (``SolverConfig.trace_cap``) of the resident blocks.  0 serves
+        untraced; when set, every retirement carries its column's
+        :class:`~repro_torch.observe.ConvergenceTrace` as
+        ``RequestResult.trace``, harvested with the one host read per chunk
+        the engine already makes (size it to at least ``chunk``, so a
+        column's terminal row is still in the ring when it retires).
+      profile_dir: when set, :meth:`SolveEngine.run` runs inside a device
+        profile capture (:mod:`repro_torch.observe.profile`) and leaves
+        the report on ``engine.last_profile`` and
+        ``profile_dir/profile.json``; results are the same.
       device: where the blocks live; ``None`` means ``"cuda"`` (raising
         without a GPU); pass ``"cpu"`` to serve on the CPU.
     """
@@ -64,14 +72,6 @@ class ServiceConfig:
     device: Any = None
 
     def __post_init__(self):
-        if self.trace_cap:
-            raise NotImplementedError(
-                "ServiceConfig.trace_cap > 0: the iteration-trace ring is "
-                "not ported to repro_torch yet (ROADMAP A7)")
-        if self.profile_dir:
-            raise NotImplementedError(
-                "ServiceConfig.profile_dir: device profiles of the engine "
-                "are not ported to repro_torch yet (ROADMAP A7)")
         if self.max_batch < 1 or self.chunk < 1:
             raise ValueError("max_batch and chunk must be >= 1")
 
@@ -128,8 +128,9 @@ class RequestResult:
     retirement (guarded serving: the in-reduction per-column code;
     unguarded: the coarse classification; deadline expiry is ``DEADLINE``
     either way).  ``retries`` counts how often the engine ran the request
-    again before this outcome.  ``trace`` is always ``None`` (the trace
-    ring is not ported yet).
+    again before this outcome.  ``trace`` is the request's per-iteration
+    :class:`~repro_torch.observe.ConvergenceTrace` when the engine serves
+    with ``ServiceConfig.trace_cap`` set (``None`` otherwise).
     """
 
     rid: int

@@ -14,6 +14,7 @@ only, never ``jax``.
 import json
 import os
 import sys
+import tempfile
 import traceback
 import warnings
 
@@ -56,6 +57,20 @@ class Run:
             iterations=np.asarray(res.iterations).tolist(),
             converged=np.asarray(res.converged).tolist(),
             status=np.asarray(res.status).tolist())
+
+    def keep_trace(self, name, res):
+        """A traced mesh solve's ring (rank 0's), its step count, and
+        whether every rank of the world holds the same ring (gathered
+        from each)."""
+        buf = torch.from_numpy(res.trace.buffer)
+        parts = [torch.empty_like(buf) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, buf)
+        self.arrays[name + "/trace"] = res.trace.buffer
+        self.scalars[name + "/trace"] = dict(
+            steps=res.trace.steps, iterations=int(res.iterations),
+            same_on_every_rank=all(
+                np.array_equal(p.numpy(), res.trace.buffer, equal_nan=True)
+                for p in parts))
 
     def syncs_per_iteration(self, binding, **solve_kw):
         """Reductions started per step: two solves of 16 and 32 steps
@@ -124,6 +139,9 @@ def world4(run: Run):
         for method in METHODS:
             binding = run.session(method).on_mesh(mesh)
             run.keep(f"{mname}/{method}", binding.solve(run.grid), layout)
+        if mname == "4":
+            run.keep_trace("4/traced", run.session().on_mesh(mesh).solve(
+                run.grid, trace=True))
 
 
 def world2(run: Run):
@@ -132,6 +150,8 @@ def world2(run: Run):
     for method in METHODS:
         binding = run.session(method).on_mesh(group)
         run.keep(f"2/{method}", binding.solve(run.grid), layout)
+    run.keep_trace("2/traced", run.session().on_mesh(group).solve(
+        run.grid, trace=True))
     sess = run.session()
     run.scalars["same_binding"] = sess.on_mesh(group) is sess.on_mesh(group)
     odd = Stencil7Operator(run.op.c, run.op.nx - 1, run.op.ny, run.op.nz)
@@ -221,17 +241,24 @@ def world1(run: Run):
         run.scalars[f"1/{name}/bitwise"] = bool(
             torch.equal(res.x.reshape(run.B.shape), single.x)
             and torch.equal(res.iterations, single.iterations))
-    refused = []
-    binding = run.session().on_mesh(mesh)
-    for call in (lambda: binding.solve(run.grid, trace=True),
-                 lambda: binding.solve(run.grid, profile="profile"),
-                 lambda: binding.solve_many(B_grid, trace=True)):
-        try:
-            call()
-            refused.append("no error")
-        except NotImplementedError:
-            refused.append("NotImplementedError")
-    run.scalars["1/refused"] = refused
+    # traced and profiled mesh solves: bitwise the single-process ones
+    sess = run.session()
+    binding = sess.on_mesh(mesh)
+    single = sess.solve(run.b, trace=True)
+    res = binding.solve(run.grid, trace=True)
+    run.keep_trace("1/traced", res)
+    run.arrays["1/single/trace"] = single.trace.buffer
+    with tempfile.TemporaryDirectory() as out:
+        profiled = binding.solve(run.grid, profile=out)
+        profile_ok = os.path.exists(os.path.join(out, "profile.json"))
+    many = binding.solve_many(B_grid, trace=True)
+    single_many = sess.solve_many(run.B, trace=True)
+    run.scalars["1/refused"] = [
+        same_trace(res, single) and torch.equal(res.x.reshape(-1), single.x),
+        profile_ok and torch.equal(profiled.x, res.x)
+        and sess.last_profile.phase_us["reduce"] > 0,
+        same_trace(many, single_many)
+        and torch.equal(many.x.reshape(run.B.shape), single_many.x)]
     sess = run.session(precond="block_jacobi")
     single = sess.solve(run.b)
     res = sess.on_mesh(mesh).solve(run.grid)
@@ -244,6 +271,11 @@ def world1(run: Run):
         torch.equal(res.x.reshape(run.B.shape), single.x)
         and torch.equal(res.iterations, single.iterations))
     run.scalars["1/eviction"] = evicted_binding(run, mesh)
+
+
+def same_trace(a, b) -> bool:
+    return a.trace.steps == b.trace.steps and np.array_equal(
+        a.trace.buffer, b.trace.buffer, equal_nan=True)
 
 
 def evicted_binding(run: Run, mesh) -> dict:

@@ -68,9 +68,33 @@ def test_status_predicates_and_drift_threshold_match():
                 drift_scale=scale).drift_threshold(jnp.float64)
 
 
-def test_trace_cap_not_ported():
-    with pytest.raises(NotImplementedError):
-        ttypes.SolverConfig(trace_cap=8)
+@pytest.mark.parametrize("m", [None, 3])
+def test_trace_cap_not_ported(m, x64):
+    """Ported now: ``trace_init`` / ``trace_record`` write the JAX
+    package's ring (channels, slot ``i % cap``); the port's record also
+    takes ``active`` and keeps the slot when it is false."""
+    assert ttypes.TRACE_CHANNELS == jtypes.TRACE_CHANNELS
+    C = len(ttypes.TRACE_CHANNELS)
+    cfg = dict(trace_cap=4)
+    jbuf = jtypes.trace_init(jtypes.SolverConfig(**cfg), jnp.float64, m)
+    tbuf = ttypes.trace_init(ttypes.SolverConfig(**cfg), torch.float64,
+                             "cpu", m)
+    assert tbuf.shape == jbuf.shape and tbuf.isnan().all()
+    rng = np.random.default_rng(0)
+    shape = () if m is None else (m,)
+    for i in (0, 1, 5, 6, 9):
+        vals = [rng.standard_normal(shape) for _ in range(C)]
+        jbuf = jtypes.trace_record(jbuf, jnp.asarray(i, jnp.int32),
+                                   [jnp.asarray(v) for v in vals])
+        ttypes.trace_record(tbuf, torch.tensor(i, dtype=torch.int32),
+                            [torch.from_numpy(np.asarray(v)) for v in vals],
+                            torch.tensor(True))
+        assert np.array_equal(np_(tbuf), np.asarray(jbuf), equal_nan=True)
+    kept = tbuf.clone()
+    ttypes.trace_record(tbuf, torch.tensor(2, dtype=torch.int32),
+                        [torch.zeros(shape, dtype=torch.float64)] * C,
+                        torch.tensor(False))
+    assert torch.equal(tbuf.nan_to_num(), kept.nan_to_num())
 
 
 def test_classify_status_matches(x64):

@@ -878,6 +878,82 @@ def test_session_cache_budget_returns_card_memory(cuda, monkeypatch):
     assert bool(first.solve_many(B, maxiter=32).iterations.eq(32).all())
 
 
+# -- the trace ring and the profiles ------------------------------------------
+
+def same_trace(a, b):
+    return a.steps == b.steps and np.array_equal(a.buffer, b.buffer,
+                                                 equal_nan=True)
+
+
+@pytest.mark.parametrize("method", ["p-bicgsafe", "p-bicgsafe-rr",
+                                    "ssbicgsafe2"])
+def test_traced_graph_chunk_is_bitwise_the_untraced(cuda, method):
+    """A traced solve through its graph programs is the untraced one bit
+    for bit, with the same launches; the traced eager chunk gives the same
+    bits and the same ring.  ``rr_epoch=20``: -rr crosses replacement
+    steps."""
+    op, b, _ = TM.convection_diffusion(24, peclet=1.0)
+    ell = TM.stencil_to_ell(op)
+    solver = repro_torch.make_solver(
+        method, ell, substrate="cuda",
+        config=repro_torch.SolverConfig(rr_epoch=20))
+    (plain, p_launches), _ = graph_and_eager(lambda: solver.solve(b))
+    (graph, g_launches), (eager, e_launches) = graph_and_eager(
+        lambda: solver.solve(b, trace=True))
+    assert bool(graph.converged)
+    assert_bitwise(plain, graph)
+    assert_bitwise(graph, eager)
+    assert p_launches == g_launches == e_launches
+    assert same_trace(graph.trace, eager.trace)
+    assert graph.trace.steps == int(graph.iterations) + 1
+
+
+def test_traced_graph_solve_many_is_bitwise_the_untraced(cuda):
+    op, b, _ = TM.convection_diffusion(24, peclet=1.0)
+    ell = TM.stencil_to_ell(op)
+    B = torch.stack([b, 0.5 * b, b + 1.0], dim=1)
+    solver = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda")
+    (plain, p_launches), _ = graph_and_eager(lambda: solver.solve_many(B))
+    (graph, g_launches), (eager, e_launches) = graph_and_eager(
+        lambda: solver.solve_many(B, trace=True))
+    assert_bitwise(plain, graph)
+    assert_bitwise(graph, eager)
+    assert p_launches == g_launches == e_launches
+    assert same_trace(graph.trace, eager.trace)
+
+
+def test_kernel_map_names_the_main_path_kernels(cuda, tmp_path):
+    """A profiled ``solve`` on the card: the map learnt from the eager run
+    names the three kernels of the main path by their phases, and the
+    window's reduce-phase kernels are the fused dots' two kernels per
+    launch."""
+    from repro_torch.observe import profile as P
+    op, b, _ = TM.convection_diffusion(24, peclet=1.0)
+    ell = TM.stencil_to_ell(op)
+    solver = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda")
+    ops.reset_launches()
+    plain = solver.solve(b)
+    torch.cuda.synchronize()
+    dots = ops.LAUNCHES["fused_dots"]
+    res = solver.solve(b, profile=str(tmp_path))
+    assert_bitwise(plain, res)
+    with open(tmp_path / "kernel_map.json") as fh:
+        kmap = __import__("json").load(fh)["kernels"]
+    phases = {}
+    for name, tag in kmap.items():
+        for kernel in ("fused_dots", "spmv_ell", "fused_axpy"):
+            if kernel in name:
+                phases.setdefault(kernel, set()).add(tag)
+    assert phases == {"fused_dots": {"repro.reduce"},
+                      "spmv_ell": {"repro.matvec"},
+                      "fused_axpy": {"repro.axpy"}}
+    rep = solver.last_profile
+    assert rep.n_device_events > 0 and rep.device_wall_us > 0
+    assert all(rep.phase_us[k] > 0 for k in ("matvec", "reduce", "axpy"))
+    events = P.phase_events(rep.timeline_path, kmap)
+    assert sum(e["phase"] == "reduce" for e in events) == 2 * dots
+
+
 # -- the distributed driver at world 1: NCCL, the collective in the graph ----
 
 MESH_REDUCTIONS = {"p-bicgsafe": 1, "p-bicgsafe-rr": 1, "ssbicgsafe2": 1,
@@ -899,6 +975,60 @@ def mesh1(tmp_path_factory):
         yield init_device_mesh("cuda", (1,), mesh_dim_names=("rows",))
     finally:
         dist.destroy_process_group()
+
+
+FRESH_GROUP_CHILD = """
+import sys, tempfile
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+import repro_torch
+from repro_torch.core import matrices as TM
+dist.init_process_group("nccl", init_method="file://" + tempfile.mktemp(),
+                        rank=0, world_size=1)
+mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("rows",))
+op, b, _ = TM.convection_diffusion(24, peclet=1.0)
+sessions = 0
+for rep in range(4):
+    for method in sys.argv[1:]:
+        # a fresh session (the cache emptied, the earlier sessions'
+        # programs freed): its programs capture afresh
+        repro_torch.clear_session_cache()
+        s = repro_torch.make_solver(method, op, substrate="cuda",
+                                    config=repro_torch.SolverConfig(
+                                        tol=1e-8 * (1 + rep)))
+        single = s.solve(b)
+        res = s.on_mesh(mesh).solve(b.reshape(24, 24, 24))
+        torch.cuda.synchronize()
+        assert torch.equal(res.x.reshape(-1), single.x), method
+        sessions += 1
+dist.destroy_process_group()
+print("captured", sessions)
+"""
+
+
+def test_captures_right_after_a_fresh_nccl_group(cuda, tmp_path):
+    """ROADMAP C17: in a fresh process with a one-rank NCCL group made,
+    28 fresh sessions (every method, four times, the cache emptied before
+    each) capture their chunks, single-process and on the mesh, and agree
+    bit for bit.  With the garbage collector free to run inside a capture
+    (a dropped mesh-bound session is a reference cycle) this failed in
+    each of three runs ("operation failed due to a previous error during
+    capture")."""
+    import os
+    import subprocess
+    import sys
+    script = tmp_path / "child.py"
+    script.write_text(FRESH_GROUP_CHILD)
+    # the child imports the package this test imported
+    src = os.path.dirname(os.path.dirname(os.path.abspath(
+        repro_torch.__file__)))
+    env = dict(os.environ, PYTHONPATH=src)
+    proc = subprocess.run([sys.executable, str(script)]
+                          + sorted(MESH_REDUCTIONS), env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"captured {4 * len(MESH_REDUCTIONS)}" in proc.stdout
 
 
 @pytest.mark.parametrize("method", sorted(MESH_REDUCTIONS))

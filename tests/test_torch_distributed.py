@@ -50,6 +50,8 @@ from repro_torch.core import Stencil7Operator, multirhs  # noqa: E402
 from repro_torch.core import matrices as TM  # noqa: E402
 from repro_torch.core._common import SyncCounter  # noqa: E402
 from repro_torch.core.types import identity_reduce  # noqa: E402
+from repro_torch.observe import ConvergenceTrace  # noqa: E402
+from test_torch_observe import assert_rows_match  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CHILD = os.path.join(HERE, "_torch_distributed_child.py")
@@ -95,17 +97,19 @@ def problem(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def jax_refs(problem):
-    """The JAX package's single-process solves of every method, and its
-    batched solve of the block, per column."""
+    """The JAX package's single-process solves of every method (the
+    p-BiCGSafe one traced), and its batched solve of the block, per
+    column."""
     out = {}
     with enable_x64(True):
         op = JM.Stencil7Operator(jnp.asarray(problem["c"]), 16, 16, 16)
         b = jnp.asarray(problem["b"])
         for method in METHODS:
             res = repro.make_solver(method, op,
-                                    config=JConfig(**CFG)).solve(b)
+                                    config=JConfig(**CFG)).solve(
+                b, trace=True if method == "p-bicgsafe" else None)
             out[method] = dict(iterations=int(res.iterations),
-                               x=np.asarray(res.x))
+                               x=np.asarray(res.x), trace=res.trace)
         res = repro.make_solver("p-bicgsafe", op, config=JConfig(**CFG)) \
             .solve_many(jnp.asarray(problem["B"]))
         out["many"] = dict(iterations=np.asarray(res.iterations),
@@ -211,7 +215,42 @@ def test_cache_eviction_keeps_the_mesh_programs(world1):
 
 
 def test_world1_refuses_trace_and_profile(world1):
-    assert world1["scalars"]["1/refused"] == ["NotImplementedError"] * 3
+    """Ported now: at world 1 a traced mesh ``solve`` and ``solve_many``
+    return the single-process solves' rings and bits, and a profiled
+    mesh solve writes its report."""
+    assert world1["scalars"]["1/refused"] == [True] * 3
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_traced_mesh_ring_is_the_same_on_every_rank(world, world1, world2,
+                                                     world4, jax_refs):
+    """The ring is built from the all-reduced dots, so every rank holds
+    the same one.  It is the JAX package's single-process trace of the same
+    solve over the first 16 rows (``test_torch_observe.assert_rows_match``:
+    the iteration and status channels exact, the others within 1e-8 of each
+    channel's largest magnitude), and the port's single-process trace's:
+    bitwise at world 1, within the same noise across ranks."""
+    run = {1: world1, 2: world2, 4: world4}[world]
+    got = run["scalars"][f"{world}/traced/trace"]
+    assert got["same_on_every_rank"] is True
+    ring = run["arrays"][f"{world}/traced/trace"]
+    assert_rows_match(ConvergenceTrace(ring, got["steps"]),
+                      jax_refs["p-bicgsafe"]["trace"])
+    single = world1["arrays"]["1/single/trace"]
+    if world == 1:
+        assert np.array_equal(ring, single, equal_nan=True)
+        return
+    assert iters_close(got["iterations"],
+                       world1["scalars"]["1/traced/trace"]["iterations"])
+    assert got["steps"] == got["iterations"] + 1
+    rows = min(16, got["iterations"])
+    for ch in range(ring.shape[1]):
+        g, w = ring[:rows, ch], single[:rows, ch]
+        if ch in (0, 6):                            # iteration, status
+            assert np.array_equal(g, w), ch
+        else:
+            assert np.max(np.abs(g - w)) <= 1e-8 * max(
+                np.max(np.abs(w)), np.finfo(float).tiny), ch
 
 
 # ---------------------------------------------------------------------------

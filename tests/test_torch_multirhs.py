@@ -8,6 +8,7 @@ Per column, parity is "converged, iterations within ±2, max|x - x_ref| <=
 on the ``"torch"`` and the ``"cuda"`` substrate; on the CPU the latter runs
 its kernels' plain versions through the same wrappers."""
 import functools
+import tempfile
 
 import numpy as np
 import pytest
@@ -316,9 +317,12 @@ def test_later_slices_raise_not_implemented():
         multirhs.solve_batched(op, B, precond="ilu")
     with pytest.raises(TypeError, match="operator object"):
         multirhs.solve_batched(op.matvec, B, precond="jacobi")
-    with pytest.raises(NotImplementedError):
-        repro_torch.make_solver("p-bicgsafe", op, device=CPU).solve_many(
-            B, profile="somewhere")
+    # profile= is ported: the profiled block solve is the unprofiled one
+    session = repro_torch.make_solver("p-bicgsafe", op, device=CPU)
+    with tempfile.TemporaryDirectory() as out:
+        profiled = session.solve_many(B, profile=out)
+    assert torch.equal(profiled.x, plain.x)
+    assert session.last_profile.phase_us["reduce"] > 0
     # the guard is ported: a guarded solve runs and types its statuses
     res = multirhs.solve_batched(op, B, config=SolverConfig(guard=True))
     assert (np_(res.status) == SolveStatus.CONVERGED).all()

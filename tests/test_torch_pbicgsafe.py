@@ -7,6 +7,8 @@ Parity is "both converge, iterations within ±2, max|x - x_ref| <= 1e-6":
 the two packages sum in different orders, which moves an iteration count
 near the tolerance by 1-2 (ROADMAP C4), not bitwise histories."""
 import functools
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -288,13 +290,21 @@ def test_later_slices_raise_not_implemented(call):
             repro_torch.make_solver("p-bicgsafe", op, device=CPU).on_mesh(
                 [b])
         return
-    with pytest.raises(NotImplementedError):
-        if call in ("trace", "profile"):
-            repro_torch.make_solver("p-bicgsafe", op, device=CPU).solve(
-                b, **{call: True})
-        else:                           # ported; its trace ring is not
-            repro_torch.make_solver("p-bicgsafe", op, device=CPU).solve_many(
-                [b], trace=True)
+    # ported: the trace ring and profiles, single and batched
+    solver = repro_torch.make_solver("p-bicgsafe", op, device=CPU)
+    if call == "trace":
+        res = solver.solve(b, trace=True)
+        assert res.trace.summary()["status"] == "CONVERGED"
+        assert res.trace.summary()["iterations"] == int(res.iterations)
+    elif call == "profile":
+        with tempfile.TemporaryDirectory() as out:
+            res = solver.solve(b, profile=out)
+            assert os.path.exists(os.path.join(out, "profile.json"))
+        assert solver.last_profile.iterations == int(res.iterations)
+    else:
+        res = solver.solve_many([b], trace=True)
+        assert res.trace.batched and res.trace.m == 1
+        assert res.trace.column(0).summary()["status"] == "CONVERGED"
 
 
 def test_session_checks_method_and_device():

@@ -365,11 +365,13 @@ def test_submit_validates_rhs_shape():
         eng.submit(name, np.ones(7))
 
 
-def test_unported_service_options_are_refused():
-    for kw in (dict(trace_cap=8), dict(profile_dir="/nonexistent")):
-        JServiceConfig(**kw)                    # the JAX package takes them
-        with pytest.raises(NotImplementedError, match="A7"):
-            ServiceConfig(**kw)
+def test_unported_service_options_are_refused(tmp_path):
+    """``trace_cap`` and ``profile_dir`` are ported (taken as the JAX
+    package takes them); ``register_scenario`` still raises, naming A9."""
+    for kw in (dict(trace_cap=8), dict(profile_dir=str(tmp_path))):
+        JServiceConfig(**kw)
+        assert SolveEngine(ServiceConfig(device=CPU, **kw)).scfg == \
+            ServiceConfig(device=CPU, **kw)
     eng = SolveEngine(ServiceConfig(device=CPU))
     with pytest.raises(NotImplementedError, match="A9"):
         eng.register_scenario("poisson")
