@@ -9,9 +9,11 @@ package is missing.  Phases, any failure of which fails the run:
 
 1. device: the card's name and power limit, the versions, and the kernels'
    build (one ``nvcc`` per source, all at once, and a link into
-   ``build/``) with its time and the compiler's register report, and the
+   ``build/``) with its time and the compiler's register report (every
+   instance of the fp32 flash kernel with 0 spill bytes), and the
    tensor-core instructions (``HMMA``) that ``cuobjdump -sass`` finds in
-   the bf16 flash kernel (none may be missing, none in the fp32 one);
+   the flash kernels (every bf16 instance must have some, every fp32
+   instance TF32 ones);
 2. kernels: each single-RHS kernel (``fused_dots``, ``fused_axpy``,
    ``spmv_ell``, ``fused_dots_health``) against its plain PyTorch version
    on the card, in fp64 and fp32, at the main path's shape (n = 108**3 =
@@ -91,12 +93,14 @@ package is missing.  Phases, any failure of which fails the run:
    graphs, and which kernels the NCCL kernel overlaps;
 2d. flash attention: ``flash_attention`` against its plain version on the
    card at qwen3-8b's prefill shape (B, H, K, S, hd) = (4, 32, 8, 1024,
-   128), causal, in bf16 (``flash_attention_mma.cu``, the tensor cores) and
-   fp32 (``flash_attention.cu``, the CUDA cores), then phi3's (1, 32, 32,
-   1024, 96) full (non-causal) and a ragged S = 1000 in bf16; a bitwise
-   repeat; at the full shape the kernel's device time beside the plain
-   version's, one ``scaled_dot_product_attention`` call's, the bound and,
-   in bf16, the time before the tensor cores;
+   128), causal, in bf16 (``flash_attention_mma.cu``) and fp32
+   (``flash_attention.cu``, 3xTF32), both on the tensor cores, then phi3's
+   (1, 32, 32, 1024, 96) full (non-causal) and a ragged S = 1000 in both
+   types; a bitwise repeat; at the full shape the kernel's device time
+   beside the plain version's, one ``scaled_dot_product_attention``
+   call's, the bound (fp32: three TF32 products at the tensor cores' TF32
+   rate, and beside it the CUDA cores' bound) and an earlier run's time
+   before the redesign;
 4. serving path: ``ServingEngine`` on full-width qwen3-8b (36 layers,
    bf16, weights from a seeded generator on the card) with
    ``use_flash_kernel=True``: 4 requests of 1,024-token prompts and 16
@@ -106,7 +110,13 @@ package is missing.  Phases, any failure of which fails the run:
    same engine's without the kernel (the plain single-block path), and
    the prefill time, the time per decode step, tokens per second, the
    kernel's share of the prefill, and from a profiler trace the kernels
-   and the device's busy time per prefill and per decode step;
+   and the device's busy time per prefill and per decode step; then an
+   fp32 prefill of the same prompts with the kernel (its launches counted
+   on their own: 36 fp32 flash launches, no other kernel), its
+   last-position logits within ``SERVE_LOGITS_TOL_F32`` of the fp32 plain
+   prefill's, and the fp32 prefill's wall with and without the kernel; the
+   bar's control, the plain fp32 prefill with its products in one TF32
+   pass (``allow_tf32``), must miss it;
 5. the solve service (run before 4): ``repro_torch.service.SolveEngine``
    with ``ServiceConfig(max_batch=8, chunk=32, substrate="cuda", tol=1e-8,
    maxiter=2000)`` on 3a's system; a burst of 32 right-hand sides from
@@ -179,11 +189,13 @@ counted.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -199,7 +211,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12,
               # bf16 inputs: the tensor cores' dense rate (the bf16 flash
               # kernel's products run there, through mma.sync)
-              "bfloat16": 989e12}
+              "bfloat16": 989e12,
+              # the tensor cores' dense TF32 rate: the fp32 flash kernel's
+              # products, three TF32 passes each (3xTF32)
+              "tf32": 495e12}
 # max |kernel - plain| over the result's scale (a dot's sum of |a_i b_i|, a
 # vector's max-abs).  fp64: FMA contraction and another summation order move
 # the last ulps only.  fp32: the tolerances of tests/test_kernels.py.
@@ -240,17 +255,23 @@ FLASH = ("flash_attention",)
 # the flash kernel's two routes, fixed by dtype
 FLASH_SOURCES = {"bfloat16": "src/repro_torch/csrc/flash_attention_mma.cu",
                  "float32": "src/repro_torch/csrc/flash_attention.cu"}
-# the bf16 flash kernel's time at FLASH_SHAPE before it moved to the tensor
-# cores (f32 FMAs on the CUDA cores): an earlier run's reading from PERF.md,
-# row 11, printed beside this run's time in phase 2d and nowhere else
+# the flash kernel's times at FLASH_SHAPE before it moved to the tensor
+# cores (f32 FMAs on the CUDA cores): earlier runs' readings from PERF.md,
+# row 11 (bf16, PR 17) and its fp32 row (PR 23), printed beside this run's
+# times in phase 2d and nowhere else
 FLASH_BF16_MS_BEFORE = 1.4795
+FLASH_F32_MS_BEFORE = 1.4834
+FLASH_MS_BEFORE = {"bfloat16": FLASH_BF16_MS_BEFORE,
+                   "float32": FLASH_F32_MS_BEFORE}
 # (B, H, K, S, hd): qwen3-8b's prefill of 4 prompts of 1,024 tokens
 FLASH_SHAPE = (4, 32, 8, 1024, 128)
-# (shape, causal, dtype name): the full shape in both types, phi3's heads
-# without the mask, and a ragged S (no multiple of the kernel's 64-row tile)
+# (shape, causal, dtype name): the full shape, phi3's heads without the
+# mask, and a ragged S (no multiple of the kernels' tiles), in both types
 FLASH_CASES = ((FLASH_SHAPE, True, "bfloat16"), (FLASH_SHAPE, True, "float32"),
                ((1, 32, 32, 1024, 96), False, "bfloat16"),
-               ((4, 32, 8, 1000, 128), True, "bfloat16"))
+               ((4, 32, 8, 1000, 128), True, "bfloat16"),
+               ((1, 32, 32, 1024, 96), False, "float32"),
+               ((4, 32, 8, 1000, 128), True, "float32"))
 # the flash check, per output row (b, s, h): max |kernel - plain| over that
 # row's max-abs, the largest over all rows (a row's scale falls with its
 # causal length, so one max-abs for the whole output would let the late rows
@@ -270,6 +291,14 @@ SERVE_NEW = 16
 # (the run prints each path's gap to an fp32 run of the plain path beside
 # it: the size of bf16's own noise at this depth)
 SERVE_LOGITS_TOL = 5e-2
+# the same bar for an fp32 prefill with the kernel against the fp32 plain
+# prefill: per layer the two differ by about the kernel's 1e-6 (another
+# summation order, exp2 and 3xTF32's 2^-22), and the random-weight stack
+# carries that through 36 layers; the plain fp32 prefill with its products
+# in one TF32 pass (the run's control) must miss it.  On an H100 the kernel
+# read 6.27e-6 and the control 1.325e-3; the bar lies between them, an
+# order of magnitude from each
+SERVE_LOGITS_TOL_F32 = 1e-4
 M = 8                       # columns of the batched path (ServiceConfig.max_batch)
 SOLVE_MAXITER = 2000        # maxiter of the single-RHS solves (3b, 3f)
 # phase 3f: the JAX package's seven methods, and the reduction phases each
@@ -432,28 +461,85 @@ def device_activity(torch, fn, reps: int = 16) -> dict:
 
 
 
-def count_hmma(path, nvcc: str) -> int:
-    """Tensor-core instructions (``HMMA``) in the bf16 flash kernel's SASS,
-    from ``cuobjdump -sass`` (beside ``nvcc``) of the built library; fails
-    if an instance has none, or if the fp32 kernel has any."""
+def sass_by_function(path, nvcc: str) -> dict:
+    """The SASS of the built library, from ``cuobjdump -sass`` (beside
+    ``nvcc``): {mangled kernel name: its lines}."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, check=True).stdout
-    counts, fn = {}, None
+    out, fn = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
-    mma = {f: c for f, c in counts.items() if "flash_attention_mma" in f}
-    f32 = {f: c for f, c in counts.items()
-           if "flash_attention_kernel" in f}
+            out[fn] = []
+        elif fn is not None:
+            out[fn].append(line)
+    return out
+
+
+def count_hmma(path, nvcc: str) -> dict:
+    """Tensor-core instructions (``HMMA``) in the flash kernels' SASS; fails
+    if an instance of the bf16 kernel has none, or an instance of the fp32
+    one (3xTF32) has no TF32 ``HMMA``.  Returns the fewest per instance of
+    each."""
+    sass = sass_by_function(path, nvcc)
+    mma = {f: sum("HMMA" in x for x in lines) for f, lines in sass.items()
+           if "flash_attention_mma" in f}
+    f32 = {f: sum("HMMA" in x and "TF32" in x for x in lines)
+           for f, lines in sass.items() if "flash_attention_kernel" in f}
     log(f"SASS: HMMA per instance of the bf16 flash kernel "
-        f"{sorted(mma.values())}, of the fp32 one {sorted(f32.values())}")
-    if not mma or min(mma.values()) == 0 or any(f32.values()):
+        f"{sorted(mma.values())}, TF32 HMMA per instance of the fp32 one "
+        f"{sorted(f32.values())}")
+    for f, lines in sass.items():
+        # the fp32 instance the serving shape runs (HD = 128, 16-byte loads)
+        if "flash_attention_kernelILi128ELb1" in f:
+            ops = collections.Counter(
+                m[1] for x in lines
+                if (m := re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                                   x)))
+            log(f"SASS: the fp32 instance HD = 128 (16-byte loads): "
+                f"{sum(ops.values())} instructions, by opcode "
+                f"{ops.most_common(16)}")
+    if not mma or min(mma.values()) == 0 or not f32 \
+            or min(f32.values()) == 0:
         raise SystemExit(f"SASS: bf16 flash kernels {mma}, fp32 {f32}")
-    return min(mma.values())
+    return dict(bfloat16=min(mma.values()), float32=min(f32.values()))
+
+
+def ptxas_report(report: str) -> dict:
+    """Registers and spill bytes per kernel instance from ``ptxas -v``'s
+    report of the build: {mangled name: dict(registers, spill_stores,
+    spill_loads)}."""
+    out, fn = {}, None
+    for line in report.splitlines():
+        if "Function properties for " in line:
+            fn = line.split("Function properties for ", 1)[1].strip()
+            out[fn] = dict(registers=None, spill_stores=None,
+                           spill_loads=None)
+        elif fn is None:
+            continue
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            out[fn].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif m := re.search(r"Used (\d+) registers", line):
+            out[fn]["registers"] = int(m[1])
+            fn = None
+    return out
+
+
+def check_flash_spills(report: str) -> dict:
+    """Phase 1's gate on the fp32 flash kernel: every instance compiled
+    with 0 spill bytes; returns its instances' registers and spills."""
+    inst = {f: r for f, r in ptxas_report(report).items()
+            if "flash_attention_kernel" in f}
+    log("ptxas: fp32 flash instances (registers, spill stores, spill "
+        "loads): " + str(sorted((r["registers"], r["spill_stores"],
+                                 r["spill_loads"]) for r in inst.values())))
+    if len(inst) != 8 or any(r["spill_stores"] != 0 or r["spill_loads"] != 0
+                             for r in inst.values()):
+        raise SystemExit(f"ptxas: fp32 flash instances {inst}: each of the "
+                         "8 must spill 0 bytes")
+    return inst
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -2282,24 +2368,38 @@ def check_flash_kernel(torch, ops, ref) -> dict:
             lib = [t.contiguous() for t in (q4, k4, v4)]
             item = torch.empty((), dtype=dtype).element_size()
             pairs = S * (S + 1) // 2 if causal else S * S
+            nbytes = (2 * B * H + 2 * B * K) * S * hd * item
+            flops = 4 * B * H * hd * pairs
             rec.update(
                 ms=device_ms(torch, kernel),
                 plain_ms=device_ms(torch, plain, reps=5),
                 library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
                     *lib, is_causal=causal, scale=scale, enable_gqa=True)),
-                bound=bound_ms((2 * B * H + 2 * B * K) * S * hd * item,
-                               4 * B * H * hd * pairs, name))
+                # fp32: three TF32 products at the tensor cores' TF32 rate,
+                # the least this card needs for products that keep f32's
+                # digits; the CUDA cores' bound printed beside it
+                bound=(bound_ms(nbytes, 3 * flops, "tf32")
+                       if name == "float32" else
+                       bound_ms(nbytes, flops, name)))
+            if name == "float32":
+                rec["cuda_core_bound"] = bound_ms(nbytes, flops, name)
             del lib
         out[(shape, causal, name)] = rec
         times = "" if "ms" not in rec else (
             f" kernel_ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
             f"library_ms {rec['library_ms']:.4f} bound_ms "
             f"{rec['bound'][0]:.4f} ({rec['bound'][1]})")
-        if "ms" in rec and name == "bfloat16":
-            times += (f" (before the tensor cores {FLASH_BF16_MS_BEFORE}, "
+        if "ms" in rec:
+            times += (f" (before the redesign {FLASH_MS_BEFORE[name]}, "
                       "PERF.md row 11, not this run; "
                       f"{rec['ms'] / rec['library_ms']:.2f}x the library, "
-                      f"{rec['ms'] / rec['bound'][0]:.2f}x the bound)")
+                      f"{rec['ms'] / rec['bound'][0]:.2f}x the bound")
+            if name == "float32":
+                times += (f" of three TF32 products, "
+                          f"{rec['ms'] / rec['cuda_core_bound'][0]:.2f}x the "
+                          f"CUDA cores' bound "
+                          f"{rec['cuda_core_bound'][0]:.4f}")
+            times += f") [{card()}]"
         log(f"kernel flash_attention {shape} causal={causal} {name} "
             f"({FLASH_SOURCES[name].rsplit('/', 1)[1]}): "
             f"max_row_rel_err {rec['err']:.3e} (tol {rec['tol']:.0e}; over "
@@ -2312,11 +2412,13 @@ def check_flash_kernel(torch, ops, ref) -> dict:
     return out
 
 
-def run_serving_path(torch, ops, flash_ms: float) -> dict:
+def run_serving_path(torch, ops, flash_ms: float, flash32_ms: float) -> dict:
     """Phase 4: full-width qwen3-8b through the serving engine, with the
     launch counters set to 0 just before the measured run and read just
     after; then the prefill logits with and without the kernel (not
-    counted).  ``flash_ms``: the kernel's device time at this shape."""
+    counted), and an fp32 prefill with the kernel, counted on its own.
+    ``flash_ms`` / ``flash32_ms``: the kernel's device time at this shape
+    in bf16 / fp32."""
     from repro_torch.configs import get_config
     from repro_torch.serve import Request, ServeConfig, ServingEngine
     cfg = get_config(SERVE_ARCH).replace(use_flash_kernel=True)
@@ -2361,13 +2463,13 @@ def run_serving_path(torch, ops, flash_ms: float) -> dict:
     plain = cfg.replace(use_flash_kernel=False)
     last = {}
     with torch.inference_mode():
-        for label, c in (("flash", cfg), ("plain", plain),
-                         ("fp32", plain.replace(dtype=torch.float32))):
+        for label, c in (("flash", cfg), ("plain", plain)):
             e = eng if c is cfg else ServingEngine(c, scfg, params=eng.params)
             logits, _ = e.prefill(tokens)
             last[label] = logits[:, -1].float()
             del logits, e
             torch.cuda.empty_cache()
+    f32 = fp32_prefills(torch, ops, eng, cfg, scfg, tokens, last)
     finite = all(bool(torch.isfinite(t).all()) for t in last.values())
 
     def gap(a, b):
@@ -2410,6 +2512,12 @@ def run_serving_path(torch, ops, flash_ms: float) -> dict:
         logits_tol=SERVE_LOGITS_TOL, flash_vs_fp32=gap("flash", "fp32"),
         plain_vs_fp32=gap("plain", "fp32"), argmax_agree=agree,
         first_tokens_are_logits_argmax=first,
+        fp32_launches=f32["launches"], fp32_prefill_ms=f32["prefill_ms"],
+        fp32_logits_max_rel_err=gap("fp32_flash", "fp32"),
+        fp32_logits_tol=SERVE_LOGITS_TOL_F32,
+        fp32_tf32_control_logits_max_rel_err=gap("fp32_tf32", "fp32"),
+        fp32_flash_share_of_prefill=flash32_ms
+        * f32["launches"]["flash_attention"] / f32["prefill_ms"]["flash"],
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
         outputs=outputs)
     log(f"serving: {json.dumps(rec)}")
@@ -2424,9 +2532,76 @@ def run_serving_path(torch, ops, flash_ms: float) -> dict:
         f" of the prefill; device busy {rec['prefill_busy_share']:.3f} of "
         f"the prefill, {rec['decode_busy_share']:.3f} of a decode step "
         f"({rec['decode_kernels_per_step']:.0f} kernels per step)")
+    if f32["launches"] != dict(dict.fromkeys(ops.LAUNCHES, 0),
+                               flash_attention=cfg.n_layers):
+        raise SystemExit(f"serving fp32: launches {f32['launches']} for one "
+                         f"prefill of {cfg.n_layers} layers")
+    if not rec["fp32_logits_max_rel_err"] <= SERVE_LOGITS_TOL_F32:
+        raise SystemExit(f"serving fp32: prefill logits with the kernel off "
+                         f"the plain path's by "
+                         f"{rec['fp32_logits_max_rel_err']} (tol "
+                         f"{SERVE_LOGITS_TOL_F32})")
+    control = rec["fp32_tf32_control_logits_max_rel_err"]
+    if not control > SERVE_LOGITS_TOL_F32:
+        raise SystemExit(f"serving fp32: the plain prefill in one TF32 pass "
+                         f"is within the bar ({control} <= "
+                         f"{SERVE_LOGITS_TOL_F32}): it does not tell TF32 "
+                         f"products from fp32 ones")
+    log(f"serving {SERVE_ARCH} fp32: prefill {f32['prefill_ms']['flash']:.1f}"
+        f" ms with the kernel ({f32['launches']['flash_attention']} "
+        f"launches), {f32['prefill_ms']['plain']:.1f} ms without; the "
+        f"kernel is {rec['fp32_flash_share_of_prefill']:.4f} of it; "
+        f"last-position logits {rec['fp32_logits_max_rel_err']:.3e} off the "
+        f"plain prefill's max-abs (tol {SERVE_LOGITS_TOL_F32:.0e}; the "
+        f"plain prefill in one TF32 pass {control:.3e}) [{card()}]")
     del eng, tokens, last
     torch.cuda.empty_cache()
     return rec
+
+
+def fp32_prefills(torch, ops, eng, cfg, scfg, tokens, last: dict) -> dict:
+    """Phase 4's fp32 prefills of ``tokens`` on the bf16 engine's weights,
+    without the kernel ("fp32") and with it ("fp32_flash"): each warmed
+    once, then timed (synchronized) with its last-position logits kept in
+    ``last``; the launch counters are set to 0 just before the timed
+    prefill with the kernel and read just after.  Then the bar's control
+    ("fp32_tf32"), untimed: the plain prefill with
+    ``torch.backends.cuda.matmul.allow_tf32`` on (restored after), every
+    product in one TF32 pass, as a kernel that lost fp32's digits would
+    take its attention's."""
+    from repro_torch.serve import ServingEngine
+    runs = (("plain", "fp32", cfg.replace(use_flash_kernel=False,
+                                          dtype=torch.float32)),
+            ("flash", "fp32_flash", cfg.replace(dtype=torch.float32)))
+    prefill_ms, launches = {}, None
+    with torch.inference_mode():
+        for key, label, c in runs:
+            e = ServingEngine(c, scfg, params=eng.params)
+            e.prefill(tokens)                        # warm-up
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            if key == "flash":
+                ops.reset_launches()
+            t0 = time.perf_counter()
+            logits, _ = e.prefill(tokens)
+            torch.cuda.synchronize()
+            prefill_ms[key] = (time.perf_counter() - t0) * 1e3
+            if key == "flash":
+                launches = dict(ops.LAUNCHES)
+            last[label] = logits[:, -1].float()
+            del logits, e
+            torch.cuda.empty_cache()
+        allow = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            logits, _ = ServingEngine(runs[0][2], scfg,
+                                      params=eng.params).prefill(tokens)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allow
+        last["fp32_tf32"] = logits[:, -1].float()
+        del logits
+        torch.cuda.empty_cache()
+    return dict(prefill_ms=prefill_ms, launches=launches)
 
 
 def main() -> int:
@@ -2454,13 +2629,13 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     path = _build.library_path()
-    if not path.exists():
-        report = _build.build(path)
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas: {line.strip()}")
+    report = _build.build(path)     # always: phase 1 reads its report
+    for line in report.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"ptxas: {line.strip()}")
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {path.name}")
+    spills = check_flash_spills(report)
     hmma = count_hmma(path, _build.nvcc())
 
     # -- 3a. the main path's matrix (built first: phase 2 uses its shape) --
@@ -2617,7 +2792,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     log_memory(torch, "clearing the session cache")
     main_flash = flash[(FLASH_SHAPE, True, "bfloat16")]
-    serving = run_serving_path(torch, ops, main_flash["ms"])
+    f32 = flash[(FLASH_SHAPE, True, "float32")]
+    serving = run_serving_path(torch, ops, main_flash["ms"], f32["ms"])
     path_launches.update(flash_attention=serving["launches"]["flash_attention"])
 
     # -- 6. the kernel table and the result line ------------------------------
@@ -2665,11 +2841,12 @@ def main() -> int:
             fp32_plain_ms=r32["plain_ms"],
             fp32_library_ms=r32["library_ms"],
             fp32_bound_ms=r32["bound"][0], **extra))
-    f32 = flash[(FLASH_SHAPE, True, "float32")]
     kernels.append(dict(
         name="flash_attention", route="cuda",
         source=FLASH_SOURCES["bfloat16"], sources=FLASH_SOURCES,
-        hmma_in_bf16_kernel=hmma,
+        hmma_in_bf16_kernel=hmma["bfloat16"],
+        tf32_hmma_in_fp32_kernel=hmma["float32"],
+        fp32_registers=sorted(r["registers"] for r in spills.values()),
         replaces="src/repro/kernels/flash_attention.py:68",
         launches=path_launches["flash_attention"],
         max_abs_err=main_flash["max_abs_err"], ms=main_flash["ms"],
@@ -2683,7 +2860,12 @@ def main() -> int:
                      "enable_gqa=True)",
         fp32_max_row_rel_err=f32["err"], fp32_ms=f32["ms"],
         fp32_plain_ms=f32["plain_ms"], fp32_library_ms=f32["library_ms"],
-        fp32_bound_ms=f32["bound"][0],
+        fp32_bound_ms=f32["bound"][0], fp32_bound_by=f32["bound"][1],
+        fp32_bound="three TF32 products at 495 TFLOP/s",
+        fp32_cuda_core_bound_ms=f32["cuda_core_bound"][0],
+        fp32_launches=serving["fp32_launches"]["flash_attention"],
+        fp32_max_abs_err=f32["max_abs_err"],
+        fp32_repeats_bitwise=f32["repeats_bitwise"],
         other_cases=[dict(shape=r["shape"], causal=r["causal"],
                           dtype=r["dtype"], max_row_rel_err=r["err"])
                      for key, r in flash.items()

@@ -1,15 +1,16 @@
 """CUDA kernels: causal (or full) GQA flash attention, forward.
 
 Counterparts of ``repro/kernels/flash_attention.py:flash_attention_pallas``,
-one route per dtype, fixed: bfloat16 goes to
-``src/repro_torch/csrc/flash_attention_mma.cu`` (both products on the
-tensor cores, ``mma.sync`` bf16 -> f32, fed by a ``cp.async`` ring), float32
-to ``src/repro_torch/csrc/flash_attention.cu`` (f32 FMAs on the CUDA
-cores).  q and o are ``(B, H, S, hd)`` and k and v ``(B, K, S, hd)`` as
-logical shapes with ``H = K * G`` (query head h reads KV head ``h // G``),
-any strides on the first three axes and a contiguous last one, so the
-model's ``(B, S, H, hd)`` tensors go in as transposed views, without a
-copy.  The scores, the softmax and the sums are f32 and the output is
+one route per dtype, fixed, both on the tensor cores with ``mma.sync``
+fed by a ``cp.async`` ring: bfloat16 goes to
+``src/repro_torch/csrc/flash_attention_mma.cu`` (bf16 -> f32), float32 to
+``src/repro_torch/csrc/flash_attention.cu`` (3xTF32: each operand split
+into two TF32 parts, three TF32 products summed in f32, about 21 bits a
+product, within fp32's 2e-5 per output row).  q and o are ``(B, H, S,
+hd)`` and k and v ``(B, K, S, hd)`` as logical shapes with ``H = K * G``
+(query head h reads KV head ``h // G``), any strides on the first three
+axes and a contiguous last one, so the model's ``(B, S, H, hd)`` tensors
+go in as transposed views, without a copy.  The scores, the softmax and the sums are f32 and the output is
 stored in q's dtype, as the TPU kernel does; the bf16 route rounds the
 probabilities to bf16 before the product with V.  ``hd`` up to 128; any S
 (a ragged last tile is bounds-checked, where the TPU kernel asserts that

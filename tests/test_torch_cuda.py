@@ -485,14 +485,17 @@ def test_block_jacobi_kernels_take_blocks_past_shared_memory(cuda, bs, m):
 TOL_FLASH = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 
 #: (B, K, G, S, hd, causal, dtype): S = 300 leaves a ragged last tile (the
-#: kernels' tiles are 64 rows), hd 20 (no multiple of 8) takes the bf16
-#: kernel's element-load staging; the last case is qwen3-8b's prefill,
-#: (B, H, K, S, hd) = (4, 32, 8, 1024, 128), on the tensor-core route
+#: kernels' tiles are 64 query rows, 64 or 32 keys), hd 20 (no multiple of
+#: 8) takes the bf16 kernel's element-load staging and hd 18 (no multiple
+#: of 4) the fp32 kernel's; the last cases are qwen3-8b's prefill, (B, H,
+#: K, S, hd) = (4, 32, 8, 1024, 128), in both types
 FLASH_CASES = [(2, 2, G, 300, hd, causal, dtype)
                for hd in (16, 20, 64, 96, 128) for G in (1, 4)
                for causal in (True, False)
                for dtype in (torch.float32, torch.bfloat16)] + [
-    (4, 8, 4, 1024, 128, True, torch.bfloat16)]
+    (2, 2, 4, 300, 18, causal, torch.float32) for causal in (True, False)
+] + [(4, 8, 4, 1024, 128, True, dtype)
+     for dtype in (torch.bfloat16, torch.float32)]
 
 
 def flash_operands(B, K, G, S, hd, dtype, device, seed):
@@ -536,12 +539,32 @@ def test_flash_kernel_matches_plain_version(cuda, B, K, G, S, hd, causal,
     assert flash_row_err(got, want, hd) <= TOL_FLASH[dtype]
 
 
-def test_flash_kernel_repeats_bitwise(cuda):
-    qg, k, v = flash_operands(2, 8, 4, 1024, 128, torch.bfloat16, cuda, 1)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=lambda d: str(d).replace("torch.", ""))
+def test_flash_kernel_repeats_bitwise(cuda, dtype):
+    qg, k, v = flash_operands(2, 8, 4, 1024, 128, dtype, cuda, 1)
     first = ops.flash_attention(qg, k, v, scale=128 ** -0.5)
     for _ in range(3):
         assert torch.equal(ops.flash_attention(qg, k, v, scale=128 ** -0.5),
                            first)
+
+
+def test_fp32_flash_keeps_the_digits_one_tf32_pass_loses(cuda):
+    """At qwen3-8b's prefill shape the plain version with TF32 matmuls (one
+    TF32 pass per product) misses fp32's 2e-5 per row, while the kernel
+    (3xTF32) meets it: the bar tells the two apart."""
+    qg, k, v = flash_operands(4, 8, 4, 1024, 128, torch.float32, cuda, 7)
+    scale = 128 ** -0.5
+    want = plain_flash(qg, k, v, scale, True)
+    assert flash_row_err(ops.flash_attention(qg, k, v, scale=scale), want,
+                         128) <= TOL_FLASH[torch.float32]
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = plain_flash(qg, k, v, scale, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert flash_row_err(one_pass, want, 128) > TOL_FLASH[torch.float32]
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
