@@ -167,6 +167,20 @@ package is missing.  Phases, any failure of which fails the run:
    (0, 1.0) to its iterations), then a profiled
    engine run (``profile_dir``); and ``python -m repro_torch.observe smoke``
    writing its four artifacts with their schemas;
+3i. the contract analyzer (run after 3h, before 4): ``python -m
+   repro_torch.analysis``'s full audit (``run_audit(quick=False,
+   device="cuda")``: 116 cells traced in fake mode on the card) with the 5
+   mesh cells on a one-rank NCCL mesh (3g's): no deviation, no kernel
+   launched, every cell's statuses and the method x substrate matrix those
+   of the committed CPU artifact (``experiments/torch_contract_audit
+   .json``), the audit's wall time printed; then
+   ``make_solver("p-bicgsafe", ell, substrate="cuda").verify_contracts()``
+   on the full system for ``solve`` and ``solve_many``: every contract
+   holds, ``kernel_backed`` with at least 4 kernel op nodes a step (dots,
+   axpy, two SpMVs), no kernel launched.  The solver kernels are
+   ``torch.library`` ops (``repro_torch::*``): every earlier phase's
+   bitwise checks and launch counts hold through them, and 3b's graph and
+   eager ms per iteration are printed beside PERF.md's;
 6. a ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -183,7 +197,7 @@ the allocator holds is printed after each solver phase, and the session
 cache is cleared before phase 4.
 
 The run goes 1, 3a (the matrix), 2, 2b, 2c, 2d, 3b-3f, the profiler's
-counts, 3g, 5, 3h, 4, 6.  Each path is driven with the launch counters set to 0 just
+counts, 3g, 5, 3h, 3i, 4, 6.  Each path is driven with the launch counters set to 0 just
 before it and read just after; the kernels' checks and timings are not
 counted.
 """
@@ -323,6 +337,14 @@ SERVICE_SESSIONS = 6        # (n, M) sessions bound under a small budget
 OBSERVE_METHODS = ("p-bicgsafe", "p-bicgsafe-rr", "ssbicgsafe2")
 OBSERVE_RING = 64
 OBSERVE_DIR = os.path.join(ROOT, "build", "observe")
+# phase 3i: the contract audit's committed CPU artifact, and the kernel ops
+# a p-BiCGSafe step on the ELL operator holds (dots, axpy, two SpMVs)
+AUDIT_ARTIFACT = os.path.join(ROOT, "experiments",
+                              "torch_contract_audit.json")
+STEP_KERNEL_OPS = 4
+# 3b's ms per iteration in PERF.md (section 5: a run on one H100 80GB HBM3
+# at 700.00 W, before the solver kernels were torch.library ops)
+PERF_3B_MS = {"graph": 0.5840, "eager": 1.2987}
 
 
 def log(msg: str) -> None:
@@ -2263,6 +2285,81 @@ def run_observe_path(torch, repro_torch, ops, ell, stencil, b, main, many,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3i: the contract analyzer
+# ---------------------------------------------------------------------------
+
+def _statuses(record: dict) -> dict:
+    return {f["contract"]: f["status"] for f in record["findings"]}
+
+
+def _cell(record: dict) -> tuple:
+    b = record["binding"]
+    return (b["method"], b["substrate"], b["binding"], b["guard"],
+            b["precond"], str(b["mesh_shape"]))
+
+
+def run_analysis_path(torch, repro_torch, ops, ell) -> dict:
+    """Phase 3i: the contract analyzer on the card, with the launch
+    counters set to 0 just before each part and read just after (fake
+    mode: nothing may launch).  The full audit (116 cells, CUDA fake
+    tensors) and the 5 mesh cells on a one-rank NCCL mesh (3g's): no
+    deviation, every cell's statuses and the method x substrate matrix
+    those of the committed CPU artifact; then 3b's session's
+    ``verify_contracts`` for ``solve`` and ``solve_many`` on the full
+    system: every contract holds, ``kernel_backed`` with at least
+    ``STEP_KERNEL_OPS`` kernel nodes."""
+    from repro_torch.analysis import audit
+    with open(AUDIT_ARTIFACT) as f:
+        committed = json.load(f)
+    sessions = []
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with one_rank_mesh(sessions) as mesh:
+        art = audit.run_audit(quick=False, device="cuda", mesh=mesh)
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+    log(f"3i audit: {art['n_cells']} cells ({art['n_mesh_cells']} mesh, "
+        f"{art['n_devices']} rank, on {art['device']}) in {wall:.2f} s "
+        f"wall, {len(art['deviations'])} deviations, launches {launched}")
+    log(audit.audit_table(art))
+    want = {_cell(r): _statuses(r) for r in committed["reports"]}
+    got = {_cell(r): _statuses(r) for r in art["reports"]}
+    if not art["ok"] or launched or got != want \
+            or art["matrix"] != committed["matrix"]:
+        diff = sorted(k for k in set(got) | set(want)
+                      if got.get(k) != want.get(k))
+        raise SystemExit(f"3i audit: ok {art['ok']}, launches {launched}, "
+                         f"cells unlike the committed artifact: {diff}")
+    out = dict(audit_wall_s=wall, n_cells=art["n_cells"],
+               n_mesh_cells=art["n_mesh_cells"], verify={})
+
+    session = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    reports = session.verify_contracts(bindings=("single", "batched"))
+    verify_s = time.perf_counter() - t0
+    launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+    for rep in reports:
+        kb = rep.finding("kernel_backed")
+        n_ops = int(kb.detail.split()[0]) if kb.status == "ok" else 0
+        rec = dict(ok=rep.ok, kernel_ops=n_ops,
+                   findings={f.contract: f.status for f in rep.findings},
+                   kernels=list(kb.provenance))
+        out["verify"][rep.spec.binding] = rec
+        log(f"3i verify_contracts {rep.spec.label} (n = {ell.n}): "
+            f"{json.dumps(rec)}")
+        if not rep.ok or n_ops < STEP_KERNEL_OPS:
+            raise SystemExit(f"3i verify_contracts {rep.spec.label}: "
+                             f"{[f.to_dict() for f in rep.findings]}")
+    log(f"3i verify_contracts: {verify_s:.2f} s wall for "
+        f"{len(reports)} bindings, launches {launched} [{card()}]")
+    if launched:
+        raise SystemExit(f"3i verify_contracts launched kernels: {launched}")
+    out["verify_s"] = verify_s
+    return out
+
+
 def check_session_budget(torch, repro_torch, ell) -> dict:
     """C16 on the card: SERVICE_SESSIONS (n, M) sessions of distinct
     operators (scaled copies of ``ell``) under a budget of about two
@@ -2696,6 +2793,12 @@ def main() -> int:
                           eager=method == "p-bicgsafe")
             for method in ("p-bicgsafe", "p-bicgsafe-rr")]
     main, rr = runs
+    log(f"main p-bicgsafe against PERF.md: graph "
+        f"{main['ms_per_iteration']:.4f} ms per iteration (PERF.md "
+        f"{PERF_3B_MS['graph']:.4f}), eager chunk "
+        f"{main['eager_ms_per_iteration']:.4f} (PERF.md "
+        f"{PERF_3B_MS['eager']:.4f}), the kernels now torch.library ops "
+        f"[{card()}]")
     share = sum(results["float64"][k]["ms"] * main["launches"][k]
                 for k in SINGLE) / (main["wall_s"] * 1e3)
     log(f"main p-bicgsafe: the three kernels' device time is {share:.3f} "
@@ -2783,6 +2886,11 @@ def main() -> int:
     # -- 3h. traces and profiles (after 5: it serves 5's burst traced) -------
     observe = run_observe_path(torch, repro_torch, ops, ell, stencil, b,
                                main, many, service, args.seed)
+
+    # -- 3i. the contract analyzer -------------------------------------------
+    analysis = run_analysis_path(torch, repro_torch, ops, ell)
+    log(f"3i: audit {analysis['audit_wall_s']:.2f} s for "
+        f"{analysis['n_cells']} cells")
 
     # -- 4. the serving path --------------------------------------------------
     # the cached sessions hold their programs' buffers and graph pools

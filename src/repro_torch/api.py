@@ -636,6 +636,62 @@ class LinearSolver:
         :class:`~repro_torch.observe.ConvergenceTrace`."""
         return self._wrap_trace(multirhs.result_from_state(state))
 
+    def verify_contracts(self, *, bindings: Optional[Sequence[str]] = None,
+                         mesh=None, m: int = 3,
+                         contracts: Optional[Sequence[str]] = None,
+                         raise_on_violation: bool = False):
+        """Statically verify the paper's communication contracts on THIS
+        session's bindings: tracing only (``make_fx`` in fake mode), no
+        solve runs and no kernel launches.
+
+        Traces the step of this session's method with its matvec, its
+        bound preconditioner, its substrate and its config through
+        :mod:`repro_torch.analysis` and runs the contract passes (one
+        fused reduction per iteration, overlap-edge freedom, kernel
+        backing, dtype flow; plus the single-all-reduce pass when ``mesh=``
+        is given and the operator is a stencil).
+
+        Args:
+          bindings: binding kinds to trace (``"single"``: :meth:`solve`'s
+            step; ``"batched"``: :meth:`solve_many`'s; ``"open_loop"``:
+            the open-loop chunk's); default: ``["batched"]`` for
+            p-BiCGSafe sessions (the multi-RHS front door), else
+            ``["single"]``.
+          mesh: a DeviceMesh or process group: adds the sharded ``"mesh"``
+            cell (every rank calls together; see
+            :meth:`DistributedSolver.verify_contracts`).
+          m: the column count of the batched cells.
+          contracts: names from :data:`repro_torch.analysis.PASSES` to run
+            (default: all applicable).
+          raise_on_violation: raise ``ValueError`` listing the violated
+            contracts instead of returning reports that carry them.
+
+        Returns:
+          a list of :class:`repro_torch.analysis.ContractReport`, one per
+          traced binding.
+        """
+        from .analysis import run_passes, trace_binding
+        if bindings is None:
+            bindings = ["batched"] if (self.method == "p-bicgsafe"
+                                       or self.blocked) else ["single"]
+        bindings = list(bindings)
+        if mesh is not None and "mesh" not in bindings:
+            bindings.append("mesh")
+        reports = []
+        for binding in bindings:
+            # a mesh builds its preconditioner from the shard's own slab
+            precond = self.precond_spec if binding == "mesh" \
+                else self.precond
+            reports.append(run_passes(trace_binding(
+                self.method, self.operator, binding=binding,
+                substrate=self.sub, precond=precond,
+                guard=self.config.guard, m=m, config=self.config,
+                mesh=mesh if binding == "mesh" else None,
+                blocked=self.blocked, device=self.device), names=contracts))
+        if raise_on_violation:
+            _raise_violations(reports)
+        return reports
+
     def on_mesh(self, mesh, *, shard_axes: Optional[Sequence[str]] = None
                 ) -> "DistributedSolver":
         """Bind this session to a mesh (a ``torch.distributed`` DeviceMesh
@@ -755,6 +811,26 @@ class DistributedSolver:
         s._used()
         return s._wrap_trace(res)
 
+    def verify_contracts(self, *, m: int = 3,
+                         contracts: Optional[Sequence[str]] = None,
+                         raise_on_violation: bool = False):
+        """:meth:`LinearSolver.verify_contracts` of the ``"mesh"`` cell on
+        this binding's mesh: the sharded step (halo matvec, shard-local
+        preconditioner, the all-reduce) traced in fake mode, with the
+        single-all-reduce pass.  Building the sharded solve makes one
+        all-reduce, so every rank calls it together.  Returns a list of
+        one :class:`repro_torch.analysis.ContractReport`."""
+        from .analysis import run_passes, trace_binding
+        s = self.session
+        reports = [run_passes(trace_binding(
+            s.method, s.operator, binding="mesh", substrate=s.sub,
+            precond=s.precond_spec, guard=s.config.guard, m=m,
+            config=s.config, mesh=self.mesh, shard_axes=self.shard_axes,
+            device=s.device), names=contracts)]
+        if raise_on_violation:
+            _raise_violations(reports)
+        return reports
+
     @property
     def nbytes(self) -> int:
         """The memory this binding's programs hold."""
@@ -771,6 +847,15 @@ class DistributedSolver:
                 prog.release()
             fn.programs.clear()
         return on_card
+
+
+def _raise_violations(reports) -> None:
+    bad = [(r.spec.label, f) for r in reports for f in r.violations]
+    if bad:
+        raise ValueError(
+            "contract violation(s) on this session's bindings:\n"
+            + "\n".join(f"  {label}: {f.contract} — {f.detail}"
+                        for label, f in bad))
 
 
 # ---------------------------------------------------------------------------

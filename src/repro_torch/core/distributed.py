@@ -298,7 +298,10 @@ def build_stencil_solver(solver: Callable,
     dtype in ``fn.programs`` (``tol`` / ``maxiter`` override ``config`` per
     call and run the same program: ``tol`` is a constant buffer of it, as
     in a session).  ``fn``'s ``x`` is this rank's slab; ``fn.layout`` is
-    the :class:`MeshLayout`, ``fn.precond`` the local preconditioner.
+    the :class:`MeshLayout`, ``fn.precond`` the local preconditioner;
+    ``fn.method``, ``fn.matvec`` (the halo matvec) and ``fn.reduce`` (the
+    all-reduce) are what each solve hands
+    :func:`~repro_torch.core.pipelined_bicgsafe.prepare_chunked`.
 
     ``stats`` accumulates ``steps``, ``host_reads``, ``graphs`` and the
     programs built; ``syncs`` counts the all-reduces started (a graph
@@ -330,6 +333,7 @@ def build_stencil_solver(solver: Callable,
         return res._replace(x=res.x.reshape(layout.local_shape))
 
     fn.layout, fn.precond, fn.programs = layout, pc, {}
+    fn.method, fn.matvec, fn.reduce = method, mv, reduce
     return fn
 
 
@@ -366,7 +370,10 @@ def build_stencil_solver_batched(op: Stencil7Operator,
     tol=None, maxiter=None) -> SolveResult`` for any column count m: one
     halo exchange per block matvec carries all m columns, and one
     all-reduce of the ``(9, m)`` partials (``(11, m)`` guarded) per
-    iteration.  The rest as in :func:`build_stencil_solver`."""
+    iteration.  ``fn.matvec`` is the block halo matvec composed with the
+    local M^{-1}, ``fn.prep`` that M^{-1} (``None`` without one),
+    ``fn.reduce`` the all-reduce: what each solve builds its state and
+    program from.  The rest as in :func:`build_stencil_solver`."""
     from .multirhs import (batched_program, init_state, result_from_state,
                            run_chunks)
 
@@ -399,6 +406,7 @@ def build_stencil_solver_batched(op: Stencil7Operator,
                                             B.shape[1]))
 
     fn.layout, fn.precond, fn.programs = layout, pc, {}
+    fn.matvec, fn.prep, fn.reduce = bmv, papply, reduce
     return fn
 
 

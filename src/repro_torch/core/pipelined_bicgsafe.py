@@ -110,6 +110,24 @@ def run_chunked(program: Program, state: dict, consts: dict, maxiter: int,
     return program.read()
 
 
+def prepare_chunked(method: ChunkedMethod, matvec, b: torch.Tensor,
+                    x0: Optional[torch.Tensor] = None, *,
+                    config: SolverConfig, r0_star: Optional[torch.Tensor],
+                    substrate: SubstrateLike, precond: PrecondLike = None,
+                    dot_reduce: Optional[DotReduce] = None):
+    """The set-up of :func:`solve_chunked`: the left-preconditioned
+    system, the method's eager ``init`` and its loop body bound to them.
+    Returns ``(step, state, consts)``, ``step(state, consts, replace)``
+    the body a program runs (and :mod:`repro_torch.analysis` traces)."""
+    sub = get_substrate(substrate)
+    reduce = as_reducer(dot_reduce)
+    matvec, b = preconditioned_system(sub, matvec, b, precond)
+    state, consts = method.init(matvec, b, x0, r0_star, config, sub, reduce)
+    step = functools.partial(method.step, matvec=matvec, sub=sub,
+                             config=config, reduce=reduce)
+    return step, state, consts
+
+
 def solve_chunked(method: ChunkedMethod, matvec, b: torch.Tensor,
                   x0: Optional[torch.Tensor] = None, *,
                   config: SolverConfig, r0_star: Optional[torch.Tensor],
@@ -124,12 +142,9 @@ def solve_chunked(method: ChunkedMethod, matvec, b: torch.Tensor,
     are global) reduces every phase of inner products.  ``program(step)``
     returns the program to run the body on (a session's memoized one); by
     default a program of this call alone."""
-    sub = get_substrate(substrate)
-    reduce = as_reducer(dot_reduce)
-    matvec, b = preconditioned_system(sub, matvec, b, precond)
-    state, consts = method.init(matvec, b, x0, r0_star, config, sub, reduce)
-    step = functools.partial(method.step, matvec=matvec, sub=sub,
-                             config=config, reduce=reduce)
+    step, state, consts = prepare_chunked(
+        method, matvec, b, x0, config=config, r0_star=r0_star,
+        substrate=substrate, precond=precond, dot_reduce=dot_reduce)
     prog = Program(step, b.device, stats=stats) if program is None \
         else program(step)
     replace = None if method.replace is None \

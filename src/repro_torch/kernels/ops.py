@@ -17,6 +17,15 @@ The solver wrappers are the backing of the ``"cuda"`` compute substrate
 (:mod:`repro_torch.core.substrate`), :func:`flash_attention` that of the
 model stack's prefill (:mod:`repro_torch.models.attention`).  ``LAUNCHES``
 counts the kernel launches (the CPU path counts nothing).
+
+Behind each solver wrapper's checks, the dispatch is one
+``torch.library`` op of the ``repro_torch`` namespace (:data:`KERNEL_OPS`):
+its CPU kernel is the plain version, its CUDA kernel the launch, its fake
+kernel the output shapes.  An FX graph of a solver step
+(:mod:`repro_torch.analysis`) therefore holds one node per kernel call, on
+the CPU too, where the plain PyTorch a silent fallback would run shows as
+aten nodes instead.  The shared block-Jacobi apply (``nb == 1``) is no
+kernel, and no op.
 """
 from __future__ import annotations
 
@@ -28,9 +37,10 @@ from . import ref
 from ._build import LAUNCHES, reset_launches
 from .flash_attention import DTYPES as FLASH_DTYPES
 from .flash_attention import MAX_HEAD_DIM, flash_attention_cuda
-from .fused_axpy import IN_ORDER, fused_axpy_batched_cuda, fused_axpy_cuda
-from .fused_dots import (fused_dots_batched_cuda, fused_dots_cuda,
-                         fused_dots_health_batched_cuda,
+from .fused_axpy import (IN_ORDER, OUT_ORDER, fused_axpy_batched_cuda,
+                         fused_axpy_cuda)
+from .fused_dots import (NDOTS, NDOTS_HEALTH, fused_dots_batched_cuda,
+                         fused_dots_cuda, fused_dots_health_batched_cuda,
                          fused_dots_health_cuda)
 from .precond_apply import (block_jacobi_apply_batched_cuda,
                             block_jacobi_apply_cuda)
@@ -38,7 +48,13 @@ from .spmv_ell import spmv_ell_batched_cuda, spmv_ell_cuda
 
 __all__ = ["fused_dots", "fused_dots_health", "fused_axpy", "spmv_ell",
            "block_jacobi_apply", "flash_attention", "LAUNCHES",
-           "reset_launches"]
+           "reset_launches", "NAMESPACE", "KERNEL_OPS"]
+
+#: the ``torch.library`` namespace of the port's ops
+NAMESPACE = "repro_torch"
+#: the solver kernels' ops, ``torch.ops.repro_torch.<name>``
+KERNEL_OPS = ("fused_dots", "fused_dots_health", "fused_axpy", "spmv_ell",
+              "block_jacobi_apply")
 
 
 def _check_vectors(name: str, vecs: dict):
@@ -78,15 +94,97 @@ def _dots_cuda(single, batched, v: torch.Tensor, operands) -> torch.Tensor:
     return out if v.dim() == 1 else out.view(-1, 1)
 
 
+# -- the ops: checked operands in, each output a fresh tensor -----------------
+#
+# Defined with ``torch.library.Library`` and a kernel for the CPU and the CUDA
+# dispatch keys alone: the dispatcher calls the kernel directly.  The
+# ``torch.library.custom_op`` form of the same ops wraps each call in Python
+# (autograd, an aliasing check), which costs the host more a call
+# (``tools/op_dispatch_ab.py`` times both on the card).  No output aliases
+# an input: the plain versions and the launchers return fresh tensors (a
+# frozen column of the masked update is selected by ``torch.where``, never
+# returned as given).
+
+_LIB = torch.library.Library(NAMESPACE, "FRAGMENT")
+
+
+def _define(name: str, schema: str, cpu, cuda, fake):
+    """Define the op ``repro_torch::<name>`` with its CPU kernel (the plain
+    version), CUDA kernel (the launch) and fake kernel (the shapes), and
+    return its overload."""
+    _LIB.define(name + schema)
+    _LIB.impl(name, cpu, "CPU")
+    _LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
+def _dots_kernel(s, y, r, t, rs):
+    return _dots_cuda(fused_dots_cuda, fused_dots_batched_cuda, s,
+                      (s, y, r, t, rs))
+
+
+def _dots_health_kernel(s, y, r, t, rs, x):
+    return _dots_cuda(fused_dots_health_cuda, fused_dots_health_batched_cuda,
+                      s, (s, y, r, t, rs, x))
+
+
+def _axpy_plain(vecs, scal, mask):
+    out = ref.fused_axpy(dict(zip(IN_ORDER, vecs)), scal.unbind(0), mask)
+    return [out[k] for k in OUT_ORDER]
+
+
+def _axpy_kernel(vecs, scal, mask):
+    named = dict(zip(IN_ORDER, vecs))
+    out = fused_axpy_cuda(named, scal) if vecs[0].dim() == 1 \
+        else fused_axpy_batched_cuda(named, scal, mask)
+    return [out[k] for k in OUT_ORDER]
+
+
+def _spmv_kernel(values, cols, x):
+    if x.dim() == 2:
+        return spmv_ell_batched_cuda(values, cols, x)
+    return spmv_ell_cuda(values, cols, x)
+
+
+def _block_jacobi_kernel(inv_blocks, x):
+    if x.dim() == 2:
+        return block_jacobi_apply_batched_cuda(inv_blocks, x)
+    return block_jacobi_apply_cuda(inv_blocks, x)
+
+
+_fused_dots_op = _define(
+    "fused_dots", "(Tensor s, Tensor y, Tensor r, Tensor t, Tensor rs) "
+    "-> Tensor", ref.fused_dots, _dots_kernel,
+    lambda s, *_: s.new_empty((NDOTS,) + tuple(s.shape[1:])))
+_fused_dots_health_op = _define(
+    "fused_dots_health", "(Tensor s, Tensor y, Tensor r, Tensor t, "
+    "Tensor rs, Tensor x) -> Tensor", ref.fused_dots_health,
+    _dots_health_kernel,
+    lambda s, *_: s.new_empty((NDOTS_HEALTH,) + tuple(s.shape[1:])))
+_fused_axpy_op = _define(
+    "fused_axpy", "(Tensor[] vecs, Tensor scal, Tensor? mask) -> Tensor[]",
+    _axpy_plain, _axpy_kernel,
+    lambda vecs, scal, mask: [torch.empty_like(vecs[0]) for _ in OUT_ORDER])
+_spmv_ell_op = _define(
+    "spmv_ell", "(Tensor values, Tensor cols, Tensor x) -> Tensor",
+    ref.spmv_ell, _spmv_kernel,
+    lambda values, cols, x: x.new_empty((values.shape[0],)
+                                        + tuple(x.shape[1:])))
+_block_jacobi_apply_op = _define(
+    "block_jacobi_apply", "(Tensor inv_blocks, Tensor x) -> Tensor",
+    ref.block_jacobi_apply, _block_jacobi_kernel,
+    lambda inv_blocks, x: torch.empty_like(x))
+
+
+# -- the wrappers: the checks, then the op ------------------------------------
+
 def fused_dots(s, y, r, t, rs) -> torch.Tensor:
     """The 9 fused inner products ``[s·s, y·y, s·y, s·r, y·r, rs·r, rs·s,
     rs·t, r·r]``: ``(9,)`` for ``(n,)`` vectors, ``(9, m)`` per-column dots
     for ``(n, m)`` blocks."""
-    v = _check_vectors("fused_dots", dict(s=s, y=y, r=r, t=t, rs=rs))
-    if not v.is_cuda:
-        return ref.fused_dots(s, y, r, t, rs)
-    return _dots_cuda(fused_dots_cuda, fused_dots_batched_cuda, v,
-                      (s, y, r, t, rs))
+    _check_vectors("fused_dots", dict(s=s, y=y, r=r, t=t, rs=rs))
+    return _fused_dots_op(s, y, r, t, rs)
 
 
 def fused_dots_health(s, y, r, t, rs, x) -> torch.Tensor:
@@ -94,12 +192,9 @@ def fused_dots_health(s, y, r, t, rs, x) -> torch.Tensor:
     ``x·x`` and the NaN/Inf probe ``Σ(s+y+t+rs+x)``: ``(11,)`` for
     ``(n,)`` vectors, ``(11, m)`` per column for ``(n, m)`` blocks.  A NaN
     or Inf in any operand of a column makes its row 10 non-finite."""
-    v = _check_vectors("fused_dots_health",
-                       dict(s=s, y=y, r=r, t=t, rs=rs, x=x))
-    if not v.is_cuda:
-        return ref.fused_dots_health(s, y, r, t, rs, x)
-    return _dots_cuda(fused_dots_health_cuda, fused_dots_health_batched_cuda,
-                      v, (s, y, r, t, rs, x))
+    _check_vectors("fused_dots_health",
+                   dict(s=s, y=y, r=r, t=t, rs=rs, x=x))
+    return _fused_dots_health_op(s, y, r, t, rs, x)
 
 
 def _coefficients(scalars, v: torch.Tensor) -> torch.Tensor:
@@ -138,22 +233,17 @@ def fused_axpy(vecs: Dict[str, torch.Tensor], scalars,
         raise KeyError(f"fused_axpy: missing vectors {sorted(missing)}")
     v = _check_vectors("fused_axpy", {k: vecs[k] for k in IN_ORDER})
     scal = _coefficients(scalars, v)
-    if v.dim() == 1:
-        if mask is not None:
-            raise ValueError("fused_axpy: mask is a multi-RHS (column) "
-                             "concept; it needs (n, m) blocks")
-        if v.is_cuda:
-            return fused_axpy_cuda(vecs, scal)
-        return ref.fused_axpy(vecs, scal.unbind(0))
+    if v.dim() == 1 and mask is not None:
+        raise ValueError("fused_axpy: mask is a multi-RHS (column) "
+                         "concept; it needs (n, m) blocks")
     if mask is not None:
         mask = torch.as_tensor(mask, device=v.device).to(torch.bool)
         if tuple(mask.shape) != (v.shape[1],):
             raise ValueError(f"fused_axpy: mask must be ({v.shape[1]},), "
                              f"got shape {tuple(mask.shape)}")
         mask = mask.contiguous()
-    if v.is_cuda:
-        return fused_axpy_batched_cuda(vecs, scal, mask)
-    return ref.fused_axpy(vecs, scal.unbind(0), mask)
+    out = _fused_axpy_op([vecs[k] for k in IN_ORDER], scal, mask)
+    return dict(zip(OUT_ORDER, out))
 
 
 def spmv_ell(op, x) -> torch.Tensor:
@@ -173,11 +263,7 @@ def spmv_ell(op, x) -> torch.Tensor:
         raise TypeError(f"spmv_ell: cols must be int32, got {cols.dtype}")
     if not (values.is_contiguous() and cols.is_contiguous()):
         raise ValueError("spmv_ell: values and cols must be contiguous")
-    if not x.is_cuda:
-        return ref.spmv_ell(values, cols, x)
-    if x.dim() == 2:
-        return spmv_ell_batched_cuda(values, cols, x)
-    return spmv_ell_cuda(values, cols, x)
+    return _spmv_ell_op(values, cols, x)
 
 
 def block_jacobi_apply(inv_blocks, x) -> torch.Tensor:
@@ -209,11 +295,9 @@ def block_jacobi_apply(inv_blocks, x) -> torch.Tensor:
         raise ValueError(
             f"block_jacobi_apply: x has {n} rows; the blocks cover "
             f"{'a multiple of ' if nb == 1 else ''}{nb * bs}")
-    if nb == 1 or not x.is_cuda:
+    if nb == 1:
         return ref.block_jacobi_apply(inv_blocks, x)
-    if x.dim() == 2:
-        return block_jacobi_apply_batched_cuda(inv_blocks, x)
-    return block_jacobi_apply_cuda(inv_blocks, x)
+    return _block_jacobi_apply_op(inv_blocks, x)
 
 
 def flash_attention(qg, k, v, *, scale: float,

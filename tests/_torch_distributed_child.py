@@ -1,9 +1,13 @@
 """One rank of the port's distributed checks: gloo processes on the CPU.
 
     python tests/_torch_distributed_child.py RANK WORLD STORE INPUTS OUTDIR
+    python tests/_torch_distributed_child.py RANK WORLD STORE INPUTS OUTDIR \
+        analysis
 
-Spawned by ``tests/test_torch_distributed.py``, WORLD processes at once,
-each with its own RANK; they meet through the ``file://`` store STORE.
+Spawned by ``tests/test_torch_distributed.py`` (and, with ``analysis``,
+the contract audit's mesh cells, by ``tests/test_torch_analysis.py``),
+WORLD processes at once, each with its own RANK; they meet through the
+``file://`` store STORE.
 INPUTS is an ``.npz`` of the problem (the stencil's coefficients ``c``, the
 grid ``shape``, the right-hand side ``b`` and the block ``B``); rank 0
 writes what the cases of this world size read to OUTDIR (``arrays.npz``
@@ -300,9 +304,27 @@ def evicted_binding(run: Run, mesh) -> dict:
     return out
 
 
+def analysis(run: Run):
+    """The contract audit's mesh cells on this world's default group, each
+    report as a dict, and a session binding's own ``verify_contracts``."""
+    from repro_torch.analysis import run_passes, trace_binding
+    from repro_torch.analysis.audit import mesh_cells
+    group = dist.group.WORLD
+    for kw in mesh_cells():
+        rep = run_passes(trace_binding(
+            kw["method"], run.op, binding="mesh", substrate=kw["substrate"],
+            guard=kw["guard"], precond=kw["precond"], m=3, mesh=group,
+            device="cpu"))
+        run.scalars[f"analysis/{rep.spec.label}"] = rep.to_dict()
+    for method in ("p-bicgsafe", "ssbicgsafe2"):
+        rep, = run.session(method).on_mesh(group).verify_contracts()
+        run.scalars[f"verify/{method}"] = rep.to_dict()
+
+
 def main():
     rank, world = int(sys.argv[1]), int(sys.argv[2])
     store, inputs, outdir = sys.argv[3:6]
+    mode = sys.argv[6] if len(sys.argv) > 6 else None
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
@@ -312,7 +334,10 @@ def main():
         op = Stencil7Operator(torch.from_numpy(data["c"]), nx, ny, nz)
         run = Run(op, torch.from_numpy(data["b"]),
                   torch.from_numpy(data["B"]))
-        {8: world8, 4: world4, 2: world2, 1: world1}[world](run)
+        if mode == "analysis":
+            analysis(run)
+        else:
+            {8: world8, 4: world4, 2: world2, 1: world1}[world](run)
         if rank == 0:
             os.makedirs(outdir, exist_ok=True)
             np.savez(os.path.join(outdir, "arrays.npz"), **run.arrays)

@@ -1118,3 +1118,24 @@ def test_mesh_solve_many_at_world_1_is_bitwise(cuda, mesh1, guard):
     assert torch.equal(res.x.reshape(B.shape), single.x)
     assert torch.equal(res.iterations, single.iterations)
     assert dsolver.syncs.shapes == {(1, 3), (11 if guard else 9, 3)}
+
+
+def test_verify_contracts_then_a_solve_on_the_card(cuda):
+    """The contract analyzer on a CUDA session traces in fake mode: it
+    launches nothing, finds the kernel ops in the step, and the solve
+    after it launches the kernels its steps take."""
+    op, b, _ = TM.convection_diffusion(24, peclet=1.0)
+    ell = TM.stencil_to_ell(op)
+    solver = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda")
+    ops.reset_launches()
+    reports = solver.verify_contracts(bindings=["single", "batched"])
+    assert dict(ops.LAUNCHES) == launches()
+    for rep in reports:
+        assert rep.ok, [f.to_dict() for f in rep.violations]
+        assert rep.finding("kernel_backed").detail.startswith(
+            "4 kernel op(s)")
+    res = solver.solve(b)
+    torch.cuda.synchronize()
+    assert bool(res.converged)
+    steps = solver.stats["steps"]
+    assert dict(ops.LAUNCHES) == method_launches("p-bicgsafe", steps, 0)
