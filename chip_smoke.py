@@ -169,7 +169,9 @@ package is missing.  Phases, any failure of which fails the run:
    writing its four artifacts with their schemas;
 3i. the contract analyzer (run after 3h, before 4): ``python -m
    repro_torch.analysis``'s full audit (``run_audit(quick=False,
-   device="cuda")``: 116 cells traced in fake mode on the card) with the 5
+   device="cuda")``: the 116 matrix cells and the 16 scenario rows of the
+   registry traced in fake mode on the card, the rows' problems built on
+   the card before the counters are zeroed) with the 5
    mesh cells on a one-rank NCCL mesh (3g's): no deviation, no kernel
    launched, every cell's statuses and the method x substrate matrix those
    of the committed CPU artifact (``experiments/torch_contract_audit
@@ -181,7 +183,27 @@ package is missing.  Phases, any failure of which fails the run:
    ``torch.library`` ops (``repro_torch::*``): every earlier phase's
    bitwise checks and launch counts hold through them, and 3b's graph and
    eager ms per iteration are printed beside PERF.md's;
-6. a ``{"kernels": [...]}`` JSON line, then the last line
+3j. the scenario registry (run after 3i, before 4, from an empty session
+   cache): (a) ``repro_torch.scenarios.run_sweep(quick=False,
+   device="cuda")`` over the 17 seed scenarios (``poisson-mesh`` on a
+   one-rank NCCL mesh, 3g's set-up): every cell converged,
+   oracle-verified and contract-clean, within 2 iterations of the JAX
+   package's committed ``experiments/scenario_sweep.json`` (read as JSON)
+   and of the port's CPU ``experiments/torch_scenario_sweep.json``, the
+   batched dots and update kernels once a step in the two "cuda" cells and
+   no other launch; (b) three full-size scenarios registered with
+   ``register_scenario`` and bound with ``make_solver(scenario=...)``:
+   ``convdiff-108-cuda`` (3b's system in its Stencil7 form, one RHS),
+   ``helmholtz-108-multirhs-cuda`` (the complex-shifted Helmholtz plugin
+   at 108^3, 2,519,424 rows, an (n, 8) block) and ``random-1m-ell-rr-cuda``
+   (1,259,712 random rows, 8 a row, ELL, p-BiCGSafe-rr): each converged and
+   passing its plugin's oracle, its iterations, ms per iteration, first
+   solve's wall and launches printed, a second bind the same session with
+   no new capture; (c) ``SolveEngine.register_scenario("convdiff-108-cuda")``
+   serving 8 seeded right-hand sides, each CONVERGED within 100x its tol.
+   The problem memo and the session cache are cleared before 4;
+6. a ``{"kernels": [...]}`` JSON line (rows 1-4 and 7 with
+   ``launches_scenarios``: 3j's counted runs), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every solve of phases 3b-3f runs through a session's programs: each
@@ -197,7 +219,7 @@ the allocator holds is printed after each solver phase, and the session
 cache is cleared before phase 4.
 
 The run goes 1, 3a (the matrix), 2, 2b, 2c, 2d, 3b-3f, the profiler's
-counts, 3g, 5, 3h, 3i, 4, 6.  Each path is driven with the launch counters set to 0 just
+counts, 3g, 5, 3h, 3i, 3j, 4, 6.  Each path is driven with the launch counters set to 0 just
 before it and read just after; the kernels' checks and timings are not
 counted.
 """
@@ -342,6 +364,15 @@ OBSERVE_DIR = os.path.join(ROOT, "build", "observe")
 AUDIT_ARTIFACT = os.path.join(ROOT, "experiments",
                               "torch_contract_audit.json")
 STEP_KERNEL_OPS = 4
+# phase 3j: the scenario sweep's references (the JAX package's committed
+# artifact, read as JSON, and the port's CPU one), their iteration slack
+# (ROADMAP C4), the service burst, and the kernels the path must launch
+JAX_SWEEP = os.path.join(ROOT, "experiments", "scenario_sweep.json")
+TORCH_SWEEP = os.path.join(ROOT, "experiments", "torch_scenario_sweep.json")
+SCENARIO_ITER_SLACK = 2
+SCENARIO_REQUESTS = 8
+SCENARIO_KERNELS = ("fused_dots", "fused_axpy", "spmv_ell",
+                    "fused_dots_batched", "fused_axpy_batched")
 # 3b's ms per iteration in PERF.md (section 5: a run on one H100 80GB HBM3
 # at 700.00 W, before the solver kernels were torch.library ops)
 PERF_3B_MS = {"graph": 0.5840, "eager": 1.2987}
@@ -2296,22 +2327,31 @@ def _statuses(record: dict) -> dict:
 def _cell(record: dict) -> tuple:
     b = record["binding"]
     return (b["method"], b["substrate"], b["binding"], b["guard"],
-            b["precond"], str(b["mesh_shape"]))
+            b["precond"], str(b["mesh_shape"]), record.get("scenario"))
 
 
 def run_analysis_path(torch, repro_torch, ops, ell) -> dict:
     """Phase 3i: the contract analyzer on the card, with the launch
     counters set to 0 just before each part and read just after (fake
-    mode: nothing may launch).  The full audit (116 cells, CUDA fake
-    tensors) and the 5 mesh cells on a one-rank NCCL mesh (3g's): no
-    deviation, every cell's statuses and the method x substrate matrix
-    those of the committed CPU artifact; then 3b's session's
+    mode: nothing may launch).  The full audit (116 matrix cells and the
+    16 scenario rows, CUDA fake tensors; the scenario rows' problems are
+    built on the card first, before the counters are zeroed) and the 5
+    mesh cells on a one-rank NCCL mesh (3g's): no deviation, every cell's
+    statuses and the method x substrate matrix those of the committed CPU
+    artifact; then 3b's session's
     ``verify_contracts`` for ``solve`` and ``solve_many`` on the full
     system: every contract holds, ``kernel_backed`` with at least
     ``STEP_KERNEL_OPS`` kernel nodes."""
     from repro_torch.analysis import audit
+    from repro_torch.scenarios import build_problem
     with open(AUDIT_ARTIFACT) as f:
         committed = json.load(f)
+    specs = audit.audit_specs(quick=False)
+    for kw in specs:
+        if kw.get("operator_class"):
+            build_problem(kw["operator_class"], device="cuda",
+                          **kw["operator_params"])
+    torch.cuda.synchronize()
     sessions = []
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -2320,19 +2360,23 @@ def run_analysis_path(torch, repro_torch, ops, ell) -> dict:
     wall = time.perf_counter() - t0
     launched = {k: v for k, v in ops.LAUNCHES.items() if v}
     log(f"3i audit: {art['n_cells']} cells ({art['n_mesh_cells']} mesh, "
-        f"{art['n_devices']} rank, on {art['device']}) in {wall:.2f} s "
+        f"{art['n_scenario_cells']} scenario rows, {art['n_devices']} "
+        f"rank, on {art['device']}) in {wall:.2f} s "
         f"wall, {len(art['deviations'])} deviations, launches {launched}")
     log(audit.audit_table(art))
     want = {_cell(r): _statuses(r) for r in committed["reports"]}
     got = {_cell(r): _statuses(r) for r in art["reports"]}
     if not art["ok"] or launched or got != want \
-            or art["matrix"] != committed["matrix"]:
+            or art["matrix"] != committed["matrix"] \
+            or art["n_cells"] != len(specs) + 5 \
+            or art["n_scenario_cells"] != committed["n_scenario_cells"]:
         diff = sorted(k for k in set(got) | set(want)
                       if got.get(k) != want.get(k))
         raise SystemExit(f"3i audit: ok {art['ok']}, launches {launched}, "
                          f"cells unlike the committed artifact: {diff}")
     out = dict(audit_wall_s=wall, n_cells=art["n_cells"],
-               n_mesh_cells=art["n_mesh_cells"], verify={})
+               n_mesh_cells=art["n_mesh_cells"],
+               n_scenario_cells=art["n_scenario_cells"], verify={})
 
     session = repro_torch.make_solver("p-bicgsafe", ell, substrate="cuda")
     ops.reset_launches()
@@ -2357,6 +2401,228 @@ def run_analysis_path(torch, repro_torch, ops, ell) -> dict:
     if launched:
         raise SystemExit(f"3i verify_contracts launched kernels: {launched}")
     out["verify_s"] = verify_s
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3j: the scenario registry
+# ---------------------------------------------------------------------------
+
+def _launched(ops) -> dict:
+    return {k: v for k, v in ops.LAUNCHES.items() if v}
+
+
+def run_seed_sweep(torch, repro_torch, ops) -> dict:
+    """3j (a): ``run_sweep(quick=False, device="cuda")`` over the 17 seed
+    scenarios, ``poisson-mesh`` on a one-rank NCCL mesh (3g's set-up), with
+    the launch counters set to 0 just before it and read just after: every
+    cell converged, oracle-verified and contract-clean, its iterations
+    within ``SCENARIO_ITER_SLACK`` of the JAX package's committed artifact
+    (read as JSON) and of the port's committed CPU artifact; the batched
+    dots and update kernels launched once a step each by the two "cuda"
+    cells, and no other kernel by any cell."""
+    from repro_torch.scenarios import get_scenario
+    from repro_torch.scenarios.sweep import run_sweep, sweep_table
+    refs = {}
+    for label, path in (("jax", JAX_SWEEP), ("cpu", TORCH_SWEEP)):
+        with open(path) as f:
+            refs[label] = {c["scenario"]: c["iterations"]
+                           for c in json.load(f)["cells"]}
+    ops.reset_launches()
+    with one_rank_mesh([]) as mesh:
+        art = run_sweep(quick=False, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    launched = _launched(ops)
+    log(sweep_table(art))
+    cuda_cells = [c["scenario"] for c in art["cells"]
+                  if c["substrate"] == "cuda"]
+    steps = {name: get_scenario(name).bind("cuda").stats["steps"]
+             for name in cuda_cells}
+    want = dict(fused_dots_batched=sum(steps.values()),
+                fused_axpy_batched=sum(steps.values()))
+    gaps = {c["scenario"]: (c["iterations"], refs["jax"][c["scenario"]],
+                            refs["cpu"][c["scenario"]])
+            for c in art["cells"]}
+    rec = dict(n_cells=art["summary"]["n_cells"], claims=art["claims"],
+               wall_s=art["summary"]["wall_s"], cuda_cells=cuda_cells,
+               steps=steps, launches=launched,
+               iterations_card_jax_cpu=gaps)
+    log(f"3j sweep: {json.dumps(rec)} [{card()}]")
+    off = {k: v for k, v in gaps.items()
+           if max(abs(v[0] - v[1]), abs(v[0] - v[2])) > SCENARIO_ITER_SLACK}
+    if art["summary"]["n_cells"] != 17 or not all(art["claims"].values()) \
+            or off or launched != want or len(cuda_cells) != 2 \
+            or not all(steps.values()):
+        raise SystemExit(f"3j sweep: claims {art['claims']}, iterations "
+                         f"off the references {off}, launches {launched} "
+                         f"!= {want}")
+    return rec
+
+
+def scenario_launches(method: str, batched: bool, ell: bool, steps: int,
+                      rr_steps: int) -> dict:
+    """The launches of one "cuda" scenario solve of ``steps`` queued steps:
+    the batched dots and update kernels once a step; a single-RHS solve as
+    :func:`method_launches`, without the SpMVs on a matrix-free operator."""
+    if batched:
+        return dict(fused_dots_batched=steps, fused_axpy_batched=steps)
+    out = method_launches(method, steps, rr_steps)
+    if not ell:
+        out.pop("spmv_ell")
+    return out
+
+
+def run_full_scenario(torch, repro_torch, ops, sc) -> dict:
+    """3j (b), one full-size scenario: registered with the public
+    ``register_scenario``, its problem built on the card (timed), bound
+    with ``make_solver(scenario=...)``; a first solve (its captures
+    included), then a second bind, which must be the same session, and the
+    measured solve with the launch counters set to 0 just before it and
+    read just after: converged, its plugin's oracle, the launches of each
+    kernel per step, and no new graph captured."""
+    from repro_torch.core.linear_operator import ELLOperator
+    from repro_torch.scenarios import get_operator_class, register_scenario
+    from repro_torch.scenarios.registry import _host
+    from repro_torch.scenarios.sweep import _rhs_block
+    register_scenario(sc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    problem = sc.problem()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    op, b, _ = problem
+    batched = sc.resolved_binding() == "batched"
+    rhs = _rhs_block(b, sc.batch) if batched else b
+    session = repro_torch.make_solver(scenario=sc.name)
+
+    def solve():
+        return session.solve_many(rhs) if batched else session.solve(rhs)
+    first_s = first_solve(torch, f"3j {sc.name}", session, solve)
+    graphs = session.stats["graphs"]
+    same = repro_torch.make_solver(scenario=sc.name) is session \
+        and sc.bind() is session
+    session.stats.update(steps=0, rr_steps=0, host_reads=0)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _launched(ops)
+    steps, rr_steps = session.stats["steps"], session.stats["rr_steps"]
+    it = int(_host(res.iterations).max())
+    X = _host(res.x)
+    X, B = (X, _host(rhs)) if batched else (X[:, None], _host(b)[:, None])
+    oracle = get_operator_class(sc.operator.cls).oracle(problem, B, X,
+                                                        sc.tol)
+    want = scenario_launches(sc.method, batched, isinstance(op, ELLOperator),
+                             steps, rr_steps)
+    rec = dict(scenario=sc.name, operator=str(sc.operator), n=op.shape[0],
+               m=sc.batch, method=sc.method, substrate=sc.substrate,
+               problem_build_s=build_s, iterations=it,
+               converged=bool(_host(res.converged).all()), oracle=oracle,
+               wall_s=wall, ms_per_iteration=wall / max(it, 1) * 1e3,
+               ms_per_step=wall / max(steps, 1) * 1e3, steps=steps,
+               rr_steps=rr_steps, host_reads=session.stats["host_reads"],
+               first_solve_s=first_s, graphs=session.stats["graphs"],
+               new_graphs=session.stats["graphs"] - graphs,
+               same_session=same, launches=launched)
+    log(f"3j {sc.name}: {json.dumps(rec)} [{card()}]")
+    if not (rec["converged"] and oracle["ok"] and same and steps
+            and launched == want and rec["new_graphs"] == 0):
+        raise SystemExit(f"3j {sc.name}: launches {launched} != {want}, "
+                         f"{rec}")
+    return rec
+
+
+def run_scenario_service(torch, repro_torch, ops, seed: int) -> dict:
+    """3j (c): ``SolveEngine.register_scenario("convdiff-108-cuda")`` serves
+    ``SCENARIO_REQUESTS`` seeded right-hand sides (numpy, ``seed``), with
+    the launch counters set to 0 just before the run and read just after:
+    every request CONVERGED, its true relres within 100x its tol, the
+    batched dots and update kernels once a step."""
+    import numpy as np
+
+    from repro_torch.service import ServiceConfig, SolveEngine
+    eng = SolveEngine(ServiceConfig(max_batch=M, chunk=SERVICE_CHUNK,
+                                    substrate="cuda", tol=1e-8,
+                                    maxiter=SOLVE_MAXITER))
+    name = eng.register_scenario("convdiff-108-cuda")
+    entry = eng.registry[name]
+    rhs = np.random.default_rng(seed).standard_normal(
+        (SCENARIO_REQUESTS, entry.n))
+    for b in rhs:
+        eng.submit(name, b)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    results = sorted(eng.run(), key=lambda r: r.rid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _launched(ops)
+    op = entry.op
+    true = []
+    for r in results:
+        x = torch.from_numpy(np.asarray(r.x)).to(op.device)
+        b = torch.from_numpy(rhs[r.rid]).to(op.device)
+        true.append(float(torch.linalg.vector_norm(b - op.matvec(x))
+                          / torch.linalg.vector_norm(b)))
+    steps = eng.stats["steps"]
+    rec = dict(operator=name, requests=len(results), wall_s=wall,
+               requests_per_s=len(results) / wall, steps=steps,
+               chunks=eng.stats["chunks"], runs=eng.stats["runs"],
+               host_reads=eng.stats["host_reads"],
+               statuses=sorted({r.status.name for r in results}),
+               iterations=[r.iterations for r in results],
+               worst_true_relres=max(true), launches=launched)
+    log(f"3j service: {json.dumps(rec)} [{card()}]")
+    want = dict(fused_dots_batched=steps, fused_axpy_batched=steps)
+    if len(results) != SCENARIO_REQUESTS or rec["statuses"] != ["CONVERGED"] \
+            or max(true) > 100 * 1e-8 or launched != want:
+        raise SystemExit(f"3j service: launches {launched} != {want}, "
+                         f"{rec}")
+    return rec
+
+
+def run_scenario_path(torch, repro_torch, ops, main_iterations: int,
+                      seed: int) -> dict:
+    """Phase 3j: the scenario registry on the card (see the module
+    docstring).  Starts from an empty session cache."""
+    from repro_torch.scenarios import OperatorSpec, Scenario
+    repro_torch.clear_session_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(sweep=run_seed_sweep(torch, repro_torch, ops), full={})
+    total = collections.Counter(out["sweep"]["launches"])
+    for sc in (
+            Scenario("convdiff-108-cuda",
+                     OperatorSpec.of("convection_diffusion", nx=NX,
+                                     peclet=0.5),
+                     substrate="cuda", tags=("full-size",)),
+            Scenario("helmholtz-108-multirhs-cuda",
+                     OperatorSpec.of("helmholtz_shifted", nx=NX),
+                     substrate="cuda", batch=M, maxiter=4000,
+                     tags=("full-size",)),
+            Scenario("random-1m-ell-rr-cuda",
+                     OperatorSpec.of("random_nonsym", n=NX ** 3,
+                                     nnz_per_row=8, seed=5, fmt="ell"),
+                     method="p-bicgsafe-rr", substrate="cuda",
+                     tags=("full-size",))):
+        rec = out["full"][sc.name] = run_full_scenario(torch, repro_torch,
+                                                       ops, sc)
+        total.update(rec["launches"])
+        log_memory(torch, f"3j {sc.name}")
+    conv = out["full"]["convdiff-108-cuda"]
+    log(f"3j convdiff-108-cuda (Stencil7 form): {conv['iterations']} "
+        f"iterations, 3b's ELL form {main_iterations} [{card()}]")
+    out["service"] = run_scenario_service(torch, repro_torch, ops, seed)
+    total.update(out["service"]["launches"])
+    out["launches"] = dict(total)
+    log(f"3j launches (sweep, the three full-size solves, the service): "
+        f"{json.dumps(out['launches'])}")
+    missing = [k for k in SCENARIO_KERNELS if not total[k]]
+    if missing:
+        raise SystemExit(f"3j: the scenario path launched no {missing}")
     return out
 
 
@@ -2892,13 +3158,20 @@ def main() -> int:
     log(f"3i: audit {analysis['audit_wall_s']:.2f} s for "
         f"{analysis['n_cells']} cells")
 
+    # -- 3j. the scenario registry -------------------------------------------
+    scen = run_scenario_path(torch, repro_torch, ops, main["iterations"],
+                             args.seed)
+
     # -- 4. the serving path --------------------------------------------------
-    # the cached sessions hold their programs' buffers and graph pools
+    # the cached sessions hold their programs' buffers and graph pools, the
+    # problem memo the scenarios' operators
+    from repro_torch.scenarios import registry as scenario_registry
     del pc, ell, stencil, b, v, want
+    scenario_registry._PROBLEMS.clear()
     repro_torch.clear_session_cache()
     gc.collect()
     torch.cuda.empty_cache()
-    log_memory(torch, "clearing the session cache")
+    log_memory(torch, "clearing the session cache and the problem memo")
     main_flash = flash[(FLASH_SHAPE, True, "bfloat16")]
     f32 = flash[(FLASH_SHAPE, True, "float32")]
     serving = run_serving_path(torch, ops, main_flash["ms"], f32["ms"])
@@ -2936,6 +3209,8 @@ def main() -> int:
             extra["launches_mesh"] = mesh_launches[kname]
         if kname in observe["launches"]:
             extra["launches_observe"] = observe["launches"][kname]
+        if kname in SCENARIO_KERNELS:
+            extra["launches_scenarios"] = scen["launches"].get(kname, 0)
         kernels.append(dict(
             name=kname, route="cuda", source=SOURCE[kname],
             replaces=REPLACES[kname],

@@ -45,6 +45,12 @@ through a hand-written CUDA flash-attention kernel under
     eng = ServingEngine(get_config("qwen3-8b").replace(use_flash_kernel=True),
                         ServeConfig(max_batch=4, max_len=1056))
 
+The regression matrix (operator class x method x substrate x precond x
+guard x batch) is declarative data (:mod:`repro_torch.scenarios`): a
+registered :class:`Scenario` is a cached session
+(``make_solver(scenario="poisson-jacobi")``), a contract-audit row and a
+``python -m repro_torch.scenarios sweep`` cell.
+
 This package imports ``torch``, ``numpy`` and the standard library only —
 nothing of the JAX package :mod:`repro`, which stays its reference.
 """
@@ -59,7 +65,11 @@ from .core import (GUARD_FIELDS, SOLVERS, SUBSTRATES, CSROperator,
                    SolveStatus, Stencil7Operator, get_substrate, init_state,
                    result_from_state, solve_batched, splice_columns,
                    step_chunk)
+from .observe import ConvergenceTrace
+from .precond import Preconditioner
 from .resilience import GuardedSolver, RecoveryPolicy
+from .scenarios import (OperatorSpec, Scenario, register_operator_class,
+                        register_scenario)
 from .service import ServiceConfig, SolveEngine
 
 __all__ = [
@@ -73,5 +83,8 @@ __all__ = [
     "CSROperator", "DenseOperator", "ELLOperator", "Stencil7Operator",
     "solve_batched", "init_state", "step_chunk", "splice_columns",
     "result_from_state", "GUARD_FIELDS", "GuardedSolver", "RecoveryPolicy",
-    "ServiceConfig", "SolveEngine",
+    "ServiceConfig", "SolveEngine", "Preconditioner", "ConvergenceTrace",
+    # the scenario registry (repro_torch.scenarios; make_solver(scenario=))
+    "Scenario", "OperatorSpec", "register_scenario",
+    "register_operator_class",
 ]

@@ -7,6 +7,13 @@ deviates from the paper-expected matrix, 2 on bad input.  The mesh smoke
 runs on a one-rank process group made in this process (gloo on the CPU,
 NCCL on the card).
 
+The cell list is derived from the scenario registry
+(:mod:`repro_torch.scenarios`): every registered scenario contributes one
+contract row on top of the dense acceptance matrix, and ``--scenarios
+FILE`` registers extra scenario dicts for this run.  Scenario problems (an
+unregistered operator class, an unknown preconditioner) exit with a
+one-line message (exit code 2), never a traceback.
+
     PYTHONPATH=src python -m repro_torch.analysis audit --device cpu
     PYTHONPATH=src python -m repro_torch.analysis audit      # the card
 """
@@ -32,6 +39,10 @@ def main(argv=None) -> int:
     audit_p.add_argument("--device", default=None,
                          help="where the traced tensors lie (default: "
                          "cuda; cpu on a machine without a GPU)")
+    audit_p.add_argument("--scenarios", default=None, metavar="FILE",
+                         help="JSON file with extra scenario dicts to "
+                         "register before the audit (each becomes one "
+                         "contract row)")
     args = ap.parse_args(argv)
 
     import torch
@@ -47,8 +58,16 @@ def main(argv=None) -> int:
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    artifact = run_audit(quick=args.quick, mesh_smoke=not args.no_mesh,
-                         device=device)
+    from ..scenarios import ScenarioError
+    try:
+        if args.scenarios:
+            from ..scenarios.__main__ import _register_file
+            _register_file(args.scenarios)
+        artifact = run_audit(quick=args.quick, mesh_smoke=not args.no_mesh,
+                             device=device)
+    except ScenarioError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     out = args.out
     if out:
         os.makedirs(os.path.dirname(out) or ".", exist_ok=True)

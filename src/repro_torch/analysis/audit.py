@@ -16,8 +16,11 @@ DEVIATIONS from the expected matrix (a pipelined method regressing to two
 reductions, OR a baseline suddenly "passing", which would mean the probe
 lost its anchor), not on expected violations.
 
-The cells are held here (the JAX package derives them from its scenario
-registry, which the port does not have yet): :func:`matrix_cells`.
+The cell list is derived from the scenario registry (:func:`audit_specs`,
+:mod:`repro_torch.scenarios.cells`): the dense acceptance matrix plus one
+row per registered scenario, whose operator is built through its plugin
+and whose plugin's ``contract_overrides`` are merged over the expected
+matrix.
 
 Artifact: ``experiments/torch_contract_audit.json`` (schema
 ``repro_torch.analysis/contract_audit/v1``).
@@ -36,7 +39,7 @@ from .report import OK, SKIPPED, VIOLATION, BindingSpec, ContractReport
 from .trace import trace_binding
 
 __all__ = ["ARTIFACT_SCHEMA", "METHOD_ORDER", "SUBSTRATE_ORDER",
-           "expected_outcomes", "matrix_cells", "audit_operator",
+           "expected_outcomes", "audit_specs", "audit_operator",
            "mesh_cells", "one_rank_group", "run_audit", "audit_table"]
 
 ARTIFACT_SCHEMA = "repro_torch.analysis/contract_audit/v1"
@@ -88,29 +91,21 @@ def audit_operator(nx: int = 8, ny: int = 6, nz: int = 6,
     return Stencil7Operator(c, nx, ny, nz)
 
 
-def matrix_cells(quick: bool = False) -> List[dict]:
-    """The dense acceptance matrix: 7 methods x 2 substrates x guard x
-    precond + the open-loop chunk (60 cells quick, with precond in (None,
-    "jacobi")); full mode widens the preconditioner axis to "ssor" and
-    "block_jacobi" (116 cells)."""
-    preconds = (None, "jacobi") if quick \
-        else (None, "jacobi", "ssor", "block_jacobi")
-    cells: List[dict] = []
-    for method in METHOD_ORDER:
-        binding = "batched" if method == "p-bicgsafe" else "single"
-        for substrate in SUBSTRATE_ORDER:
-            for guard in (False, True):
-                for precond in preconds:
-                    cells.append(dict(method=method, binding=binding,
-                                      substrate=substrate, guard=guard,
-                                      precond=precond))
-    # the service's open-loop chunk program (p-BiCGSafe only)
-    for substrate in SUBSTRATE_ORDER:
-        for guard in (False, True):
-            cells.append(dict(method="p-bicgsafe", binding="open_loop",
-                              substrate=substrate, guard=guard,
-                              precond=None))
-    return cells
+def audit_specs(quick: bool = False) -> List[dict]:
+    """The trace_binding kwargs of every audit cell, derived from the
+    scenario registry (:func:`repro_torch.scenarios.cells.contract_cells`).
+
+    The dense acceptance matrix (60 cells quick, 116 full: 7 methods x 2
+    substrates x guard x precond + open-loop; full mode widens the
+    preconditioner axis to the kernel-dispatching ones), then one row per
+    REGISTERED scenario (quick mode: the quick-flagged ones; no mesh
+    scenario), carrying its operator class and its plugin's
+    expected-outcome overrides: a new scenario, or a new operator-class
+    plugin, lands under the contract audit by registration alone.
+    """
+    # lazy both ways: neither package imports the other at module scope
+    from ..scenarios import contract_cells
+    return contract_cells(quick=quick)
 
 
 def mesh_cells() -> List[dict]:
@@ -174,29 +169,41 @@ def run_audit(quick: bool = False,
     without one, ``mesh_smoke`` runs them on :func:`one_rank_group`."""
     dev = resolve_device(device)
     op = audit_operator(device=dev)
-    cells = matrix_cells(quick=quick)
+    cells = audit_specs(quick=quick)
     reports: List[ContractReport] = []
     records: List[dict] = []
     deviations: List[dict] = []
 
     def run_cell(kw, operator, mesh=None):
+        # registry-driven rows build their operator through the scenario
+        # plugin (an unregistered class fails loudly there) and merge the
+        # plugin's declared expected-outcome deltas
+        if kw.get("operator_class"):
+            from ..scenarios import build_problem
+            operator = build_problem(kw["operator_class"], device=dev,
+                                     **(kw.get("operator_params") or {}))[0]
         tb = trace_binding(kw["method"], operator, binding=kw["binding"],
                            substrate=kw["substrate"], guard=kw["guard"],
                            precond=kw["precond"], m=3, mesh=mesh,
                            device=dev)
         rep = run_passes(tb, names=contracts)
         exp = expected_outcomes(tb.spec)
+        exp.update(kw.get("expected") or {})
         devs = []
         for f in rep.findings:
             want = exp.get(f.contract)
             if want is not None and f.status != want:
                 devs.append({"binding": tb.spec.label,
+                             "scenario": kw.get("scenario"),
                              "contract": f.contract,
                              "expected": want, "actual": f.status,
                              "detail": f.detail})
         reports.append(rep)
         deviations.extend(devs)
         rec = rep.to_dict()
+        if kw.get("scenario"):
+            rec["scenario"] = kw["scenario"]
+            rec["operator_class"] = kw["operator_class"]
         rec["expected"] = {f.contract: exp.get(f.contract)
                            for f in rep.findings}
         rec["deviations"] = devs
@@ -242,6 +249,7 @@ def run_audit(quick: bool = False,
         "n_devices": n_ranks,
         "n_cells": len(reports),
         "n_mesh_cells": n_mesh,
+        "n_scenario_cells": sum(1 for c in cells if c.get("scenario")),
         "methods": list(METHOD_ORDER),
         "substrates": list(SUBSTRATE_ORDER),
         "contracts": contract_names,

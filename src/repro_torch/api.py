@@ -902,7 +902,8 @@ def make_solver(method: str = "p-bicgsafe", operator=None, *,
                 device=None,
                 dot_reduce: Optional[DotReduce] = None,
                 blocked: bool = False,
-                recovery=None):
+                recovery=None,
+                scenario=None):
     """Bind ``method`` (a name from :data:`repro_torch.core.SOLVERS`) to
     ``operator`` (Dense/CSR/ELL/Stencil7, a dense matrix, or a matvec
     callable) on ``device`` (``None`` means ``"cuda"``).
@@ -932,7 +933,25 @@ def make_solver(method: str = "p-bicgsafe", operator=None, *,
     session, its built preconditioner and programs reused; a hit is served
     only while the bound tensors keep the versions they had when the
     session was made, and is dropped otherwise.  A guarded wrapper is
-    built per call around the cached guarded session."""
+    built per call around the cached guarded session.
+
+    ``scenario``: a registered scenario name or a :class:`repro_torch
+    .scenarios.Scenario`, which declares the operator (built through its
+    plugin on ``device``, once), method, precond, substrate, config and
+    recovery: no other argument but ``device`` may be given with it.  A
+    repeat call returns the same session."""
+    if scenario is not None:
+        # lazy: a scenario binds through this function
+        from .scenarios import resolve_scenario
+        if operator is not None or method != "p-bicgsafe" \
+                or precond is not None or substrate != "torch" \
+                or config != SolverConfig() or dot_reduce is not None \
+                or blocked or recovery is not None:
+            raise TypeError(
+                "make_solver(scenario=...) is exclusive: the scenario "
+                "declares the operator, method, precond, substrate, "
+                "config and recovery; pass nothing else but device=")
+        return resolve_scenario(scenario).bind(device)
     if operator is None:
         raise TypeError("make_solver requires an operator")
     if recovery is not None and recovery is not False:

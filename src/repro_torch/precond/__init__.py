@@ -34,4 +34,8 @@ __all__ = [
     "BlockJacobiPreconditioner", "block_jacobi",
     "NeumannPreconditioner", "neumann",
     "SSORPreconditioner", "ssor",
+    "operator_fingerprint",
 ]
+
+# last: repro_torch.api imports this package's modules while it loads
+from ..api import operator_fingerprint  # noqa: E402

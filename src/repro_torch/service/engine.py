@@ -120,15 +120,20 @@ class SolveEngine:
     # -- registration / submission ---------------------------------------
     def register(self, op, precond=None, name: Optional[str] = None) -> str:
         """Register an operator (idempotent by content; see registry)."""
-        name = self.registry.register(op, precond, name)
+        return self._serve(self.registry.register(op, precond, name))
+
+    def register_scenario(self, scenario, name: Optional[str] = None) -> str:
+        """Register a scenario (name or :class:`repro_torch.scenarios
+        .Scenario`): its plugin-built operator + precond become a resident
+        block under the scenario's name."""
+        return self._serve(self.registry.register_scenario(scenario, name))
+
+    def _serve(self, name: str) -> str:
+        """Give a registered name's entry a queue and a block slot."""
         canon = self.registry[name].name
         self._queues.setdefault(canon, deque())
         self._blocks.setdefault(canon, None)
         return name
-
-    def register_scenario(self, scenario, name: Optional[str] = None) -> str:
-        """Scenarios are not ported yet (ROADMAP A9): raises."""
-        return self.registry.register_scenario(scenario, name)
 
     def submit(self, operator: str, b, *, tol: Optional[float] = None,
                maxiter: Optional[int] = None,

@@ -129,10 +129,23 @@ class OperatorRegistry:
             self._by_name[name] = entry     # alias to the cached entry
         return entry.name if name is None else name
 
-    def register_scenario(self, scenario, name: Optional[str] = None) -> str:
-        raise NotImplementedError(
-            "register_scenario: scenarios are not ported to repro_torch "
-            "yet (ROADMAP A9); register the operator itself")
+    def register_scenario(self, scenario,
+                          name: Optional[str] = None) -> str:
+        """Register a scenario's operator + preconditioner by name.
+
+        ``scenario`` is a registered scenario name or a
+        :class:`repro_torch.scenarios.Scenario`; the operator is built
+        through its plugin on the service's device (cached per spec content
+        and device, so two engines registering the same scenario share one
+        session).  The engine serves its own open-loop p-BiCGSafe blocks
+        under :class:`ServiceConfig`: a scenario contributes its operator,
+        precond and name; its method/substrate/tol describe the offline
+        sweep cell, not the serving configuration.
+        """
+        from ..scenarios import resolve_scenario
+        sc = resolve_scenario(scenario)
+        op = sc.problem(self._scfg.device)[0]
+        return self.register(op, sc.precond, name or sc.name)
 
     def __getitem__(self, name: str) -> RegisteredOperator:
         try:

@@ -1,8 +1,8 @@
 """The port's contract analyzer (``repro_torch.analysis``) against the JAX
 package's (``repro.analysis``), on the audit's 8 x 6 x 6 stencil in fp64.
 
-* The 60 quick cells of ``python -m repro_torch.analysis audit --quick``
-  give, cell by cell, the statuses of the matching records of the JAX
+* The 60 quick matrix cells of ``python -m repro_torch.analysis audit
+  --quick`` give, cell by cell, the statuses of the matching records of the JAX
   package's committed ``experiments/contract_audit.json`` (jnp -> torch,
   pallas -> cuda), and the same method x substrate matrix; a few cells are
   held against a live ``repro.analysis`` trace as well.  Exact: statuses
@@ -36,8 +36,9 @@ from repro_torch.analysis import (BindingSpec, TracedBinding,  # noqa: E402
 from repro_torch.analysis import __main__ as cli  # noqa: E402
 from repro_torch.analysis.audit import (ARTIFACT_SCHEMA,  # noqa: E402
                                         METHOD_ORDER, audit_operator,
-                                        expected_outcomes, matrix_cells,
+                                        audit_specs, expected_outcomes,
                                         mesh_cells)
+from repro_torch.scenarios.cells import matrix_cells  # noqa: E402
 from repro_torch.core import matrices as TM  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.fused_axpy import IN_ORDER  # noqa: E402
@@ -88,8 +89,8 @@ def jax_artifact():
 
 @pytest.fixture(scope="module")
 def quick_audit(tmp_path_factory):
-    """The CLI's quick audit on the CPU: the 60 matrix cells and the 5
-    mesh cells on a one-rank gloo group."""
+    """The CLI's quick audit on the CPU: the 60 matrix cells, the 14 quick
+    scenario rows and the 5 mesh cells on a one-rank gloo group."""
     out = tmp_path_factory.mktemp("audit") / "audit.json"
     code = cli.main(["audit", "--quick", "--device", "cpu", "--out",
                      str(out)])
@@ -111,7 +112,8 @@ def test_quick_audit_has_no_deviation(quick_audit):
     code, art = quick_audit
     assert code == 0 and art["ok"] and not art["deviations"]
     assert art["schema"] == ARTIFACT_SCHEMA
-    assert (art["n_cells"], art["n_mesh_cells"]) == (65, 5)
+    assert (art["n_cells"], art["n_mesh_cells"],
+            art["n_scenario_cells"]) == (79, 5, 14)
     assert len(QUICK) == 60
 
 
@@ -140,18 +142,22 @@ def test_matrix_aggregate_matches_the_jax_artifact(quick_audit,
 
 
 def test_committed_artifact_agrees_with_the_quick_audit(quick_audit):
-    """The committed CPU artifact (the full matrix) holds every quick cell
-    with the statuses a fresh run gives, and no deviation."""
+    """The committed CPU artifact (the full matrix and the 16 scenario
+    rows) holds every quick cell with the statuses a fresh run gives, and
+    no deviation."""
     with open(TORCH_ARTIFACT) as f:
         full = json.load(f)
     assert full["schema"] == ARTIFACT_SCHEMA and full["ok"]
     assert not full["quick"] and full["device"] == "cpu"
-    assert full["n_cells"] == len(matrix_cells(quick=False)) + 5
-    recs = {_cell_key(r["binding"]) + (str(r["binding"]["mesh_shape"]),):
-            _statuses(r) for r in full["reports"]}
+    assert full["n_cells"] == len(audit_specs(quick=False)) + 5 == 137
+    assert full["n_scenario_cells"] == 16
+
+    def key(r):
+        return _cell_key(r["binding"]) + (str(r["binding"]["mesh_shape"]),
+                                          r.get("scenario"))
+    recs = {key(r): _statuses(r) for r in full["reports"]}
     for r in quick_audit[1]["reports"]:
-        key = _cell_key(r["binding"]) + (str(r["binding"]["mesh_shape"]),)
-        assert recs[key] == _statuses(r), key
+        assert recs[key(r)] == _statuses(r), key(r)
     assert full["matrix"] == quick_audit[1]["matrix"]
 
 
@@ -331,6 +337,70 @@ def test_expected_outcomes_key_on_the_port_substrates():
     one_rank = BindingSpec(method="bicgstab", substrate="torch",
                            binding="mesh", mesh_shape=(1,))
     assert expected_outcomes(one_rank)["overlap_edge_free"] == "ok"
+
+
+# -- the scenario rows ---------------------------------------------------------
+
+def test_scenario_rows_count_and_carry_their_scenario(quick_audit):
+    """16 scenario rows in full mode, 14 in quick mode (the mesh scenario
+    is the mesh smoke's), each record naming its scenario and class."""
+    assert len(audit_specs(quick=False)) - len(matrix_cells(False)) == 16
+    assert len(audit_specs(quick=True)) - len(QUICK) == 14
+    rows = [r for r in quick_audit[1]["reports"] if r.get("scenario")]
+    assert len(rows) == 14
+    assert {r["operator_class"] for r in rows} >= {
+        "convection_diffusion", "helmholtz_shifted", "random_nonsym"}
+
+
+def _one_cell_audit(monkeypatch, cell):
+    import repro_torch.scenarios as scenarios
+    monkeypatch.setattr(scenarios, "contract_cells",
+                        lambda quick=False: [cell])
+    from repro_torch.analysis.audit import run_audit
+    return run_audit(quick=True, mesh_smoke=False, device="cpu")
+
+
+def test_audit_unregistered_operator_class_fails_loudly(monkeypatch):
+    """A registry row whose operator class is not registered stops the
+    audit with the registry's error, naming the registered classes."""
+    from repro_torch.scenarios import ScenarioError
+    cell = dict(method="p-bicgsafe", binding="single", substrate="torch",
+                guard=False, precond=None, scenario="negctl",
+                operator_class="no_such_class", operator_params={},
+                expected={})
+    with pytest.raises(ScenarioError,
+                       match="unregistered operator class 'no_such_class'"
+                       ".*registered classes"):
+        _one_cell_audit(monkeypatch, cell)
+
+
+def test_audit_honours_a_plugins_contract_overrides(monkeypatch):
+    """A plugin's ``contract_overrides`` replace the expected status of
+    its rows: BiCGStab's expected fused-reduction violation, declared "ok"
+    by the plugin, becomes the row's one deviation."""
+    from repro_torch.scenarios import (OperatorSpec, Scenario,
+                                       build_problem, registry)
+    monkeypatch.setattr(registry, "OPERATOR_CLASSES",
+                        dict(registry.OPERATOR_CLASSES))
+    registry.register_operator_class(
+        "delta-probe",
+        lambda device=None, **kw: build_problem("convection_diffusion",
+                                                nx=6, device=device),
+        contract_overrides={"one_reduction_per_iteration": "ok"})
+    cell = Scenario("delta-probe-cell", OperatorSpec.of("delta-probe"),
+                    method="bicgstab").contract_cell()
+    art = _one_cell_audit(monkeypatch, cell)
+    assert (art["n_cells"], art["n_scenario_cells"]) == (1, 1)
+    assert not art["ok"]
+    (dev,) = art["deviations"]
+    assert (dev["scenario"], dev["contract"], dev["expected"],
+            dev["actual"]) == ("delta-probe-cell",
+                               "one_reduction_per_iteration", "ok",
+                               "violation")
+    (rec,) = art["reports"]
+    assert (rec["scenario"], rec["operator_class"]) == \
+        ("delta-probe-cell", "delta-probe")
+    assert rec["expected"]["overlap_edge_free"] == "violation"
 
 
 def test_cli_refuses_a_bad_device(capsys):

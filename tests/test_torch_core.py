@@ -382,7 +382,8 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.models, repro_torch.serve, repro_torch.configs, "
             "repro_torch.configs.qwen3_8b, repro_torch.launch.serve, "
             "repro_torch.service, repro_torch.observe, "
-            "repro_torch.core.distributed, repro_torch.analysis\n"
+            "repro_torch.core.distributed, repro_torch.analysis, "
+            "repro_torch.scenarios, repro_torch.scenarios.sweep\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")

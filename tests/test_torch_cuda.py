@@ -1139,3 +1139,31 @@ def test_verify_contracts_then_a_solve_on_the_card(cuda):
     assert bool(res.converged)
     steps = solver.stats["steps"]
     assert dict(ops.LAUNCHES) == method_launches("p-bicgsafe", steps, 0)
+
+
+@pytest.mark.parametrize("name", ["convdiff-multirhs-pallas",
+                                  "helmholtz-multirhs-pallas"])
+def test_cuda_scenario_cell_on_the_card(cuda, name):
+    """A ``"cuda"`` seed scenario through ``run_cell`` on the card: the
+    batched dots and update kernels launch once a step each, and nothing
+    else; the cell converges, passes its plugin's oracle and its contract
+    row; a second bind is the same session and captures no new graph."""
+    from repro_torch.scenarios import get_scenario
+    from repro_torch.scenarios.sweep import run_cell
+    sc = get_scenario(name)
+    session = sc.bind(cuda)
+    ops.reset_launches()
+    rec = run_cell(sc, device=cuda)
+    torch.cuda.synchronize()
+    got = dict(ops.LAUNCHES)
+    steps = session.stats["steps"]
+    assert rec["converged"] and rec["oracle"]["ok"]
+    assert rec["contracts"]["ok"], rec["contracts"]["deviations"]
+    assert steps >= rec["iterations"] > 0
+    assert got == launches(fused_dots_batched=steps,
+                           fused_axpy_batched=steps)
+    graphs = session.stats["graphs"]
+    assert sc.bind(cuda) is session
+    assert repro_torch.make_solver(scenario=name, device=cuda) is session
+    run_cell(sc, contracts=False, device=cuda)
+    assert session.stats["graphs"] == graphs

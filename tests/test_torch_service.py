@@ -37,6 +37,7 @@ from repro_torch.core import matrices as TM  # noqa: E402
 from repro_torch.core.substrate import TorchSubstrate  # noqa: E402
 from repro_torch.observe import RECORDER  # noqa: E402
 from repro_torch.observe import metrics as tmetrics  # noqa: E402
+from repro_torch.scenarios import ScenarioError  # noqa: E402
 from repro_torch.service import ServiceConfig, SolveEngine  # noqa: E402
 
 
@@ -367,13 +368,14 @@ def test_submit_validates_rhs_shape():
 
 def test_unported_service_options_are_refused(tmp_path):
     """``trace_cap`` and ``profile_dir`` are ported (taken as the JAX
-    package takes them); ``register_scenario`` still raises, naming A9."""
+    package takes them); ``register_scenario`` is ported too, and refuses
+    only a scenario that is not registered, as the JAX package's does."""
     for kw in (dict(trace_cap=8), dict(profile_dir=str(tmp_path))):
         JServiceConfig(**kw)
         assert SolveEngine(ServiceConfig(device=CPU, **kw)).scfg == \
             ServiceConfig(device=CPU, **kw)
     eng = SolveEngine(ServiceConfig(device=CPU))
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ScenarioError, match="unknown scenario 'poisson'"):
         eng.register_scenario("poisson")
 
 
