@@ -36,6 +36,15 @@ its leaves as float numpy arrays (the per-layer leaves stacked on a leading
 
 A bf16 leaf passed as ``np.asarray(leaf.astype(jnp.float32))`` is exact,
 so the port's bf16 weights equal the JAX package's bit for bit.
+
+A whole training state is carried over the same way, from the JAX
+package's ``{"params", "opt": {"m", "v", "count"}, "clip"}`` as numpy
+(8-bit moments as objects with ``codes`` and ``scales``, the clip state as
+``(prev_norm, initialized)``):
+
+    state = train_state_from_numpy(cfg, jax_state, state_dtype="f32",
+                                   device="cuda")
+    model, opt, clip = state["params"], state["opt"], state["clip"]
 """
 from __future__ import annotations
 
@@ -158,3 +167,49 @@ def lm_params_from_numpy(cfg: ModelConfig, params: Mapping[str, Any], *,
             if k in params}
     tree["layers"] = [layer(stacked, i) for i in range(n)]
     return Transformer(cfg, tree)
+
+
+def _moment(leaf, dtype, device):
+    if hasattr(leaf, "codes"):                  # an 8-bit moment
+        from .optim.eightbit import Q8
+        return Q8(torch.tensor(np.asarray(leaf.codes, dtype=np.int8),
+                               device=device),
+                  torch.tensor(np.asarray(leaf.scales, dtype=np.float32),
+                               device=device))
+    return torch.tensor(np.asarray(leaf), device=device).to(dtype)
+
+
+def train_state_from_numpy(cfg: ModelConfig, state: Mapping[str, Any], *,
+                           state_dtype: str = "f32", device=None,
+                           dtype=None) -> dict:
+    """The port's training state from the JAX package's ``state`` (numpy
+    leaves, the layout of its checkpoints): ``{"params": Transformer,
+    "opt": {"m", "v", "count"}, "clip": PipelinedClipState}`` on
+    ``device`` (``None`` means ``"cuda"``).  The weights as
+    :func:`lm_params_from_numpy` carries them (``dtype``), the moments in
+    ``state_dtype`` (``"f32"``, ``"bf16"``, or ``"i8"`` from 8-bit
+    leaves), keyed by the model's parameter names."""
+    from .models.transformer import params_from_tree
+    from .optim.clipping import PipelinedClipState
+    if state_dtype not in ("f32", "bf16", "i8"):
+        raise ValueError(f"state_dtype must be f32 | bf16 | i8, not "
+                         f"{state_dtype!r}")
+    device = resolve_device(device)
+    model = lm_params_from_numpy(cfg, state["params"], device=device,
+                                 dtype=dtype)
+    names = [k for k, _ in model.named_parameters()]
+    mdt = torch.bfloat16 if state_dtype == "bf16" else torch.float32
+    opt = state["opt"]
+    moments = {key: {k: _moment(v, mdt, device) for k, v in
+                     params_from_tree(opt[key], names).items()}
+               for key in ("m", "v")}
+    prev, init = state["clip"]
+    return {"params": model,
+            "opt": dict(moments, count=torch.tensor(
+                np.asarray(opt["count"]), dtype=torch.int32,
+                device=device)),
+            "clip": PipelinedClipState(
+                torch.tensor(np.asarray(prev), dtype=torch.float32,
+                             device=device),
+                torch.tensor(np.asarray(init), dtype=torch.bool,
+                             device=device))}

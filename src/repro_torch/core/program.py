@@ -32,8 +32,10 @@ reductions).
 A capture that fails (a step that reads the device from the host, such as
 a matvec calling ``.item()``) raises, naming the program's key.  A program
 never falls back to the eager chunk on a CUDA device: only
-:func:`_eager_chunks`, an internal switch for the graph-against-eager check,
-makes it run eagerly there.
+:func:`_eager_chunks`, an internal switch, makes it run eagerly there: the
+graph-against-eager check of the tests and ``chip_smoke.py``, and the
+Newton-Krylov step's inner solve, whose matvec is a pass through a model
+(:mod:`repro_torch.optim.newton_krylov` says why).
 
 :meth:`Program.read` hands out copies of the buffers, so a state that was
 returned stays as it was whatever the program replays later; a state
@@ -95,7 +97,8 @@ def _collector_held():
 @contextlib.contextmanager
 def _eager_chunks():
     """Run every program's chunks eagerly, on a CUDA device too (the
-    graph-against-eager check of the tests and ``chip_smoke.py``)."""
+    graph-against-eager check of the tests and ``chip_smoke.py``; the
+    Newton-Krylov step's inner solve)."""
     prev, _EAGER[0] = _EAGER[0], True
     try:
         yield

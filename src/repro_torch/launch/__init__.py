@@ -1,2 +1,3 @@
 """Launchers of the port (PyTorch port of ``repro.launch``): the serving
-CLI so far; the JAX package's HLO dry-run tooling waits for its slice."""
+and training CLIs; the JAX package's HLO dry-run tooling waits for its
+slice."""

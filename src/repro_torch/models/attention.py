@@ -9,7 +9,9 @@ block of plain attention (``S <= q_block``), and plain attention chunked
 over query blocks.  The plain branches are einsums and a softmax, never a
 library attention call: nothing on the path stands in for the kernel.
 Cross-attention (whisper) and M-RoPE (qwen2-vl) wait for the audio and VLM
-slices of the port.
+slices of the port.  The flash branch has no derivative, in either
+package: with gradients enabled it runs through an autograd function whose
+backward and forward-mode rule raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -71,6 +73,36 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
+NO_FLASH_DERIVATIVE = (
+    "the flash-attention kernel has no derivative (nor has the JAX "
+    "package's): train with use_flash_kernel=False, the plain branch the "
+    "JAX trainer takes")
+
+
+class _FlashNoDerivative(torch.autograd.Function):
+    """The flash kernel where autograd may look: its values as they are,
+    and a clear error instead of a derivative.  Neither package's kernel
+    has one (the JAX trainer never runs it), so a backward or a forward-mode
+    derivative through it raises; training takes the plain branch
+    (``use_flash_kernel=False``)."""
+
+    @staticmethod
+    def forward(qg, k, v, scale):
+        return kops.flash_attention(qg, k, v, scale=scale, causal=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(NO_FLASH_DERIVATIVE)
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise NotImplementedError(NO_FLASH_DERIVATIVE)
+
+
 def _sdpa_block(q, k, v, mask: Optional[torch.Tensor], scale: float):
     """q: (B, Sq, H, hd), k/v: (B, T, H, hd) (KV repeated to H heads).
     The scores and the softmax in f32, the probabilities cast back to q's
@@ -105,8 +137,11 @@ def multihead_attention(p: Params, x: torch.Tensor, positions: torch.Tensor,
     if cfg.use_flash_kernel and causal and cfg.sliding_window == 0 \
             and S >= 256:
         # the kernel reads query head h's KV from head h // G: no repeat
-        o = kops.flash_attention(q.reshape(B, S, K, G, hd), k, v,
-                                 scale=scale, causal=True)
+        qg = q.reshape(B, S, K, G, hd)
+        if torch.is_grad_enabled():
+            o = _FlashNoDerivative.apply(qg, k, v, scale)
+        else:
+            o = kops.flash_attention(qg, k, v, scale=scale, causal=True)
     else:
         kr = k.repeat_interleave(G, dim=2) if G > 1 else k
         vr = v.repeat_interleave(G, dim=2) if G > 1 else v

@@ -71,7 +71,7 @@ class ModelConfig:
     # numerics / partitioning
     dtype: Any = torch.bfloat16    # activation/compute dtype
     param_dtype: Any = torch.bfloat16
-    remat: str = "full"            # none | full | dots (training; unused here)
+    remat: str = "full"            # none | full | dots (training: loss_fn)
     use_flash_kernel: bool = False # the CUDA flash-attention kernel
     seq_shard_attn: bool = True    # mesh layout of the JAX package; unused here
     norm_eps: float = 1e-6

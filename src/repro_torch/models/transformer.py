@@ -10,6 +10,7 @@ keep the JAX package's functional signatures, with the module as
 * ``init_params(cfg, generator)``                        a :class:`Transformer`
 * ``forward(params, cfg, batch)``                        ``(logits (B,S,V), aux)``
 * ``prefill_step(params, cfg, batch)``                   ``(logits, cache)``
+* ``loss_fn(params, cfg, batch)``                        ``(loss, metrics)``
 * ``init_cache(cfg, batch, max_len, device=)``           ``{"k", "v"}``
 * ``decode_step(params, cfg, cache, tokens, cache_len)`` ``(logits (B,1,V), cache)``
 
@@ -19,13 +20,25 @@ writes the new token's K/V into it in place.  Layers run in a Python loop
 counterpart on one device.  The MoE, MLA, hybrid, SSM, audio and VLM
 families raise ``NotImplementedError`` and name the slice of the port that
 brings them.
+
+The weights are trainable parameters; serving runs under
+``torch.inference_mode()``, which records nothing for them.  With
+gradients enabled, ``forward`` wraps each block as ``cfg.remat`` asks, the
+port of the JAX package's ``jax.checkpoint``: ``"full"`` recomputes the
+block in the backward (``torch.utils.checkpoint``, non-reentrant),
+``"dots"`` saves the projections' matmul outputs and recomputes the rest
+(selective checkpointing, as ``dots_with_no_batch_dims_saveable``),
+``"none"`` keeps every activation.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.types import resolve_device
 
@@ -59,13 +72,61 @@ def check_supported(cfg: ModelConfig) -> None:
                 "the PyTorch port")
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    # serving only: the training slice will let these take gradients
-    return nn.Parameter(t, requires_grad=False)
+def param_path(name: str) -> Tuple[Tuple[str, ...], int]:
+    """The JAX package's tree path of the port's parameter ``name`` and its
+    layer (-1 outside the stacked ``layers``): ``"layers.3.attn.p.wq"`` is
+    ``(("layers", "attn", "wq"), 3)``.  Names sorted by it are in the JAX
+    package's leaf order (sorted keys, a stacked leaf's layers in turn)."""
+    parts = [p for p in name.split(".") if p != "p"]
+    if parts[0] == "layers":
+        return ("layers",) + tuple(parts[2:]), int(parts[1])
+    return tuple(parts), -1
+
+
+def _stack(values):
+    first = values[0]
+    if isinstance(first, tuple):           # a NamedTuple leaf (Q8): by field
+        return type(first)(*(torch.stack(f) for f in zip(*values)))
+    return torch.stack(values)
+
+
+def params_tree(named: Mapping[str, object]) -> Dict:
+    """Values keyed by the port's parameter names (tensors, or NamedTuples
+    of tensors such as 8-bit moments) as the JAX package's tree: nested
+    dicts, each per-layer leaf stacked on a leading ``L`` axis."""
+    by_path: Dict[Tuple[str, ...], Dict[int, object]] = {}
+    for name, value in named.items():
+        path, layer = param_path(name)
+        by_path.setdefault(path, {})[layer] = value
+    tree: Dict = {}
+    for path, layers in by_path.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = layers[-1] if -1 in layers else _stack(
+            [layers[i] for i in range(len(layers))])
+    return tree
+
+
+def params_from_tree(tree: Mapping, names) -> Dict[str, object]:
+    """The inverse of :func:`params_tree` for the parameter ``names``: each
+    name's leaf, a stacked leaf indexed at its layer (field by field for a
+    NamedTuple leaf)."""
+    out = {}
+    for name in names:
+        path, layer = param_path(name)
+        node = tree
+        for key in path:
+            node = node[key]
+        if layer >= 0:
+            node = type(node)(*(f[layer] for f in node)) \
+                if isinstance(node, tuple) else node[layer]
+        out[name] = node
+    return out
 
 
 def _parameter_dict(params: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: _frozen(t) for k, t in params.items()})
+    return nn.ParameterDict({k: nn.Parameter(t) for k, t in params.items()})
 
 
 class Attention(nn.Module):
@@ -102,8 +163,8 @@ class DecoderBlock(nn.Module):
 
     def __init__(self, params: Mapping):
         super().__init__()
-        self.ln1 = _frozen(params["ln1"])
-        self.ln2 = _frozen(params["ln2"])
+        self.ln1 = nn.Parameter(params["ln1"])
+        self.ln2 = nn.Parameter(params["ln2"])
         self.attn = Attention(params["attn"])
         self.mlp = DenseFFN(params["mlp"])
 
@@ -138,10 +199,10 @@ class Transformer(nn.Module):
             raise ValueError(f"{cfg.name}: {len(params['layers'])} layers "
                              f"given, the config has {cfg.n_layers}")
         self.cfg = cfg
-        self.embed = _frozen(params["embed"])
-        self.final_norm = _frozen(params["final_norm"])
+        self.embed = nn.Parameter(params["embed"])
+        self.final_norm = nn.Parameter(params["final_norm"])
         self.lm_head = None if cfg.tie_embeddings \
-            else _frozen(params["lm_head"])
+            else nn.Parameter(params["lm_head"])
         self.layers = nn.ModuleList(DecoderBlock(lp)
                                     for lp in params["layers"])
 
@@ -190,6 +251,28 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None].expand(B, S)
 
 
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    # the projections (x @ W, no batch dimension) are aten.mm; the
+    # attention's batched products (bmm) and everything else is recomputed
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(block: nn.Module, cfg: ModelConfig):
+    """``block`` as ``cfg.remat`` asks, where gradients are enabled."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be none | full | dots, not "
+                         f"{cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return block
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, block, use_reentrant=False, **kw)
+
+
 def forward(params: Transformer, cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -200,7 +283,7 @@ def forward(params: Transformer, cfg: ModelConfig,
     x = _embed_tokens(params, cfg, tokens)
     positions = _positions(B, S, x.device)
     for block in params.layers:
-        x = block(x, positions, cfg)
+        x = _maybe_remat(block, cfg)(x, positions, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _lm_head(params, cfg, x), aux
 
@@ -248,3 +331,38 @@ def decode_step(params: Transformer, cfg: ModelConfig,
                          cfg)
     return _lm_head(params, cfg, x), cache
 
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor, mask=None):
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def loss_fn(params: Transformer, cfg: ModelConfig,
+            batch: Mapping[str, torch.Tensor]):
+    """Next-token cross-entropy: ``(loss, {"ce_loss", "aux_loss",
+    "loss"})``, 0-d f32 tensors.  Without ``labels`` in ``batch`` the
+    labels are the tokens shifted by one and the last position is masked
+    out; with them, ``loss_mask`` (if any) weighs the positions."""
+    if cfg.use_mtp:
+        raise NotImplementedError(
+            f"{cfg.name}: the multi-token-prediction loss waits for "
+            f"{LATER_SLICES['mla']} of the PyTorch port")
+    logits, aux = forward(params, cfg, batch)
+    tokens = batch["tokens"]
+    labels = batch.get("labels")
+    if labels is None:
+        labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                           dim=1)
+        ones = torch.ones(tokens[:, 1:].shape, dtype=torch.float32,
+                          device=tokens.device)
+        mask = torch.cat([ones, torch.zeros_like(ones[:, :1])], dim=1)
+    else:
+        mask = batch.get("loss_mask")
+    loss = _xent(logits, labels, mask)
+    total = loss + aux
+    return total, {"ce_loss": loss, "aux_loss": aux, "loss": total}

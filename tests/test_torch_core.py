@@ -383,7 +383,9 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.configs.qwen3_8b, repro_torch.launch.serve, "
             "repro_torch.service, repro_torch.observe, "
             "repro_torch.core.distributed, repro_torch.analysis, "
-            "repro_torch.scenarios, repro_torch.scenarios.sweep\n"
+            "repro_torch.scenarios, repro_torch.scenarios.sweep, "
+            "repro_torch.train, repro_torch.optim, repro_torch.data, "
+            "repro_torch.launch.train, repro_torch.optim.newton_krylov\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")

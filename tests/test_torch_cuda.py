@@ -1167,3 +1167,84 @@ def test_cuda_scenario_cell_on_the_card(cuda, name):
     assert repro_torch.make_solver(scenario=name, device=cuda) is session
     run_cell(sc, contracts=False, device=cuda)
     assert session.stats["graphs"] == graphs
+
+
+# -- training and the Newton-Krylov step -----------------------------------------
+
+def _smoke_phi3(**kw):
+    from repro_torch.configs import smoke_config
+    return smoke_config("phi3-mini-3.8b").replace(
+        dtype=torch.float32, param_dtype=torch.float32, **kw)
+
+
+def test_train_steps_on_the_card_match_the_cpu(cuda):
+    """Two fused train steps of the f32 smoke phi3 from the same weights
+    and batches, on the card and on the CPU: the losses and the weights
+    agree to f32 rounding; no kernel of the port runs (training takes the
+    plain attention branch)."""
+    import copy
+    from repro_torch.data import DataConfig, make_dataset
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init, pipelined_clip_init
+    from repro_torch.train import TrainConfig, make_train_step
+    cfg = _smoke_phi3()
+    tcfg = TrainConfig(opt=AdamWConfig(lr=3e-3, warmup_steps=1,
+                                       decay_steps=2))
+    batch_fn = make_dataset(DataConfig(batch_size=2, seq_len=32,
+                                       vocab_size=cfg.vocab_size), cfg)
+    models = {"cpu": init_params(cfg, torch.Generator().manual_seed(0))}
+    models["cuda"] = copy.deepcopy(models["cpu"]).to(cuda)
+    losses = {}
+    ops.reset_launches()
+    for dev, model in models.items():
+        step = make_train_step(cfg, tcfg)
+        opt = adamw_init(dict(model.named_parameters()), tcfg.opt)
+        clip = pipelined_clip_init(dev)
+        losses[dev] = []
+        for s in range(2):
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in batch_fn(s).items()}
+            model, opt, clip, m = step(model, opt, clip, batch,
+                                       torch.tensor(1e9, device=dev))
+            assert float(m["accepted"]) == 1.0
+            losses[dev].append(float(m["loss"]))
+    assert dict(ops.LAUNCHES) == launches()
+    assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-4)
+    for a, b in zip(models["cpu"].parameters(), models["cuda"].parameters()):
+        assert float((b.cpu() - a).abs().max() / a.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("substrate", ["cuda", "torch"])
+def test_newton_krylov_step_launches_the_fp32_kernels(cuda, substrate):
+    """A Newton-Krylov step on the 1-layer f32 smoke phi3: with
+    ``substrate="cuda"`` its inner p-BiCGSafe solve launches the fused dots
+    and the fused update once per queued step, in f32, and nothing else;
+    with ``"torch"`` no kernel.  The inner solve runs the eager program
+    (no graph is captured), and the step lowers the loss."""
+    import functools
+    from repro_torch.core.pipelined_bicgsafe import pbicgsafe_solve
+    from repro_torch.models import forward, init_params, loss_fn
+    from repro_torch.optim import NewtonKrylovConfig, newton_krylov_step
+    cfg = _smoke_phi3(n_layers=1)
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    stats = {}
+    nk = NewtonKrylovConfig(damping=1e-2, inner_maxiter=10, inner_tol=1e-2,
+                            lr=0.5, solver=functools.partial(
+                                pbicgsafe_solve, substrate=substrate,
+                                stats=stats))
+    batch = {"tokens": toks}
+    ops.reset_launches()
+    _, m = newton_krylov_step(lambda p, b: loss_fn(p, cfg, b)[0],
+                              lambda p, b: forward(p, cfg, b)[0], model,
+                              batch, nk)
+    torch.cuda.synchronize()
+    steps = stats["steps"]
+    assert steps == 10 and stats.get("graphs", 0) == 0
+    assert dict(ops.LAUNCHES) == (
+        launches(fused_dots=steps, fused_axpy=steps) if substrate == "cuda"
+        else launches())
+    assert next(model.parameters()).dtype == torch.float32
+    assert 0 < int(m["inner_iters"]) <= steps
+    assert float(m["new_loss"]) < float(m["loss"])

@@ -220,7 +220,8 @@ def test_lm_params_from_numpy_carries_every_weight(qwen3):
             for name in want:
                 close(mod.p[name], want[name][i], atol=0)
         close(block.ln1, jparams["layers"]["ln1"][i], atol=0)
-    assert not any(p.requires_grad for p in model.parameters())
+    # trainable: the training path takes gradients of these
+    assert all(p.requires_grad for p in model.parameters())
     # bf16 weights arrive bit-equal through their fp32 values
     w = jnp.asarray(np.random.default_rng(1).standard_normal((4, 4)),
                     jnp.bfloat16)
