@@ -94,9 +94,11 @@ package is missing.  Phases, any failure of which fails the run:
 2d. flash attention: ``flash_attention`` against its plain version on the
    card at qwen3-8b's prefill shape (B, H, K, S, hd) = (4, 32, 8, 1024,
    128), causal, in bf16 (``flash_attention_mma.cu``) and fp32
-   (``flash_attention.cu``, 3xTF32), both on the tensor cores, then phi3's
-   (1, 32, 32, 1024, 96) full (non-causal) and a ragged S = 1000 in both
-   types; a bitwise repeat; at the full shape the kernel's device time
+   (``flash_attention.cu``, 3xTF32), both on the tensor cores, then
+   llama4-scout's prefill shape (4, 40, 8, 1024, 128) in bf16 (G = 5: an
+   odd grouping), phi3's (1, 32, 32, 1024, 96) full (non-causal) and a
+   ragged S = 1000 in both types; a bitwise repeat; at qwen3's and
+   llama4's shapes the kernel's device time
    beside the plain version's, one ``scaled_dot_product_attention``
    call's, the bound (fp32: three TF32 products at the tensor cores' TF32
    rate, and beside it the CUDA cores' bound) and an earlier run's time
@@ -117,6 +119,28 @@ package is missing.  Phases, any failure of which fails the run:
    prefill's, and the fp32 prefill's wall with and without the kernel; the
    bar's control, the plain fp32 prefill with its products in one TF32
    pass (``allow_tf32``), must miss it;
+4b. the MoE family (run after 4, its model freed before 6):
+   ``ServingEngine`` on llama4-scout-17b-a16e at full width (d 5,120, 40
+   query and 8 KV heads, 16 experts top-1 and a shared one, d_ff 8,192,
+   vocab 202,048), depth cut 48 -> 12 (28.5 G parameters, 57 GB of seeded
+   bf16 weights; 48 layers are 215 GB), ``use_flash_kernel=True``, on
+   phase 4's prompts (4 x 1,024 tokens, 16 new): 12 flash launches per
+   prefill batch and no other kernel, every token in the vocabulary; the
+   experts each layer chose (forward hooks on each ``moe``) in a prefill
+   with the kernel and one on the plain path agree on at least
+   ``MOE_ROUTE_AGREE`` of (layer, token), and the last-position logits of
+   each prompt whose last token chose alike in every layer (at least 3)
+   within ``SERVE_LOGITS_TOL``; layer 0 on the prefill's 4,096 tokens:
+   ``"gather"`` with the capacity factor raised to E (nothing drops)
+   against ``"sort"`` within ``MOE_BF16_TOL``, the share the config's
+   capacity drops, each dispatch's time; ``moe_ffn(impl="gather")`` at
+   decode size free of host synchronisation
+   (``torch.cuda.set_sync_debug_mode("error")``), and where a whole
+   ``decode_step`` (and the sort layer) synchronises, printed; the init
+   seconds, parameters, peak memory, prefill ms beside its products'
+   bound, decode ms per step (median, range) beside the weight-read bound,
+   tokens/s, the kernel's share of the prefill and, from profiler traces,
+   the kernels and busy time per prefill and decode step;
 5. the solve service (run before 4): ``repro_torch.service.SolveEngine``
    with ``ServiceConfig(max_batch=8, chunk=32, substrate="cuda", tol=1e-8,
    maxiter=2000)`` on 3a's system; a burst of 32 right-hand sides from
@@ -233,7 +257,9 @@ package is missing.  Phases, any failure of which fails the run:
    tolerances, timed beside their bounds;
 7. a ``{"kernels": [...]}`` JSON line (rows 1-4 and 7 with
    ``launches_scenarios``: 3j's counted runs; rows 1 and 2 with
-   ``launches_nk``, ``launches_nk_torch`` and ``nk_fp32``, 6b's and 6c's),
+   ``launches_nk``, ``launches_nk_torch`` and ``nk_fp32``, 6b's and 6c's;
+   the flash row with ``launches_moe``, 4b's, and ``moe_shape``, 2d's
+   times at llama4's shape),
    then the last line ``{"ok": true, "device": {...}}``.
 
 Every solve of phases 3b-3f runs through a session's programs: each
@@ -249,9 +275,9 @@ the allocator holds is printed after each solver phase, and the session
 cache is cleared before phase 4.
 
 The run goes 1, 3a (the matrix), 2, 2b, 2c, 2d, 3b-3f, the profiler's
-counts, 3g, 5, 3h, 3i, 3j, 4, 6a-6c, 7.  Each path is driven with the launch counters set to 0 just
-before it and read just after; the kernels' checks and timings are not
-counted.
+counts, 3g, 5, 3h, 3i, 3j, 4, 4b, 6a-6c, 7.  Each path is driven with the
+launch counters set to 0 just before it and read just after; the kernels'
+checks and timings are not counted.
 """
 from __future__ import annotations
 
@@ -332,9 +358,16 @@ FLASH_MS_BEFORE = {"bfloat16": FLASH_BF16_MS_BEFORE,
                    "float32": FLASH_F32_MS_BEFORE}
 # (B, H, K, S, hd): qwen3-8b's prefill of 4 prompts of 1,024 tokens
 FLASH_SHAPE = (4, 32, 8, 1024, 128)
+# llama4-scout's prefill of the same prompts (phase 4b): 40 query heads on
+# 8 KV heads, G = 5 (odd; qwen3's is 4)
+FLASH_SHAPE_MOE = (4, 40, 8, 1024, 128)
+# the shapes timed (and repeated bitwise) in phase 2d
+FLASH_TIMED = (FLASH_SHAPE, FLASH_SHAPE_MOE)
 # (shape, causal, dtype name): the full shape, phi3's heads without the
-# mask, and a ragged S (no multiple of the kernels' tiles), in both types
+# mask, and a ragged S (no multiple of the kernels' tiles), in both types;
+# llama4's shape in bf16, the route its prefill takes
 FLASH_CASES = ((FLASH_SHAPE, True, "bfloat16"), (FLASH_SHAPE, True, "float32"),
+               (FLASH_SHAPE_MOE, True, "bfloat16"),
                ((1, 32, 32, 1024, 96), False, "bfloat16"),
                ((4, 32, 8, 1000, 128), True, "bfloat16"),
                ((1, 32, 32, 1024, 96), False, "float32"),
@@ -366,6 +399,31 @@ SERVE_LOGITS_TOL = 5e-2
 # read 6.27e-6 and the control 1.325e-3; the bar lies between them, an
 # order of magnitude from each
 SERVE_LOGITS_TOL_F32 = 1e-4
+# phase 4b: llama4-scout-17b-a16e at full width, depth cut 48 -> 12 (48
+# layers are 215 GB of bf16 weights, one card holds 80 GB; 12 are 57 GB)
+MOE_ARCH = "llama4-scout-17b-a16e"
+MOE_LAYERS = 12
+# the MoE checks.  Through the whole stack no bar on the expert choices of
+# the prefill with the kernel against the plain one can hold: bf16 noise
+# flips the router's near-ties, a flipped token's whole feed-forward
+# changes, and that carries on to every later layer and, through attention
+# and the capacity's slot ranks, to other tokens.  On an H100 the plain
+# bf16 prefill itself agreed with an fp32 prefill on 0.9017 of (layer,
+# token) (layer 0: 0.9929, layer 11: 0.8071), the kernel's on 0.9144, and
+# the two bf16 prefills on 0.9082.  So the checks are: (1) each layer given
+# the same input (the plain prefill's input to it): the experts its block
+# chooses with and without the kernel agree on MOE_ROUTE_AGREE of the
+# tokens, and on the tokens that agree (and keep or lose their capacity
+# slot alike) its outputs are within MOE_BF16_TOL;
+# (2) through the stack, the kernel's prefill disagrees with the fp32
+# prefill on at most MOE_FLIP_RATIO times the share the plain bf16
+# prefill does (the control): the kernel routes no worse than plain bf16
+MOE_ROUTE_AGREE = 0.95
+MOE_FLIP_RATIO = 2.0
+# gather (capacity raised to E: nothing drops) against sort on one
+# full-width layer, and a block with the kernel against one without on the
+# same input: tests/test_kernels.py's bf16 bar, over the max-abs
+MOE_BF16_TOL = 2e-2
 M = 8                       # columns of the batched path (ServiceConfig.max_batch)
 SOLVE_MAXITER = 2000        # maxiter of the single-RHS solves (3b, 3f)
 # phase 3f: the JAX package's seven methods, and the reduction phases each
@@ -2792,7 +2850,7 @@ def check_flash_kernel(torch, ops, ref) -> dict:
                    whole_err=float(diff / want.float().abs().max()),
                    max_abs_err=float(diff), tol=TOL_FLASH[name])
         del want
-        if shape == FLASH_SHAPE:
+        if shape in FLASH_TIMED:
             rec["repeats_bitwise"] = all(torch.equal(kernel(), got)
                                          for _ in range(3))
             if not rec["repeats_bitwise"]:
@@ -2825,7 +2883,8 @@ def check_flash_kernel(torch, ops, ref) -> dict:
         if "ms" in rec:
             times += (f" (before the redesign {FLASH_MS_BEFORE[name]}, "
                       "PERF.md row 11, not this run; "
-                      f"{rec['ms'] / rec['library_ms']:.2f}x the library, "
+                      if shape == FLASH_SHAPE else " (")
+            times += (f"{rec['ms'] / rec['library_ms']:.2f}x the library, "
                       f"{rec['ms'] / rec['bound'][0]:.2f}x the bound")
             if name == "float32":
                 times += (f" of three TF32 products, "
@@ -2843,6 +2902,15 @@ def check_flash_kernel(torch, ops, ref) -> dict:
         del qg, k, v, q4, k4, v4, got
         torch.cuda.empty_cache()
     return out
+
+
+def serve_prompts(torch, vocab: int):
+    """Phase 4's prompts: SERVE_REQUESTS x SERVE_PROMPT tokens in [1,
+    vocab) from a seeded generator (phase 4b draws them with qwen3-8b's
+    vocab, the same tokens)."""
+    g = torch.Generator().manual_seed(5)
+    return [torch.randint(1, vocab, (SERVE_PROMPT,), generator=g).tolist()
+            for _ in range(SERVE_REQUESTS)]
 
 
 def run_serving_path(torch, ops, flash_ms: float, flash32_ms: float) -> dict:
@@ -2863,10 +2931,7 @@ def run_serving_path(torch, ops, flash_ms: float, flash32_ms: float) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in eng.params.parameters())
-    g = torch.Generator().manual_seed(5)
-    prompts = [torch.randint(1, cfg.vocab_size, (SERVE_PROMPT,),
-                             generator=g).tolist()
-               for _ in range(SERVE_REQUESTS)]
+    prompts = serve_prompts(torch, cfg.vocab_size)
     eng.submit(Request(prompt=prompts[0][:256], max_new_tokens=2))
     eng.run()                                        # warm-up, not counted
     eng.done.clear()
@@ -3035,6 +3100,367 @@ def fp32_prefills(torch, ops, eng, cfg, scfg, tokens, last: dict) -> dict:
         del logits
         torch.cuda.empty_cache()
     return dict(prefill_ms=prefill_ms, launches=launches)
+
+
+def sync_error(torch, fn):
+    """``None`` when ``fn`` runs under ``torch.cuda.set_sync_debug_mode(
+    "error")``, else where it synchronised: the error's first line and the
+    innermost frame of the port that made the call."""
+    import traceback
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return None
+    except RuntimeError as err:
+        torch.cuda.set_sync_debug_mode(0)
+        frames = [f for f in traceback.extract_tb(err.__traceback__)
+                  if "repro_torch" in f.filename] or \
+            traceback.extract_tb(err.__traceback__)
+        f = frames[-1]
+        where = f"{os.path.relpath(f.filename, ROOT)}:{f.lineno} `{f.line}`"
+        return f"{str(err).strip().splitlines()[0]} at {where}"
+
+
+def moe_prefill_flop(cfg, B: int, S: int) -> float:
+    """The products of one prefill of B x S tokens as the gather dispatch
+    runs them: every capacity slot is a row of the experts' products."""
+    from repro_torch.models import moe as mmoe
+    N = B * S
+    d, H, K, hd, ff, E = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                          cfg.d_ff, cfg.moe_experts)
+    G, _, C = mmoe.capacity(N, cfg)
+    proj = 2 * N * d * (H * hd + 2 * K * hd) + 2 * N * H * hd * d
+    attn = 4 * B * H * hd * (S * (S + 1) // 2)
+    experts = 3 * 2 * G * E * C * d * ff
+    shared = 3 * 2 * N * d * ff * cfg.moe_shared_experts
+    router = 2 * N * d * E
+    return cfg.n_layers * (proj + attn + experts + shared + router) \
+        + 2 * N * d * cfg.vocab_size
+
+
+def moe_decode_bytes(torch, model, cfg, B: int, cache_len: int) -> int:
+    """The bytes a decode step of B tokens must read: every weight but the
+    embedding table (B of its rows), each expert's included (the gather
+    dispatch at decode size runs every expert), and the K/V cache rows up
+    to the new one."""
+    w = sum(p.numel() * p.element_size()
+            for n, p in model.named_parameters() if n != "embed")
+    w += B * cfg.d_model * model.embed.element_size()
+    item = torch.empty((), dtype=cfg.dtype).element_size()
+    kv = 2 * cfg.n_layers * B * (cache_len + 1) * cfg.n_kv_heads * cfg.hd \
+        * item
+    return w + kv
+
+
+def run_moe_serving_path(torch, ops, flash_ms: float) -> dict:
+    """Phase 4b: llama4-scout-17b-a16e at full width and depth MOE_LAYERS
+    through the serving engine, on phase 4's prompts, with the launch
+    counters set to 0 just before the measured run and read just after;
+    then (not counted) the experts each layer chose with and without the
+    kernel, one full-width MoE layer's gather against sort, the host-sync
+    checks and the profiles.  ``flash_ms``: the kernel's device time at
+    FLASH_SHAPE_MOE.  The model is freed before it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step
+    from repro_torch.models import moe as mmoe
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS,
+                                       use_flash_kernel=True)
+    scfg = ServeConfig(max_batch=SERVE_REQUESTS,
+                       max_len=SERVE_PROMPT + 2 * SERVE_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, scfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in eng.params.parameters())
+    prompts = serve_prompts(torch, get_config(SERVE_ARCH).vocab_size)
+    eng.submit(Request(prompt=prompts[0][:256], max_new_tokens=2))
+    eng.run()                                        # warm-up, not counted
+    eng.done.clear()
+    eng.stats = {k: [] for k in eng.stats}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for p in prompts:
+        eng.submit(Request(prompt=p, max_new_tokens=SERVE_NEW))
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    serve_peak = torch.cuda.max_memory_allocated()
+    batches = len(eng.stats["prefill_s"])
+    outputs = [r.output for r in done]
+    n_tokens = sum(len(o) for o in outputs)
+    if launches != dict(dict.fromkeys(ops.LAUNCHES, 0),
+                        flash_attention=cfg.n_layers * batches) \
+            or batches != 1:
+        raise SystemExit(f"serving {MOE_ARCH}: launches {launches} for "
+                         f"{batches} prefill batches of {cfg.n_layers} "
+                         "layers")
+    if [len(o) for o in outputs] != [SERVE_NEW] * SERVE_REQUESTS or not all(
+            0 <= t < cfg.vocab_size for o in outputs for t in o):
+        raise SystemExit(f"serving {MOE_ARCH}: bad outputs {outputs}")
+
+    # the experts each layer chose in three prefills: with the kernel, on
+    # the plain path, and on the plain path in fp32 (the control); forward
+    # hooks on each layer's moe recompute its routing from its input, and
+    # each block's input in the plain prefill is kept for the per-layer
+    # check below
+    from repro_torch.models.transformer import _positions
+    tokens = torch.tensor(prompts, device=eng.device)
+    plain = cfg.replace(use_flash_kernel=False)
+    N, d = SERVE_REQUESTS * SERVE_PROMPT, cfg.d_model
+    chosen, last, block_in, moe_in = {}, {}, {}, {}
+
+    def route_hook(layer, label):
+        def fn(mod, args, out):
+            chosen[label][layer] = mmoe._route(
+                mod.p, args[0].reshape(-1, d), cfg)[1]
+            if layer == 0 and label == "plain":
+                moe_in[0] = args[0].detach().clone()
+        return fn
+
+    def input_hook(layer):
+        def fn(mod, args, out):
+            block_in[layer] = args[0].detach().clone()
+        return fn
+
+    def hooked(label, inputs=False):
+        chosen[label] = {}
+        layers = list(enumerate(eng.params.layers))
+        return [b.moe.register_forward_hook(route_hook(i, label))
+                for i, b in layers] + [
+            b.register_forward_hook(input_hook(i)) for i, b in layers
+            if inputs]
+
+    with torch.inference_mode():
+        for label, c in (("flash", cfg), ("plain", plain),
+                         ("fp32", plain.replace(dtype=torch.float32))):
+            handles = hooked(label, inputs=label == "plain")
+            try:
+                e = ServingEngine(c, scfg, params=eng.params)
+                logits, _ = e.prefill(tokens)
+            finally:
+                for h in handles:
+                    h.remove()
+            last[label] = logits[:, -1].float()
+            del logits, e
+            torch.cuda.empty_cache()
+    last_rows = [(b + 1) * SERVE_PROMPT - 1 for b in range(SERVE_REQUESTS)]
+
+    def compare(a, b):
+        same = torch.stack([(chosen[a][i] == chosen[b][i]).all(-1)
+                            for i in range(cfg.n_layers)])   # (L, N)
+        # a token counts as diverged from the first layer it differs on
+        alike = same.cumprod(0).bool()
+        return dict(
+            agree=float(same.float().mean()),
+            per_layer=[round(float(v), 5) for v in same.float().mean(1)],
+            alike_through=[round(float(v), 5)
+                           for v in alike.float().mean(1)],
+            prompts_same_route=[i for i, row in enumerate(last_rows)
+                                if bool(same[:, row].all())],
+            logits=[float((last[a][i] - last[b][i]).abs().max()
+                          / last[b][i].abs().max())
+                    for i in range(SERVE_REQUESTS)])
+
+    routes = {f"{a}_vs_{b}": compare(a, b) for a, b in (
+        ("flash", "plain"), ("flash", "fp32"), ("plain", "fp32"))}
+    flips = {k: 1.0 - routes[f"{k}_vs_fp32"]["agree"]
+             for k in ("flash", "plain")}
+    finite = all(bool(torch.isfinite(t).all()) for t in last.values())
+    # the share of (layer, token, k) choices the config's capacity drops
+    dropped = sum(float((~mmoe.slots(chosen["flash"][i], cfg)[1]).sum())
+                  for i in range(cfg.n_layers)) / (
+        cfg.n_layers * N * cfg.moe_top_k)
+
+    # each layer on the same input, with and without the kernel
+    positions = _positions(SERVE_REQUESTS, SERVE_PROMPT, eng.device)
+    layer_agree, layer_err = [], []
+    with torch.inference_mode():
+        for i, blk in enumerate(eng.params.layers):
+            outs = {}
+            for label, c in (("flash", cfg), ("plain", plain)):
+                handles = hooked(label)
+                try:
+                    outs[label] = blk(block_in[i], positions, c)[0] \
+                        .reshape(N, d).float()
+                finally:
+                    for h in handles:
+                        h.remove()
+            same = (chosen["flash"][i] == chosen["plain"][i]).all(-1)
+            layer_agree.append(float(same.float().mean()))
+            # a token routed alike may still lose its slot in one run and
+            # keep it in the other (another token's flip moves the ranks)
+            keep = {k: mmoe.slots(chosen[k][i], cfg)[1].reshape(N, -1)
+                    for k in outs}
+            same &= (keep["flash"] == keep["plain"]).all(-1)
+            diff = (outs["flash"][same] - outs["plain"][same]).abs().max()
+            layer_err.append(float(diff / outs["plain"][same].abs().max()))
+            del outs, same, keep
+    del chosen, block_in, blk        # blk: the last layer's weights
+
+    # one full-width MoE layer on the prefill's tokens: gather with nothing
+    # dropped (capacity factor E) against the dropless sort
+    p0 = eng.params.layers[0].moe.p
+    xl = moe_in.pop(0)
+    wide = cfg.replace(moe_capacity_factor=float(cfg.moe_experts))
+    with torch.inference_mode():
+        _, keep = mmoe.slots(mmoe._route(p0, xl.reshape(-1, d), wide)[1],
+                             wide)
+        y_gather, _ = mmoe.moe_ffn(p0, xl, wide, impl="gather")
+        y_sort, _ = mmoe.moe_ffn(p0, xl, wide, impl="sort")
+        dispatch_err = float((y_gather.float() - y_sort.float()).abs().max()
+                             / y_sort.float().abs().max())
+        wide_keeps_all = bool(keep.all())
+        del y_gather, y_sort, keep
+        torch.cuda.empty_cache()
+        layer_ms = dict(
+            gather=device_ms(torch, lambda: mmoe.moe_ffn(p0, xl, cfg,
+                                                         impl="gather"),
+                             reps=5, trials=3),
+            gather_no_drop=device_ms(torch, lambda: mmoe.moe_ffn(
+                p0, xl, wide, impl="gather"), reps=5, trials=3))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        mmoe.moe_ffn(p0, xl, cfg, impl="sort")
+        start.record()
+        for _ in range(5):
+            mmoe.moe_ffn(p0, xl, cfg, impl="sort")  # a host read each
+        end.record()
+        end.synchronize()
+        layer_ms["sort_wall"] = start.elapsed_time(end) / 5
+        torch.cuda.empty_cache()
+
+        # host synchronisation at decode size: the gather layer must have
+        # none; the whole step's are printed for A1a; the sort layer's one
+        # host read is shown as the error it raises
+        xd = xl[:, -1:].contiguous()                  # (B, 1, d)
+        moe_sync = sync_error(torch, lambda: mmoe.moe_ffn(p0, xd, cfg,
+                                                          impl="gather"))
+        sort_sync = sync_error(torch, lambda: mmoe.moe_ffn(p0, xd, cfg,
+                                                           impl="sort"))
+        cache = eng._splice(eng.prefill(tokens)[1], SERVE_REQUESTS)
+        cur = tokens[:, -1:]
+        step_sync = sync_error(torch, lambda: decode_step(
+            eng.params, cfg, cache, cur, SERVE_PROMPT))
+        # the device's share of a prefill and of a decode step
+        pre = device_activity(torch, lambda: eng.prefill(tokens), reps=1)
+        dec = device_activity(torch, lambda: decode_step(
+            eng.params, cfg, cache, cur, SERVE_PROMPT), reps=4)
+        del cache, xd
+    del xl, p0
+    prefill_ms = eng.stats["prefill_s"][0] * 1e3
+    decode_ms = statistics.median(eng.stats["decode_s"]) * 1e3
+    flop = moe_prefill_flop(cfg, SERVE_REQUESTS, SERVE_PROMPT)
+    dec_bytes = moe_decode_bytes(torch, eng.params, cfg, SERVE_REQUESTS,
+                                 SERVE_PROMPT)
+    rec = dict(
+        arch=MOE_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        experts=cfg.moe_experts, top_k=cfg.moe_top_k, params=n_params,
+        weight_gb=sum(p.numel() * p.element_size()
+                      for p in eng.params.parameters()) / 1e9,
+        requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
+        new_tokens=SERVE_NEW, init_s=init_s, wall_s=wall,
+        prefill_batches=batches, launches=launches, prefill_ms=prefill_ms,
+        prefill_flop=flop, prefill_bound_ms=bound_ms(0, flop, "bfloat16")[0],
+        decode_step_ms=decode_ms,
+        decode_step_ms_range=[min(eng.stats["decode_s"]) * 1e3,
+                              max(eng.stats["decode_s"]) * 1e3],
+        decode_bytes=dec_bytes,
+        decode_bound_ms=bound_ms(dec_bytes, 0, "bfloat16")[0],
+        tokens_per_s=n_tokens / wall,
+        decode_tokens_per_s=SERVE_REQUESTS / (decode_ms / 1e3),
+        flash_ms=flash_ms,
+        flash_share_of_prefill=flash_ms * launches["flash_attention"]
+        / batches / prefill_ms,
+        prefill_kernels=pre["kernels"], prefill_device_ms=pre["busy_ms"],
+        prefill_busy_share=pre["busy_ms"] / prefill_ms,
+        decode_kernels_per_step=dec["kernels"],
+        decode_device_ms_per_step=dec["busy_ms"],
+        decode_busy_share=dec["busy_ms"] / decode_ms,
+        routes=routes, flips_vs_fp32=flips, flip_ratio_bar=MOE_FLIP_RATIO,
+        layer_route_agree=layer_agree, layer_route_agree_bar=MOE_ROUTE_AGREE,
+        layer_out_err=layer_err, layer_out_tol=MOE_BF16_TOL,
+        logits_finite=finite,
+        capacity_dropped_share=dropped,
+        dispatch_gather_vs_sort=dispatch_err,
+        dispatch_tol=MOE_BF16_TOL, wide_capacity_keeps_all=wide_keeps_all,
+        layer_ms=layer_ms, moe_layer_sync=moe_sync, sort_layer_sync=sort_sync,
+        decode_step_sync=step_sync,
+        serve_peak_memory_gb=serve_peak / 1e9,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        outputs=outputs)
+    log(f"serving moe: {json.dumps(rec)}")
+    del eng, tokens, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_memory(torch, "4b (the llama4 model freed)")
+    if not finite:
+        raise SystemExit(f"serving {MOE_ARCH}: non-finite prefill logits")
+    if not min(layer_agree) >= MOE_ROUTE_AGREE or \
+            not max(layer_err) <= MOE_BF16_TOL:
+        raise SystemExit(f"serving {MOE_ARCH}: on the same input the blocks "
+                         f"with and without the kernel chose the same "
+                         f"experts on {layer_agree} of the tokens (bar "
+                         f"{MOE_ROUTE_AGREE}), their outputs off by "
+                         f"{layer_err} (tol {MOE_BF16_TOL})")
+    if not flips["flash"] <= MOE_FLIP_RATIO * flips["plain"]:
+        raise SystemExit(f"serving {MOE_ARCH}: the prefill with the kernel "
+                         f"chose other experts than the fp32 prefill on "
+                         f"{flips['flash']} of (layer, token), the plain "
+                         f"bf16 prefill on {flips['plain']} (bar: at most "
+                         f"{MOE_FLIP_RATIO}x)")
+    if not (wide_keeps_all and dispatch_err <= MOE_BF16_TOL):
+        raise SystemExit(f"serving {MOE_ARCH}: gather with capacity "
+                         f"factor E (drops none: {wide_keeps_all}) off sort "
+                         f"by {dispatch_err} (tol {MOE_BF16_TOL})")
+    if moe_sync is not None:
+        raise SystemExit(f"serving {MOE_ARCH}: the gather MoE layer "
+                         f"synchronises at decode size: {moe_sync}")
+    log(f"serving {MOE_ARCH} (depth {cfg.n_layers}, {n_params:,} "
+        f"parameters, {rec['weight_gb']:.2f} GB; init {init_s:.1f} s, peak "
+        f"{rec['peak_memory_gb']:.2f} GB): prefill {prefill_ms:.1f} ms for "
+        f"{SERVE_REQUESTS} x {SERVE_PROMPT} tokens (its products "
+        f"{flop / 1e12:.1f} TFLOP, bound {rec['prefill_bound_ms']:.1f} ms), "
+        f"decode {decode_ms:.2f} ms per step (range "
+        f"{rec['decode_step_ms_range'][0]:.2f}-"
+        f"{rec['decode_step_ms_range'][1]:.2f}; {dec['busy_ms']:.2f} ms of "
+        f"device, {dec['kernels']:.0f} kernels; the weight-read bound "
+        f"{rec['decode_bound_ms']:.2f} ms for {dec_bytes / 1e9:.2f} GB), "
+        f"{rec['tokens_per_s']:.1f} tokens/s over the run; the flash kernel "
+        f"is {rec['flash_share_of_prefill']:.4f} of the prefill ({batches} "
+        f"batch, {launches['flash_attention']} launches); device busy "
+        f"{rec['prefill_busy_share']:.3f} of the prefill "
+        f"({pre['busy_ms']:.1f} ms, {pre['kernels']:.0f} kernels), "
+        f"{rec['decode_busy_share']:.3f} of a decode step [{card()}]")
+    fvp = routes["flash_vs_plain"]
+    log(f"serving {MOE_ARCH}: each layer on the same input, the experts "
+        f"with and without the kernel agree on {min(layer_agree):.4f}-"
+        f"{max(layer_agree):.4f} of the tokens (bar {MOE_ROUTE_AGREE}), "
+        f"outputs {max(layer_err):.3e} apart (tol {MOE_BF16_TOL}); through "
+        f"the stack the two bf16 prefills agree on {fvp['agree']:.4f} of "
+        f"(layer, token) (layer 0 {fvp['per_layer'][0]:.4f}, layer "
+        f"{cfg.n_layers - 1} {fvp['per_layer'][-1]:.4f}), prompts routed "
+        f"alike in every layer {fvp['prompts_same_route']}, last logits "
+        f"{[round(v, 4) for v in fvp['logits']]} apart; against the fp32 "
+        f"prefill the kernel's choices differ on {flips['flash']:.4f}, the "
+        f"plain bf16 path's on {flips['plain']:.4f} (bar: at most "
+        f"{MOE_FLIP_RATIO}x); the capacity drops {dropped:.4f} of the "
+        f"choices; one layer's gather (no drop) vs sort {dispatch_err:.3e} "
+        f"(tol "
+        f"{MOE_BF16_TOL}); the layer at {N:,} tokens: gather "
+        f"{layer_ms['gather']:.3f} ms, gather no-drop "
+        f"{layer_ms['gather_no_drop']:.3f}, sort (wall, one host read) "
+        f"{layer_ms['sort_wall']:.3f} [{card()}]")
+    log(f"serving {MOE_ARCH} host syncs at decode size: gather layer "
+        f"{moe_sync or 'none'}; sort layer {sort_sync or 'none'}; the "
+        f"whole decode step {step_sync or 'none'} (A1a)")
+    return rec
 
 
 def run_training_path(torch, ops, seed: int) -> dict:
@@ -3579,6 +4005,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log_memory(torch, "4")
 
+    # -- 4b. the MoE family: llama4-scout at full width ----------------------
+    moe_flash = flash[(FLASH_SHAPE_MOE, True, "bfloat16")]
+    moe = run_moe_serving_path(torch, ops, moe_flash["ms"])
+
     # -- 6. training and the Newton-Krylov step -------------------------------
     training = run_training_path(torch, ops, args.seed)
     log_memory(torch, "6a")
@@ -3674,12 +4104,23 @@ def main() -> int:
         fp32_bound="three TF32 products at 495 TFLOP/s",
         fp32_cuda_core_bound_ms=f32["cuda_core_bound"][0],
         fp32_launches=serving["fp32_launches"]["flash_attention"],
+        launches_moe=moe["launches"]["flash_attention"],
+        moe_shape=dict(shape_bhksd=list(FLASH_SHAPE_MOE), causal=True,
+                       dtype="bfloat16", ms=moe_flash["ms"],
+                       plain_ms=moe_flash["plain_ms"],
+                       library_ms=moe_flash["library_ms"],
+                       bound_ms=moe_flash["bound"][0],
+                       bound_by=moe_flash["bound"][1],
+                       max_row_rel_err=moe_flash["err"],
+                       max_abs_err=moe_flash["max_abs_err"],
+                       repeats_bitwise=moe_flash["repeats_bitwise"]),
         fp32_max_abs_err=f32["max_abs_err"],
         fp32_repeats_bitwise=f32["repeats_bitwise"],
         other_cases=[dict(shape=r["shape"], causal=r["causal"],
                           dtype=r["dtype"], max_row_rel_err=r["err"])
                      for key, r in flash.items()
-                     if r is not main_flash and r is not f32]))
+                     if r is not main_flash and r is not f32
+                     and r is not moe_flash]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -140,23 +140,30 @@ def preconditioner_from_numpy(kind: str, arrays: Mapping, *, op=None,
                               int(arrays["terms"]))
 
 
+#: leaves the JAX package draws in f32 whatever ``cfg.param_dtype``
+F32_LEAVES = ("router", "router_bias")
+
+
 def lm_params_from_numpy(cfg: ModelConfig, params: Mapping[str, Any], *,
                          device=None, dtype=None) -> Transformer:
     """The port's :class:`~repro_torch.models.Transformer` for ``cfg`` with
     the weights of the JAX package's tree ``params`` (nested dicts of float
     arrays; ``layers`` stacked on a leading ``L`` axis), cast to ``dtype``
     (``None``: ``cfg.param_dtype``) on ``device`` (``None`` means
-    ``"cuda"``)."""
+    ``"cuda"``).  The MoE router's leaves (``F32_LEAVES``) stay in f32 at
+    least, as the JAX package keeps them whatever its ``param_dtype``."""
     device = resolve_device(device)
     dtype = cfg.param_dtype if dtype is None else dtype
+    wide = torch.promote_types(dtype, torch.float32)
 
-    def tensor(a) -> torch.Tensor:
-        return torch.tensor(np.asarray(a), device=device).to(dtype)
+    def tensor(a, name: str = "") -> torch.Tensor:
+        return torch.tensor(np.asarray(a), device=device).to(
+            wide if name in F32_LEAVES else dtype)
 
-    def layer(tree, i: int):
+    def layer(tree, i: int, name: str = ""):
         if isinstance(tree, Mapping):
-            return {k: layer(v, i) for k, v in tree.items()}
-        return tensor(np.asarray(tree)[i])
+            return {k: layer(v, i, k) for k, v in tree.items()}
+        return tensor(np.asarray(tree)[i], name)
 
     stacked = params["layers"]
     n = len(np.asarray(stacked["ln1"]))
@@ -188,7 +195,9 @@ def train_state_from_numpy(cfg: ModelConfig, state: Mapping[str, Any], *,
     ``device`` (``None`` means ``"cuda"``).  The weights as
     :func:`lm_params_from_numpy` carries them (``dtype``), the moments in
     ``state_dtype`` (``"f32"``, ``"bf16"``, or ``"i8"`` from 8-bit
-    leaves), keyed by the model's parameter names."""
+    leaves) for every leaf, the MoE router's included (the JAX package's
+    moments follow its ``state_dtype``, not the parameter's dtype), keyed
+    by the model's parameter names."""
     from .models.transformer import params_from_tree
     from .optim.clipping import PipelinedClipState
     if state_dtype not in ("f32", "bf16", "i8"):

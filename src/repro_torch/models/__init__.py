@@ -1,5 +1,5 @@
 """The LM stack of the port (PyTorch port of ``repro.models``): the dense
-decoder family, prefill and cached decode, with the CUDA flash-attention
+and MoE decoder families, prefill and cached decode, with the CUDA flash-attention
 kernel under ``cfg.use_flash_kernel``, and the training loss."""
 from .common import ModelConfig
 from .transformer import (Transformer, decode_step, forward, init_cache,

@@ -2,9 +2,9 @@
 ``repro.models.common``).
 
 The config has the JAX package's fields and defaults, so its architecture
-files carry over as they are; the dtypes are ``torch`` dtypes.  Only the
-dense decoder family runs in the port so far: fields of the other families
-(MLA, MoE, SSM, encoder-decoder, M-RoPE) are kept and refused where a
+files carry over as they are; the dtypes are ``torch`` dtypes.  The dense
+and MoE decoder families run in the port so far: fields of the other
+families (MLA, SSM, encoder-decoder, M-RoPE) are kept and refused where a
 model reads them.
 """
 from __future__ import annotations

@@ -1,11 +1,13 @@
-"""The decoder LM, dense family (PyTorch port of ``repro.models.transformer``).
+"""The decoder LM, dense and MoE families (PyTorch port of
+``repro.models.transformer``).
 
 A :class:`Transformer` module of :class:`DecoderBlock` modules, each with an
-:class:`Attention` and a :class:`DenseFFN` submodule.  Weights keep the JAX
-package's layout (``x @ W``), so a JAX parameter tree carries across as a
-copy (:func:`repro_torch.convert.lm_params_from_numpy`).  The entry points
-keep the JAX package's functional signatures, with the module as
-``params``:
+:class:`Attention` and a :class:`DenseFFN` submodule (``mlp``), or with
+``cfg.moe_experts`` a :class:`~repro_torch.models.moe.MoEFFN` (``moe``).
+Weights keep the JAX package's layout (``x @ W``), so a JAX parameter tree
+carries across as a copy (:func:`repro_torch.convert.lm_params_from_numpy`).
+The entry points keep the JAX package's functional signatures, with the
+module as ``params``:
 
 * ``init_params(cfg, generator)``                        a :class:`Transformer`
 * ``forward(params, cfg, batch)``                        ``(logits (B,S,V), aux)``
@@ -14,12 +16,13 @@ keep the JAX package's functional signatures, with the module as
 * ``init_cache(cfg, batch, max_len, device=)``           ``{"k", "v"}``
 * ``decode_step(params, cfg, cache, tokens, cache_len)`` ``(logits (B,1,V), cache)``
 
-The cache is ``{"k", "v"}``, each ``(L, B, T, K, hd)``; a decode step
-writes the new token's K/V into it in place.  Layers run in a Python loop
-(the JAX package's ``lax.scan``); its sharding constraints have no
-counterpart on one device.  The MoE, MLA, hybrid, SSM, audio and VLM
-families raise ``NotImplementedError`` and name the slice of the port that
-brings them.
+The cache is ``{"k", "v"}``, each ``(L, B, T, K, hd)``, in both families;
+a decode step writes the new token's K/V into it in place.  Layers run in a
+Python loop (the JAX package's ``lax.scan``); its sharding constraints have
+no counterpart on one device.  ``forward`` sums the MoE layers' load-balance
+losses into its ``aux``; the prefill and decode steps drop them.  The MLA,
+hybrid, SSM, audio and VLM families raise ``NotImplementedError`` and name
+the slice of the port that brings them.
 
 The weights are trainable parameters; serving runs under
 ``torch.inference_mode()``, which records nothing for them.  With
@@ -45,11 +48,13 @@ from repro_torch.core.types import resolve_device
 from .attention import (decode_attention, init_attention_params,
                         multihead_attention)
 from .common import ModelConfig, dense_init, embed_init, rms_norm
-from .moe import dense_ffn, dense_ffn_init
+from .moe import MoEFFN, dense_ffn, dense_ffn_init, init_moe_params
 
+#: the families the port runs
+FAMILIES = ("dense", "moe")
 #: the slice of the port that brings each family the port does not run yet
 LATER_SLICES = {
-    "moe": "the MoE slice", "mla": "the MLA slice (after MoE)",
+    "mla": "the MLA slice",
     "hybrid": "the hybrid (Mamba2 + shared attention) slice",
     "ssm": "the SSM (xLSTM) slice", "audio": "the audio (whisper) slice",
     "vlm": "the VLM (M-RoPE) slice",
@@ -58,12 +63,12 @@ LATER_SLICES = {
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what only later slices run."""
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         later = LATER_SLICES.get(cfg.family, "a later slice")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family waits for {later} of "
-            "the PyTorch port; only the dense family runs so far")
-    for flag, key in ((cfg.use_mla, "mla"), (cfg.moe_experts, "moe"),
+            "the PyTorch port; only the dense and MoE families run so far")
+    for flag, key in ((cfg.use_mla, "mla"),
                       (cfg.mrope_sections is not None, "vlm"),
                       (cfg.is_encoder_decoder, "audio")):
         if flag:
@@ -159,14 +164,27 @@ class DenseFFN(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    """Pre-norm block: ``x + attn(ln1(x))``, then ``+ mlp(ln2(.))``."""
+    """Pre-norm block: ``x + attn(ln1(x))``, then ``+ ffn(ln2(.))``, the
+    ffn a dense ``mlp`` or a ``moe``.  ``forward`` returns ``(x, aux)``
+    (``(x, aux, kv)`` with ``return_kv``), aux the MoE's load-balance loss
+    or ``None`` for a dense block."""
 
     def __init__(self, params: Mapping):
         super().__init__()
         self.ln1 = nn.Parameter(params["ln1"])
         self.ln2 = nn.Parameter(params["ln2"])
         self.attn = Attention(params["attn"])
-        self.mlp = DenseFFN(params["mlp"])
+        if "moe" in params:
+            self.moe = MoEFFN(params["moe"])
+        else:
+            self.mlp = DenseFFN(params["mlp"])
+
+    def ffn(self, x, cfg: ModelConfig):
+        """``(y, aux)`` of the block's feed-forward on ``ln2(x)``."""
+        h = rms_norm(self.ln2, x, cfg.norm_eps)
+        if hasattr(self, "moe"):
+            return self.moe(h, cfg)
+        return self.mlp(h), None
 
     def forward(self, x, positions, cfg: ModelConfig,
                 return_kv: bool = False):
@@ -174,23 +192,23 @@ class DecoderBlock(nn.Module):
         a = self.attn(hn, positions, cfg, causal=True, return_kv=return_kv)
         a, kv = a if return_kv else (a, None)
         x = x + a
-        x = x + self.mlp(rms_norm(self.ln2, x, cfg.norm_eps))
-        return (x, kv) if return_kv else x
+        f, aux = self.ffn(x, cfg)
+        return (x + f, aux, kv) if return_kv else (x + f, aux)
 
     def decode(self, x, position, k_cache, v_cache, cache_len: int,
                cfg: ModelConfig):
         a, _, _ = self.attn.decode(rms_norm(self.ln1, x, cfg.norm_eps),
                                    position, k_cache, v_cache, cache_len, cfg)
         x = x + a
-        return x + self.mlp(rms_norm(self.ln2, x, cfg.norm_eps))
+        return x + self.ffn(x, cfg)[0]
 
 
 class Transformer(nn.Module):
-    """The dense decoder LM.  ``params`` is the JAX package's tree with the
+    """The decoder LM.  ``params`` is the JAX package's tree with the
     stacked ``layers`` given as a list of per-layer trees: ``embed (V,
     d)``, ``final_norm (d,)``, ``lm_head (d, V)`` (absent with
     ``tie_embeddings``), and per layer ``ln1``, ``ln2``, ``attn`` and
-    ``mlp``."""
+    ``mlp`` (``moe`` with ``cfg.moe_experts``)."""
 
     def __init__(self, cfg: ModelConfig, params: Mapping):
         super().__init__()
@@ -227,10 +245,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Transformer:
                   "final_norm": ones(cfg.d_model)}
     if not cfg.tie_embeddings:
         tree["lm_head"] = dense_init(g, (cfg.d_model, cfg.vocab_size), pdt)
-    tree["layers"] = [{"ln1": ones(cfg.d_model), "ln2": ones(cfg.d_model),
-                       "attn": init_attention_params(g, cfg),
-                       "mlp": dense_ffn_init(g, cfg)}
-                      for _ in range(cfg.n_layers)]
+    tree["layers"] = []
+    for _ in range(cfg.n_layers):
+        layer = {"ln1": ones(cfg.d_model), "ln2": ones(cfg.d_model),
+                 "attn": init_attention_params(g, cfg)}
+        if cfg.moe_experts:
+            layer["moe"] = init_moe_params(g, cfg)
+        else:
+            layer["mlp"] = dense_ffn_init(g, cfg)
+        tree["layers"].append(layer)
     return Transformer(cfg, tree)
 
 
@@ -276,15 +299,17 @@ def _maybe_remat(block: nn.Module, cfg: ModelConfig):
 def forward(params: Transformer, cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(logits (B, S, V), aux_loss)``; the dense family's aux
-    loss is 0."""
+    """Returns ``(logits (B, S, V), aux_loss)``: the sum of the MoE
+    layers' load-balance losses (0 in the dense family)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed_tokens(params, cfg, tokens)
     positions = _positions(B, S, x.device)
-    for block in params.layers:
-        x = _maybe_remat(block, cfg)(x, positions, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for block in params.layers:
+        x, a = _maybe_remat(block, cfg)(x, positions, cfg)
+        if a is not None:
+            aux = aux + a
     return _lm_head(params, cfg, x), aux
 
 
@@ -299,7 +324,7 @@ def prefill_step(params: Transformer, cfg: ModelConfig,
     positions = _positions(B, S, x.device)
     ks, vs = [], []
     for block in params.layers:
-        x, (k, v) = block(x, positions, cfg, return_kv=True)
+        x, _, (k, v) = block(x, positions, cfg, return_kv=True)
         ks.append(k)
         vs.append(v)
     cache = {"k": torch.stack(ks), "v": torch.stack(vs)}

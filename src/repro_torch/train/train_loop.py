@@ -77,8 +77,11 @@ def make_train_step(model_cfg: ModelConfig, tcfg: TrainConfig, lm=None):
                 spike_thresh):
         params = dict(model.named_parameters())
         loss, metrics = loss_fn(model, model_cfg, batch)
+        # a MoE router's bias moves the selection only: its gradient is
+        # zero, as in the JAX package, not missing
         grads = dict(zip(params, torch.autograd.grad(
-            loss, list(params.values()))))
+            loss, list(params.values()), allow_unused=True,
+            materialize_grads=True)))
         with torch.no_grad():
             scale, clip2 = pipelined_clip(grads, clip_state,
                                           tcfg.max_grad_norm)

@@ -488,14 +488,17 @@ TOL_FLASH = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 #: kernels' tiles are 64 query rows, 64 or 32 keys), hd 20 (no multiple of
 #: 8) takes the bf16 kernel's element-load staging and hd 18 (no multiple
 #: of 4) the fp32 kernel's; the last cases are qwen3-8b's prefill, (B, H,
-#: K, S, hd) = (4, 32, 8, 1024, 128), in both types
+#: K, S, hd) = (4, 32, 8, 1024, 128), in both types; G = 5 is
+#: llama4-scout's grouping (40 query heads on 8 KV heads), odd
 FLASH_CASES = [(2, 2, G, 300, hd, causal, dtype)
                for hd in (16, 20, 64, 96, 128) for G in (1, 4)
                for causal in (True, False)
                for dtype in (torch.float32, torch.bfloat16)] + [
     (2, 2, 4, 300, 18, causal, torch.float32) for causal in (True, False)
 ] + [(4, 8, 4, 1024, 128, True, dtype)
-     for dtype in (torch.bfloat16, torch.float32)]
+     for dtype in (torch.bfloat16, torch.float32)] + [
+    (2, 2, 5, 300, 128, causal, dtype) for causal in (True, False)
+    for dtype in (torch.bfloat16, torch.float32)]
 
 
 def flash_operands(B, K, G, S, hd, dtype, device, seed):
@@ -607,6 +610,61 @@ def test_small_engine_on_the_card_gives_the_cpu_tokens(cuda):
         assert ops.LAUNCHES["flash_attention"] == \
             (cfg.n_layers if dev == "cuda" else 0)
     assert outs["cuda"] == outs["cpu"]
+
+
+def test_small_moe_engine_on_the_card_gives_the_cpu_tokens(cuda):
+    """The MoE family (llama4-scout's smoke config, 4 groups so that the
+    gather dispatch's capacity drops tokens) in fp32 on the flash path:
+    the card's greedy tokens equal the CPU's, one flash launch a layer."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    cfg = smoke_config("llama4-scout-17b-a16e").replace(
+        use_flash_kernel=True, dtype=torch.float32,
+        param_dtype=torch.float32, moe_groups=4)
+    model = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, 256)))
+               for _ in range(3)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, ServeConfig(max_batch=3, max_len=264),
+                            params=model.to(dev), device=dev)
+        for p in prompts:
+            eng.submit(Request(prompt=p, max_new_tokens=4))
+        ops.reset_launches()
+        outs[dev] = [r.output for r in eng.run()]
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention"] == \
+            (cfg.n_layers if dev == "cuda" else 0)
+    assert outs["cuda"] == outs["cpu"]
+
+
+def test_moe_gather_makes_no_host_sync_and_sort_one(cuda):
+    """Under ``set_sync_debug_mode("error")`` the gather dispatch runs at
+    decode and prefill sizes; the sort dispatch raises at its one host
+    read (the group sizes)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import moe
+    cfg = smoke_config("llama4-scout-17b-a16e").replace(
+        moe_groups=256, dtype=torch.float32, param_dtype=torch.float32)
+    p = moe.init_moe_params(torch.Generator(device=cuda).manual_seed(0),
+                            cfg)
+    for shape in ((4, 1, cfg.d_model), (4, 256, cfg.d_model)):
+        x = torch.randn(*shape, device=cuda).to(cfg.dtype)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = moe.moe_ffn(p, x, cfg, impl="gather")
+            with pytest.raises(RuntimeError, match="synchroniz"):
+                moe.moe_ffn(p, x, cfg, impl="sort")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want, _ = moe.moe_ffn({k: v.cpu() for k, v in p.items()},
+                              x.cpu(), cfg, impl="gather")
+        assert torch.isfinite(y.float()).all()
+        assert float((y.cpu() - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
 
 
 # -- programs: each solver chunk a CUDA graph --------------------------------

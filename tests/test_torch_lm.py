@@ -470,7 +470,7 @@ def test_dense_configs_equal_the_jax_ones():
     from repro.configs import get_config as jget
     dtypes = {"dtype", "param_dtype"}
     for arch in ("qwen3-8b", "phi3-mini-3.8b", "qwen2.5-32b",
-                 "qwen1.5-110b"):
+                 "qwen1.5-110b", "llama4-scout-17b-a16e"):
         for full in (True, False):
             t = get_config(arch) if full else tsmoke(arch)
             j = jget(arch) if full else jsmoke(arch)
@@ -492,7 +492,7 @@ def test_later_families_name_their_slice(arch):
 
 
 @pytest.mark.parametrize("change,word", [
-    (dict(family="moe", moe_experts=4), "MoE"),
+    (dict(family="moe", moe_experts=4, use_mla=True), "MLA"),
     (dict(family="hybrid"), "hybrid"),
     (dict(family="ssm"), "SSM"),
     (dict(family="audio"), "audio"),
