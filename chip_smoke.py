@@ -105,14 +105,22 @@ package is missing.  Phases, any failure of which fails the run:
    before the redesign;
 4. serving path: ``ServingEngine`` on full-width qwen3-8b (36 layers,
    bf16, weights from a seeded generator on the card) with
-   ``use_flash_kernel=True``: 4 requests of 1,024-token prompts and 16
-   new tokens each; the launch counter (36 flash launches per prefill
-   batch, no other kernel), every token in the vocabulary, the
-   last-position prefill logits finite and within a bf16 tolerance of the
-   same engine's without the kernel (the plain single-block path), and
-   the prefill time, the time per decode step, tokens per second, the
-   kernel's share of the prefill, and from a profiler trace the kernels
-   and the device's busy time per prefill and per decode step; then an
+   ``use_flash_kernel=True``: warmed on the prompts' first 256 tokens at
+   the measured batch size (its decode graph captured then, the seconds
+   printed), then 4 requests of 1,024-token prompts and 16 new tokens
+   each, served twice: with the decode steps eager (``_eager_chunks``)
+   and with each step one replay of the engine's decode graph (the main
+   path; ``stats["decode_program"]`` must read ``"graph"`` and nothing be
+   captured in the run); the two runs' greedy tokens identical; per run
+   the launch counter (36 flash launches per prefill batch, no other
+   kernel), the prefill time, the time per decode step (median, range),
+   tokens per second and, from profiler traces, the kernels, device time
+   and busy share of a decode step; the graph pool's and the cache's
+   bytes; a replay under ``set_sync_debug_mode("error")`` must not
+   synchronise; every token in the vocabulary, the last-position prefill
+   logits finite and within a bf16 tolerance of the same engine's without
+   the kernel (the plain single-block path), the kernel's share of the
+   prefill, and the kernels and busy time of a prefill; then an
    fp32 prefill of the same prompts with the kernel (its launches counted
    on their own: 36 fp32 flash launches, no other kernel), its
    last-position logits within ``SERVE_LOGITS_TOL_F32`` of the fp32 plain
@@ -124,7 +132,8 @@ package is missing.  Phases, any failure of which fails the run:
    query and 8 KV heads, 16 experts top-1 and a shared one, d_ff 8,192,
    vocab 202,048), depth cut 48 -> 12 (28.5 G parameters, 57 GB of seeded
    bf16 weights; 48 layers are 215 GB), ``use_flash_kernel=True``, on
-   phase 4's prompts (4 x 1,024 tokens, 16 new): 12 flash launches per
+   phase 4's prompts (4 x 1,024 tokens, 16 new), warmed and served eager
+   and graphed as in 4 (the same bars and readings): 12 flash launches per
    prefill batch and no other kernel, every token in the vocabulary; the
    experts each layer chose (forward hooks on each ``moe``) in a prefill
    with the kernel and one on the plain path agree on at least
@@ -134,9 +143,10 @@ package is missing.  Phases, any failure of which fails the run:
    ``"gather"`` with the capacity factor raised to E (nothing drops)
    against ``"sort"`` within ``MOE_BF16_TOL``, the share the config's
    capacity drops, each dispatch's time; ``moe_ffn(impl="gather")`` at
-   decode size free of host synchronisation
-   (``torch.cuda.set_sync_debug_mode("error")``), and where a whole
-   ``decode_step`` (and the sort layer) synchronises, printed; the init
+   decode size and a whole ``decode_step`` with ``cache_len`` a device
+   tensor free of host synchronisation
+   (``torch.cuda.set_sync_debug_mode("error")``), and where the sort layer
+   synchronises, printed; the init
    seconds, parameters, peak memory, prefill ms beside its products'
    bound, decode ms per step (median, range) beside the weight-read bound,
    tokens/s, the kernel's share of the prefill and, from profiler traces,
@@ -2913,15 +2923,141 @@ def serve_prompts(torch, vocab: int):
             for _ in range(SERVE_REQUESTS)]
 
 
+def warm_engine(torch, eng, prompts) -> None:
+    """Serve the first 256 tokens of ``prompts`` (all of them: the measured
+    batch size), 2 new tokens each: the prefill's kernels and the decode
+    program of that batch size (its graph captured) are ready before the
+    measured runs; then the engine's times are cleared."""
+    from repro_torch.serve import Request
+    for p in prompts:
+        eng.submit(Request(prompt=p[:256], max_new_tokens=2))
+    eng.run()
+    eng.done.clear()
+    eng.stats["prefill_s"].clear()
+    eng.stats["decode_s"].clear()
+    torch.cuda.synchronize()
+
+
+def serve_eager_and_graphed(torch, ops, eng, prompts, label: str) -> dict:
+    """``prompts`` (SERVE_NEW new tokens each) served twice on the warmed
+    engine: once with its decode steps eager (``_eager_chunks``), then
+    with each step one replay of its decode graph, the main path; each run
+    with the launch counters set to 0 just before it and read just after.
+    Fails unless both give the same greedy tokens and the graphed run
+    captured nothing new.  Returns each run's record."""
+    from repro_torch.core.program import _eager_chunks
+    from repro_torch.serve import Request
+    runs = {}
+    for mode in ("eager", "graph"):
+        graphs = eng.stats["decode_graphs"]
+        eng.stats["prefill_s"].clear()
+        eng.stats["decode_s"].clear()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with _eager_chunks() if mode == "eager" else contextlib.nullcontext():
+            for p in prompts:
+                eng.submit(Request(prompt=p, max_new_tokens=SERVE_NEW))
+            done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        outputs = [r.output for r in done]
+        eng.done.clear()
+        dec = eng.stats["decode_s"]
+        decode_ms = statistics.median(dec) * 1e3
+        runs[mode] = dict(
+            decode_program=eng.stats["decode_program"],
+            new_graphs=eng.stats["decode_graphs"] - graphs, wall_s=wall,
+            launches=launches, prefill_batches=len(eng.stats["prefill_s"]),
+            prefill_ms=eng.stats["prefill_s"][0] * 1e3,
+            decode_step_ms=decode_ms,
+            decode_step_ms_range=[min(dec) * 1e3, max(dec) * 1e3],
+            tokens_per_s=sum(len(o) for o in outputs) / wall,
+            decode_tokens_per_s=len(prompts) / (decode_ms / 1e3),
+            outputs=outputs)
+    eager, graph = runs["eager"], runs["graph"]
+    if graph["decode_program"] != "graph" or graph["new_graphs"] != 0 \
+            or not eager["decode_program"].startswith("eager: "):
+        raise SystemExit(f"{label}: decode programs "
+                         f"{eager['decode_program']!r} / "
+                         f"{graph['decode_program']!r}, "
+                         f"{graph['new_graphs']} captures in the measured run")
+    if graph["outputs"] != eager["outputs"]:
+        raise SystemExit(f"{label}: the graphed decode's greedy tokens "
+                         f"{graph['outputs']} differ from the eager decode's "
+                         f"{eager['outputs']}")
+    return runs
+
+
+def decode_activity(torch, eng, tokens) -> dict:
+    """What the device runs per decode step (profiler traces) on a fresh
+    splice of ``tokens``' prefill: the eager step and the replay of the
+    same batch size's graph; and where a replay, run under
+    ``set_sync_debug_mode("error")``, synchronises (``None``: nowhere).
+    Each advances the program's ``cache_len`` by one a step."""
+    with torch.inference_mode():
+        logits, pcache = eng.prefill(tokens)
+        prog = eng._splice(pcache, logits[:, -1].argmax(dim=-1),
+                           tokens.shape[1])
+        del logits, pcache
+        eager = device_activity(
+            torch, lambda: prog._step(prog.tokens, prog.cache_len), reps=4)
+        graph = device_activity(torch, prog.step, reps=4)
+        replay_sync = sync_error(torch, prog.step)
+    return dict(program=prog, eager=eager, graph=graph,
+                replay_sync=replay_sync)
+
+
+def log_decode_runs(label: str, runs: dict, act: dict, eng) -> dict:
+    """Print both runs' prefill and decode walls, device time, kernels and
+    busy share per step and tokens/s, the decode program and its memory;
+    returns the record's decode fields.  Drops ``act``'s program (and its
+    hold on the model)."""
+    prog = act.pop("program")
+    rec = dict(decode_program=runs["graph"]["decode_program"],
+               eager_decode_program=runs["eager"]["decode_program"],
+               decode_graphs=eng.stats["decode_graphs"],
+               capture_s=eng.stats["capture_s"],
+               graph_pool_bytes=prog.pool_bytes,
+               decode_cache_bytes=prog.nbytes - prog.pool_bytes,
+               replay_sync=act["replay_sync"])
+    for mode in ("eager", "graph"):
+        r, a = runs[mode], act[mode]
+        r.update(decode_kernels_per_step=a["kernels"],
+                 decode_device_ms_per_step=a["busy_ms"],
+                 decode_busy_share=a["busy_ms"] / r["decode_step_ms"])
+        log(f"{label} decode {mode}: prefill {r['prefill_ms']:.2f} ms, a "
+            f"decode step {r['decode_step_ms']:.3f} ms (median; range "
+            f"{r['decode_step_ms_range'][0]:.3f}-"
+            f"{r['decode_step_ms_range'][1]:.3f}), {a['busy_ms']:.3f} ms of "
+            f"device and {a['kernels']:.0f} kernels a step, busy "
+            f"{r['decode_busy_share']:.3f}; {r['tokens_per_s']:.1f} tokens/s "
+            f"over the run, {r['decode_tokens_per_s']:.1f} a decode step "
+            f"[{card()}]")
+    log(f"{label} decode program: {rec['decode_program']!r} (the eager run "
+        f"{rec['eager_decode_program']!r}); {rec['decode_graphs']} graph "
+        f"captured in {rec['capture_s']:.3f} s (warm-up included); the "
+        f"graph pool {prog.pool_bytes:,} bytes, the cache "
+        f"{rec['decode_cache_bytes']:,}; a replay synchronises: "
+        f"{act['replay_sync'] or 'nowhere'}; the greedy tokens of both runs "
+        f"identical")
+    if act["replay_sync"] is not None:
+        raise SystemExit(f"{label}: a replayed decode step synchronises: "
+                         f"{act['replay_sync']}")
+    return rec
+
+
 def run_serving_path(torch, ops, flash_ms: float, flash32_ms: float) -> dict:
-    """Phase 4: full-width qwen3-8b through the serving engine, with the
-    launch counters set to 0 just before the measured run and read just
-    after; then the prefill logits with and without the kernel (not
+    """Phase 4: full-width qwen3-8b through the serving engine, warmed at
+    the measured batch size, then the prompts served with the decode eager
+    and graphed (:func:`serve_eager_and_graphed`; the graphed run is the
+    main path); then the prefill logits with and without the kernel (not
     counted), and an fp32 prefill with the kernel, counted on its own.
     ``flash_ms`` / ``flash32_ms``: the kernel's device time at this shape
     in bf16 / fp32."""
     from repro_torch.configs import get_config
-    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    from repro_torch.serve import ServeConfig, ServingEngine
     cfg = get_config(SERVE_ARCH).replace(use_flash_kernel=True)
     scfg = ServeConfig(max_batch=SERVE_REQUESTS,
                        max_len=SERVE_PROMPT + 2 * SERVE_NEW)
@@ -2932,27 +3068,22 @@ def run_serving_path(torch, ops, flash_ms: float, flash32_ms: float) -> dict:
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in eng.params.parameters())
     prompts = serve_prompts(torch, cfg.vocab_size)
-    eng.submit(Request(prompt=prompts[0][:256], max_new_tokens=2))
-    eng.run()                                        # warm-up, not counted
-    eng.done.clear()
-    eng.stats = {k: [] for k in eng.stats}
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    for p in prompts:
-        eng.submit(Request(prompt=p, max_new_tokens=SERVE_NEW))
-    done = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
-    batches = len(eng.stats["prefill_s"])
-    outputs = [r.output for r in done]
-    n_tokens = sum(len(o) for o in outputs)
-    if launches != dict(dict.fromkeys(ops.LAUNCHES, 0),
-                        flash_attention=cfg.n_layers * batches) \
-            or batches == 0:
-        raise SystemExit(f"serving: launches {launches} for {batches} "
-                         f"prefill batches of {cfg.n_layers} layers")
+    warm_engine(torch, eng, prompts)
+    log(f"serving {SERVE_ARCH}: warmed at batch {SERVE_REQUESTS}, the decode "
+        f"graph captured in {eng.stats['capture_s']:.3f} s")
+    runs = serve_eager_and_graphed(torch, ops, eng, prompts,
+                                   f"serving {SERVE_ARCH}")
+    main = runs["graph"]
+    launches, batches, outputs = (main["launches"], main["prefill_batches"],
+                                  main["outputs"])
+    for mode, r in runs.items():
+        if r["launches"] != dict(dict.fromkeys(ops.LAUNCHES, 0),
+                                 flash_attention=cfg.n_layers
+                                 * r["prefill_batches"]) \
+                or r["prefill_batches"] == 0:
+            raise SystemExit(f"serving ({mode} decode): launches "
+                             f"{r['launches']} for {r['prefill_batches']} "
+                             f"prefill batches of {cfg.n_layers} layers")
     if [len(o) for o in outputs] != [SERVE_NEW] * SERVE_REQUESTS or not all(
             0 <= t < cfg.vocab_size for o in outputs for t in o):
         raise SystemExit(f"serving: bad outputs {outputs}")
@@ -2976,36 +3107,34 @@ def run_serving_path(torch, ops, flash_ms: float, flash32_ms: float) -> dict:
     err = gap("flash", "plain")
     agree = (last["flash"].argmax(-1) == last["plain"].argmax(-1)).tolist()
     first = [o[0] for o in outputs] == last["flash"].argmax(-1).tolist()
-    prefill_ms = eng.stats["prefill_s"][0] * 1e3
-    decode_ms = statistics.median(eng.stats["decode_s"]) * 1e3
-    # the device's share of a prefill and of a decode step, from a trace
+    prefill_ms = main["prefill_ms"]
+    decode_ms = main["decode_step_ms"]
+    # the device's share of a prefill and of a decode step, from traces
     # (not counted: the launch counters were read above)
-    from repro_torch.models import decode_step
     with torch.inference_mode():
         pre = device_activity(torch, lambda: eng.prefill(tokens), reps=1)
-        cache = eng._splice(eng.prefill(tokens)[1], SERVE_REQUESTS)
-        cur = tokens[:, -1:]
-        dec = device_activity(torch, lambda: decode_step(
-            eng.params, cfg, cache, cur, SERVE_PROMPT), reps=4)
-        del cache
+    act = decode_activity(torch, eng, tokens)
     torch.cuda.empty_cache()
+    dec_rec = log_decode_runs(f"serving {SERVE_ARCH}", runs, act, eng)
+    dec = act["graph"]
+    eager = {k: v for k, v in runs["eager"].items() if k != "outputs"}
     rec = dict(
         arch=SERVE_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
         params=n_params, requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
-        new_tokens=SERVE_NEW, init_s=init_s, wall_s=wall,
+        new_tokens=SERVE_NEW, init_s=init_s, wall_s=main["wall_s"],
         prefill_batches=batches, launches=launches, prefill_ms=prefill_ms,
         decode_step_ms=decode_ms,
-        decode_step_ms_range=[min(eng.stats["decode_s"]) * 1e3,
-                              max(eng.stats["decode_s"]) * 1e3],
-        tokens_per_s=n_tokens / wall,
-        decode_tokens_per_s=SERVE_REQUESTS / (decode_ms / 1e3),
+        decode_step_ms_range=main["decode_step_ms_range"],
+        tokens_per_s=main["tokens_per_s"],
+        decode_tokens_per_s=main["decode_tokens_per_s"],
         flash_share_of_prefill=flash_ms * launches["flash_attention"]
         / batches / prefill_ms,
         prefill_kernels=pre["kernels"], prefill_device_ms=pre["busy_ms"],
         prefill_busy_share=pre["busy_ms"] / prefill_ms,
         decode_kernels_per_step=dec["kernels"],
         decode_device_ms_per_step=dec["busy_ms"],
-        decode_busy_share=dec["busy_ms"] / decode_ms,
+        decode_busy_share=dec["busy_ms"] / decode_ms, eager_decode=eager,
+        **dec_rec,
         logits_finite=finite, logits_max_rel_err=err,
         logits_tol=SERVE_LOGITS_TOL, flash_vs_fp32=gap("flash", "fp32"),
         plain_vs_fp32=gap("plain", "fp32"), argmax_agree=agree,
@@ -3178,29 +3307,23 @@ def run_moe_serving_path(torch, ops, flash_ms: float) -> dict:
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in eng.params.parameters())
     prompts = serve_prompts(torch, get_config(SERVE_ARCH).vocab_size)
-    eng.submit(Request(prompt=prompts[0][:256], max_new_tokens=2))
-    eng.run()                                        # warm-up, not counted
-    eng.done.clear()
-    eng.stats = {k: [] for k in eng.stats}
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    for p in prompts:
-        eng.submit(Request(prompt=p, max_new_tokens=SERVE_NEW))
-    done = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    warm_engine(torch, eng, prompts)
+    log(f"serving {MOE_ARCH}: warmed at batch {SERVE_REQUESTS}, the decode "
+        f"graph captured in {eng.stats['capture_s']:.3f} s")
+    runs = serve_eager_and_graphed(torch, ops, eng, prompts,
+                                   f"serving {MOE_ARCH}")
+    main = runs["graph"]
+    launches, batches, outputs = (main["launches"], main["prefill_batches"],
+                                  main["outputs"])
     serve_peak = torch.cuda.max_memory_allocated()
-    batches = len(eng.stats["prefill_s"])
-    outputs = [r.output for r in done]
-    n_tokens = sum(len(o) for o in outputs)
-    if launches != dict(dict.fromkeys(ops.LAUNCHES, 0),
-                        flash_attention=cfg.n_layers * batches) \
-            or batches != 1:
-        raise SystemExit(f"serving {MOE_ARCH}: launches {launches} for "
-                         f"{batches} prefill batches of {cfg.n_layers} "
-                         "layers")
+    for mode, r in runs.items():
+        if r["launches"] != dict(dict.fromkeys(ops.LAUNCHES, 0),
+                                 flash_attention=cfg.n_layers
+                                 * r["prefill_batches"]) \
+                or r["prefill_batches"] != 1:
+            raise SystemExit(f"serving {MOE_ARCH} ({mode} decode): launches "
+                             f"{r['launches']} for {r['prefill_batches']} "
+                             f"prefill batches of {cfg.n_layers} layers")
     if [len(o) for o in outputs] != [SERVE_NEW] * SERVE_REQUESTS or not all(
             0 <= t < cfg.vocab_size for o in outputs for t in o):
         raise SystemExit(f"serving {MOE_ARCH}: bad outputs {outputs}")
@@ -3337,25 +3460,28 @@ def run_moe_serving_path(torch, ops, flash_ms: float) -> dict:
         torch.cuda.empty_cache()
 
         # host synchronisation at decode size: the gather layer must have
-        # none; the whole step's are printed for A1a; the sort layer's one
-        # host read is shown as the error it raises
+        # none, nor the whole step (below); the sort layer's one host read
+        # is shown as the error it raises
         xd = xl[:, -1:].contiguous()                  # (B, 1, d)
         moe_sync = sync_error(torch, lambda: mmoe.moe_ffn(p0, xd, cfg,
                                                           impl="gather"))
         sort_sync = sync_error(torch, lambda: mmoe.moe_ffn(p0, xd, cfg,
                                                            impl="sort"))
-        cache = eng._splice(eng.prefill(tokens)[1], SERVE_REQUESTS)
-        cur = tokens[:, -1:]
+    # the whole decode step with cache_len on the device, eagerly; the
+    # device's share of a prefill and of a decode step, eager and replayed
+    act = decode_activity(torch, eng, tokens)
+    prog = act["program"]
+    with torch.inference_mode():
         step_sync = sync_error(torch, lambda: decode_step(
-            eng.params, cfg, cache, cur, SERVE_PROMPT))
-        # the device's share of a prefill and of a decode step
+            eng.params, cfg, prog.cache, prog.tokens, prog.cache_len))
         pre = device_activity(torch, lambda: eng.prefill(tokens), reps=1)
-        dec = device_activity(torch, lambda: decode_step(
-            eng.params, cfg, cache, cur, SERVE_PROMPT), reps=4)
-        del cache, xd
+    del xd, prog
     del xl, p0
-    prefill_ms = eng.stats["prefill_s"][0] * 1e3
-    decode_ms = statistics.median(eng.stats["decode_s"]) * 1e3
+    dec_rec = log_decode_runs(f"serving {MOE_ARCH}", runs, act, eng)
+    dec = act["graph"]
+    eager = {k: v for k, v in runs["eager"].items() if k != "outputs"}
+    prefill_ms = main["prefill_ms"]
+    decode_ms = main["decode_step_ms"]
     flop = moe_prefill_flop(cfg, SERVE_REQUESTS, SERVE_PROMPT)
     dec_bytes = moe_decode_bytes(torch, eng.params, cfg, SERVE_REQUESTS,
                                  SERVE_PROMPT)
@@ -3365,16 +3491,15 @@ def run_moe_serving_path(torch, ops, flash_ms: float) -> dict:
         weight_gb=sum(p.numel() * p.element_size()
                       for p in eng.params.parameters()) / 1e9,
         requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
-        new_tokens=SERVE_NEW, init_s=init_s, wall_s=wall,
+        new_tokens=SERVE_NEW, init_s=init_s, wall_s=main["wall_s"],
         prefill_batches=batches, launches=launches, prefill_ms=prefill_ms,
         prefill_flop=flop, prefill_bound_ms=bound_ms(0, flop, "bfloat16")[0],
         decode_step_ms=decode_ms,
-        decode_step_ms_range=[min(eng.stats["decode_s"]) * 1e3,
-                              max(eng.stats["decode_s"]) * 1e3],
+        decode_step_ms_range=main["decode_step_ms_range"],
         decode_bytes=dec_bytes,
         decode_bound_ms=bound_ms(dec_bytes, 0, "bfloat16")[0],
-        tokens_per_s=n_tokens / wall,
-        decode_tokens_per_s=SERVE_REQUESTS / (decode_ms / 1e3),
+        tokens_per_s=main["tokens_per_s"],
+        decode_tokens_per_s=main["decode_tokens_per_s"],
         flash_ms=flash_ms,
         flash_share_of_prefill=flash_ms * launches["flash_attention"]
         / batches / prefill_ms,
@@ -3382,7 +3507,8 @@ def run_moe_serving_path(torch, ops, flash_ms: float) -> dict:
         prefill_busy_share=pre["busy_ms"] / prefill_ms,
         decode_kernels_per_step=dec["kernels"],
         decode_device_ms_per_step=dec["busy_ms"],
-        decode_busy_share=dec["busy_ms"] / decode_ms,
+        decode_busy_share=dec["busy_ms"] / decode_ms, eager_decode=eager,
+        **dec_rec,
         routes=routes, flips_vs_fp32=flips, flip_ratio_bar=MOE_FLIP_RATIO,
         layer_route_agree=layer_agree, layer_route_agree_bar=MOE_ROUTE_AGREE,
         layer_out_err=layer_err, layer_out_tol=MOE_BF16_TOL,
@@ -3419,9 +3545,11 @@ def run_moe_serving_path(torch, ops, flash_ms: float) -> dict:
         raise SystemExit(f"serving {MOE_ARCH}: gather with capacity "
                          f"factor E (drops none: {wide_keeps_all}) off sort "
                          f"by {dispatch_err} (tol {MOE_BF16_TOL})")
-    if moe_sync is not None:
-        raise SystemExit(f"serving {MOE_ARCH}: the gather MoE layer "
-                         f"synchronises at decode size: {moe_sync}")
+    if moe_sync is not None or step_sync is not None:
+        raise SystemExit(f"serving {MOE_ARCH}: at decode size the gather MoE "
+                         f"layer synchronises {moe_sync or 'nowhere'}, the "
+                         f"whole step with cache_len on the device "
+                         f"{step_sync or 'nowhere'}")
     log(f"serving {MOE_ARCH} (depth {cfg.n_layers}, {n_params:,} "
         f"parameters, {rec['weight_gb']:.2f} GB; init {init_s:.1f} s, peak "
         f"{rec['peak_memory_gb']:.2f} GB): prefill {prefill_ms:.1f} ms for "
@@ -3459,7 +3587,7 @@ def run_moe_serving_path(torch, ops, flash_ms: float) -> dict:
         f"{layer_ms['sort_wall']:.3f} [{card()}]")
     log(f"serving {MOE_ARCH} host syncs at decode size: gather layer "
         f"{moe_sync or 'none'}; sort layer {sort_sync or 'none'}; the "
-        f"whole decode step {step_sync or 'none'} (A1a)")
+        f"whole decode step, cache_len a device tensor, {step_sync or 'none'}")
     return rec
 
 

@@ -29,8 +29,11 @@ program is given (objects with a ``calls`` count, such as the
 :class:`~repro_torch.core._common.SyncCounter` of a mesh session's
 reductions).
 
-A capture that fails (a step that reads the device from the host, such as
-a matvec calling ``.item()``) raises, naming the program's key.  A program
+The warm-up, the capture and that bookkeeping are :func:`capture`, which
+the serving engine's decode program shares
+(:class:`repro_torch.serve.engine.DecodeProgram`).  A capture that fails
+(a step that reads the device from the host, such as a matvec calling
+``.item()``) raises, naming the program's key.  A program
 never falls back to the eager chunk on a CUDA device: only
 :func:`_eager_chunks`, an internal switch, makes it run eagerly there: the
 graph-against-eager check of the tests and ``chip_smoke.py``, and the
@@ -293,42 +296,60 @@ class Program:
             bufs[k].copy_(v)
 
     def _capture(self, schedule: Schedule):
-        before = dict(LAUNCHES)
-        calls_before = [c.calls for c in self.counters]
-        side = _side_stream(self.device)
-        cur = torch.cuda.current_stream(self.device)
-        try:
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                scratch = {k: v.clone() for k, v in self._buffers.items()}
-                self._steps(scratch, schedule)              # the warm-up
-                del scratch
-            cur.wait_stream(side)
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            graph = torch.cuda.CUDAGraph()
-            warm = dict(LAUNCHES)
-            calls_warm = [c.calls for c in self.counters]
-            # entering a capture empties the allocator's cache anyway; done
-            # first, what the capture reserves is its pool's growth
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(self.device)
-            with _collector_held(), torch.cuda.graph(
-                    graph, pool=self._pool, stream=side):
-                self._write_back(self._steps(dict(self._buffers), schedule))
-            self._pool_bytes += max(
-                0, torch.cuda.memory_reserved(self.device) - reserved)
-            launches = {k: LAUNCHES[k] - warm[k] for k in LAUNCHES
-                        if LAUNCHES[k] != warm[k]}
-            calls = tuple(c.calls - w
-                          for c, w in zip(self.counters, calls_warm))
-        except Exception as exc:
-            raise RuntimeError(
-                f"capturing program {self.key!r} (a chunk of "
-                f"{len(schedule)} steps) as a CUDA graph failed: {exc}"
-            ) from exc
-        finally:
-            LAUNCHES.update(before)
-            for c, n in zip(self.counters, calls_before):
-                c.calls = n
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+
+        def warm_up():
+            self._steps({k: v.clone() for k, v in self._buffers.items()},
+                        schedule)
+
+        graph, launches, calls, grown = capture(
+            f"program {self.key!r} (a chunk of {len(schedule)} steps)",
+            self.device, self._pool, warm_up,
+            lambda: self._write_back(self._steps(dict(self._buffers),
+                                                 schedule)),
+            self.counters)
+        self._pool_bytes += grown
         return graph, launches, calls
+
+
+def capture(what: str, device: torch.device, pool, warm_up: Callable[[], None],
+            body: Callable[[], None], counters: Sequence = ()):
+    """``body()`` captured as one CUDA graph in ``pool``, after one eager
+    ``warm_up()`` (which must leave the buffers ``body`` reads as they
+    were), both on the device's side stream; the capture with the cyclic
+    collector held off.  Returns ``(graph, the launches one replay makes,
+    the calls one replay adds to each of counters, the bytes the pool
+    grew by)``; :data:`LAUNCHES` and the counters read afterwards as they
+    did before.  A failure raises, naming ``what``."""
+    before = dict(LAUNCHES)
+    calls_before = [c.calls for c in counters]
+    side = _side_stream(device)
+    cur = torch.cuda.current_stream(device)
+    try:
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            warm_up()
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        warm = dict(LAUNCHES)
+        calls_warm = [c.calls for c in counters]
+        # entering a capture empties the allocator's cache anyway; done
+        # first, what the capture reserves is its pool's growth
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        with _collector_held(), torch.cuda.graph(graph, pool=pool,
+                                                 stream=side):
+            body()
+        grown = max(0, torch.cuda.memory_reserved(device) - reserved)
+        launches = {k: LAUNCHES[k] - warm[k] for k in LAUNCHES
+                    if LAUNCHES[k] != warm[k]}
+        calls = tuple(c.calls - w for c, w in zip(counters, calls_warm))
+    except Exception as exc:
+        raise RuntimeError(
+            f"capturing {what} as a CUDA graph failed: {exc}") from exc
+    finally:
+        LAUNCHES.update(before)
+        for c, n in zip(counters, calls_before):
+            c.calls = n
+    return graph, launches, calls, grown

@@ -16,7 +16,7 @@ backward and forward-mode rule raise ``NotImplementedError``.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -167,14 +167,43 @@ def multihead_attention(p: Params, x: torch.Tensor, positions: torch.Tensor,
     return out
 
 
+def _cache_row(cache_len: Union[int, torch.Tensor],
+                device) -> torch.Tensor:
+    """``cache_len`` as a one-element int64 tensor on ``device``: a view of
+    a tensor ``cache_len`` (the host never reads it), a fill for an int."""
+    if isinstance(cache_len, torch.Tensor):
+        return cache_len.reshape(1).to(device=device, dtype=torch.int64)
+    return torch.full((1,), cache_len, dtype=torch.int64, device=device)
+
+
+def _decode_scores(qg: torch.Tensor, k_cache: torch.Tensor) -> torch.Tensor:
+    """``(B, K, G, 1, T)`` f32 scores of qg ``(B, 1, K, G, hd)`` against a
+    ``(B, T, K, hd)`` cache, the products summed in f32 as the JAX
+    package's ``preferred_element_type=jnp.float32`` sums them.  A bf16
+    cache on the card is read as it lies (one ``bmm`` with an f32 output
+    per batch row, over strided views); the CPU has no such ``bmm``, so
+    there the cache is copied to f32 (the products of bf16 values are
+    exact in f32 either way)."""
+    B, _, K, G, hd = qg.shape
+    if k_cache.dtype == torch.float32 or not k_cache.is_cuda:
+        return torch.einsum("bskgh,btkh->bkgst", qg.float(), k_cache.float())
+    q = qg.to(k_cache.dtype).reshape(B, K, G, hd)
+    kt = k_cache.permute(0, 2, 3, 1)                        # (B, K, hd, T)
+    return torch.stack([torch.bmm(q[b], kt[b], out_dtype=torch.float32)
+                        for b in range(B)])[:, :, :, None]
+
+
 def decode_attention(p: Params, x: torch.Tensor, position: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     cache_len: int, cfg: ModelConfig):
+                     cache_len: Union[int, torch.Tensor], cfg: ModelConfig):
     """Single-token decode against a (B, T, K, hd) KV cache.
 
-    The new token's K/V are written into the caches at ``cache_len`` in
-    place (the JAX package returns updated copies); returns ``(y, k_cache,
-    v_cache)`` as it does.  x: (B, 1, d); position: (B,) or (B, 1)."""
+    ``cache_len`` is an int or a 0-d integer tensor, which stays on the
+    device: the new token's K/V are written into the caches at that row in
+    place by an index tensor (the JAX package returns updated copies), and
+    the mask compares with it on the device.  Returns ``(y, k_cache,
+    v_cache)`` as the JAX package does.  x: (B, 1, d); position: (B,) or
+    (B, 1)."""
     B = x.shape[0]
     hd, H, K = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     G = H // K
@@ -182,16 +211,16 @@ def decode_attention(p: Params, x: torch.Tensor, position: torch.Tensor,
     scale = 1.0 / math.sqrt(hd)
     positions = position[:, None] if position.dim() == 1 else position
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
-    k_cache[:, cache_len] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, cache_len] = v_new[:, 0].to(v_cache.dtype)
+    row = _cache_row(cache_len, x.device)
+    k_cache.index_copy_(1, row, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, row, v_new.to(v_cache.dtype))
 
     qg = q.reshape(B, 1, K, G, hd)
-    logits = torch.einsum("bskgh,btkh->bkgst", qg.float(),
-                          k_cache.to(x.dtype).float()) * scale
+    logits = _decode_scores(qg, k_cache.to(x.dtype)) * scale
     t_idx = torch.arange(T, device=x.device)
-    valid = t_idx <= cache_len
+    valid = t_idx <= row
     if cfg.sliding_window:
-        valid &= t_idx > cache_len - cfg.sliding_window
+        valid &= t_idx > row - cfg.sliding_window
     logits = torch.where(valid, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     o = torch.einsum("bkgst,btkh->bskgh", probs, v_cache.to(x.dtype))

@@ -16,8 +16,10 @@ the output.  Two dispatch implementations, as in the JAX package:
 * ``"sort"``: dropless.  The (token, k) pairs are sorted by expert and
   each expert's rows are one product.  The JAX package uses
   ``jax.lax.ragged_dot``; here a loop over the experts takes the row
-  offsets from one host read of the group sizes per call (ROADMAP A1a and
-  A11.2 must remove it).
+  offsets from one host read of the group sizes per call (ROADMAP A11.2
+  must remove it).  A step with that read cannot be captured as a CUDA
+  graph, so the serving engine runs a sort config's decode eagerly and
+  says so (``stats["decode_program"]``).
 
 The expert products are ``torch.einsum`` / ``@`` (plain array code in the
 JAX package too: ``moe.py`` has no Pallas kernel).

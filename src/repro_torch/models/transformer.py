@@ -146,8 +146,8 @@ class Attention(nn.Module):
     def forward(self, x, positions, cfg: ModelConfig, **kw):
         return multihead_attention(self.p, x, positions, cfg, **kw)
 
-    def decode(self, x, position, k_cache, v_cache, cache_len: int,
-               cfg: ModelConfig):
+    def decode(self, x, position, k_cache, v_cache,
+               cache_len: Union[int, torch.Tensor], cfg: ModelConfig):
         return decode_attention(self.p, x, position, k_cache, v_cache,
                                 cache_len, cfg)
 
@@ -195,8 +195,8 @@ class DecoderBlock(nn.Module):
         f, aux = self.ffn(x, cfg)
         return (x + f, aux, kv) if return_kv else (x + f, aux)
 
-    def decode(self, x, position, k_cache, v_cache, cache_len: int,
-               cfg: ModelConfig):
+    def decode(self, x, position, k_cache, v_cache,
+               cache_len: Union[int, torch.Tensor], cfg: ModelConfig):
         a, _, _ = self.attn.decode(rms_norm(self.ln1, x, cfg.norm_eps),
                                    position, k_cache, v_cache, cache_len, cfg)
         x = x + a
@@ -346,11 +346,16 @@ def decode_step(params: Transformer, cfg: ModelConfig,
                 cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
                 cache_len: Union[int, torch.Tensor]):
     """One-token decode.  tokens: (B, 1) -> ``(logits (B, 1, V), cache)``;
-    the new K/V are written into ``cache`` at ``cache_len`` in place."""
-    cache_len = int(cache_len)
+    the new K/V are written into ``cache`` at ``cache_len`` in place.
+    ``cache_len`` is an int or a 0-d integer tensor (the JAX package's
+    traced ``jnp.int32``); a tensor is never read by the host, so the step
+    captures as one CUDA graph (the serving engine's decode program)."""
     B = tokens.shape[0]
     x = _embed_tokens(params, cfg, tokens)
-    pos = torch.full((B,), cache_len, dtype=torch.int32, device=x.device)
+    if isinstance(cache_len, torch.Tensor):
+        pos = cache_len.reshape(1).expand(B)
+    else:
+        pos = torch.full((B,), cache_len, dtype=torch.int32, device=x.device)
     for l, block in enumerate(params.layers):
         x = block.decode(x, pos, cache["k"][l], cache["v"][l], cache_len,
                          cfg)

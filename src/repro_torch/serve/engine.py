@@ -3,16 +3,33 @@
 
 Requests are grouped into batches of equal prompt length (length buckets)
 and left-padded, so positions and caches are exact without ragged masks.
-A batch runs one prefill (the flash kernel under ``cfg.use_flash_kernel``)
-and splices its KV into a ``(L, B, max_len, K, hd)`` cache, then one decode
-step per new token for all its slots; a slot that reached its
-``max_new_tokens`` or ``eos_id`` is skipped.  On the card the host reads
-the device once per step: the argmax of every slot in one copy, while the
-next step's input stays on the device.  Everything runs under
-``torch.inference_mode()``.
+A batch runs one prefill, eagerly (the flash kernel under
+``cfg.use_flash_kernel``), then one decode step per new token for all its
+slots; a slot that reached its ``max_new_tokens`` or ``eos_id`` is
+skipped.
 
-``stats`` keeps the wall time of each prefill and each decode step (each
-ends in that host read, so it is the device's time as the host sees it).
+The decode steps run through a :class:`DecodeProgram`, one per batch size
+B, the counterpart of the JAX engine's one compiled decode program: the
+``(L, B, max_len, K, hd)`` cache, the ``(B, 1)`` tokens and the 0-d
+``cache_len`` live in buffers at fixed addresses.  A batch's prefill K/V
+are spliced into that cache in place, the rows from the prompt's length on
+zeroed (the JAX splice's zero padding).  On the card a step is one replay
+of a CUDA graph captured on the program's first batch
+(:func:`repro_torch.core.program.capture`): the decode, the argmax written
+into the tokens buffer and ``cache_len + 1``.  The host reads the device
+once per step: the B next tokens, in one copy.  On the CPU, under
+:func:`~repro_torch.core.program._eager_chunks`, and for a config whose
+step cannot be captured (the MoE sort dispatch's host read), the same step
+runs eagerly on the same buffers; any other failed capture raises.
+Everything runs under ``torch.inference_mode()``.
+
+``stats``: the wall time of each prefill (``prefill_s``, the splice
+included) and of each decode step (``decode_s``: each ends in the host
+read, so it is the device's time as the host sees it; a capture is not in
+it), the graphs captured (``decode_graphs``) and the seconds they took,
+warm-ups included (``capture_s``), and ``decode_program``: ``"graph"`` or
+``"eager: <reason>"``, as :func:`decode_program_mode` chose for the last
+batch.
 """
 from __future__ import annotations
 
@@ -24,7 +41,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import program as _program
 from repro_torch.core.types import resolve_device
+from repro_torch.kernels._build import LAUNCHES
 from repro_torch.models import (ModelConfig, Transformer, decode_step,
                                 init_cache, init_params, prefill_step)
 
@@ -45,6 +64,102 @@ class ServeConfig:
     max_len: int = 256
     eos_id: int = -1          # -1: never stop early
     seed: int = 0
+
+
+def decode_program_mode(cfg: ModelConfig, device) -> str:
+    """How the engine runs ``cfg``'s decode steps on ``device``:
+    ``"graph"`` (one CUDA-graph replay a step) or ``"eager: <reason>"``."""
+    if torch.device(device).type != "cuda":
+        return "eager: on the CPU each step runs as it comes"
+    if _program._EAGER[0]:
+        return "eager: under _eager_chunks (the graph-against-eager check)"
+    if cfg.moe_experts and cfg.moe_impl == "sort":
+        return ("eager: the MoE sort dispatch reads its group sizes to the "
+                "host once a call (models/moe.py _moe_sort), which a "
+                "captured step cannot do")
+    return "graph"
+
+
+class DecodeProgram:
+    """The decode step of one batch size (see the module's docstring).
+    :meth:`start` splices a batch's prefill into the buffers; :meth:`step`
+    (after :meth:`capture` when graphed) advances the batch by one token
+    and returns the tokens buffer, ``(B, 1)``, then holding the next
+    tokens; ``logits`` is the last step's ``(B, 1, V)``.  The buffers are
+    written in place: nothing is copied per step."""
+
+    def __init__(self, params: Transformer, cfg: ModelConfig, batch: int,
+                 max_len: int, device):
+        self.params, self.cfg = params, cfg
+        self.device = torch.device(device)
+        self.key = ("decode", cfg.name, batch, max_len)
+        self.cache = init_cache(cfg, batch, max_len, device=self.device)
+        self.tokens = torch.zeros((batch, 1), dtype=torch.int64,
+                                  device=self.device)
+        self.cache_len = torch.zeros((), dtype=torch.int64,
+                                     device=self.device)
+        self.logits: Optional[torch.Tensor] = None
+        self.graphed = False
+        self.graph = None
+        #: the launches of the port's kernels one replay makes
+        self.launches: Dict[str, int] = {}
+        #: the rise of the card's reserved memory across the capture
+        self.pool_bytes = 0
+
+    @property
+    def nbytes(self) -> int:
+        """The cache's bytes and the graph pool's."""
+        return sum(t.numel() * t.element_size()
+                   for t in self.cache.values()) + self.pool_bytes
+
+    def start(self, pcache: Dict[str, torch.Tensor], first: torch.Tensor,
+              plen: int, graphed: bool) -> None:
+        """Splice a prefill's ``(L, B, plen, K, hd)`` K/V into the cache
+        (the rows from ``plen`` on zeroed), ``first`` (B,) into the tokens
+        buffer and ``plen`` into ``cache_len``; the batch's steps replay the
+        graph when ``graphed``, else run eagerly."""
+        for key, dst in self.cache.items():
+            dst[:, :, :plen].copy_(pcache[key])
+            dst[:, :, plen:].zero_()
+        self.tokens.copy_(first.reshape(-1, 1))
+        self.cache_len.fill_(plen)
+        self.graphed = graphed
+
+    def _step(self, tokens: torch.Tensor, cache_len: torch.Tensor):
+        logits, _ = decode_step(self.params, self.cfg, self.cache, tokens,
+                                cache_len)
+        tokens.copy_(logits[:, 0].argmax(dim=-1, keepdim=True))
+        cache_len.add_(1)
+        return logits
+
+    def capture(self) -> float:
+        """Capture the step as a CUDA graph; returns the seconds it took.
+        The warm-up runs the step on copies of the tokens and ``cache_len``:
+        it writes the new token's K/V row into the cache, the row the first
+        replay then writes again from the same inputs."""
+        t0 = time.perf_counter()
+        out = {}
+
+        def body():
+            out["logits"] = self._step(self.tokens, self.cache_len)
+
+        self.graph, self.launches, _, self.pool_bytes = _program.capture(
+            f"the decode program {self.key!r}", self.device,
+            torch.cuda.graph_pool_handle(),
+            lambda: self._step(self.tokens.clone(), self.cache_len.clone()),
+            body)
+        self.logits = out["logits"]
+        torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
+    def step(self) -> torch.Tensor:
+        if not self.graphed:
+            self.logits = self._step(self.tokens, self.cache_len)
+            return self.tokens
+        self.graph.replay()
+        for name, count in self.launches.items():
+            LAUNCHES[name] += count
+        return self.tokens
 
 
 class ServingEngine:
@@ -68,8 +183,12 @@ class ServingEngine:
         self.params = params
         self.queue: deque = deque()
         self.done: List[Request] = []
-        self.stats: Dict[str, List[float]] = {"prefill_s": [],
-                                              "decode_s": []}
+        self.stats: Dict[str, object] = {
+            "prefill_s": [], "decode_s": [], "decode_graphs": 0,
+            "capture_s": 0.0,
+            "decode_program": decode_program_mode(cfg, self.device)}
+        #: batch size -> its decode program
+        self.programs: Dict[int, DecodeProgram] = {}
         self._next_rid = 0
 
     # ------------------------------------------------------------------
@@ -124,26 +243,24 @@ class ServingEngine:
 
         t0 = time.perf_counter()
         logits, pcache = self.prefill(tokens)
-        cache = self._splice(pcache, B)
-        del pcache
         cur = logits[:, -1].argmax(dim=-1)
         del logits
+        prog = self._splice(pcache, cur, plen)
+        del pcache
         last = cur.tolist()                          # the one host read
         self.stats["prefill_s"].append(time.perf_counter() - t0)
         for i, r in enumerate(reqs):
             r.output.append(int(last[i]))
 
-        cache_len = plen
+        if max_new > 1 and prog.graphed and prog.graph is None:
+            self.stats["capture_s"] += prog.capture()
+            self.stats["decode_graphs"] += 1
         active = np.ones(B, bool)
         for _ in range(max_new - 1):
             if not active.any():
                 break
             t0 = time.perf_counter()
-            logits, cache = decode_step(self.params, self.cfg, cache,
-                                        cur[:, None], cache_len)
-            cache_len += 1
-            cur = logits[:, 0].argmax(dim=-1)
-            nxt = cur.tolist()                       # the one host read
+            nxt = prog.step()[:, 0].tolist()         # the one host read
             self.stats["decode_s"].append(time.perf_counter() - t0)
             for i, r in enumerate(reqs):
                 if not active[i]:
@@ -154,11 +271,17 @@ class ServingEngine:
                     continue
                 r.output.append(int(nxt[i]))
 
-    def _splice(self, pcache: Dict[str, torch.Tensor],
-                B: int) -> Dict[str, torch.Tensor]:
-        """Right-pad the length-plen prefill cache to max_len."""
-        target = init_cache(self.cfg, B, self.scfg.max_len,
-                            device=self.device)
-        for key, src in pcache.items():
-            target[key][tuple(slice(0, n) for n in src.shape)] = src
-        return target
+    def _splice(self, pcache: Dict[str, torch.Tensor], first: torch.Tensor,
+                plen: int) -> DecodeProgram:
+        """The decode program of the batch's size, its cache holding the
+        length-plen prefill cache, right-padded with zeros to max_len, in
+        place, and its tokens buffer ``first``."""
+        B = first.shape[0]
+        prog = self.programs.get(B)
+        if prog is None:
+            prog = self.programs[B] = DecodeProgram(
+                self.params, self.cfg, B, self.scfg.max_len, self.device)
+        mode = self.stats["decode_program"] = decode_program_mode(
+            self.cfg, self.device)
+        prog.start(pcache, first, plen, graphed=mode == "graph")
+        return prog

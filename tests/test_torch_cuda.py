@@ -4,6 +4,7 @@ machine without it:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -665,6 +666,152 @@ def test_moe_gather_makes_no_host_sync_and_sort_one(cuda):
         assert torch.isfinite(y.float()).all()
         assert float((y.cpu() - want).abs().max()) <= \
             1e-5 * float(want.abs().max())
+
+
+# -- the serving engine's decode program: one CUDA-graph replay a step -------
+
+def _serve_config(arch, dtype, **kw):
+    from repro_torch.configs import smoke_config
+    return smoke_config(arch).replace(dtype=dtype, param_dtype=dtype, **kw)
+
+
+def _serve(eng, prompts, new=6):
+    """Serve ``prompts`` on ``eng`` (one batch each run): their tokens."""
+    from repro_torch.serve import Request
+    for p in prompts:
+        eng.submit(Request(prompt=p, max_new_tokens=new))
+    eng.done.clear()
+    return [r.output for r in eng.run()]
+
+
+def _prompts(vocab, n, length, seed):
+    rng = np.random.default_rng(seed)
+    return [list(map(int, rng.integers(1, vocab, length))) for _ in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "llama4-scout-17b-a16e"])
+def test_graphed_decode_gives_the_eager_engines_tokens(cuda, arch, dtype):
+    """A dense and a MoE gather config, bf16 and fp32: the engine whose
+    decode steps replay one CUDA graph gives the greedy tokens of the same
+    engine under ``_eager_chunks`` (two batches of 3 in turn, then a batch
+    of 2); one capture per batch size, none under ``_eager_chunks``."""
+    from repro_torch.core.program import _eager_chunks
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = _serve_config(arch, dtype)
+    scfg = ServeConfig(max_batch=3, max_len=40)
+    batches = [_prompts(cfg.vocab_size, 3, 12, 0),
+               _prompts(cfg.vocab_size, 3, 20, 1),
+               _prompts(cfg.vocab_size, 2, 16, 2)]
+    outs = {}
+    for mode in ("eager", "graph"):
+        eng = ServingEngine(cfg, scfg, device=cuda)
+        with contextlib.ExitStack() as stack:
+            if mode == "eager":
+                stack.enter_context(_eager_chunks())
+            outs[mode] = [_serve(eng, b) for b in batches]
+            if mode == "eager":
+                assert eng.stats["decode_program"].startswith("eager: ")
+                assert eng.stats["decode_graphs"] == 0
+            else:
+                assert eng.stats["decode_program"] == "graph"
+                assert eng.stats["decode_graphs"] == 2
+                assert sorted(eng.programs) == [2, 3]
+                assert eng.stats["capture_s"] > 0.0
+        assert len(eng.stats["decode_s"]) == 3 * 5
+    assert outs["graph"] == outs["eager"]
+
+
+def test_a_replayed_decode_step_makes_no_host_sync(cuda):
+    """``set_sync_debug_mode("error")`` over a replay of the decode graph
+    (bf16 MoE gather config) and over the eager step with ``cache_len`` a
+    device tensor: neither synchronises; the replay advances
+    ``cache_len`` by one and writes the tokens buffer."""
+    from repro_torch.models import decode_step
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = _serve_config("llama4-scout-17b-a16e", torch.bfloat16)
+    eng = ServingEngine(cfg, ServeConfig(max_batch=2, max_len=32),
+                        device=cuda)
+    _serve(eng, _prompts(cfg.vocab_size, 2, 10, 3), new=3)
+    prog = eng.programs[2]
+    assert prog.graph is not None and prog.pool_bytes >= 0
+    with torch.inference_mode():
+        before = int(prog.cache_len)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            prog.step()
+            decode_step(eng.params, cfg, prog.cache, prog.tokens,
+                        prog.cache_len)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert int(prog.cache_len) == before + 1
+        assert prog.logits.shape == (2, 1, cfg.vocab_size)
+        assert bool((prog.tokens[:, 0] == prog.logits[:, 0].argmax(-1)).all())
+
+
+def test_a_sort_config_decodes_eagerly_and_says_so(cuda):
+    """The MoE sort dispatch reads its group sizes on the host, so its
+    decode cannot be captured: the engine runs it eagerly, reports
+    ``"eager: ..."`` naming the sort dispatch, and its tokens equal the
+    gather config's (top-1, capacity wide enough that nothing drops)."""
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeConfig, ServingEngine
+    outs = {}
+    for impl in ("sort", "gather"):
+        cfg = _serve_config("llama4-scout-17b-a16e", torch.float32,
+                            moe_impl=impl, moe_capacity_factor=4.0)
+        model = init_params(cfg, torch.Generator(device=cuda).manual_seed(4))
+        eng = ServingEngine(cfg, ServeConfig(max_batch=2, max_len=32),
+                            params=model, device=cuda)
+        outs[impl] = _serve(eng, _prompts(cfg.vocab_size, 2, 10, 5), new=4)
+        if impl == "sort":
+            assert eng.stats["decode_program"].startswith("eager: ")
+            assert "sort" in eng.stats["decode_program"]
+            assert eng.stats["decode_graphs"] == 0
+            assert eng.programs[2].graph is None
+        else:
+            assert eng.stats["decode_program"] == "graph"
+    assert outs["sort"] == outs["gather"]
+
+
+def test_decode_attention_on_the_card_sums_bf16_products_in_f32(cuda):
+    """bf16 ``decode_attention`` on the card (scores from ``bmm`` with an
+    f32 output over the cache as it lies) against the same call on the CPU
+    (the cache copied to f32): only row ``cache_len`` written, alike
+    within bf16 rounding, and the outputs too; a 0-d ``cache_len`` and an
+    int agree bitwise."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import attention, init_params
+    cfg = smoke_config("qwen3-8b").replace(sliding_window=7)
+    p = dict(init_params(cfg, torch.Generator().manual_seed(0))
+             .layers[0].attn.p)
+    g = torch.Generator().manual_seed(1)
+    B, T, n = 3, 24, 13
+    x = torch.randn(B, 1, cfg.d_model, generator=g).to(cfg.dtype)
+    kc = torch.randn(B, T, cfg.n_kv_heads, cfg.hd, generator=g).to(cfg.dtype)
+    vc = torch.randn(B, T, cfg.n_kv_heads, cfg.hd, generator=g).to(cfg.dtype)
+    pos = torch.full((B,), n)
+    outs = {}
+    with torch.inference_mode():
+        for dev, cl in (("cpu", n), ("cuda", n),
+                        ("cuda-0d", torch.tensor(n, device=cuda))):
+            d = dev.split("-")[0]
+            k, v = kc.clone().to(d), vc.clone().to(d)
+            y, k, v = attention.decode_attention(
+                {key: w.to(d) for key, w in p.items()}, x.to(d), pos.to(d),
+                k, v, cl, cfg)
+            outs[dev] = (y.cpu(), k.cpu(), v.cpu())
+    assert all(torch.equal(a, b) for a, b in zip(outs["cuda"],
+                                                 outs["cuda-0d"]))
+    others = [t for t in range(T) if t != n]
+    for i, c in ((1, kc), (2, vc)):
+        assert torch.equal(outs["cuda"][i][:, others], c[:, others])
+        got, want = outs["cuda"][i][:, n].float(), outs["cpu"][i][:, n].float()
+        assert float((got - want).abs().max() / want.abs().max()) <= 2e-2
+    y, want = outs["cuda"][0].float(), outs["cpu"][0].float()
+    assert float((y - want).abs().max() / want.abs().max()) <= 2e-2
 
 
 # -- programs: each solver chunk a CUDA graph --------------------------------

@@ -1,0 +1,244 @@
+"""The serving engine's decode program (``repro_torch.serve.engine``'s
+:class:`DecodeProgram`, ``decode_step`` with ``cache_len`` on the device)
+held against the JAX package on the CPU.
+
+The JAX engine compiles its decode step once, ``cache_len`` traced; the
+port's step takes ``cache_len`` as a 0-d integer tensor and never reads it
+on the host, so on the card it captures as one CUDA graph (that capture
+runs in tests/test_torch_cuda.py and chip_smoke.py).  Here: several
+consecutive steps against the JAX ``decode_step`` under ``jax.jit`` with a
+traced ``jnp.int32`` ``cache_len`` (dense, MoE gather, MoE sort, a sliding
+window), the step traced by ``make_fx`` in fake mode (no host read left;
+the sort dispatch's read shows), the in-place splice across batches, and
+the engine's choice of graph or eager.  Weights and inputs come from numpy
+seeds; everything is fp32; two layers and the head within 1e-4
+(``ATOL_MODEL``, tests/test_torch_lm.py's bar).
+"""
+import traceback
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from torch._subclasses.fake_tensor import (  # noqa: E402
+    DataDependentOutputException, FakeTensorMode)
+from torch.fx.experimental.proxy_tensor import make_fx  # noqa: E402
+
+from repro.configs import smoke_config as jsmoke  # noqa: E402
+from repro.models import transformer as jtr  # noqa: E402
+from repro.serve import Request as JRequest  # noqa: E402
+from repro.serve import ServeConfig as JServeConfig  # noqa: E402
+from repro.serve import ServingEngine as JServingEngine  # noqa: E402
+from repro_torch import lm_params_from_numpy  # noqa: E402
+from repro_torch.configs import smoke_config as tsmoke  # noqa: E402
+from repro_torch.core.program import _eager_chunks  # noqa: E402
+from repro_torch.models import transformer as ttr  # noqa: E402
+from repro_torch.serve import Request, ServeConfig, ServingEngine  # noqa: E402
+from repro_torch.serve.engine import decode_program_mode  # noqa: E402
+
+CPU = "cpu"
+ATOL_MODEL = 1e-4      # two layers and the head, fp32
+
+#: case -> (arch, config changes)
+CASES = {
+    "dense": ("qwen3-8b", {}),
+    "moe-gather": ("llama4-scout-17b-a16e", {"moe_impl": "gather"}),
+    "moe-sort": ("llama4-scout-17b-a16e", {"moe_impl": "sort"}),
+    "sliding-window": ("qwen3-8b", {"sliding_window": 5}),
+}
+#: leaves redrawn around their initial value, and by how much
+REDRAWN = {"ln1": 0.3, "ln2": 0.3, "final_norm": 0.3, "q_norm": 0.3,
+           "k_norm": 0.3, "router_bias": 0.05}
+
+
+def np_(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().cpu().numpy()
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def close(got, want, atol):
+    np.testing.assert_allclose(np_(got), np_(want), rtol=0.0, atol=atol)
+
+
+def case(name, seed=0):
+    """The JAX and the port's fp32 smoke configs of ``name`` and both
+    packages' parameters with the same weights."""
+    arch, kw = CASES[name]
+    jc = jsmoke(arch).replace(dtype=jnp.float32, param_dtype=jnp.float32,
+                              **kw)
+    tc = tsmoke(arch).replace(dtype=torch.float32, param_dtype=torch.float32,
+                              **kw)
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, a):
+        a = np.asarray(a, np.float32)
+        scale = REDRAWN.get(path[-1].key)
+        if scale:
+            a = a + scale * rng.standard_normal(a.shape).astype(np.float32)
+        return a
+
+    tree = jax.tree_util.tree_map_with_path(
+        leaf, jtr.init_params(jc, jax.random.PRNGKey(seed)))
+    return jc, tc, jax.tree_util.tree_map(jnp.asarray, tree), \
+        lm_params_from_numpy(tc, tree, device=CPU)
+
+
+def prompts(vocab, n, length, seed):
+    rng = np.random.default_rng(seed)
+    return [list(map(int, rng.integers(1, vocab, length))) for _ in range(n)]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_decode_steps_with_a_device_cache_len_match_the_jitted_jax_step(name):
+    """Five consecutive decode steps after a 12-token prefill, each fed the
+    JAX step's greedy tokens: the port's ``cache_len`` a 0-d int32 tensor,
+    the JAX one a traced ``jnp.int32`` under ``jax.jit``; logits and both
+    caches within ``ATOL_MODEL`` after every step."""
+    jc, tc, jparams, model = case(name, seed=1)
+    B, S, steps = 2, 12, 5
+    T = S + steps + 1
+    toks = np.asarray(prompts(jc.vocab_size, B, S, 3), np.int32)
+    wlog, wcache = jtr.prefill_step(jparams, jc, {"tokens": jnp.asarray(toks)})
+    with torch.inference_mode():
+        _, gcache = ttr.prefill_step(model, tc,
+                                     {"tokens": torch.from_numpy(toks)})
+        cache = ttr.init_cache(tc, B, T, device=CPU)
+        for key in ("k", "v"):
+            cache[key][:, :, :S] = gcache[key]
+    jcache = {k: jnp.pad(v, ((0, 0), (0, 0), (0, T - S), (0, 0), (0, 0)))
+              for k, v in wcache.items()}
+    jdecode = jax.jit(lambda p, c, t, n: jtr.decode_step(p, jc, c, t, n))
+    nxt = np.argmax(np_(wlog)[:, -1], axis=-1).astype(np.int32)[:, None]
+    cache_len = torch.tensor(S, dtype=torch.int32)
+    for step in range(steps):
+        with torch.inference_mode():
+            glog, out = ttr.decode_step(model, tc, cache,
+                                        torch.from_numpy(nxt), cache_len)
+        wlog, jcache = jdecode(jparams, jcache, jnp.asarray(nxt),
+                               jnp.asarray(S + step, jnp.int32))
+        assert out is cache
+        assert int(cache_len) == S + step   # the step does not advance it
+        close(glog, wlog, ATOL_MODEL)
+        for key in ("k", "v"):
+            close(cache[key], jcache[key], ATOL_MODEL)
+        nxt = np.argmax(np_(wlog)[:, 0], axis=-1).astype(np.int32)[:, None]
+        cache_len = cache_len + 1
+
+
+def fake_trace(model, cfg, B=2, T=16, cache_len=9):
+    """``decode_step`` with a tensor ``cache_len`` traced by ``make_fx`` in
+    fake mode (nothing runs; the weights are constants), after one real
+    step on the same shapes: the graph module."""
+    cache = ttr.init_cache(cfg, B, T, device=CPU)
+    tokens = torch.ones((B, 1), dtype=torch.int64)
+    n = torch.tensor(cache_len)
+
+    def step(k, v, tokens, n):
+        return ttr.decode_step(model, cfg, {"k": k, "v": v}, tokens, n)[0]
+
+    with torch.no_grad():
+        step(cache["k"], cache["v"], tokens, n)     # the real step
+        mode = FakeTensorMode(allow_non_fake_inputs=True)
+        args = [mode.from_tensor(t) for t in (cache["k"], cache["v"], tokens,
+                                              n)]
+        return make_fx(step, tracing_mode="fake")(*args)
+
+
+@pytest.mark.parametrize("name", ["dense", "moe-gather", "sliding-window"])
+def test_decode_step_traces_in_fake_mode_without_a_host_read(name):
+    """No data-dependent host read is left in the step: ``make_fx`` in fake
+    mode traces it whole, the cache written by ``index_copy_`` and no node
+    reads a value to the host."""
+    _, tc, _, model = case(name)
+    gm = fake_trace(model, tc)
+    targets = [str(n.target) for n in gm.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count("aten.index_copy_.default") == 2 * tc.n_layers
+    assert not [t for t in targets if t in ("aten._local_scalar_dense.default",
+                                            "aten.item.default")]
+
+
+def test_the_sort_dispatch_fails_the_fake_trace_at_its_host_read():
+    """The same trace of a sort config stops at ``_moe_sort``'s read of the
+    group sizes: why the engine runs that config's decode eagerly."""
+    _, tc, _, model = case("moe-sort")
+    with pytest.raises(DataDependentOutputException,
+                       match="_local_scalar_dense") as err:
+        fake_trace(model, tc)
+    assert any(f.name == "_moe_sort" for f in
+               traceback.extract_tb(err.value.__traceback__))
+
+
+def test_the_engine_serves_two_batches_in_turn_as_fresh_engines_do():
+    """One engine, two batches of the same size in turn (a 14-token, then a
+    6-token prompt length), against a fresh engine for each: the same
+    tokens.  The second batch reuses the first's program and cache, whose
+    rows past what the batch wrote read zero: the in-place splice left no
+    stale rows."""
+    _, tc, _, model = case("dense", seed=2)
+    scfg = ServeConfig(max_batch=2, max_len=24)
+    batches = [prompts(tc.vocab_size, 2, 14, 4),
+               prompts(tc.vocab_size, 2, 6, 5)]
+    new = 5
+    eng = ServingEngine(tc, scfg, params=model, device=CPU)
+    got = []
+    for batch in batches:
+        for p in batch:
+            eng.submit(Request(prompt=p, max_new_tokens=new))
+        eng.done.clear()
+        got.append([r.output for r in eng.run()])
+    want = []
+    for batch in batches:
+        fresh = ServingEngine(tc, scfg, params=model, device=CPU)
+        for p in batch:
+            fresh.submit(Request(prompt=p, max_new_tokens=new))
+        want.append([r.output for r in fresh.run()])
+    assert got == want
+    assert list(eng.programs) == [2] and eng.stats["decode_graphs"] == 0
+    prog = eng.programs[2]
+    written = 6 + new - 1                 # the prompt and new - 1 decode rows
+    for key in ("k", "v"):
+        assert bool((prog.cache[key][:, :, written:] == 0).all())
+        assert bool((prog.cache[key][:, :, :written] != 0).any())
+    assert int(prog.cache_len) == written
+
+
+def test_decode_program_mode_names_why_a_step_runs_eagerly():
+    """``"graph"`` for a dense or MoE gather config on the card;
+    ``"eager: ..."`` on the CPU, under ``_eager_chunks`` and for the MoE
+    sort dispatch, whose reason names it."""
+    cuda = torch.device("cuda")
+    dense, gather, sort = (tsmoke(a).replace(**kw) for a, kw in (
+        CASES["dense"], CASES["moe-gather"], CASES["moe-sort"]))
+    assert decode_program_mode(dense, cuda) == "graph"
+    assert decode_program_mode(gather, cuda) == "graph"
+    mode = decode_program_mode(sort, cuda)
+    assert mode.startswith("eager: ") and "sort" in mode \
+        and "_moe_sort" in mode
+    for cfg in (dense, gather, sort):
+        assert decode_program_mode(cfg, CPU).startswith("eager: ")
+    with _eager_chunks():
+        assert decode_program_mode(dense, cuda).startswith("eager: ")
+    assert decode_program_mode(dense, cuda) == "graph"
+
+
+def test_a_sort_engine_reports_eager_and_gives_the_jax_engines_tokens():
+    """The MoE sort config on the engine: ``decode_program`` says eager,
+    and the greedy tokens are the JAX engine's."""
+    jc, tc, jparams, model = case("moe-sort", seed=3)
+    jeng = JServingEngine(jc, JServeConfig(max_batch=2, max_len=20),
+                          params=jparams)
+    teng = ServingEngine(tc, ServeConfig(max_batch=2, max_len=20),
+                         params=model, device=CPU)
+    for p in prompts(jc.vocab_size, 2, 10, 6):
+        jeng.submit(JRequest(prompt=p, max_new_tokens=5))
+        teng.submit(Request(prompt=p, max_new_tokens=5))
+    assert [r.output for r in teng.run()] == [r.output for r in jeng.run()]
+    assert teng.stats["decode_program"].startswith("eager: ")
+    assert teng.stats["decode_graphs"] == 0
+    assert teng.stats["capture_s"] == 0.0
+    assert len(teng.stats["decode_s"]) == 4

@@ -1,0 +1,62 @@
+"""Phases 2d (its cases at qwen3-8b's and llama4-scout's prefill shapes),
+4 (qwen3-8b served at full width) and 4b (llama4-scout served at full
+width, depth 12) of chip_smoke.py alone, after the kernels' build; then the
+card tests that a pytest -k expression selects, if one is given.
+
+    python3 tools/serving.py [4] [4b] [-k EXPR]
+
+With no phase named, both run (4b after 4, its model freed).  Run on the
+card from the root of a checkout (about two minutes of command, plus the
+tests)."""
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+
+
+def main(argv) -> int:
+    expr = None
+    if "-k" in argv:
+        i = argv.index("-k")
+        expr, argv = argv[i + 1], argv[:i] + argv[i + 2:]
+    phases = argv or ["4", "4b"]
+    cs.log(cs.card())
+    t0 = time.perf_counter()
+    _build.build(_build.library_path())
+    _build.library()
+    cs.log(f"build {time.perf_counter() - t0:.1f} s")
+    cs.FLASH_CASES = ((cs.FLASH_SHAPE, True, "bfloat16"),
+                      (cs.FLASH_SHAPE, True, "float32"),
+                      (cs.FLASH_SHAPE_MOE, True, "bfloat16"))
+    t = time.perf_counter()
+    flash = cs.check_flash_kernel(torch, ops, ref)
+    cs.log(f"2d {time.perf_counter() - t:.1f} s")
+    if "4" in phases:
+        t = time.perf_counter()
+        cs.run_serving_path(torch, ops,
+                            flash[(cs.FLASH_SHAPE, True, "bfloat16")]["ms"],
+                            flash[(cs.FLASH_SHAPE, True, "float32")]["ms"])
+        cs.log(f"4 {time.perf_counter() - t:.1f} s")
+    if "4b" in phases:
+        t = time.perf_counter()
+        cs.run_moe_serving_path(
+            torch, ops, flash[(cs.FLASH_SHAPE_MOE, True, "bfloat16")]["ms"])
+        cs.log(f"4b {time.perf_counter() - t:.1f} s")
+    if expr is None:
+        return 0
+    return subprocess.call([sys.executable, "-m", "pytest", "-q", "-m", "gpu",
+                            "-k", expr, "tests/test_torch_cuda.py"],
+                           cwd=ROOT, env=dict(os.environ, PYTHONPATH="src"))
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
