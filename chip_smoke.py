@@ -151,6 +151,28 @@ package is missing.  Phases, any failure of which fails the run:
    bound, decode ms per step (median, range) beside the weight-read bound,
    tokens/s, the kernel's share of the prefill and, from profiler traces,
    the kernels and busy time per prefill and decode step;
+4c. MLA and the grouped kernel (run after 4b, its model freed before 6):
+   first one full-width MLA layer in fp32 with TF32 off, the absorbed
+   decode of position 1,023 against the prefill's row within 1e-4 of its
+   max-abs (``MLA_FP32_TOL``); then ``ServingEngine`` on deepseek-v3-671b
+   at full width (d 7,168, 128 heads, q_lora 1,536, kv_lora 512, nope /
+   rope / v 128 / 64 / 128, 256 experts top-8 and a shared one, d_ff
+   2,048, vocab 129,280, the dropless sort dispatch), depth cut 61 -> 2 and
+   the MTP block off (24.9 G parameters, 49.7 GB of seeded bf16), with
+   ``grouped_mm`` (``csrc/grouped_mm.cu``) against its plain version at the
+   prefill's (32,768 rows) and a decode step's (32 rows) shapes with layer
+   0's ``wi`` and ``wo``, each routing with an empty group and one of one
+   row (bf16 bar, bitwise repeats; device time, plain, bound and
+   ``torch._grouped_mm``'s); phase 4's prompts warmed and served eager and
+   graphed as in 4 (the same bars): 6 grouped launches a prefill and 6 a
+   decode step, eager or replayed, and no other kernel; layer 0's MoE on
+   the prefill's input, the sort dispatch with the kernel against the
+   plain grouped product, and gather at capacity factor E against sort on
+   64 of its tokens, within ``MOE_BF16_TOL``; the sort layer and a whole
+   decode step free of host synchronisation; the parameters, bytes and
+   peak memory, the prefill's ms and TFLOP (the head's apart), the decode
+   step's wall eager and graphed, device time, busy share and tokens/s
+   beside the weight-read bound of the experts that step hit;
 5. the solve service (run before 4): ``repro_torch.service.SolveEngine``
    with ``ServiceConfig(max_batch=8, chunk=32, substrate="cuda", tol=1e-8,
    maxiter=2000)`` on 3a's system; a burst of 32 right-hand sides from
@@ -269,7 +291,8 @@ package is missing.  Phases, any failure of which fails the run:
    ``launches_scenarios``: 3j's counted runs; rows 1 and 2 with
    ``launches_nk``, ``launches_nk_torch`` and ``nk_fp32``, 6b's and 6c's;
    the flash row with ``launches_moe``, 4b's, and ``moe_shape``, 2d's
-   times at llama4's shape),
+   times at llama4's shape; the grouped row, 4c's, at a decode step's
+   shape with ``prefill`` at the prefill's),
    then the last line ``{"ok": true, "device": {...}}``.
 
 Every solve of phases 3b-3f runs through a session's programs: each
@@ -285,7 +308,7 @@ the allocator holds is printed after each solver phase, and the session
 cache is cleared before phase 4.
 
 The run goes 1, 3a (the matrix), 2, 2b, 2c, 2d, 3b-3f, the profiler's
-counts, 3g, 5, 3h, 3i, 3j, 4, 4b, 6a-6c, 7.  Each path is driven with the
+counts, 3g, 5, 3h, 3i, 3j, 4, 4b, 4c, 6a-6c, 7.  Each path is driven with the
 launch counters set to 0 just before it and read just after; the kernels'
 checks and timings are not counted.
 """
@@ -354,7 +377,6 @@ SINGLE = ("fused_dots", "fused_axpy", "spmv_ell")
 BATCHED = ("fused_dots_batched", "fused_axpy_batched", "spmv_ell_batched")
 HEALTH = ("fused_dots_health", "fused_dots_health_batched")
 PRECOND = ("block_jacobi_apply", "block_jacobi_apply_batched")
-FLASH = ("flash_attention",)
 # the flash kernel's two routes, fixed by dtype
 FLASH_SOURCES = {"bfloat16": "src/repro_torch/csrc/flash_attention_mma.cu",
                  "float32": "src/repro_torch/csrc/flash_attention.cu"}
@@ -434,6 +456,27 @@ MOE_FLIP_RATIO = 2.0
 # full-width layer, and a block with the kernel against one without on the
 # same input: tests/test_kernels.py's bf16 bar, over the max-abs
 MOE_BF16_TOL = 2e-2
+# phase 4c: deepseek-v3-671b at full width (MLA, 256 experts top-8 and a
+# shared one, the dropless sort dispatch through the grouped kernel), depth
+# cut 61 -> 2 (one layer is 11.5 G parameters, 23.0 GB of bf16: two and the
+# embedding and head are 49.7 GB, three would leave too little room for the
+# prefill's f32 scores), the MTP block off (serving never reads it)
+MLA_ARCH = "deepseek-v3-671b"
+MLA_LAYERS = 2
+# the absorbed decode of position S - 1 against the prefill's row S - 1 of
+# one full-width MLA layer in fp32 (TF32 off), over the row's max-abs: the
+# same sums in another order
+MLA_FP32_TOL = 1e-4
+MLA_FP32_SHAPE = (2, 1024)          # (B, S) of that check
+# the grouped kernel against its plain version (bf16 operands, f32 sums,
+# both rounded to bf16 from other orders): tests/test_kernels.py's bf16 bar
+GROUPED_TOL = MOE_BF16_TOL
+# the gather dispatch with capacity E against sort on this many of the
+# prefill's tokens: at 4,096 tokens its (G, E, C, d) input would be 120 GB
+MLA_GATHER_TOKENS = 64
+GROUPED_SOURCE = "src/repro_torch/csrc/grouped_mm.cu"
+GROUPED_STANDS_IN = ("src/repro/models/moe.py:172 (jax.lax.ragged_dot; no "
+                     "Pallas kernel)")
 M = 8                       # columns of the batched path (ServiceConfig.max_batch)
 SOLVE_MAXITER = 2000        # maxiter of the single-RHS solves (3b, 3f)
 # phase 3f: the JAX package's seven methods, and the reduction phases each
@@ -1227,7 +1270,7 @@ def run_batched_path(torch, repro_torch, ops, ell, stencil, b, single_it):
     if abs(its[0] - single_it) > 2:
         raise SystemExit(f"solve_many: column 0 took {its[0]} iterations, "
                          f"the single-RHS solve of b {single_it}")
-    want = dict.fromkeys(SINGLE + HEALTH + PRECOND + FLASH, 0)
+    want = dict.fromkeys(ops.LAUNCHES, 0)
     want.update(fused_dots_batched=steps, fused_axpy_batched=steps,
                 spmv_ell_batched=1 + 2 * steps)
     if launches != want or steps == 0:
@@ -3591,6 +3634,418 @@ def run_moe_serving_path(torch, ops, flash_ms: float) -> dict:
     return rec
 
 
+def grouped_sizes(torch, R: int, E: int, seed: int):
+    """The group sizes of a routing of R (token, k) pairs over E experts:
+    each of R / 8 tokens picks 8 distinct experts at random (the decode
+    step's shape: most experts empty, most of the hit ones one row); above
+    that, a multinomial draw with expert 0 emptied and expert 1 given one
+    row.  Returns the sizes (E,) int64 on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    if R <= 64:
+        picks = torch.stack([torch.randperm(E, generator=g)[:8]
+                             for _ in range(R // 8)]).reshape(-1)
+        return torch.bincount(picks, minlength=E)
+    sizes = torch.multinomial(torch.ones(E), R, replacement=True,
+                              generator=g)
+    sizes = torch.bincount(sizes, minlength=E)
+    sizes[2] += sizes[0] + sizes[1] - 1
+    sizes[0], sizes[1] = 0, 1
+    return sizes
+
+
+def check_grouped_kernel(torch, ops, w, R: int, label: str, seed: int
+                         ) -> dict:
+    """``ops.grouped_mm`` on R seeded bf16 rows against the grouped
+    kernel's plain version with the experts' weights ``w`` (E, K, N), on a
+    routing with an empty group and a group of one row
+    (:func:`grouped_sizes`); its device time beside the plain version's
+    (events around its calls, its host read included), one
+    ``torch._grouped_mm`` call's where the card's torch has it, and the
+    bound: the rows, the weights of the experts hit and the output, once
+    each, over 3.35 TB/s, against the products over 989 TFLOP/s."""
+    from repro_torch.kernels import grouped_mm
+    E, K, N = w.shape
+    sizes = grouped_sizes(torch, R, E, seed)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64),
+                         torch.cumsum(sizes, 0)]).to(w.device)
+    g = torch.Generator(device=w.device).manual_seed(seed)
+    x = torch.randn(R, K, generator=g, device=w.device).bfloat16()
+    got = ops.grouped_mm(x, w, offsets)
+    again = ops.grouped_mm(x, w, offsets)
+    want = grouped_mm.plain(x, w, offsets)
+    diff = (got.float() - want.float()).abs().max()
+    err = float(diff / want.float().abs().max())
+    hit = int((sizes > 0).sum())
+    nbytes = R * K * 2 + hit * K * N * 2 + R * N * 2 + 8 * (E + 1)
+    bound = bound_ms(nbytes, 2.0 * R * K * N, "bfloat16")
+    ms = device_ms(torch, lambda: ops.grouped_mm(x, w, offsets), reps=10,
+                   trials=3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    grouped_mm.plain(x, w, offsets)
+    start.record()
+    for _ in range(3):
+        grouped_mm.plain(x, w, offsets)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end) / 3
+    library_ms, library_note, library_err = None, None, None
+    ends = offsets[1:].to(torch.int32)
+    try:
+        lib = torch._grouped_mm(x, w, offs=ends)
+        library_err = float((lib.float() - want.float()).abs().max()
+                            / want.float().abs().max())
+        library_ms = device_ms(torch, lambda: torch._grouped_mm(
+            x, w, offs=ends), reps=10, trials=3)
+    except (AttributeError, RuntimeError, TypeError, ValueError) as exc:
+        library_note = f"torch._grouped_mm: {str(exc).splitlines()[0]}"
+    rec = dict(shape=dict(R=R, K=K, N=N, E=E), experts_hit=hit,
+               empty_groups=int((sizes == 0).sum()),
+               one_row_groups=int((sizes == 1).sum()), err=err,
+               max_abs_err=float(diff), tol=GROUPED_TOL,
+               repeats_bitwise=bool(torch.equal(got, again)), ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               library_note=library_note, library_rel_err=library_err,
+               bound_ms=bound[0], bound_by=bound[1], bytes=nbytes,
+               flop=2.0 * R * K * N)
+    log(f"grouped_mm {label} (R {R:,}, K {K:,}, N {N:,}, {hit} of {E} "
+        f"experts hit, {rec['empty_groups']} empty, "
+        f"{rec['one_row_groups']} of one row): max_rel_err {err:.3e} (tol "
+        f"{GROUPED_TOL}), repeat bitwise {rec['repeats_bitwise']}; "
+        f"{ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
+        f"({nbytes / 1e9:.3f} GB, {rec['flop'] / 1e12:.3f} TFLOP), plain "
+        f"{plain_ms:.4f}, library "
+        f"{'%.4f' % library_ms if library_ms is not None else library_note}"
+        f" [{card()}]")
+    del x, got, again, want
+    torch.cuda.empty_cache()
+    if not (err <= GROUPED_TOL and rec["repeats_bitwise"]
+            and rec["empty_groups"] and rec["one_row_groups"]):
+        raise SystemExit(f"grouped_mm {label}: error {err} above "
+                         f"{GROUPED_TOL}, a repeat differs, or the routing "
+                         f"lacks an empty group or one of one row: {rec}")
+    return rec
+
+
+def check_mla_fp32(torch, device="cuda") -> dict:
+    """One full-width MLA layer in fp32, TF32 off (the hopper guide's
+    section 6): the absorbed decode of position S - 1, against the latent
+    rows of positions 0 .. S - 2 from the prefill, gives the prefill's row
+    S - 1 within ``MLA_FP32_TOL`` of its max-abs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mla
+    cfg = get_config(MLA_ARCH).replace(dtype=torch.float32,
+                                       param_dtype=torch.float32)
+    B, S = MLA_FP32_SHAPE
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            g = torch.Generator(device=device).manual_seed(11)
+            p = mla.init_mla_params(g, cfg)
+            x = torch.randn(B, S, cfg.d_model, generator=g, device=device)
+            pos = torch.arange(S, device=device)[None].expand(B, S)
+            out, (ckv, kr) = mla.mla_attention(p, x, pos, cfg,
+                                               return_cache=True)
+            c1, c2 = ckv.clone(), kr.clone()
+            c1[:, S - 1:] = 0
+            c2[:, S - 1:] = 0
+            y, c1, c2 = mla.mla_decode(p, x[:, S - 1:], pos[:, S - 1], c1, c2,
+                                       torch.tensor(S - 1, device=device),
+                                       cfg)
+            want = out[:, S - 1]
+            err = float((y[:, 0] - want).abs().max() / want.abs().max())
+            cache_err = float((c1 - ckv).abs().max() / ckv.abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    del p, x, out, ckv, kr, c1, c2, y
+    torch.cuda.empty_cache()
+    log(f"MLA fp32 (full width, B {B}, S {S:,}, TF32 off): the absorbed "
+        f"decode of position {S - 1} against the prefill's row: "
+        f"{err:.3e} of its max-abs (tol {MLA_FP32_TOL}); the latent row "
+        f"written {cache_err:.3e} [{card()}]")
+    if not (err <= MLA_FP32_TOL and cache_err <= MLA_FP32_TOL):
+        raise SystemExit(f"MLA fp32: the absorbed decode is {err} off the "
+                         f"prefill's row (tol {MLA_FP32_TOL}), its latent "
+                         f"row {cache_err}")
+    return dict(shape_bs=[B, S], err=err, cache_err=cache_err,
+                tol=MLA_FP32_TOL)
+
+
+def mla_prefill_flop(cfg, B: int, S: int) -> float:
+    """The products of one prefill of B x S tokens: MLA's projections, its
+    full S x S score and value products (the plain branch computes the
+    masked half too), the sort dispatch's rows (N k of them) through the
+    three expert products, the shared expert, the router and the LM head
+    at every position."""
+    N = B * S
+    d, H, E, ff = cfg.d_model, cfg.n_heads, cfg.moe_experts, cfg.d_ff
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    proj = 2 * N * (d * qr + qr * H * (dn + dr) + d * (kvr + dr)
+                    + kvr * H * dn + kvr * H * dv + H * dv * d)
+    attn = 2 * B * H * S * S * (dn + dr + dv)
+    experts = 3 * 2 * N * cfg.moe_top_k * d * ff
+    shared = 3 * 2 * N * d * ff * cfg.moe_shared_experts
+    router = 2 * N * d * E
+    return cfg.n_layers * (proj + attn + experts + shared + router) \
+        + 2 * N * d * cfg.vocab_size
+
+
+def mla_decode_bytes(torch, model, cfg, B: int, cache_len: int,
+                     distinct) -> int:
+    """The bytes a decode step of B tokens must read: every weight but the
+    embedding table (B of its rows) and the routed experts, each layer's
+    ``distinct[l]`` experts hit (three matrices each), and the latent
+    cache's rows up to the new one."""
+    routed = ("moe.p.wi", "moe.p.wg", "moe.p.wo")
+    w = sum(p.numel() * p.element_size()
+            for n, p in model.named_parameters()
+            if n != "embed" and not n.endswith(routed))
+    w += B * cfg.d_model * model.embed.element_size()
+    item = torch.empty((), dtype=cfg.dtype).element_size()
+    w += sum(distinct) * 3 * cfg.d_model * cfg.d_ff * item
+    cache = cfg.n_layers * B * (cache_len + 1) * (
+        cfg.kv_lora_rank + cfg.qk_rope_head_dim) * item
+    return w + cache
+
+
+def run_mla_serving_path(torch, ops) -> dict:
+    """Phase 4c: deepseek-v3-671b at full width and depth MLA_LAYERS
+    through the serving engine on phase 4's prompts, with the launch
+    counters set to 0 just before each measured run and read just after
+    (:func:`serve_eager_and_graphed`: the decode eager, then graphed, the
+    main path); before it (not counted) one full-width MLA layer in fp32
+    (:func:`check_mla_fp32`) and the grouped kernel against its plain
+    version at the prefill's and a decode step's shapes with layer 0's
+    weights; after it (not counted) layer 0's MoE on the prefill's input
+    with the kernel against the plain grouped product and against gather
+    at capacity E, the experts a decode step hits, the host-sync checks and
+    the profiles.  The model is freed before it returns."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_mm
+    from repro_torch.models import decode_step
+    from repro_torch.models import moe as mmoe
+    from repro_torch.serve import ServeConfig, ServingEngine
+    fp32 = check_mla_fp32(torch)
+    cfg = get_config(MLA_ARCH).replace(n_layers=MLA_LAYERS, use_mtp=False)
+    scfg = ServeConfig(max_batch=SERVE_REQUESTS,
+                       max_len=SERVE_PROMPT + 2 * SERVE_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, scfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in eng.params.parameters())
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in eng.params.parameters()) / 1e9
+    log(f"serving {MLA_ARCH}: depth {cfg.n_layers}, {n_params:,} "
+        f"parameters, {weight_gb:.2f} GB, drawn in {init_s:.1f} s (peak "
+        f"{init_peak / 1e9:.2f} GB: the f32 draw of an expert tensor)")
+
+    # the grouped kernel at the prefill's and a decode step's shapes
+    N = SERVE_REQUESTS * SERVE_PROMPT
+    p0 = eng.params.layers[0].moe.p
+    grouped = {}
+    with torch.inference_mode():
+        for i, (label, R) in enumerate((("prefill", N * cfg.moe_top_k),
+                                        ("decode", SERVE_REQUESTS
+                                         * cfg.moe_top_k))):
+            for key in ("wi", "wo"):
+                grouped[f"{label}_{key}"] = check_grouped_kernel(
+                    torch, ops, p0[key], R, f"{label} {key}", seed=20 + i)
+
+    # phase 4's shape and seed, drawn within deepseek's smaller vocab
+    prompts = serve_prompts(torch, cfg.vocab_size)
+    warm_engine(torch, eng, prompts)
+    log(f"serving {MLA_ARCH}: warmed at batch {SERVE_REQUESTS}, the decode "
+        f"graph captured in {eng.stats['capture_s']:.3f} s")
+    runs = serve_eager_and_graphed(torch, ops, eng, prompts,
+                                   f"serving {MLA_ARCH}")
+    main = runs["graph"]
+    serve_peak = torch.cuda.max_memory_allocated()
+    steps = SERVE_NEW - 1
+    per = 3 * cfg.n_layers                 # grouped launches a forward
+    for mode, r in runs.items():
+        want = dict(dict.fromkeys(ops.LAUNCHES, 0),
+                    grouped_mm=per * (r["prefill_batches"] + steps))
+        if r["launches"] != want or r["prefill_batches"] != 1:
+            raise SystemExit(f"serving {MLA_ARCH} ({mode} decode): launches "
+                             f"{r['launches']} for {r['prefill_batches']} "
+                             f"prefill batches and {steps} decode steps, "
+                             f"{per} a forward")
+    outputs = main["outputs"]
+    if [len(o) for o in outputs] != [SERVE_NEW] * SERVE_REQUESTS or not all(
+            0 <= t < cfg.vocab_size for o in outputs for t in o):
+        raise SystemExit(f"serving {MLA_ARCH}: bad outputs {outputs}")
+
+    # layer 0's MoE on the prefill's input: the sort dispatch with the
+    # kernel against the same dispatch with the plain grouped product, and
+    # against gather with capacity E (nothing drops) on MLA_GATHER_TOKENS
+    tokens = torch.tensor(prompts, device=eng.device)
+    seen = {}
+
+    def keep_input(mod, args, out):
+        seen["x"] = args[0].detach()
+
+    handle = eng.params.layers[0].moe.register_forward_hook(keep_input)
+    try:
+        with torch.inference_mode():
+            logits, _ = eng.prefill(tokens)
+    finally:
+        handle.remove()
+    finite = bool(torch.isfinite(logits[:, -1]).all())
+    del logits
+    xl = seen.pop("x")
+    d = cfg.d_model
+    with torch.inference_mode():
+        y_kernel, _ = mmoe.moe_ffn(p0, xl, cfg, impl="sort")
+        with mock.patch.object(ops, "grouped_mm", grouped_mm.plain):
+            y_plain, _ = mmoe.moe_ffn(p0, xl, cfg, impl="sort")
+        sort_err = float((y_kernel.float() - y_plain.float()).abs().max()
+                         / y_plain.float().abs().max())
+        del y_kernel, y_plain
+        xs = xl.reshape(-1, d)[:MLA_GATHER_TOKENS][None]
+        wide = cfg.replace(moe_capacity_factor=float(cfg.moe_experts))
+        _, keep = mmoe.slots(mmoe._route(p0, xs.reshape(-1, d), wide)[1],
+                             wide)
+        y_gather, _ = mmoe.moe_ffn(p0, xs, wide, impl="gather")
+        y_sort, _ = mmoe.moe_ffn(p0, xs, wide, impl="sort")
+        gather_err = float((y_gather.float() - y_sort.float()).abs().max()
+                           / y_sort.float().abs().max())
+        wide_keeps_all = bool(keep.all())
+        del y_gather, y_sort, keep, xs
+        torch.cuda.empty_cache()
+        layer_ms = device_ms(torch, lambda: mmoe.moe_ffn(p0, xl, cfg,
+                                                         impl="sort"),
+                             reps=5, trials=3)
+        xd = xl[:, -1:].contiguous()                  # (B, 1, d)
+        sort_sync = sync_error(torch, lambda: mmoe.moe_ffn(p0, xd, cfg,
+                                                           impl="sort"))
+    del xl, xd
+    torch.cuda.empty_cache()
+
+    # the experts a decode step hits, per layer, on a fresh splice of the
+    # prompts' prefill
+    distinct = []
+    handles = [b.moe.register_forward_hook(
+        lambda mod, args, out: distinct.append(int(torch.unique(mmoe._route(
+            mod.p, args[0].reshape(-1, d), cfg)[1]).numel())))
+        for b in eng.params.layers]
+    try:
+        with torch.inference_mode():
+            logits, pcache = eng.prefill(tokens)
+            prog = eng._splice(pcache, logits[:, -1].argmax(dim=-1),
+                               SERVE_PROMPT)
+            del logits, pcache
+            distinct.clear()
+            prog._step(prog.tokens, prog.cache_len)
+    finally:
+        for h in handles:
+            h.remove()
+    del prog
+    # a whole decode step with cache_len on the device, eagerly; the
+    # device's share of a prefill and of a decode step, eager and replayed
+    act = decode_activity(torch, eng, tokens)
+    prog = act["program"]
+    with torch.inference_mode():
+        step_sync = sync_error(torch, lambda: decode_step(
+            eng.params, cfg, prog.cache, prog.tokens, prog.cache_len))
+        pre = device_activity(torch, lambda: eng.prefill(tokens), reps=1)
+    del prog
+    dec_rec = log_decode_runs(f"serving {MLA_ARCH}", runs, act, eng)
+    dec = act["graph"]
+    eager = {k: v for k, v in runs["eager"].items() if k != "outputs"}
+    prefill_ms, decode_ms = main["prefill_ms"], main["decode_step_ms"]
+    flop = mla_prefill_flop(cfg, SERVE_REQUESTS, SERVE_PROMPT)
+    head_flop = 2.0 * N * d * cfg.vocab_size
+    dec_bytes = mla_decode_bytes(torch, eng.params, cfg, SERVE_REQUESTS,
+                                 SERVE_PROMPT, distinct)
+    rec = dict(
+        arch=MLA_ARCH, n_layers=cfg.n_layers, d_model=d,
+        heads=cfg.n_heads, experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+        params=n_params, weight_gb=weight_gb, init_s=init_s,
+        init_peak_memory_gb=init_peak / 1e9,
+        reduced=dict(n_layers=[61, cfg.n_layers], use_mtp=[True, False]),
+        requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
+        new_tokens=SERVE_NEW, wall_s=main["wall_s"],
+        prefill_batches=main["prefill_batches"],
+        launches=main["launches"], eager_launches=runs["eager"]["launches"],
+        prefill_ms=prefill_ms, prefill_flop=flop, head_flop=head_flop,
+        prefill_bound_ms=bound_ms(0, flop, "bfloat16")[0],
+        decode_step_ms=decode_ms,
+        decode_step_ms_range=main["decode_step_ms_range"],
+        decode_experts_hit=distinct, decode_bytes=dec_bytes,
+        decode_bound_ms=bound_ms(dec_bytes, 0, "bfloat16")[0],
+        tokens_per_s=main["tokens_per_s"],
+        decode_tokens_per_s=main["decode_tokens_per_s"],
+        prefill_kernels=pre["kernels"], prefill_device_ms=pre["busy_ms"],
+        prefill_busy_share=pre["busy_ms"] / prefill_ms,
+        decode_kernels_per_step=dec["kernels"],
+        decode_device_ms_per_step=dec["busy_ms"],
+        decode_busy_share=dec["busy_ms"] / decode_ms, eager_decode=eager,
+        **dec_rec, mla_fp32=fp32, grouped=grouped,
+        sort_kernel_vs_plain=sort_err, gather_vs_sort=gather_err,
+        gather_tokens=MLA_GATHER_TOKENS,
+        wide_capacity_keeps_all=wide_keeps_all, dispatch_tol=MOE_BF16_TOL,
+        moe_layer_ms=layer_ms, sort_layer_sync=sort_sync,
+        decode_step_sync=step_sync, logits_finite=finite,
+        serve_peak_memory_gb=serve_peak / 1e9,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        outputs=outputs)
+    log(f"serving mla: {json.dumps(rec)}")
+    del eng, tokens, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_memory(torch, "4c (the deepseek model freed)")
+    if not finite:
+        raise SystemExit(f"serving {MLA_ARCH}: non-finite prefill logits")
+    if not sort_err <= MOE_BF16_TOL:
+        raise SystemExit(f"serving {MLA_ARCH}: layer 0's sort dispatch with "
+                         f"the kernel is {sort_err} off the plain grouped "
+                         f"product (tol {MOE_BF16_TOL})")
+    if not (wide_keeps_all and gather_err <= MOE_BF16_TOL):
+        raise SystemExit(f"serving {MLA_ARCH}: gather with capacity factor "
+                         f"E (drops none: {wide_keeps_all}) off sort by "
+                         f"{gather_err} (tol {MOE_BF16_TOL})")
+    if sort_sync is not None or step_sync is not None:
+        raise SystemExit(f"serving {MLA_ARCH}: at decode size the sort MoE "
+                         f"layer synchronises {sort_sync or 'nowhere'}, the "
+                         f"whole step with cache_len on the device "
+                         f"{step_sync or 'nowhere'}")
+    log(f"serving {MLA_ARCH} (depth {cfg.n_layers}, {n_params:,} "
+        f"parameters, {weight_gb:.2f} GB; peak {rec['peak_memory_gb']:.2f} "
+        f"GB): prefill {prefill_ms:.1f} ms for {SERVE_REQUESTS} x "
+        f"{SERVE_PROMPT} tokens ({flop / 1e12:.2f} TFLOP, the head's "
+        f"{head_flop / 1e12:.2f}; bound {rec['prefill_bound_ms']:.1f} ms), "
+        f"decode {decode_ms:.3f} ms per step graphed (range "
+        f"{rec['decode_step_ms_range'][0]:.3f}-"
+        f"{rec['decode_step_ms_range'][1]:.3f}; {dec['busy_ms']:.3f} ms of "
+        f"device, {dec['kernels']:.0f} kernels, busy "
+        f"{rec['decode_busy_share']:.3f}), eager "
+        f"{eager['decode_step_ms']:.3f}; the weight-read bound "
+        f"{rec['decode_bound_ms']:.3f} ms for {dec_bytes / 1e9:.3f} GB "
+        f"({distinct} experts hit a layer); "
+        f"{rec['decode_tokens_per_s']:.1f} decode tokens/s; grouped "
+        f"launches {main['launches']['grouped_mm']} graphed, "
+        f"{runs['eager']['launches']['grouped_mm']} eager ({per} a prefill "
+        f"and {per} a decode step); device busy "
+        f"{rec['prefill_busy_share']:.3f} of the prefill [{card()}]")
+    log(f"serving {MLA_ARCH}: layer 0's sort dispatch, kernel vs plain "
+        f"{sort_err:.3e}, gather (capacity E, {MLA_GATHER_TOKENS} tokens) vs "
+        f"sort {gather_err:.3e} (tol {MOE_BF16_TOL}); the layer at {N:,} "
+        f"tokens {layer_ms:.3f} ms; host syncs at decode size: sort layer "
+        f"{sort_sync or 'none'}, the whole step {step_sync or 'none'} "
+        f"[{card()}]")
+    return rec
+
+
 def run_training_path(torch, ops, seed: int) -> dict:
     """Phase 6a: ``repro_torch.train.train`` on phi3-mini-3.8b (full width,
     depth ``TRAIN_LAYERS``, bf16 weights, f32 moments) on the card, with the
@@ -4137,6 +4592,9 @@ def main() -> int:
     moe_flash = flash[(FLASH_SHAPE_MOE, True, "bfloat16")]
     moe = run_moe_serving_path(torch, ops, moe_flash["ms"])
 
+    # -- 4c. MLA and the grouped kernel: deepseek-v3 at full width ----------
+    mla = run_mla_serving_path(torch, ops)
+
     # -- 6. training and the Newton-Krylov step -------------------------------
     training = run_training_path(torch, ops, args.seed)
     log_memory(torch, "6a")
@@ -4249,6 +4707,29 @@ def main() -> int:
                      for key, r in flash.items()
                      if r is not main_flash and r is not f32
                      and r is not moe_flash]))
+    gdec, gpre = mla["grouped"]["decode_wi"], mla["grouped"]["prefill_wi"]
+    kernels.append(dict(
+        name="grouped_mm", route="cuda", source=GROUPED_SOURCE,
+        replaces=GROUPED_STANDS_IN, launches=mla["launches"]["grouped_mm"],
+        launches_eager=mla["eager_launches"]["grouped_mm"],
+        max_abs_err=gdec["max_abs_err"], ms=gdec["ms"],
+        plain_ms=gdec["plain_ms"], bound_ms=gdec["bound_ms"],
+        bound_by=gdec["bound_by"], library_ms=gdec["library_ms"],
+        passed=True, dtype="bfloat16", shape=gdec["shape"],
+        max_rel_err=gdec["err"], tol=gdec["tol"],
+        repeats_bitwise=gdec["repeats_bitwise"],
+        library_call="torch._grouped_mm(x, w, offs=offsets[1:])",
+        library_note=gdec["library_note"],
+        prefill=dict(shape=gpre["shape"], ms=gpre["ms"],
+                     plain_ms=gpre["plain_ms"], bound_ms=gpre["bound_ms"],
+                     bound_by=gpre["bound_by"],
+                     library_ms=gpre["library_ms"],
+                     max_abs_err=gpre["max_abs_err"],
+                     max_rel_err=gpre["err"]),
+        other_cases=[dict(case=k, shape=r["shape"], ms=r["ms"],
+                          bound_ms=r["bound_ms"], max_rel_err=r["err"])
+                     for k, r in mla["grouped"].items()
+                     if r is not gdec and r is not gpre]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 ``get_config(arch)`` returns the assigned full-size config and
 ``smoke_config(arch)`` a reduced one of the same family for CPU tests, for
-the four dense architectures and the MoE one (llama4-scout), whose files
-carry over from the JAX package as they are.  The other five ids raise
+the four dense architectures and the two MoE ones (llama4-scout, and
+deepseek-v3 with multi-head latent attention), whose files carry over from
+the JAX package as they are.  The other four ids raise
 ``NotImplementedError`` and name the slice of the port that brings them.  The dry-run tooling of the JAX
 package's ``base`` (``input_specs``, ``SHAPES``, the applicability table)
 waits for the port of ``launch/``.
@@ -22,8 +23,6 @@ ARCH_IDS = [
 
 #: the architectures of later slices, and the slice that brings each
 LATER = {
-    "deepseek-v3-671b": "the MLA slice (MoE with multi-head latent "
-                        "attention)",
     "zamba2-1.2b": "the hybrid slice",
     "xlstm-350m": "the SSM slice",
     "whisper-tiny": "the audio slice",
@@ -38,7 +37,7 @@ def _module(arch: str):
     if arch in LATER:
         raise NotImplementedError(
             f"{arch} waits for {LATER[arch]} of the PyTorch port; the port "
-            "runs the dense and MoE families so far")
+            "runs the dense and MoE families (MLA included) so far")
     mod = arch.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 

@@ -148,7 +148,8 @@ def lm_params_from_numpy(cfg: ModelConfig, params: Mapping[str, Any], *,
                          device=None, dtype=None) -> Transformer:
     """The port's :class:`~repro_torch.models.Transformer` for ``cfg`` with
     the weights of the JAX package's tree ``params`` (nested dicts of float
-    arrays; ``layers`` stacked on a leading ``L`` axis), cast to ``dtype``
+    arrays; ``layers`` stacked on a leading ``L`` axis, an ``mtp`` block
+    unstacked), cast to ``dtype``
     (``None``: ``cfg.param_dtype``) on ``device`` (``None`` means
     ``"cuda"``).  The MoE router's leaves (``F32_LEAVES``) stay in f32 at
     least, as the JAX package keeps them whatever its ``param_dtype``."""
@@ -165,6 +166,11 @@ def lm_params_from_numpy(cfg: ModelConfig, params: Mapping[str, Any], *,
             return {k: layer(v, i, k) for k, v in tree.items()}
         return tensor(np.asarray(tree)[i], name)
 
+    def unstacked(tree, name: str = ""):
+        if isinstance(tree, Mapping):
+            return {k: unstacked(v, k) for k, v in tree.items()}
+        return tensor(tree, name)
+
     stacked = params["layers"]
     n = len(np.asarray(stacked["ln1"]))
     if n != cfg.n_layers:
@@ -173,6 +179,8 @@ def lm_params_from_numpy(cfg: ModelConfig, params: Mapping[str, Any], *,
     tree = {k: tensor(params[k]) for k in ("embed", "final_norm", "lm_head")
             if k in params}
     tree["layers"] = [layer(stacked, i) for i in range(n)]
+    if "mtp" in params:
+        tree["mtp"] = unstacked(params["mtp"])
     return Transformer(cfg, tree)
 
 

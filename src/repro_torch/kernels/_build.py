@@ -1,12 +1,13 @@
 """Build, load and launch the port's CUDA kernels.
 
-The sources in ``src/repro_torch/csrc/*.cu`` have a plain C interface.  At
-first use one ``nvcc`` per source, all started together, compiles them for
-``sm_90a`` into objects, and one more links those into a shared library
-under the repository's ``build/`` directory; the library is named by a
-digest of the sources and flags, so an edited source never loads a stale
-build.  ``ctypes`` binds it: every pointer and the stream go through
-``c_void_p`` (a bare Python int would be cut to 32 bits).
+The sources in ``src/repro_torch/csrc/*.cu`` have a plain C interface
+(the ``*.cuh`` headers hold device helpers they share).  At first use one
+``nvcc`` per source, all started together, compiles them for ``sm_90a``
+into objects, and one more links those into a shared library under the
+repository's ``build/`` directory; the library is named by a digest of the
+sources, headers and flags, so an edited source never loads a stale build.
+``ctypes`` binds it: every pointer and the stream go through ``c_void_p``
+(a bare Python int would be cut to 32 bits).
 
 Nothing here runs at import: the CPU tests import every module of the port,
 and this machine may have no ``nvcc``.
@@ -37,7 +38,7 @@ LAUNCHES: Dict[str, int] = {
     "fused_dots_batched": 0, "fused_axpy_batched": 0, "spmv_ell_batched": 0,
     "fused_dots_health": 0, "fused_dots_health_batched": 0,
     "block_jacobi_apply": 0, "block_jacobi_apply_batched": 0,
-    "flash_attention": 0}
+    "flash_attention": 0, "grouped_mm": 0}
 
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -72,9 +73,12 @@ _SIGNATURES = {
     # q, k, v, o, B, H, K, S, hd, strides (12 int64), scale, causal, stream
     "repro_flash_attention": [_VP] * 4 + [ctypes.c_int] * 5 + [
         _VP, ctypes.c_float, ctypes.c_int, _VP],
+    # x, w, offsets, y, R, K, N, E, stream
+    "repro_grouped_mm": [_VP] * 4 + [_I64] + [ctypes.c_int] * 3 + [_VP],
 }
 #: the element types each stem is built for (``<stem>_<suffix>``)
-_SUFFIXES = {"repro_flash_attention": ("f32", "bf16")}
+_SUFFIXES = {"repro_flash_attention": ("f32", "bf16"),
+             "repro_grouped_mm": ("bf16",)}
 _DEFAULT_SUFFIXES = ("f32", "f64")
 
 
@@ -104,7 +108,8 @@ def nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in sources():
+    # the sources and the headers they include
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"

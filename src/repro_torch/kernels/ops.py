@@ -11,11 +11,14 @@ single-RHS ``(n,)`` vectors or multi-RHS ``(n, m)`` row-major blocks, and an
 ``ops``; the dots wrappers send an ``(n, 1)`` block, an ``(n,)`` vector in
 memory, to the single-vector kernel, which is the faster of the two on one
 column.  :func:`flash_attention` takes float32/bfloat16 tensors in the
-model stack's layout.
+model stack's layout, :func:`grouped_mm` the MoE sort dispatch's sorted
+rows, its experts' weights and their row offsets.
 
 The solver wrappers are the backing of the ``"cuda"`` compute substrate
 (:mod:`repro_torch.core.substrate`), :func:`flash_attention` that of the
-model stack's prefill (:mod:`repro_torch.models.attention`).  ``LAUNCHES``
+model stack's prefill (:mod:`repro_torch.models.attention`),
+:func:`grouped_mm` that of the dropless MoE dispatch
+(:mod:`repro_torch.models.moe`).  ``LAUNCHES``
 counts the kernel launches (the CPU path counts nothing).
 
 Behind each solver wrapper's checks, the dispatch is one
@@ -25,7 +28,10 @@ kernel the output shapes.  An FX graph of a solver step
 (:mod:`repro_torch.analysis`) therefore holds one node per kernel call, on
 the CPU too, where the plain PyTorch a silent fallback would run shows as
 aten nodes instead.  The shared block-Jacobi apply (``nb == 1``) is no
-kernel, and no op.
+kernel, and no op.  ``grouped_mm`` is an op of the same namespace, outside
+:data:`KERNEL_OPS`: in fake mode its fake kernel gives the shape, so a
+traced MoE decode step shows no host read, and it has a derivative
+(:func:`_grouped_mm_backward`).
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from typing import Dict
 
 import torch
 
+from . import grouped_mm as _grouped
 from . import ref
 from ._build import LAUNCHES, reset_launches
 from .flash_attention import DTYPES as FLASH_DTYPES
@@ -47,7 +54,7 @@ from .precond_apply import (block_jacobi_apply_batched_cuda,
 from .spmv_ell import spmv_ell_batched_cuda, spmv_ell_cuda
 
 __all__ = ["fused_dots", "fused_dots_health", "fused_axpy", "spmv_ell",
-           "block_jacobi_apply", "flash_attention", "LAUNCHES",
+           "block_jacobi_apply", "flash_attention", "grouped_mm", "LAUNCHES",
            "reset_launches", "NAMESPACE", "KERNEL_OPS"]
 
 #: the ``torch.library`` namespace of the port's ops
@@ -175,6 +182,35 @@ _block_jacobi_apply_op = _define(
     "block_jacobi_apply", "(Tensor inv_blocks, Tensor x) -> Tensor",
     ref.block_jacobi_apply, _block_jacobi_kernel,
     lambda inv_blocks, x: torch.empty_like(x))
+_grouped_mm_op = _define(
+    "grouped_mm", "(Tensor x, Tensor w, Tensor offsets) -> Tensor",
+    _grouped.plain, _grouped.grouped_mm_cuda,
+    lambda x, w, offsets: x.new_empty((x.shape[0], w.shape[2])))
+
+
+def _grouped_mm_setup(ctx, inputs, output):
+    x, w, offsets = inputs
+    ctx.save_for_backward(x, w, offsets)
+
+
+def _grouped_mm_backward(ctx, dy):
+    """``dx`` is the grouped product of ``dy`` with each ``w[e]^T`` (the
+    kernel on the card), ``dw[e] = x_e^T dy_e`` plain PyTorch over the
+    groups (:func:`~repro_torch.kernels.grouped_mm.weight_grad`); the
+    offsets have none."""
+    x, w, offsets = ctx.saved_tensors
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        dx = _grouped_mm_op(dy.contiguous(),
+                            w.transpose(1, 2).contiguous(), offsets)
+    if ctx.needs_input_grad[1]:
+        dw = _grouped.weight_grad(x, dy, offsets, w.dtype)
+    return dx, dw, None
+
+
+torch.library.register_autograd(f"{NAMESPACE}::grouped_mm",
+                                _grouped_mm_backward,
+                                setup_context=_grouped_mm_setup, lib=_LIB)
 
 
 # -- the wrappers: the checks, then the op ------------------------------------
@@ -346,3 +382,51 @@ def flash_attention(qg, k, v, *, scale: float,
     flash_attention_cuda(q, kk, vv, out.transpose(1, 2), scale=scale,
                          causal=causal)
     return out.view(B, S, H * hd)
+
+
+def grouped_mm(x, w, offsets) -> torch.Tensor:
+    """The grouped product of the dropless MoE dispatch: rows
+    ``offsets[e]:offsets[e + 1]`` of ``x`` ``(R, K)`` times ``w[e]`` (``w``
+    ``(E, K, N)``), the sums in f32, the result ``(R, N)`` in x's dtype.
+    ``offsets`` is an ``(E + 1,)`` int64 tensor rising from 0 to R on x's
+    device; the wrapper never reads it, so a call makes no host read on the
+    card.  On the card the operands are bfloat16 with K and N multiples of
+    8 (the hand-written kernel); on the CPU any float type (the plain
+    version, which checks the offsets)."""
+    for key, t in (("x", x), ("w", w), ("offsets", offsets)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"grouped_mm: {key} must be a tensor, got "
+                            f"{type(t).__name__}")
+        if t.device != x.device:
+            raise ValueError(f"grouped_mm: {key} lies on {t.device}, x on "
+                             f"{x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"grouped_mm: {key} must be contiguous")
+    if x.dim() != 2 or w.dim() != 3 or offsets.dim() != 1 \
+            or w.shape[1] != x.shape[1] or offsets.shape[0] != w.shape[0] + 1:
+        raise ValueError(
+            f"grouped_mm: expected x (R, K), w (E, K, N) and offsets (E + 1,)"
+            f", got {tuple(x.shape)}, {tuple(w.shape)}, "
+            f"{tuple(offsets.shape)}")
+    if offsets.dtype != torch.int64:
+        raise TypeError(f"grouped_mm: offsets must be int64, got "
+                        f"{offsets.dtype}")
+    if not (x.is_floating_point() and w.dtype == x.dtype):
+        raise TypeError(f"grouped_mm: x and w must share a float dtype, got "
+                        f"{x.dtype} and {w.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"grouped_mm: unsupported device {x.device}")
+    if x.is_cuda:
+        if x.dtype not in _grouped.DTYPES:
+            raise TypeError(f"grouped_mm: the kernel takes bfloat16, got "
+                            f"{x.dtype}")
+        if x.shape[1] % _grouped.ALIGN or w.shape[2] % _grouped.ALIGN:
+            raise ValueError(
+                f"grouped_mm: the kernel needs K and N multiples of "
+                f"{_grouped.ALIGN}, got K = {x.shape[1]}, N = {w.shape[2]}")
+        R, E = x.shape[0], w.shape[0]
+        if -(-R // _grouped.TILE_ROWS) + min(E, R) > _grouped.MAX_TILES:
+            raise ValueError(f"grouped_mm: {R} rows over {E} groups are more "
+                             f"tiles than the kernel's grid holds "
+                             f"({_grouped.MAX_TILES})")
+    return _grouped_mm_op(x, w, offsets)

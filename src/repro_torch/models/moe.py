@@ -14,15 +14,15 @@ the output.  Two dispatch implementations, as in the JAX package:
   Every shape is fixed by the config and the token count, so the path reads
   nothing back to the host (a decode step stays free of synchronisation).
 * ``"sort"``: dropless.  The (token, k) pairs are sorted by expert and
-  each expert's rows are one product.  The JAX package uses
-  ``jax.lax.ragged_dot``; here a loop over the experts takes the row
-  offsets from one host read of the group sizes per call (ROADMAP A11.2
-  must remove it).  A step with that read cannot be captured as a CUDA
-  graph, so the serving engine runs a sort config's decode eagerly and
-  says so (``stats["decode_program"]``).
+  each expert's rows are one group of a grouped product whose offsets are
+  counted on the device: the JAX package's ``jax.lax.ragged_dot``, here
+  :func:`repro_torch.kernels.ops.grouped_mm` (a hand-written kernel on the
+  card, the plain loop over the groups on the CPU).  Nothing is read to
+  the host, so a decode step of a sort config captures as one CUDA graph,
+  and the k contributions of a token are summed in a fixed order.
 
-The expert products are ``torch.einsum`` / ``@`` (plain array code in the
-JAX package too: ``moe.py`` has no Pallas kernel).
+The gather dispatch's expert products are ``torch.einsum`` (plain array
+code in the JAX package too: ``moe.py`` has no Pallas kernel).
 """
 from __future__ import annotations
 
@@ -31,6 +31,8 @@ from typing import Dict, Mapping, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.kernels import ops as kops
 
 from .common import ModelConfig, dense_init
 
@@ -195,30 +197,32 @@ def _moe_gather(p: Params, xf: torch.Tensor, probs: torch.Tensor,
 
 def _moe_sort(p: Params, xf: torch.Tensor, probs: torch.Tensor,
               experts: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Dropless dispatch: the (token, k) pairs sorted by expert, one
-    product per expert over its rows.  The row offsets are one host read
-    of the group sizes per call."""
+    """Dropless dispatch: the (token, k) pairs sorted by expert, each
+    expert's rows one group of the grouped product (three launches, as the
+    JAX package's three ``ragged_dot``s), the group offsets on the device."""
     N, d = xf.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
     expert_flat = experts.reshape(-1)                           # (N k,)
     order = torch.argsort(expert_flat, stable=True)
-    token_of = order // k
-    xin = xf[token_of]                                          # sorted
+    xin = xf[order // k]                                        # sorted
+    # counted on the device (torch.bincount reads its maximum to the host)
     sizes = torch.zeros(E, dtype=torch.int64, device=xf.device).index_add(
         0, expert_flat, torch.ones_like(expert_flat))
+    offsets = torch.cat([sizes.new_zeros(1), torch.cumsum(sizes, 0)])
     wi, wg, wo = (p[w].to(xf.dtype) for w in ("wi", "wg", "wo"))
-    outs, start = [], 0
-    for e, size in enumerate(sizes.tolist()):                   # the host read
-        if size:
-            rows = xin[start:start + size]
-            h = rows @ wi[e]
-            g = rows @ wg[e]
-            outs.append((F.silu(g) * h) @ wo[e])
-        start += size
-    yo = torch.cat(outs, dim=0)
-    gate_sorted = probs.reshape(-1)[order].to(xf.dtype)
-    return xf.new_zeros(N, d).index_add(0, token_of,
-                                        yo * gate_sorted[:, None])
+    h = kops.grouped_mm(xin, wi, offsets)
+    g = kops.grouped_mm(xin, wg, offsets)
+    yo = kops.grouped_mm(F.silu(g) * h, wo, offsets)
+    # combine: each pair's row of the sorted stream through the inverse
+    # permutation, one k at a time in the activations' dtype; a fixed order
+    # (an index_add of the k rows would sum them by atomics on the card)
+    where = torch.empty_like(order).scatter_(
+        0, order, torch.arange(N * k, device=xf.device)).reshape(N, k)
+    gates = probs.to(xf.dtype)
+    y = xf.new_zeros(N, d)
+    for kk in range(k):
+        y = y + yo[where[:, kk]] * gates[:, kk, None]
+    return y
 
 
 class MoEFFN(nn.Module):

@@ -2,8 +2,11 @@
 ``repro.models.transformer``).
 
 A :class:`Transformer` module of :class:`DecoderBlock` modules, each with an
-:class:`Attention` and a :class:`DenseFFN` submodule (``mlp``), or with
-``cfg.moe_experts`` a :class:`~repro_torch.models.moe.MoEFFN` (``moe``).
+:class:`Attention` (with ``cfg.use_mla`` an :class:`MLA`) and a
+:class:`DenseFFN` submodule (``mlp``), or with ``cfg.moe_experts`` a
+:class:`~repro_torch.models.moe.MoEFFN` (``moe``); with ``cfg.use_mtp``
+also DeepSeek-V3's multi-token-prediction block (:class:`MTP`, ``mtp``),
+which only ``loss_fn`` runs.
 Weights keep the JAX package's layout (``x @ W``), so a JAX parameter tree
 carries across as a copy (:func:`repro_torch.convert.lm_params_from_numpy`).
 The entry points keep the JAX package's functional signatures, with the
@@ -13,16 +16,19 @@ module as ``params``:
 * ``forward(params, cfg, batch)``                        ``(logits (B,S,V), aux)``
 * ``prefill_step(params, cfg, batch)``                   ``(logits, cache)``
 * ``loss_fn(params, cfg, batch)``                        ``(loss, metrics)``
-* ``init_cache(cfg, batch, max_len, device=)``           ``{"k", "v"}``
+* ``init_cache(cfg, batch, max_len, device=)``           ``{"k", "v"}`` / ``{"ckv", "krope"}``
 * ``decode_step(params, cfg, cache, tokens, cache_len)`` ``(logits (B,1,V), cache)``
 
-The cache is ``{"k", "v"}``, each ``(L, B, T, K, hd)``, in both families;
-a decode step writes the new token's K/V into it in place.  Layers run in a
-Python loop (the JAX package's ``lax.scan``); its sharding constraints have
-no counterpart on one device.  ``forward`` sums the MoE layers' load-balance
-losses into its ``aux``; the prefill and decode steps drop them.  The MLA,
-hybrid, SSM, audio and VLM families raise ``NotImplementedError`` and name
-the slice of the port that brings them.
+The cache is ``{"k", "v"}``, each ``(L, B, T, K, hd)``, and with MLA the
+latent cache ``{"ckv", "krope"}``, ``(L, B, T, kv_lora_rank)`` and ``(L, B,
+T, qk_rope_head_dim)``; a decode step writes the new token's rows into it
+in place.  Layers run in a Python loop (the JAX package's ``lax.scan``);
+its sharding constraints have no counterpart on one device.  ``forward``
+sums the MoE layers' load-balance losses into its ``aux``; the prefill and
+decode steps drop them.  The hybrid, SSM, audio and VLM families raise
+``NotImplementedError`` and name the slice of the port that brings them;
+MLA outside the MoE family raises too (the JAX package cannot decode it,
+ROADMAP C25).
 
 The weights are trainable parameters; serving runs under
 ``torch.inference_mode()``, which records nothing for them.  With
@@ -48,13 +54,13 @@ from repro_torch.core.types import resolve_device
 from .attention import (decode_attention, init_attention_params,
                         multihead_attention)
 from .common import ModelConfig, dense_init, embed_init, rms_norm
+from .mla import init_mla_params, mla_attention, mla_decode
 from .moe import MoEFFN, dense_ffn, dense_ffn_init, init_moe_params
 
 #: the families the port runs
 FAMILIES = ("dense", "moe")
 #: the slice of the port that brings each family the port does not run yet
 LATER_SLICES = {
-    "mla": "the MLA slice",
     "hybrid": "the hybrid (Mamba2 + shared attention) slice",
     "ssm": "the SSM (xLSTM) slice", "audio": "the audio (whisper) slice",
     "vlm": "the VLM (M-RoPE) slice",
@@ -68,8 +74,12 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family waits for {later} of "
             "the PyTorch port; only the dense and MoE families run so far")
-    for flag, key in ((cfg.use_mla, "mla"),
-                      (cfg.mrope_sections is not None, "vlm"),
+    if cfg.use_mla and cfg.family != "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: MLA runs in the MoE family only: the JAX package "
+            f"gives a {cfg.family} config with MLA a {{k, v}} cache that its "
+            "decode step cannot read (ROADMAP C25)")
+    for flag, key in ((cfg.mrope_sections is not None, "vlm"),
                       (cfg.is_encoder_decoder, "audio")):
         if flag:
             raise NotImplementedError(
@@ -152,6 +162,29 @@ class Attention(nn.Module):
                                 cache_len, cfg)
 
 
+class MLA(nn.Module):
+    """Multi-head latent attention of one block (:mod:`.mla`); ``p`` holds
+    ``wdq, q_norm, wuq, wdkv, kv_norm, wuk, wuv, wo``.  The counterpart of
+    :class:`Attention`: ``forward`` is the prefill (causal), ``decode`` the
+    absorbed step against the latent cache."""
+
+    def __init__(self, params: Mapping[str, torch.Tensor]):
+        super().__init__()
+        self.p = _parameter_dict(params)
+
+    def forward(self, x, positions, cfg: ModelConfig, *, causal: bool = True,
+                return_kv: bool = False):
+        if not causal:
+            raise ValueError("MLA attention is causal")
+        return mla_attention(self.p, x, positions, cfg,
+                             return_cache=return_kv)
+
+    def decode(self, x, position, ckv_cache, krope_cache,
+               cache_len: Union[int, torch.Tensor], cfg: ModelConfig):
+        return mla_decode(self.p, x, position, ckv_cache, krope_cache,
+                          cache_len, cfg)
+
+
 class DenseFFN(nn.Module):
     """The SwiGLU MLP of one block; ``p`` holds ``wi, wg, wo``."""
 
@@ -167,13 +200,14 @@ class DecoderBlock(nn.Module):
     """Pre-norm block: ``x + attn(ln1(x))``, then ``+ ffn(ln2(.))``, the
     ffn a dense ``mlp`` or a ``moe``.  ``forward`` returns ``(x, aux)``
     (``(x, aux, kv)`` with ``return_kv``), aux the MoE's load-balance loss
-    or ``None`` for a dense block."""
+    or ``None`` for a dense block.  ``mla``: the attention is an
+    :class:`MLA`, its ``kv`` the latent rows ``(c_kv, k_rope)``."""
 
-    def __init__(self, params: Mapping):
+    def __init__(self, params: Mapping, mla: bool = False):
         super().__init__()
         self.ln1 = nn.Parameter(params["ln1"])
         self.ln2 = nn.Parameter(params["ln2"])
-        self.attn = Attention(params["attn"])
+        self.attn = (MLA if mla else Attention)(params["attn"])
         if "moe" in params:
             self.moe = MoEFFN(params["moe"])
         else:
@@ -197,18 +231,34 @@ class DecoderBlock(nn.Module):
 
     def decode(self, x, position, k_cache, v_cache,
                cache_len: Union[int, torch.Tensor], cfg: ModelConfig):
+        """One token against the block's two caches (K and V, or MLA's
+        latent and rope rows), written in place."""
         a, _, _ = self.attn.decode(rms_norm(self.ln1, x, cfg.norm_eps),
                                    position, k_cache, v_cache, cache_len, cfg)
         x = x + a
         return x + self.ffn(x, cfg)[0]
 
 
+class MTP(nn.Module):
+    """DeepSeek-V3's multi-token prediction, depth 1: ``proj (2 d, d)``,
+    the norms ``ln_h`` and ``ln_e`` and one decoder ``block``, unstacked
+    (the JAX package's ``params["mtp"]``)."""
+
+    def __init__(self, params: Mapping, mla: bool = False):
+        super().__init__()
+        self.proj = nn.Parameter(params["proj"])
+        self.ln_h = nn.Parameter(params["ln_h"])
+        self.ln_e = nn.Parameter(params["ln_e"])
+        self.block = DecoderBlock(params["block"], mla=mla)
+
+
 class Transformer(nn.Module):
     """The decoder LM.  ``params`` is the JAX package's tree with the
     stacked ``layers`` given as a list of per-layer trees: ``embed (V,
     d)``, ``final_norm (d,)``, ``lm_head (d, V)`` (absent with
-    ``tie_embeddings``), and per layer ``ln1``, ``ln2``, ``attn`` and
-    ``mlp`` (``moe`` with ``cfg.moe_experts``)."""
+    ``tie_embeddings``), per layer ``ln1``, ``ln2``, ``attn`` and
+    ``mlp`` (``moe`` with ``cfg.moe_experts``), and ``mtp`` where the tree
+    has it."""
 
     def __init__(self, cfg: ModelConfig, params: Mapping):
         super().__init__()
@@ -221,8 +271,10 @@ class Transformer(nn.Module):
         self.final_norm = nn.Parameter(params["final_norm"])
         self.lm_head = None if cfg.tie_embeddings \
             else nn.Parameter(params["lm_head"])
-        self.layers = nn.ModuleList(DecoderBlock(lp)
+        self.layers = nn.ModuleList(DecoderBlock(lp, mla=cfg.use_mla)
                                     for lp in params["layers"])
+        self.mtp = MTP(params["mtp"], mla=cfg.use_mla) \
+            if "mtp" in params else None
 
     @property
     def device(self) -> torch.device:
@@ -245,15 +297,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Transformer:
                   "final_norm": ones(cfg.d_model)}
     if not cfg.tie_embeddings:
         tree["lm_head"] = dense_init(g, (cfg.d_model, cfg.vocab_size), pdt)
-    tree["layers"] = []
-    for _ in range(cfg.n_layers):
+    def block():
+        attn = init_mla_params if cfg.use_mla else init_attention_params
         layer = {"ln1": ones(cfg.d_model), "ln2": ones(cfg.d_model),
-                 "attn": init_attention_params(g, cfg)}
+                 "attn": attn(g, cfg)}
         if cfg.moe_experts:
             layer["moe"] = init_moe_params(g, cfg)
         else:
             layer["mlp"] = dense_ffn_init(g, cfg)
-        tree["layers"].append(layer)
+        return layer
+
+    tree["layers"] = [block() for _ in range(cfg.n_layers)]
+    if cfg.use_mtp:
+        tree["mtp"] = {"proj": dense_init(g, (2 * cfg.d_model, cfg.d_model),
+                                          pdt),
+                       "block": block(), "ln_h": ones(cfg.d_model),
+                       "ln_e": ones(cfg.d_model)}
     return Transformer(cfg, tree)
 
 
@@ -316,8 +375,10 @@ def forward(params: Transformer, cfg: ModelConfig,
 def prefill_step(params: Transformer, cfg: ModelConfig,
                  batch: Mapping[str, torch.Tensor]):
     """Forward pass that also returns the decode cache built from the
-    prompt: ``(logits (B, S, V), {"k", "v"})``, each ``(L, B, S, K, hd)``
-    (the serving engine pads it to its max length)."""
+    prompt: ``(logits (B, S, V), {"k", "v"})``, each ``(L, B, S, K, hd)``,
+    or with MLA ``{"ckv", "krope"}``, ``(L, B, S, kv_lora_rank)`` and
+    ``(L, B, S, qk_rope_head_dim)`` (the serving engine pads it to its max
+    length)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed_tokens(params, cfg, tokens)
@@ -327,26 +388,41 @@ def prefill_step(params: Transformer, cfg: ModelConfig,
         x, _, (k, v) = block(x, positions, cfg, return_kv=True)
         ks.append(k)
         vs.append(v)
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    k1, k2 = cache_keys(cfg)
+    cache = {k1: torch.stack(ks), k2: torch.stack(vs)}
     return _lm_head(params, cfg, x), cache
+
+
+def cache_keys(cfg: ModelConfig) -> Tuple[str, str]:
+    """The decode cache's two entries: ``("ckv", "krope")`` with MLA, else
+    ``("k", "v")``."""
+    return ("ckv", "krope") if cfg.use_mla else ("k", "v")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device=None) -> Dict[str, torch.Tensor]:
     """An all-zero ``{"k", "v"}`` cache, each ``(L, batch, max_len, K,
-    hd)`` in ``cfg.dtype`` (``device=None`` means ``"cuda"``)."""
+    hd)``, or with MLA the latent ``{"ckv", "krope"}``, ``(L, batch,
+    max_len, kv_lora_rank)`` and ``(L, batch, max_len,
+    qk_rope_head_dim)``, in ``cfg.dtype`` (``device=None`` means
+    ``"cuda"``)."""
     check_supported(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    lead = (cfg.n_layers, batch, max_len)
+    if cfg.use_mla:
+        shapes = (lead + (cfg.kv_lora_rank,), lead + (cfg.qk_rope_head_dim,))
+    else:
+        shapes = (lead + (cfg.n_kv_heads, cfg.hd),) * 2
     dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+    return {key: torch.zeros(shape, dtype=cfg.dtype, device=dev)
+            for key, shape in zip(cache_keys(cfg), shapes)}
 
 
 def decode_step(params: Transformer, cfg: ModelConfig,
                 cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
                 cache_len: Union[int, torch.Tensor]):
     """One-token decode.  tokens: (B, 1) -> ``(logits (B, 1, V), cache)``;
-    the new K/V are written into ``cache`` at ``cache_len`` in place.
+    the new K/V (MLA: latent) rows are written into ``cache`` at
+    ``cache_len`` in place.
     ``cache_len`` is an int or a 0-d integer tensor (the JAX package's
     traced ``jnp.int32``); a tensor is never read by the host, so the step
     captures as one CUDA graph (the serving engine's decode program)."""
@@ -356,9 +432,9 @@ def decode_step(params: Transformer, cfg: ModelConfig,
         pos = cache_len.reshape(1).expand(B)
     else:
         pos = torch.full((B,), cache_len, dtype=torch.int32, device=x.device)
+    k1, k2 = cache_keys(cfg)
     for l, block in enumerate(params.layers):
-        x = block.decode(x, pos, cache["k"][l], cache["v"][l], cache_len,
-                         cfg)
+        x = block.decode(x, pos, cache[k1][l], cache[k2][l], cache_len, cfg)
     return _lm_head(params, cfg, x), cache
 
 
@@ -377,11 +453,9 @@ def loss_fn(params: Transformer, cfg: ModelConfig,
     """Next-token cross-entropy: ``(loss, {"ce_loss", "aux_loss",
     "loss"})``, 0-d f32 tensors.  Without ``labels`` in ``batch`` the
     labels are the tokens shifted by one and the last position is masked
-    out; with them, ``loss_mask`` (if any) weighs the positions."""
-    if cfg.use_mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: the multi-token-prediction loss waits for "
-            f"{LATER_SLICES['mla']} of the PyTorch port")
+    out; with them, ``loss_mask`` (if any) weighs the positions.  With
+    ``cfg.use_mtp`` and an ``mtp`` block, ``cfg.mtp_loss_weight`` times
+    the multi-token-prediction loss (``"mtp_loss"``) is added."""
     logits, aux = forward(params, cfg, batch)
     tokens = batch["tokens"]
     labels = batch.get("labels")
@@ -394,5 +468,31 @@ def loss_fn(params: Transformer, cfg: ModelConfig,
     else:
         mask = batch.get("loss_mask")
     loss = _xent(logits, labels, mask)
+    metrics = {"ce_loss": loss, "aux_loss": aux}
+    if cfg.use_mtp and params.mtp is not None:
+        mtp_loss = _mtp_loss(params, cfg, tokens)
+        metrics["mtp_loss"] = mtp_loss
+        loss = loss + cfg.mtp_loss_weight * mtp_loss
     total = loss + aux
-    return total, {"ce_loss": loss, "aux_loss": aux, "loss": total}
+    metrics["loss"] = total
+    return total, metrics
+
+
+def _mtp_loss(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor):
+    """DeepSeek-V3 MTP (depth 1), as the JAX package runs it: token t + 2
+    predicted from the embeddings of t and t + 1 (the JAX package's proxy
+    for the trunk's hidden state) through ``proj`` and one block; the last
+    two positions masked out."""
+    mtp = params.mtp
+    B, S = tokens.shape
+    h = _embed_tokens(params, cfg, tokens)
+    e_next = _embed_tokens(params, cfg, torch.roll(tokens, -1, dims=1))
+    hcat = torch.cat([rms_norm(mtp.ln_h, h, cfg.norm_eps),
+                      rms_norm(mtp.ln_e, e_next, cfg.norm_eps)], dim=-1)
+    x = hcat @ mtp.proj.to(h.dtype)
+    x, _ = mtp.block(x, _positions(B, S, x.device), cfg)
+    logits = _lm_head(params, cfg, x)
+    labels = torch.roll(tokens, -2, dims=1)
+    mask = torch.ones((B, S), dtype=torch.float32, device=tokens.device)
+    mask[:, -2:] = 0.0
+    return _xent(logits, labels, mask)

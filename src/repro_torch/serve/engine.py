@@ -17,10 +17,12 @@ zeroed (the JAX splice's zero padding).  On the card a step is one replay
 of a CUDA graph captured on the program's first batch
 (:func:`repro_torch.core.program.capture`): the decode, the argmax written
 into the tokens buffer and ``cache_len + 1``.  The host reads the device
-once per step: the B next tokens, in one copy.  On the CPU, under
-:func:`~repro_torch.core.program._eager_chunks`, and for a config whose
-step cannot be captured (the MoE sort dispatch's host read), the same step
-runs eagerly on the same buffers; any other failed capture raises.
+once per step: the B next tokens, in one copy.  On the CPU and under
+:func:`~repro_torch.core.program._eager_chunks` the same step runs eagerly
+on the same buffers; a failed capture raises.  Every family's step
+captures: the MLA latent cache ``{"ckv", "krope"}`` is spliced and written
+in place as the K/V cache is, and the MoE sort dispatch reads nothing to
+the host (its grouped product takes the offsets on the device).
 Everything runs under ``torch.inference_mode()``.
 
 ``stats``: the wall time of each prefill (``prefill_s``, the splice
@@ -73,10 +75,6 @@ def decode_program_mode(cfg: ModelConfig, device) -> str:
         return "eager: on the CPU each step runs as it comes"
     if _program._EAGER[0]:
         return "eager: under _eager_chunks (the graph-against-eager check)"
-    if cfg.moe_experts and cfg.moe_impl == "sort":
-        return ("eager: the MoE sort dispatch reads its group sizes to the "
-                "host once a call (models/moe.py _moe_sort), which a "
-                "captured step cannot do")
     return "graph"
 
 
@@ -114,10 +112,11 @@ class DecodeProgram:
 
     def start(self, pcache: Dict[str, torch.Tensor], first: torch.Tensor,
               plen: int, graphed: bool) -> None:
-        """Splice a prefill's ``(L, B, plen, K, hd)`` K/V into the cache
-        (the rows from ``plen`` on zeroed), ``first`` (B,) into the tokens
-        buffer and ``plen`` into ``cache_len``; the batch's steps replay the
-        graph when ``graphed``, else run eagerly."""
+        """Splice a prefill's ``(L, B, plen, ...)`` cache (K/V, or MLA's
+        latent rows) into the cache (the rows from ``plen`` on zeroed),
+        ``first`` (B,) into the tokens buffer and ``plen`` into
+        ``cache_len``; the batch's steps replay the graph when ``graphed``,
+        else run eagerly."""
         for key, dst in self.cache.items():
             dst[:, :, :plen].copy_(pcache[key])
             dst[:, :, plen:].zero_()

@@ -642,23 +642,26 @@ def test_small_moe_engine_on_the_card_gives_the_cpu_tokens(cuda):
 
 
 def test_moe_gather_makes_no_host_sync_and_sort_one(cuda):
-    """Under ``set_sync_debug_mode("error")`` the gather dispatch runs at
-    decode and prefill sizes; the sort dispatch raises at its one host
-    read (the group sizes)."""
+    """Under ``set_sync_debug_mode("error")`` both dispatches run at decode
+    and prefill sizes: the gather dispatch in fp32, the sort dispatch in
+    bf16 (its grouped kernel takes the offsets on the device: no host read
+    is left), each against the CPU's run of the same dispatch."""
     from repro_torch.configs import smoke_config
     from repro_torch.models import moe
     cfg = smoke_config("llama4-scout-17b-a16e").replace(
         moe_groups=256, dtype=torch.float32, param_dtype=torch.float32)
+    bf = cfg.replace(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
     p = moe.init_moe_params(torch.Generator(device=cuda).manual_seed(0),
                             cfg)
+    pb = {k: v if k.startswith("router") else v.bfloat16()
+          for k, v in p.items()}
     for shape in ((4, 1, cfg.d_model), (4, 256, cfg.d_model)):
         x = torch.randn(*shape, device=cuda).to(cfg.dtype)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             y, aux = moe.moe_ffn(p, x, cfg, impl="gather")
-            with pytest.raises(RuntimeError, match="synchroniz"):
-                moe.moe_ffn(p, x, cfg, impl="sort")
+            ys, _ = moe.moe_ffn(pb, x.bfloat16(), bf, impl="sort")
         finally:
             torch.cuda.set_sync_debug_mode(0)
         want, _ = moe.moe_ffn({k: v.cpu() for k, v in p.items()},
@@ -666,6 +669,10 @@ def test_moe_gather_makes_no_host_sync_and_sort_one(cuda):
         assert torch.isfinite(y.float()).all()
         assert float((y.cpu() - want).abs().max()) <= \
             1e-5 * float(want.abs().max())
+        want, _ = moe.moe_ffn({k: v.cpu() for k, v in pb.items()},
+                              x.bfloat16().cpu(), bf, impl="sort")
+        assert float((ys.cpu().float() - want.float()).abs().max()) <= \
+            2e-2 * float(want.float().abs().max())
 
 
 # -- the serving engine's decode program: one CUDA-graph replay a step -------
@@ -751,29 +758,39 @@ def test_a_replayed_decode_step_makes_no_host_sync(cuda):
         assert bool((prog.tokens[:, 0] == prog.logits[:, 0].argmax(-1)).all())
 
 
-def test_a_sort_config_decodes_eagerly_and_says_so(cuda):
-    """The MoE sort dispatch reads its group sizes on the host, so its
-    decode cannot be captured: the engine runs it eagerly, reports
-    ``"eager: ..."`` naming the sort dispatch, and its tokens equal the
-    gather config's (top-1, capacity wide enough that nothing drops)."""
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "deepseek-v3-671b"])
+def test_a_sort_config_decodes_eagerly_and_says_so(cuda, arch):
+    """A MoE sort config (bf16: the grouped kernel's type), llama4's and
+    deepseek-v3's with MLA: its decode is graphed now, one capture a batch
+    size, three grouped-kernel launches a layer a replay, and the greedy
+    tokens equal those of the same engine's decode under
+    ``_eager_chunks``."""
+    from repro_torch.core.program import _eager_chunks
     from repro_torch.models import init_params
     from repro_torch.serve import ServeConfig, ServingEngine
-    outs = {}
-    for impl in ("sort", "gather"):
-        cfg = _serve_config("llama4-scout-17b-a16e", torch.float32,
-                            moe_impl=impl, moe_capacity_factor=4.0)
-        model = init_params(cfg, torch.Generator(device=cuda).manual_seed(4))
+    cfg = _serve_config(arch, torch.bfloat16, moe_impl="sort")
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(4))
+    outs, counts = {}, {}
+    for mode in ("eager", "graph"):
         eng = ServingEngine(cfg, ServeConfig(max_batch=2, max_len=32),
                             params=model, device=cuda)
-        outs[impl] = _serve(eng, _prompts(cfg.vocab_size, 2, 10, 5), new=4)
-        if impl == "sort":
-            assert eng.stats["decode_program"].startswith("eager: ")
-            assert "sort" in eng.stats["decode_program"]
-            assert eng.stats["decode_graphs"] == 0
-            assert eng.programs[2].graph is None
-        else:
+        with _eager_chunks() if mode == "eager" else \
+                contextlib.nullcontext():
+            _serve(eng, _prompts(cfg.vocab_size, 2, 10, 4), new=2)  # warm
+            ops.reset_launches()
+            outs[mode] = _serve(eng, _prompts(cfg.vocab_size, 2, 10, 5),
+                                new=4)
+            torch.cuda.synchronize()
+            counts[mode] = ops.LAUNCHES["grouped_mm"]
+        if mode == "graph":
             assert eng.stats["decode_program"] == "graph"
-    assert outs["sort"] == outs["gather"]
+            assert eng.stats["decode_graphs"] == 1
+            assert eng.programs[2].launches == {"grouped_mm": 3 * cfg.n_layers}
+        else:
+            assert eng.stats["decode_program"].startswith("eager: ")
+    # a prefill and three decode steps, three launches a layer each
+    assert counts["graph"] == counts["eager"] == 4 * 3 * cfg.n_layers
+    assert outs["graph"] == outs["eager"]
 
 
 def test_decode_attention_on_the_card_sums_bf16_products_in_f32(cuda):
@@ -812,6 +829,115 @@ def test_decode_attention_on_the_card_sums_bf16_products_in_f32(cuda):
         assert float((got - want).abs().max() / want.abs().max()) <= 2e-2
     y, want = outs["cuda"][0].float(), outs["cpu"][0].float()
     assert float((y - want).abs().max() / want.abs().max()) <= 2e-2
+
+
+# -- the grouped kernel of the MoE sort dispatch; MLA's decode --------------
+
+def _grouped_operands(sizes, K, N, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    R, E = sum(sizes), len(sizes)
+    x = torch.randn(R, K, generator=g, device=device).bfloat16()
+    w = (torch.randn(E, K, N, generator=g, device=device)
+         / K ** 0.5).bfloat16()
+    offsets = torch.tensor([0] + list(np.cumsum(sizes)), device=device)
+    return x, w, offsets
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.parametrize("sizes,K,N", [
+    ([70, 0, 1, 129, 0, 63], 96, 136),      # empty groups, one row, ragged
+    ([0, 0, 200, 0], 64, 128),              # one group holds every row
+    ([33], 32, 8),                          # E = 1, less than one tile
+    ([1, 1, 2, 0, 1, 3, 0, 0] * 4, 256, 64),   # a decode step's 32 rows
+    ([300, 0, 1, 211], 128, 256),           # 128-row tiles (R >= 64 E)
+])
+def test_grouped_mm_kernel_matches_the_plain_version(cuda, sizes, K, N):
+    """The kernel against its plain version (bf16 operands, f32 sums):
+    within tests/test_kernels.py's bf16 bar of the max-abs, bitwise on a
+    repeat, one launch a call."""
+    from repro_torch.kernels import grouped_mm
+    x, w, offsets = _grouped_operands(sizes, K, N, cuda)
+    before = ops.LAUNCHES["grouped_mm"]
+    got = ops.grouped_mm(x, w, offsets)
+    again = ops.grouped_mm(x, w, offsets)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["grouped_mm"] - before == 2
+    want = grouped_mm.plain(x, w, offsets)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _rel(got, want) <= 2e-2
+    assert torch.equal(got, again)
+
+
+def test_one_grouped_graph_serves_two_routings(cuda):
+    """A CUDA graph captured over one call, replayed after the offsets
+    (and x) buffers are rewritten with another routing: each replay gives
+    the plain version's result for the routing it found in memory."""
+    from repro_torch.kernels import grouped_mm
+    x, w, offsets = _grouped_operands([5, 0, 40, 1, 18], 64, 64, cuda)
+    routings = [torch.tensor([0, 5, 5, 45, 46, 64], device=cuda),
+                torch.tensor([0, 0, 60, 61, 61, 64], device=cuda)]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.grouped_mm(x, w, offsets)                     # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = ops.grouped_mm(x, w, offsets)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for routing in routings:
+        offsets.copy_(routing)
+        x.copy_(torch.randn(x.shape, generator=g, device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _rel(y, grouped_mm.plain(x, w, offsets)) <= 2e-2
+
+
+def test_grouped_mm_on_the_card_refuses_what_the_kernel_does_not_take(cuda):
+    x, w, offsets = _grouped_operands([3, 5], 16, 16, cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.grouped_mm(x.float(), w.float(), offsets)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.grouped_mm(x[:, :12].contiguous(), w[:, :12].contiguous(),
+                       offsets)
+
+
+def test_mla_decode_on_the_card_matches_the_cpu(cuda):
+    """bf16 ``mla_decode`` on the card (latent scores from ``bmm`` with an
+    f32 output over the cache as it lies) against the same call on the CPU
+    (the cache upcast): only row ``cache_len`` written, outputs alike within
+    bf16 rounding; a 0-d ``cache_len`` and an int agree bitwise."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import mla
+    cfg = smoke_config("deepseek-v3-671b")
+    p = mla.init_mla_params(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(1)
+    B, T, n = 3, 24, 13
+    x = torch.randn(B, 1, cfg.d_model, generator=g).to(cfg.dtype)
+    ckv = torch.randn(B, T, cfg.kv_lora_rank, generator=g).to(cfg.dtype)
+    kr = torch.randn(B, T, cfg.qk_rope_head_dim, generator=g).to(cfg.dtype)
+    pos = torch.full((B,), n)
+    outs = {}
+    with torch.inference_mode():
+        for dev, cl in (("cpu", n), ("cuda", n),
+                        ("cuda-0d", torch.tensor(n, device=cuda))):
+            d = dev.split("-")[0]
+            c1, c2 = ckv.clone().to(d), kr.clone().to(d)
+            y, c1, c2 = mla.mla_decode({k: w.to(d) for k, w in p.items()},
+                                       x.to(d), pos.to(d), c1, c2, cl, cfg)
+            outs[dev] = (y.cpu(), c1.cpu(), c2.cpu())
+    assert all(torch.equal(a, b) for a, b in zip(outs["cuda"],
+                                                 outs["cuda-0d"]))
+    others = [t for t in range(T) if t != n]
+    for i, c in ((1, ckv), (2, kr)):
+        assert torch.equal(outs["cuda"][i][:, others], c[:, others])
+        assert _rel(outs["cuda"][i][:, n], outs["cpu"][i][:, n]) <= 2e-2
+    assert _rel(outs["cuda"][0], outs["cpu"][0]) <= 2e-2
 
 
 # -- programs: each solver chunk a CUDA graph --------------------------------

@@ -492,12 +492,11 @@ def test_later_families_name_their_slice(arch):
 
 
 @pytest.mark.parametrize("change,word", [
-    (dict(family="moe", moe_experts=4, use_mla=True), "MLA"),
     (dict(family="hybrid"), "hybrid"),
     (dict(family="ssm"), "SSM"),
     (dict(family="audio"), "audio"),
     (dict(family="vlm"), "VLM"),
-    (dict(use_mla=True), "MLA"),
+    (dict(use_mla=True), "C25"),       # MLA outside the MoE family
     (dict(mrope_sections=(2, 3, 3)), "VLM"),
 ])
 def test_model_entry_points_refuse_later_families(change, word):

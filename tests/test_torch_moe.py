@@ -12,6 +12,8 @@ largest (``GRAD_RTOL``), bf16 2e-2 (tests/test_kernels.py's bf16 bar).
 Both packages' ``moe_ffn`` are plain array code, so JAX runs directly
 (its sort dispatch through ``jax.lax.ragged_dot``).
 """
+import sys
+
 import numpy as np
 import pytest
 
@@ -285,8 +287,10 @@ def test_sort_dispatch_is_batch_invariant():
 
 def test_gather_reads_nothing_back_to_the_host(monkeypatch):
     """The gather path's shapes come from the config and the token count:
-    a call makes no host read (``.tolist()`` / ``.item()``); the sort path
-    makes exactly one, of the group sizes."""
+    a call makes no host read (``.tolist()`` / ``.item()``).  Nor does the
+    sort path's own code: its only reads are the plain grouped product's,
+    the CPU path of the kernel, one of the offsets per expert product
+    (three); on the card the kernel reads them on the device."""
     jc, tc = configs(moe_groups=4)
     _, tp = both(moe_params(jc))
     reads = []
@@ -294,7 +298,7 @@ def test_gather_reads_nothing_back_to_the_host(monkeypatch):
         orig = getattr(torch.Tensor, name)
 
         def spy(self, *a, _orig=orig, _name=name, **kw):
-            reads.append(_name)
+            reads.append((_name, sys._getframe(1).f_code.co_name))
             return _orig(self, *a, **kw)
 
         monkeypatch.setattr(torch.Tensor, name, spy)
@@ -302,7 +306,54 @@ def test_gather_reads_nothing_back_to_the_host(monkeypatch):
     tmoe.moe_ffn(tp, x, tc, impl="gather")
     assert reads == []
     tmoe.moe_ffn(tp, x, tc, impl="sort")
-    assert reads == ["tolist"]
+    assert reads == [("tolist", "plain")] * 3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("experts", [16, 256])
+def test_sort_dispatch_at_deepseeks_top_k_matches_jax(experts, dtype):
+    """The dropless dispatch at deepseek-v3's top-8, over 16 and 256
+    experts (most of them empty at 256), against the JAX package's
+    ``ragged_dot`` dispatch: fp32 within ``ATOL_MODULE``, bf16 within
+    ``BF16_TOL`` of the max-abs."""
+    jc, tc = configs(moe_top_k=8, moe_experts=experts)
+    p = moe_params(jc, seed=experts)
+    tdt = torch.float32
+    if dtype == "bfloat16":
+        jc = jc.replace(dtype=jnp.bfloat16, param_dtype=jnp.bfloat16)
+        tc = tc.replace(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+        tdt = torch.bfloat16
+        for k in p:              # the experts' weights as bf16 values
+            if not k.startswith("router"):
+                p[k] = np_(jnp.asarray(p[k], jnp.bfloat16))
+    jp, tp = both(p, tdt)
+    if dtype == "bfloat16":
+        jp = {k: v if k.startswith("router") else v.astype(jnp.bfloat16)
+              for k, v in jp.items()}
+    x = jnp.asarray(randn(np.random.default_rng(7), (2, 24, jc.d_model)),
+                    jc.dtype)
+    y, aux = tmoe.moe_ffn(tp, torch.from_numpy(np_(x)).to(tdt), tc,
+                          impl="sort")
+    wy, waux = jmoe.moe_ffn(jp, x, jc, impl="sort")
+    assert y.dtype == tdt
+    if dtype == "float32":
+        close(y, wy, atol=ATOL_MODULE)
+        close(aux, waux, atol=ATOL_MODULE)
+    else:
+        assert rel(y, wy) <= BF16_TOL
+
+
+def test_sort_dispatch_is_batch_invariant_at_top_8():
+    """The batch invariance above at deepseek-v3's top-8 of 32 experts:
+    the dropless dispatch gives each token its output alone."""
+    cfg = tsmoke(ARCH).replace(moe_top_k=8, moe_experts=32)
+    p = tmoe.init_moe_params(torch.Generator().manual_seed(5), cfg)
+    x = torch.randn(2, 16, cfg.d_model,
+                    generator=torch.Generator().manual_seed(6)).to(cfg.dtype)
+    y_batch, _ = tmoe.moe_ffn(p, x, cfg, impl="sort")
+    y_tok = torch.cat([tmoe.moe_ffn(p, x[:, i:i + 1], cfg, impl="sort")[0]
+                       for i in range(16)], dim=1)
+    close(y_batch, y_tok, atol=2e-2, rtol=2e-2)
 
 
 # -- the model ----------------------------------------------------------------

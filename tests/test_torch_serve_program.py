@@ -8,14 +8,13 @@ on the host, so on the card it captures as one CUDA graph (that capture
 runs in tests/test_torch_cuda.py and chip_smoke.py).  Here: several
 consecutive steps against the JAX ``decode_step`` under ``jax.jit`` with a
 traced ``jnp.int32`` ``cache_len`` (dense, MoE gather, MoE sort, a sliding
-window), the step traced by ``make_fx`` in fake mode (no host read left;
-the sort dispatch's read shows), the in-place splice across batches, and
-the engine's choice of graph or eager.  Weights and inputs come from numpy
+window, and deepseek's MLA with its latent cache), the step traced by
+``make_fx`` in fake mode (no host read left, the MoE sort dispatch's
+grouped product included), the in-place splice across batches, and the
+engine's choice of graph or eager.  Weights and inputs come from numpy
 seeds; everything is fp32; two layers and the head within 1e-4
 (``ATOL_MODEL``, tests/test_torch_lm.py's bar).
 """
-import traceback
-
 import numpy as np
 import pytest
 
@@ -23,8 +22,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from torch._subclasses.fake_tensor import (  # noqa: E402
-    DataDependentOutputException, FakeTensorMode)
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 from torch.fx.experimental.proxy_tensor import make_fx  # noqa: E402
 
 from repro.configs import smoke_config as jsmoke  # noqa: E402
@@ -48,10 +46,11 @@ CASES = {
     "moe-gather": ("llama4-scout-17b-a16e", {"moe_impl": "gather"}),
     "moe-sort": ("llama4-scout-17b-a16e", {"moe_impl": "sort"}),
     "sliding-window": ("qwen3-8b", {"sliding_window": 5}),
+    "mla": ("deepseek-v3-671b", {}),
 }
 #: leaves redrawn around their initial value, and by how much
 REDRAWN = {"ln1": 0.3, "ln2": 0.3, "final_norm": 0.3, "q_norm": 0.3,
-           "k_norm": 0.3, "router_bias": 0.05}
+           "k_norm": 0.3, "kv_norm": 0.3, "router_bias": 0.05}
 
 
 def np_(a):
@@ -107,9 +106,10 @@ def test_decode_steps_with_a_device_cache_len_match_the_jitted_jax_step(name):
         _, gcache = ttr.prefill_step(model, tc,
                                      {"tokens": torch.from_numpy(toks)})
         cache = ttr.init_cache(tc, B, T, device=CPU)
-        for key in ("k", "v"):
+        for key in cache:
             cache[key][:, :, :S] = gcache[key]
-    jcache = {k: jnp.pad(v, ((0, 0), (0, 0), (0, T - S), (0, 0), (0, 0)))
+    jcache = {k: jnp.pad(v, ((0, 0), (0, 0), (0, T - S))
+                         + ((0, 0),) * (v.ndim - 3))
               for k, v in wcache.items()}
     jdecode = jax.jit(lambda p, c, t, n: jtr.decode_step(p, jc, c, t, n))
     nxt = np.argmax(np_(wlog)[:, -1], axis=-1).astype(np.int32)[:, None]
@@ -123,7 +123,8 @@ def test_decode_steps_with_a_device_cache_len_match_the_jitted_jax_step(name):
         assert out is cache
         assert int(cache_len) == S + step   # the step does not advance it
         close(glog, wlog, ATOL_MODEL)
-        for key in ("k", "v"):
+        assert set(cache) == set(jcache)
+        for key in cache:
             close(cache[key], jcache[key], ATOL_MODEL)
         nxt = np.argmax(np_(wlog)[:, 0], axis=-1).astype(np.int32)[:, None]
         cache_len = cache_len + 1
@@ -134,25 +135,27 @@ def fake_trace(model, cfg, B=2, T=16, cache_len=9):
     fake mode (nothing runs; the weights are constants), after one real
     step on the same shapes: the graph module."""
     cache = ttr.init_cache(cfg, B, T, device=CPU)
+    keys = list(cache)
     tokens = torch.ones((B, 1), dtype=torch.int64)
     n = torch.tensor(cache_len)
 
-    def step(k, v, tokens, n):
-        return ttr.decode_step(model, cfg, {"k": k, "v": v}, tokens, n)[0]
+    def step(c1, c2, tokens, n):
+        return ttr.decode_step(model, cfg, dict(zip(keys, (c1, c2))), tokens,
+                               n)[0]
 
     with torch.no_grad():
-        step(cache["k"], cache["v"], tokens, n)     # the real step
+        step(*cache.values(), tokens, n)             # the real step
         mode = FakeTensorMode(allow_non_fake_inputs=True)
-        args = [mode.from_tensor(t) for t in (cache["k"], cache["v"], tokens,
-                                              n)]
+        args = [mode.from_tensor(t) for t in (*cache.values(), tokens, n)]
         return make_fx(step, tracing_mode="fake")(*args)
 
 
-@pytest.mark.parametrize("name", ["dense", "moe-gather", "sliding-window"])
+@pytest.mark.parametrize("name", ["dense", "moe-gather", "sliding-window",
+                                  "mla"])
 def test_decode_step_traces_in_fake_mode_without_a_host_read(name):
     """No data-dependent host read is left in the step: ``make_fx`` in fake
-    mode traces it whole, the cache written by ``index_copy_`` and no node
-    reads a value to the host."""
+    mode traces it whole, the cache (K/V, or MLA's latent rows) written by
+    ``index_copy_`` and no node reads a value to the host."""
     _, tc, _, model = case(name)
     gm = fake_trace(model, tc)
     targets = [str(n.target) for n in gm.graph.nodes
@@ -163,14 +166,19 @@ def test_decode_step_traces_in_fake_mode_without_a_host_read(name):
 
 
 def test_the_sort_dispatch_fails_the_fake_trace_at_its_host_read():
-    """The same trace of a sort config stops at ``_moe_sort``'s read of the
-    group sizes: why the engine runs that config's decode eagerly."""
+    """The same trace of a sort config no longer stops at a host read in
+    ``_moe_sort``: its group offsets stay on the device, each expert
+    product is one grouped-product op (its fake kernel in fake mode; three
+    a layer), and no node reads a value to the host.  So the engine graphs
+    a sort config's decode."""
     _, tc, _, model = case("moe-sort")
-    with pytest.raises(DataDependentOutputException,
-                       match="_local_scalar_dense") as err:
-        fake_trace(model, tc)
-    assert any(f.name == "_moe_sort" for f in
-               traceback.extract_tb(err.value.__traceback__))
+    gm = fake_trace(model, tc)
+    targets = [str(n.target) for n in gm.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count("repro_torch.grouped_mm.default") == 3 * tc.n_layers
+    assert targets.count("aten.index_copy_.default") == 2 * tc.n_layers
+    assert not [t for t in targets if t in ("aten._local_scalar_dense.default",
+                                            "aten.item.default")]
 
 
 def test_the_engine_serves_two_batches_in_turn_as_fresh_engines_do():
@@ -208,18 +216,14 @@ def test_the_engine_serves_two_batches_in_turn_as_fresh_engines_do():
 
 
 def test_decode_program_mode_names_why_a_step_runs_eagerly():
-    """``"graph"`` for a dense or MoE gather config on the card;
-    ``"eager: ..."`` on the CPU, under ``_eager_chunks`` and for the MoE
-    sort dispatch, whose reason names it."""
+    """``"graph"`` for a dense, MoE gather, MoE sort or MLA config on the
+    card; ``"eager: ..."`` on the CPU and under ``_eager_chunks``."""
     cuda = torch.device("cuda")
-    dense, gather, sort = (tsmoke(a).replace(**kw) for a, kw in (
-        CASES["dense"], CASES["moe-gather"], CASES["moe-sort"]))
-    assert decode_program_mode(dense, cuda) == "graph"
-    assert decode_program_mode(gather, cuda) == "graph"
-    mode = decode_program_mode(sort, cuda)
-    assert mode.startswith("eager: ") and "sort" in mode \
-        and "_moe_sort" in mode
-    for cfg in (dense, gather, sort):
+    dense, gather, sort, mla = (tsmoke(a).replace(**kw) for a, kw in (
+        CASES["dense"], CASES["moe-gather"], CASES["moe-sort"],
+        CASES["mla"]))
+    for cfg in (dense, gather, sort, mla):
+        assert decode_program_mode(cfg, cuda) == "graph"
         assert decode_program_mode(cfg, CPU).startswith("eager: ")
     with _eager_chunks():
         assert decode_program_mode(dense, cuda).startswith("eager: ")
@@ -227,8 +231,9 @@ def test_decode_program_mode_names_why_a_step_runs_eagerly():
 
 
 def test_a_sort_engine_reports_eager_and_gives_the_jax_engines_tokens():
-    """The MoE sort config on the engine: ``decode_program`` says eager,
-    and the greedy tokens are the JAX engine's."""
+    """The MoE sort config on the engine: the greedy tokens are the JAX
+    engine's; ``decode_program`` says eager on the CPU only (on the card
+    the step is graphed, as every config's)."""
     jc, tc, jparams, model = case("moe-sort", seed=3)
     jeng = JServingEngine(jc, JServeConfig(max_batch=2, max_len=20),
                           params=jparams)
@@ -238,7 +243,8 @@ def test_a_sort_engine_reports_eager_and_gives_the_jax_engines_tokens():
         jeng.submit(JRequest(prompt=p, max_new_tokens=5))
         teng.submit(Request(prompt=p, max_new_tokens=5))
     assert [r.output for r in teng.run()] == [r.output for r in jeng.run()]
-    assert teng.stats["decode_program"].startswith("eager: ")
+    assert teng.stats["decode_program"] == decode_program_mode(tc, CPU)
+    assert decode_program_mode(tc, torch.device("cuda")) == "graph"
     assert teng.stats["decode_graphs"] == 0
     assert teng.stats["capture_s"] == 0.0
     assert len(teng.stats["decode_s"]) == 4

@@ -1,13 +1,14 @@
 """Phases 2d (its cases at qwen3-8b's and llama4-scout's prefill shapes),
-4 (qwen3-8b served at full width) and 4b (llama4-scout served at full
-width, depth 12) of chip_smoke.py alone, after the kernels' build; then the
-card tests that a pytest -k expression selects, if one is given.
+4 (qwen3-8b served at full width), 4b (llama4-scout served at full width,
+depth 12) and 4c (deepseek-v3 served at full width, depth 2, with the
+grouped kernel's checks) of chip_smoke.py alone, after the kernels' build;
+then the card tests that a pytest -k expression selects, if one is given.
 
-    python3 tools/serving.py [4] [4b] [-k EXPR]
+    python3 tools/serving.py [4] [4b] [4c] [-k EXPR]
 
-With no phase named, both run (4b after 4, its model freed).  Run on the
-card from the root of a checkout (about two minutes of command, plus the
-tests)."""
+With no phase named, all three run, in that order, each model freed before
+the next; 2d runs when 4 or 4b does.  Run on the card from the root of a
+checkout (about three minutes of command, plus the tests)."""
 import os
 import subprocess
 import sys
@@ -28,7 +29,7 @@ def main(argv) -> int:
     if "-k" in argv:
         i = argv.index("-k")
         expr, argv = argv[i + 1], argv[:i] + argv[i + 2:]
-    phases = argv or ["4", "4b"]
+    phases = argv or ["4", "4b", "4c"]
     cs.log(cs.card())
     t0 = time.perf_counter()
     _build.build(_build.library_path())
@@ -37,9 +38,10 @@ def main(argv) -> int:
     cs.FLASH_CASES = ((cs.FLASH_SHAPE, True, "bfloat16"),
                       (cs.FLASH_SHAPE, True, "float32"),
                       (cs.FLASH_SHAPE_MOE, True, "bfloat16"))
-    t = time.perf_counter()
-    flash = cs.check_flash_kernel(torch, ops, ref)
-    cs.log(f"2d {time.perf_counter() - t:.1f} s")
+    if "4" in phases or "4b" in phases:
+        t = time.perf_counter()
+        flash = cs.check_flash_kernel(torch, ops, ref)
+        cs.log(f"2d {time.perf_counter() - t:.1f} s")
     if "4" in phases:
         t = time.perf_counter()
         cs.run_serving_path(torch, ops,
@@ -51,6 +53,10 @@ def main(argv) -> int:
         cs.run_moe_serving_path(
             torch, ops, flash[(cs.FLASH_SHAPE_MOE, True, "bfloat16")]["ms"])
         cs.log(f"4b {time.perf_counter() - t:.1f} s")
+    if "4c" in phases:
+        t = time.perf_counter()
+        cs.run_mla_serving_path(torch, ops)
+        cs.log(f"4c {time.perf_counter() - t:.1f} s")
     if expr is None:
         return 0
     return subprocess.call([sys.executable, "-m", "pytest", "-q", "-m", "gpu",
