@@ -159,11 +159,14 @@ package is missing.  Phases, any failure of which fails the run:
    rope / v 128 / 64 / 128, 256 experts top-8 and a shared one, d_ff
    2,048, vocab 129,280, the dropless sort dispatch), depth cut 61 -> 2 and
    the MTP block off (24.9 G parameters, 49.7 GB of seeded bf16), with
-   ``grouped_mm`` (``csrc/grouped_mm.cu``) against its plain version at the
-   prefill's (32,768 rows) and a decode step's (32 rows) shapes with layer
-   0's ``wi`` and ``wo``, each routing with an empty group and one of one
-   row (bf16 bar, bitwise repeats; device time, plain, bound and
-   ``torch._grouped_mm``'s); phase 4's prompts warmed and served eager and
+   ``grouped_mm`` against its plain version at the prefill's (32,768 rows)
+   and a decode step's (32 rows) shapes with layer 0's ``wi`` and ``wo``,
+   each routing with an empty group and one of one row (bf16 bar, bitwise
+   repeats, the route ``grouped_mm.route`` names taken; device time, plain,
+   bound and ``torch._grouped_mm``'s; each tile of the bf16 route
+   (``csrc/grouped_mm_sm90.cu``), 128 x 256 and 192 x 192, launched by
+   name, held to the same bars and timed in turns); phase 4's
+   prompts warmed and served eager and
    graphed as in 4 (the same bars): 6 grouped launches a prefill and 6 a
    decode step, eager or replayed, and no other kernel; layer 0's MoE on
    the prefill's input, the sort dispatch with the kernel against the
@@ -173,6 +176,16 @@ package is missing.  Phases, any failure of which fails the run:
    peak memory, the prefill's ms and TFLOP (the head's apart), the decode
    step's wall eager and graphed, device time, busy share and tokens/s
    beside the weight-read bound of the experts that step hit;
+4d. an fp32 sort config (run after 4c; ROADMAP C26): deepseek-v3 at full
+   width in fp32 (TF32 off), depth cut 61 -> 1 and the MTP block off (53.4
+   GB of seeded weights), with the sort dispatch served eager and graphed
+   on 4 seeded prompts of 64 tokens (3 grouped launches a layer a
+   prefill and a step, all on the "simt" route, the graphed tokens the
+   eager ones), the prefill's last logits within 1e-4 of the same model's
+   with the plain grouped product patched in (whose tokens agree too), a
+   replay free of host syncs; then the f32 and f64 routes at deepseek's
+   full-width ``wi`` at 32,768 and 32 rows against their plain version
+   (1e-5, 1e-12), timed beside their bound;
 5. the solve service (run before 4): ``repro_torch.service.SolveEngine``
    with ``ServiceConfig(max_batch=8, chunk=32, substrate="cuda", tol=1e-8,
    maxiter=2000)`` on 3a's system; a burst of 32 right-hand sides from
@@ -292,7 +305,9 @@ package is missing.  Phases, any failure of which fails the run:
    ``launches_nk``, ``launches_nk_torch`` and ``nk_fp32``, 6b's and 6c's;
    the flash row with ``launches_moe``, 4b's, and ``moe_shape``, 2d's
    times at llama4's shape; the grouped row, 4c's, at a decode step's
-   shape with ``prefill`` at the prefill's),
+   shape with ``prefill`` at the prefill's, each with ``kernel_route``
+   (the route taken), ``tile`` and ``tile_ms`` (each bf16 tile's time), and
+   ``fp32_fp64``, 4d's f32 and f64 routes, and ``launches_fp32_sort``),
    then the last line ``{"ok": true, "device": {...}}``.
 
 Every solve of phases 3b-3f runs through a session's programs: each
@@ -332,9 +347,10 @@ SRC = os.path.join(ROOT, "src")
 
 NX = 108                    # 108**3 = 1,259,712 rows, about atmosmodd's 1.27 M
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-# peak rate outside the tensor cores (H100 SXM data sheet): the kernels do
-# plain fp64 / fp32 FMAs
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12,
+# peak rates (H100 SXM data sheet).  fp64: the tensor cores' DMMA rate, the
+# most the card does in fp64 (the block-Jacobi kernel's products run
+# there; the CUDA cores' is 34); fp32: the CUDA cores' rate
+PEAK_FLOPS = {"float64": 67e12, "float32": 67e12,
               # bf16 inputs: the tensor cores' dense rate (the bf16 flash
               # kernel's products run there, through mma.sync)
               "bfloat16": 989e12,
@@ -471,10 +487,27 @@ MLA_FP32_SHAPE = (2, 1024)          # (B, S) of that check
 # the grouped kernel against its plain version (bf16 operands, f32 sums,
 # both rounded to bf16 from other orders): tests/test_kernels.py's bf16 bar
 GROUPED_TOL = MOE_BF16_TOL
+# f32 and f64 (the "simt" route, sums in the operands' type against the
+# plain version's, another order): tests/test_torch_cuda.py's bars
+GROUPED_TOL_OF = {"bfloat16": GROUPED_TOL, "float32": 1e-5,
+                  "float64": 1e-12}
+# phase 4d (ROADMAP C26): deepseek-v3 at full width in fp32, this many
+# layers, with the sort dispatch, its grouped products on the "simt" route
+# at the shapes an fp32 config sends, held to the same model with the plain
+# grouped product (the same sums in another order, over the logits'
+# max-abs); its prompts' length; then the f32 and f64 routes at
+# deepseek's `wi` shapes, these rows
+FP32_SORT_LAYERS = 1
+FP32_SORT_TOL = 1e-4
+FP32_SORT_PROMPT = 64
+FP32_GROUPED_ROWS = (32768, 32)
+FP32_GROUPED_SHAPE = (256, 7168, 2048)      # (E, K, N) of deepseek's wi
 # the gather dispatch with capacity E against sort on this many of the
 # prefill's tokens: at 4,096 tokens its (G, E, C, d) input would be 120 GB
 MLA_GATHER_TOKENS = 64
-GROUPED_SOURCE = "src/repro_torch/csrc/grouped_mm.cu"
+GROUPED_SOURCE = "src/repro_torch/csrc/grouped_mm_sm90.cu"
+GROUPED_SOURCES = {"wgmma": GROUPED_SOURCE,
+                   "simt": "src/repro_torch/csrc/grouped_mm.cu"}
 GROUPED_STANDS_IN = ("src/repro/models/moe.py:172 (jax.lax.ragged_dot; no "
                      "Pallas kernel)")
 M = 8                       # columns of the batched path (ServiceConfig.max_batch)
@@ -3655,31 +3688,73 @@ def grouped_sizes(torch, R: int, E: int, seed: int):
 
 def check_grouped_kernel(torch, ops, w, R: int, label: str, seed: int
                          ) -> dict:
-    """``ops.grouped_mm`` on R seeded bf16 rows against the grouped
-    kernel's plain version with the experts' weights ``w`` (E, K, N), on a
-    routing with an empty group and a group of one row
-    (:func:`grouped_sizes`); its device time beside the plain version's
-    (events around its calls, its host read included), one
-    ``torch._grouped_mm`` call's where the card's torch has it, and the
-    bound: the rows, the weights of the experts hit and the output, once
-    each, over 3.35 TB/s, against the products over 989 TFLOP/s."""
+    """``ops.grouped_mm`` on R seeded rows (in w's dtype) against the
+    grouped kernel's plain version with the experts' weights ``w`` (E, K,
+    N), on a routing with an empty group and a group of one row
+    (:func:`grouped_sizes`): the route ``grouped_mm.route`` names, the one
+    the call took (the route counters), its device time beside the plain
+    version's (events around its calls, its host read included), one
+    ``torch._grouped_mm`` call's where the card's torch takes the dtype,
+    and the bound: the rows, the weights of the experts hit and the output,
+    once each, over 3.35 TB/s, against the products over the dtype's peak
+    (f32: three TF32 products at the tensor cores' TF32 rate, the least
+    that keeps f32's digits, as the fp32 flash kernel's; the CUDA cores'
+    bound beside it).  In bf16 each tile of the route
+    (``grouped_mm.WGMMA_TILES``) is also launched by name, held to the same
+    bar and bitwise repeat, and timed in turns."""
     from repro_torch.kernels import grouped_mm
     E, K, N = w.shape
+    dtype = str(w.dtype).replace("torch.", "")
+    tol = GROUPED_TOL_OF[dtype]
     sizes = grouped_sizes(torch, R, E, seed)
     offsets = torch.cat([torch.zeros(1, dtype=torch.int64),
                          torch.cumsum(sizes, 0)]).to(w.device)
     g = torch.Generator(device=w.device).manual_seed(seed)
-    x = torch.randn(R, K, generator=g, device=w.device).bfloat16()
+    x = torch.randn(R, K, generator=g, device=w.device, dtype=w.dtype)
+    route = grouped_mm.route(w.dtype)
+    grouped_mm.reset_route_launches()
     got = ops.grouped_mm(x, w, offsets)
+    taken = [r for r, n in grouped_mm.ROUTE_LAUNCHES.items() if n]
     again = ops.grouped_mm(x, w, offsets)
     want = grouped_mm.plain(x, w, offsets)
-    diff = (got.float() - want.float()).abs().max()
-    err = float(diff / want.float().abs().max())
+
+    def rel(y):
+        return float((y.double() - want.double()).abs().max()
+                     / want.double().abs().max())
+
+    err = rel(got)
+    diff = (got.double() - want.double()).abs().max()
     hit = int((sizes > 0).sum())
-    nbytes = R * K * 2 + hit * K * N * 2 + R * N * 2 + 8 * (E + 1)
-    bound = bound_ms(nbytes, 2.0 * R * K * N, "bfloat16")
+    item = w.element_size()
+    nbytes = (R * K + hit * K * N + R * N) * item + 8 * (E + 1)
+    flop = 2.0 * R * K * N
+    bound = (bound_ms(nbytes, 3 * flop, "tf32") if dtype == "float32"
+             else bound_ms(nbytes, flop, dtype))
     ms = device_ms(torch, lambda: ops.grouped_mm(x, w, offsets), reps=10,
                    trials=3)
+    tiles = {}
+    if w.dtype == torch.bfloat16:
+        names = list(grouped_mm.WGMMA_TILES)
+        for name in names:
+            y1 = grouped_mm.grouped_mm_cuda(x, w, offsets, tile=name)
+            y2 = grouped_mm.grouped_mm_cuda(x, w, offsets, tile=name)
+            tiles[name] = dict(err=rel(y1), repeats_bitwise=bool(
+                torch.equal(y1, y2)), ms=[])
+            del y1, y2
+        for name in names + names[::-1]:                        # a b b a
+            tiles[name]["ms"].append(device_ms(
+                torch, lambda: grouped_mm.grouped_mm_cuda(
+                    x, w, offsets, tile=name), reps=10, trials=3))
+        for name, r in tiles.items():
+            r["ms"] = statistics.median(r["ms"])
+            # the host's time to check and enqueue one call (its launch
+            # arguments and two tensor maps), no sync
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                grouped_mm.grouped_mm_cuda(x, w, offsets, tile=name)
+            r["host_us"] = (time.perf_counter() - t0) / 20 * 1e6
+            torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     grouped_mm.plain(x, w, offsets)
@@ -3693,37 +3768,50 @@ def check_grouped_kernel(torch, ops, w, R: int, label: str, seed: int
     ends = offsets[1:].to(torch.int32)
     try:
         lib = torch._grouped_mm(x, w, offs=ends)
-        library_err = float((lib.float() - want.float()).abs().max()
-                            / want.float().abs().max())
+        library_err = rel(lib)
+        del lib
         library_ms = device_ms(torch, lambda: torch._grouped_mm(
             x, w, offs=ends), reps=10, trials=3)
     except (AttributeError, RuntimeError, TypeError, ValueError) as exc:
         library_note = f"torch._grouped_mm: {str(exc).splitlines()[0]}"
-    rec = dict(shape=dict(R=R, K=K, N=N, E=E), experts_hit=hit,
-               empty_groups=int((sizes == 0).sum()),
-               one_row_groups=int((sizes == 1).sum()), err=err,
-               max_abs_err=float(diff), tol=GROUPED_TOL,
+    rec = dict(shape=dict(R=R, K=K, N=N, E=E), dtype=dtype,
+               experts_hit=hit, empty_groups=int((sizes == 0).sum()),
+               one_row_groups=int((sizes == 1).sum()), route=route,
+               route_taken=taken, err=err, max_abs_err=float(diff), tol=tol,
                repeats_bitwise=bool(torch.equal(got, again)), ms=ms,
-               plain_ms=plain_ms, library_ms=library_ms,
+               tile=(grouped_mm.wgmma_tile(R, E) if route == "wgmma"
+                     else None),
+               tiles=tiles, plain_ms=plain_ms, library_ms=library_ms,
                library_note=library_note, library_rel_err=library_err,
-               bound_ms=bound[0], bound_by=bound[1], bytes=nbytes,
-               flop=2.0 * R * K * N)
-    log(f"grouped_mm {label} (R {R:,}, K {K:,}, N {N:,}, {hit} of {E} "
-        f"experts hit, {rec['empty_groups']} empty, "
-        f"{rec['one_row_groups']} of one row): max_rel_err {err:.3e} (tol "
-        f"{GROUPED_TOL}), repeat bitwise {rec['repeats_bitwise']}; "
-        f"{ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
-        f"({nbytes / 1e9:.3f} GB, {rec['flop'] / 1e12:.3f} TFLOP), plain "
+               bound_ms=bound[0], bound_by=bound[1], bytes=nbytes, flop=flop)
+    if dtype == "float32":
+        rec["cuda_core_bound_ms"] = bound_ms(nbytes, flop, dtype)[0]
+    tile_text = ", ".join(f"{k} {v['ms']:.4f} ms (err {v['err']:.2e}, "
+                          f"host {v['host_us']:.1f} us a call)"
+                          for k, v in tiles.items())
+    cores = (f"; CUDA cores {rec['cuda_core_bound_ms']:.4f} ms"
+             if "cuda_core_bound_ms" in rec else "")
+    log(f"grouped_mm {label} ({dtype}, R {R:,}, K {K:,}, N {N:,}, {hit} of "
+        f"{E} experts hit, {rec['empty_groups']} empty, "
+        f"{rec['one_row_groups']} of one row): route {route} (taken "
+        f"{taken}), max_rel_err {err:.3e} (tol {tol}), repeat bitwise "
+        f"{rec['repeats_bitwise']}; {ms:.4f} ms, bound {bound[0]:.4f} ms by "
+        f"{bound[1]} ({nbytes / 1e9:.3f} GB, {rec['flop'] / 1e12:.3f} "
+        f"TFLOP{cores}), tiles {tile_text or 'not timed'}, plain "
         f"{plain_ms:.4f}, library "
         f"{'%.4f' % library_ms if library_ms is not None else library_note}"
         f" [{card()}]")
     del x, got, again, want
     torch.cuda.empty_cache()
-    if not (err <= GROUPED_TOL and rec["repeats_bitwise"]
-            and rec["empty_groups"] and rec["one_row_groups"]):
-        raise SystemExit(f"grouped_mm {label}: error {err} above "
-                         f"{GROUPED_TOL}, a repeat differs, or the routing "
-                         f"lacks an empty group or one of one row: {rec}")
+    bad_tiles = {k: v for k, v in tiles.items()
+                 if not (v["err"] <= tol and v["repeats_bitwise"])}
+    if not (err <= tol and rec["repeats_bitwise"] and rec["empty_groups"]
+            and rec["one_row_groups"] and taken == [route]
+            and not bad_tiles):
+        raise SystemExit(f"grouped_mm {label}: error {err} above {tol}, a "
+                         f"repeat differs, the routing lacks an empty group "
+                         f"or one of one row, the route taken {taken} is not "
+                         f"{route!r}, or a tile fails {bad_tiles}: {rec}")
     return rec
 
 
@@ -4043,6 +4131,124 @@ def run_mla_serving_path(torch, ops) -> dict:
         f"tokens {layer_ms:.3f} ms; host syncs at decode size: sort layer "
         f"{sort_sync or 'none'}, the whole step {step_sync or 'none'} "
         f"[{card()}]")
+    return rec
+
+
+def run_fp32_sort_path(torch, ops, device="cuda") -> dict:
+    """Phase 4d (ROADMAP C26): deepseek-v3 at full width in fp32 (TF32
+    off), depth FP32_SORT_LAYERS and the MTP block off, with the sort
+    dispatch through ``ServingEngine``, so that its grouped products run at
+    the shapes an fp32 config sends: SERVE_REQUESTS
+    seeded prompts of FP32_SORT_PROMPT tokens warmed, then served eager and
+    graphed (:func:`serve_eager_and_graphed`, the launch counters set to 0
+    just before each run and read just after: 3 grouped launches a layer a
+    prefill and a step, all on the "simt" route); the prefill's last logits
+    within ``FP32_SORT_TOL`` of the same model's with the plain grouped
+    product patched in, whose eager decode gives the same tokens; a replay
+    free of host syncs.  Then (not counted) the f32 and f64 routes at
+    deepseek's full-width ``wi`` (K 7,168, N 2,048, 256 experts) and
+    FP32_GROUPED_ROWS rows against their plain version, timed beside their
+    bound (:func:`check_grouped_kernel`)."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.program import _eager_chunks
+    from repro_torch.kernels import grouped_mm
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_config(MLA_ARCH).replace(
+            n_layers=FP32_SORT_LAYERS, use_mtp=False, dtype=torch.float32,
+            param_dtype=torch.float32, moe_impl="sort")
+        model = init_params(cfg, torch.Generator(device=device).manual_seed(7))
+        weight_gb = sum(p.numel() * p.element_size()
+                        for p in model.parameters()) / 1e9
+        gen = torch.Generator().manual_seed(8)
+        prompts = [torch.randint(1, cfg.vocab_size, (FP32_SORT_PROMPT,),
+                                 generator=gen).tolist()
+                   for _ in range(SERVE_REQUESTS)]
+        tokens = torch.tensor(prompts, device=device)
+        scfg = ServeConfig(max_batch=SERVE_REQUESTS,
+                           max_len=FP32_SORT_PROMPT + 2 * SERVE_NEW)
+        eng = ServingEngine(cfg, scfg, params=model, device=device)
+        warm_engine(torch, eng, prompts)
+        grouped_mm.reset_route_launches()
+        runs = serve_eager_and_graphed(torch, ops, eng, prompts,
+                                       "fp32 sort")
+        routes = dict(grouped_mm.ROUTE_LAUNCHES)
+        steps = SERVE_NEW - 1
+        per = 3 * cfg.n_layers
+        for mode, r in runs.items():
+            want = dict(dict.fromkeys(ops.LAUNCHES, 0),
+                        grouped_mm=per * (r["prefill_batches"] + steps))
+            if r["launches"] != want or r["prefill_batches"] != 1:
+                raise SystemExit(f"fp32 sort ({mode} decode): launches "
+                                 f"{r['launches']}, want {want}")
+        with torch.inference_mode():
+            logits = eng.prefill(tokens)[0][:, -1].double()
+        prog = eng.programs[SERVE_REQUESTS]
+        with torch.inference_mode():
+            replay_sync = sync_error(torch, prog.step)
+        plain_eng = ServingEngine(cfg, scfg, params=model, device=device)
+        with _eager_chunks(), mock.patch.object(ops, "grouped_mm",
+                                                grouped_mm.plain):
+            with torch.inference_mode():
+                plain_logits = plain_eng.prefill(tokens)[0][:, -1].double()
+            for p in prompts:
+                plain_eng.submit(Request(prompt=p, max_new_tokens=SERVE_NEW))
+            plain_out = [r.output for r in plain_eng.run()]
+        err = float((logits - plain_logits).abs().max()
+                    / plain_logits.abs().max())
+        del eng, plain_eng, model, prog, logits, plain_logits, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the f32 and f64 routes at deepseek's full-width wi
+        kernels = {}
+        with torch.inference_mode():
+            for dtype in (torch.float32, torch.float64):
+                E, K, N = FP32_GROUPED_SHAPE
+                w = torch.randn(E, K, N, device=device, dtype=dtype,
+                                generator=torch.Generator(device=device)
+                                .manual_seed(21)).div_(K ** 0.5)
+                for R in FP32_GROUPED_ROWS:
+                    name = str(dtype).replace("torch.", "")
+                    kernels[f"{name}_{R}"] = check_grouped_kernel(
+                        torch, ops, w, R, f"4d {name} wi", seed=22)
+                del w
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    outputs = runs["graph"]["outputs"]
+    rec = dict(arch=MLA_ARCH, config="full width", dtype="float32",
+               weight_gb=weight_gb, n_layers=cfg.n_layers,
+               experts=cfg.moe_experts,
+               top_k=cfg.moe_top_k, requests=SERVE_REQUESTS,
+               prompt_len=FP32_SORT_PROMPT, new_tokens=SERVE_NEW,
+               launches=runs["graph"]["launches"],
+               eager_launches=runs["eager"]["launches"],
+               route=grouped_mm.route(torch.float32),
+               route_launches=routes, prefill_logits_err=err,
+               tol=FP32_SORT_TOL, replay_sync=replay_sync,
+               tokens_equal_plain=outputs == plain_out,
+               decode_step_ms=runs["graph"]["decode_step_ms"],
+               eager_decode_step_ms=runs["eager"]["decode_step_ms"],
+               kernels=kernels)
+    log(f"4d fp32 sort ({MLA_ARCH} full width, {cfg.n_layers} layer, "
+        f"{weight_gb:.2f} GB, {cfg.moe_experts} experts "
+        f"top-{cfg.moe_top_k}): prefill logits "
+        f"{err:.3e} off the plain grouped product's (tol {FP32_SORT_TOL}); "
+        f"graphed = eager = plain tokens {rec['tokens_equal_plain']}; "
+        f"launches {runs['graph']['launches']['grouped_mm']} graphed, "
+        f"{runs['eager']['launches']['grouped_mm']} eager ({per} a prefill "
+        f"and a step), routes {routes}; decode {rec['decode_step_ms']:.3f} "
+        f"ms graphed, {rec['eager_decode_step_ms']:.3f} eager; replay sync "
+        f"{replay_sync or 'none'} [{card()}]")
+    if not (err <= FP32_SORT_TOL and rec["tokens_equal_plain"]
+            and replay_sync is None and rec["route"] == "simt"
+            and routes["simt"] > 0 and routes["wgmma"] == 0):
+        raise SystemExit(f"4d fp32 sort: {rec}")
     return rec
 
 
@@ -4595,6 +4801,9 @@ def main() -> int:
     # -- 4c. MLA and the grouped kernel: deepseek-v3 at full width ----------
     mla = run_mla_serving_path(torch, ops)
 
+    # -- 4d. an fp32 sort config (C26) and the f32 / f64 grouped routes -----
+    fp32_sort = run_fp32_sort_path(torch, ops)
+
     # -- 6. training and the Newton-Krylov step -------------------------------
     training = run_training_path(torch, ops, args.seed)
     log_memory(torch, "6a")
@@ -4708,28 +4917,48 @@ def main() -> int:
                      if r is not main_flash and r is not f32
                      and r is not moe_flash]))
     gdec, gpre = mla["grouped"]["decode_wi"], mla["grouped"]["prefill_wi"]
+
+    def tile_ms(r):
+        return {k: v["ms"] for k, v in r["tiles"].items()}
+
     kernels.append(dict(
         name="grouped_mm", route="cuda", source=GROUPED_SOURCE,
-        replaces=GROUPED_STANDS_IN, launches=mla["launches"]["grouped_mm"],
+        sources=GROUPED_SOURCES, replaces=GROUPED_STANDS_IN,
+        launches=mla["launches"]["grouped_mm"],
         launches_eager=mla["eager_launches"]["grouped_mm"],
+        launches_fp32_sort=fp32_sort["launches"]["grouped_mm"],
         max_abs_err=gdec["max_abs_err"], ms=gdec["ms"],
         plain_ms=gdec["plain_ms"], bound_ms=gdec["bound_ms"],
         bound_by=gdec["bound_by"], library_ms=gdec["library_ms"],
         passed=True, dtype="bfloat16", shape=gdec["shape"],
+        kernel_route=gdec["route"], tile=gdec["tile"], tile_ms=tile_ms(gdec),
         max_rel_err=gdec["err"], tol=gdec["tol"],
         repeats_bitwise=gdec["repeats_bitwise"],
         library_call="torch._grouped_mm(x, w, offs=offsets[1:])",
         library_note=gdec["library_note"],
-        prefill=dict(shape=gpre["shape"], ms=gpre["ms"],
+        prefill=dict(shape=gpre["shape"], kernel_route=gpre["route"],
+                     ms=gpre["ms"], tile=gpre["tile"], tile_ms=tile_ms(gpre),
                      plain_ms=gpre["plain_ms"], bound_ms=gpre["bound_ms"],
                      bound_by=gpre["bound_by"],
                      library_ms=gpre["library_ms"],
                      max_abs_err=gpre["max_abs_err"],
                      max_rel_err=gpre["err"]),
-        other_cases=[dict(case=k, shape=r["shape"], ms=r["ms"],
-                          bound_ms=r["bound_ms"], max_rel_err=r["err"])
+        other_cases=[dict(case=k, shape=r["shape"], kernel_route=r["route"],
+                          ms=r["ms"], tile=r["tile"], tile_ms=tile_ms(r),
+                          bound_ms=r["bound_ms"], library_ms=r["library_ms"],
+                          max_rel_err=r["err"])
                      for k, r in mla["grouped"].items()
-                     if r is not gdec and r is not gpre]))
+                     if r is not gdec and r is not gpre],
+        fp32_fp64=[dict(case=k, dtype=r["dtype"], shape=r["shape"],
+                        kernel_route=r["route"], ms=r["ms"],
+                        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                        bound_by=r["bound_by"],
+                        cuda_core_bound_ms=r.get("cuda_core_bound_ms"),
+                        library_ms=r["library_ms"],
+                        library_note=r["library_note"],
+                        max_abs_err=r["max_abs_err"], max_rel_err=r["err"],
+                        tol=r["tol"])
+                   for k, r in fp32_sort["kernels"].items()]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -67,7 +67,8 @@
 //     B_g into the ring and the consumers read X_g's column tiles straight
 //     from device memory (through the L1 cache).
 //   * A wrong barrier parity would hang rather than fail: every wait gives
-//     up after 2^22 tries with a trap, which the next synchronize reports.
+//     up after 2 s with a trap, which the next synchronize reports
+//     (mbarrier.cuh).
 //   * What bounds it: the streaming itself.  tools/block_jacobi_probe.py
 //     times this pipeline with the arithmetic taken out (the copies and
 //     Y's stores only) beside the whole kernel.
@@ -90,6 +91,8 @@
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "mbarrier.cuh"
 
 namespace {
 
@@ -234,56 +237,8 @@ __host__ __device__ constexpr int chunk_pad() {
   return sizeof(T) == 8 ? 32 : 16;
 }
 constexpr int kMinBulkRows = 32;
-constexpr uint32_t kMaxSpins = 1u << 22;
 
 enum Route { kRows = 0, kBulk = 1, kBulkXDirect = 2 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n"
-      ".reg .b64 state;\n"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n"
-      "}\n" ::"r"(bar)
-      : "memory");
-}
-
-// arrive and raise the transaction count by `bytes`, which the copies that
-// complete on this barrier bring back to 0
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
-                                                      uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait for the completion of the barrier's phase of parity `parity`
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins == kMaxSpins) __trap();
-  }
-}
 
 // `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
 // aligned, completing on barrier `bar`

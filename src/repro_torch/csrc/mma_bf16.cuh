@@ -1,5 +1,5 @@
-// Warp-level helpers of the bf16 tensor-core kernels (flash_attention_mma.cu
-// and grouped_mm.cu): shared-memory addresses, 16-byte cp.async copies,
+// Warp-level helpers of the bf16 tensor-core flash kernel
+// (flash_attention_mma.cu): shared-memory addresses, 16-byte cp.async copies,
 // ldmatrix (plain and transposed) and the mma.sync m16n8k16 bf16 -> f32
 // product, with its fragment layouts.
 

@@ -75,10 +75,13 @@ _SIGNATURES = {
         _VP, ctypes.c_float, ctypes.c_int, _VP],
     # x, w, offsets, y, R, K, N, E, stream
     "repro_grouped_mm": [_VP] * 4 + [_I64] + [ctypes.c_int] * 3 + [_VP],
+    # x, w, offsets, y, R, K, N, E, tile, stream
+    "repro_grouped_wgmma": [_VP] * 4 + [_I64] + [ctypes.c_int] * 4 + [_VP],
 }
 #: the element types each stem is built for (``<stem>_<suffix>``)
 _SUFFIXES = {"repro_flash_attention": ("f32", "bf16"),
-             "repro_grouped_mm": ("bf16",)}
+             "repro_grouped_mm": ("f32", "f64"),
+             "repro_grouped_wgmma": ("bf16",)}
 _DEFAULT_SUFFIXES = ("f32", "f64")
 
 

@@ -9,33 +9,80 @@ in for ``jax.lax.ragged_dot`` in the JAX package's sort dispatch
 The port writes it by hand so that the offsets stay on the device: the
 kernel reads them itself, its grid depends on ``(R, E, N)`` alone, and a
 decode step that calls it captures as one CUDA graph whatever the routing
-(``src/repro_torch/csrc/grouped_mm.cu`` says what bounds it and how).
+(``src/repro_torch/csrc/grouped_mm_sm90.cu`` and ``grouped_mm.cu`` say
+what bounds each route and how).
 
-On the card it takes bfloat16 operands with K and N multiples of 8, int64
-offsets and up to about 4 M rows (``MAX_TILES``); :func:`plain` is its
-plain version, a loop over the groups that reads the offsets to the host,
-the CPU path and the card's oracle.
+On the card it has two routes, chosen by :func:`route` from the dtype
+alone (never from the offsets, so one CUDA graph serves every routing):
+
+* ``"wgmma"``: bf16, ``csrc/grouped_mm_sm90.cu``, ``wgmma`` fed by a TMA
+  ring, 128 x 256 tiles, or 192 x 192 once a group averages
+  ``WIDE_TILE_ROWS_PER_GROUP`` rows (:func:`wgmma_tile`, from R and E);
+  K and N multiples of 8 (16-byte rows);
+* ``"simt"``: float32 and float64, ``csrc/grouped_mm.cu``, FMA on the CUDA
+  cores with the sums in the operands' type (TF32 would miss the plain
+  version's f32 sums); any K and N.
+
+Every route holds at most ``MAX_TILES`` row tiles (about 4 M rows).
+:func:`plain` is the plain version, a loop over the groups that reads the
+offsets to the host, the CPU path and the card's oracle.
 Both require ``offsets[0] == 0``, ``offsets[E] == R`` and non-decreasing
-offsets; the kernel cannot check them without a host read and trusts
+offsets; the kernels cannot check them without a host read and trust
 them, the plain version checks.  Call it through
 :func:`repro_torch.kernels.ops.grouped_mm`, which checks the operands and
 dispatches by device.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _build
 
 NAME = "grouped_mm"
-#: the operands' dtypes on the card
-DTYPES = (torch.bfloat16,)
-#: K and N must be multiples of this on the card (16-byte copies)
+#: K and N must be multiples of this on the bf16 route (16-byte rows)
 ALIGN = 8
-#: rows of the kernel's tiles, and the most tiles its grid holds: at most
-#: ceil(R / TILE_ROWS) + min(E, R) tiles, one grid row each
-TILE_ROWS = 64
+ROUTES = ("wgmma", "simt")
+#: the wgmma route's tiles, rows x columns: the launcher's index
+WGMMA_TILES = {"128x256": 0, "192x192": 1}
+#: the wgmma route takes its 192 x 192 tile from this many rows a group,
+#: its 128 x 256 tile below (an A/B on an H100, csrc/grouped_mm_sm90.cu)
+WIDE_TILE_ROWS_PER_GROUP = 64
+#: the most row tiles a grid holds (its y extent): at most
+#: ceil(R / tile_rows(route(dtype), R, E)) + min(E, R)
 MAX_TILES = 65535
+#: launches of each route since the last :func:`reset_route_launches`
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+
+
+def route(dtype) -> str:
+    """The route of a grouped product in ``dtype`` on the card: ``"wgmma"``
+    for bf16, ``"simt"`` for f32 and f64; any other dtype raises.  The
+    dtype alone: never the offsets."""
+    if dtype in (torch.float32, torch.float64):
+        return "simt"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"grouped_mm: the kernels take bfloat16, float32 or "
+                        f"float64, got {dtype}")
+    return "wgmma"
+
+
+def wgmma_tile(R: int, E: int) -> str:
+    """The wgmma route's tile for R rows over E groups: 192 x 192 once the
+    groups average ``WIDE_TILE_ROWS_PER_GROUP`` rows (a tile then holds
+    most groups whole), else 128 x 256."""
+    return "192x192" if R >= WIDE_TILE_ROWS_PER_GROUP * E else "128x256"
+
+
+def tile_rows(name: str, R: int, E: int) -> int:
+    """Rows of the tiles route ``name`` takes for R rows over E groups."""
+    return int(wgmma_tile(R, E).split("x")[0]) if name == "wgmma" else 64
+
+
+def reset_route_launches() -> None:
+    for name in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[name] = 0
 
 
 def plain(x: torch.Tensor, w: torch.Tensor,
@@ -72,15 +119,25 @@ def weight_grad(x: torch.Tensor, dy: torch.Tensor, offsets: torch.Tensor,
     return dw.to(dtype)
 
 
-def grouped_mm_cuda(x: torch.Tensor, w: torch.Tensor,
-                    offsets: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on checked CUDA operands; returns a fresh ``(R,
-    N)`` tensor."""
+def grouped_mm_cuda(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
+                    tile: Optional[str] = None) -> torch.Tensor:
+    """Launch the dtype's route on checked CUDA operands (``tile`` None:
+    :func:`wgmma_tile`'s; the A/B of ``tools/grouped_ab.py`` names one);
+    returns a fresh ``(R, N)`` tensor."""
     R, K = x.shape
     E, _, N = w.shape
+    name = route(x.dtype)
     y = torch.empty((R, N), dtype=x.dtype, device=x.device)
     lib = _build.library()
-    _build.launch(NAME, lib.repro_grouped_mm_bf16, x.data_ptr(),
-                  w.data_ptr(), offsets.data_ptr(), y.data_ptr(), R, K, N, E,
-                  torch.cuda.current_stream(x.device).cuda_stream)
+    args = (x.data_ptr(), w.data_ptr(), offsets.data_ptr(), y.data_ptr(), R,
+            K, N, E)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if name == "wgmma":
+        _build.launch(NAME, lib.repro_grouped_wgmma_bf16, *args,
+                      WGMMA_TILES[tile or wgmma_tile(R, E)], stream)
+    else:
+        suffix = {torch.float32: "f32", torch.float64: "f64"}[x.dtype]
+        _build.launch(NAME, getattr(lib, f"repro_grouped_mm_{suffix}"),
+                      *args, stream)
+    ROUTE_LAUNCHES[name] += 1
     return y

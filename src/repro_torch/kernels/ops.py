@@ -391,8 +391,10 @@ def grouped_mm(x, w, offsets) -> torch.Tensor:
     ``offsets`` is an ``(E + 1,)`` int64 tensor rising from 0 to R on x's
     device; the wrapper never reads it, so a call makes no host read on the
     card.  On the card the operands are bfloat16 with K and N multiples of
-    8 (the hand-written kernel); on the CPU any float type (the plain
-    version, which checks the offsets)."""
+    8, float32 or float64 (the hand-written kernels, the route by
+    :func:`~repro_torch.kernels.grouped_mm.route`; any other dtype
+    raises); on the CPU any float type (the plain version, which checks
+    the offsets)."""
     for key, t in (("x", x), ("w", w), ("offsets", offsets)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"grouped_mm: {key} must be a tensor, got "
@@ -417,15 +419,15 @@ def grouped_mm(x, w, offsets) -> torch.Tensor:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"grouped_mm: unsupported device {x.device}")
     if x.is_cuda:
-        if x.dtype not in _grouped.DTYPES:
-            raise TypeError(f"grouped_mm: the kernel takes bfloat16, got "
-                            f"{x.dtype}")
-        if x.shape[1] % _grouped.ALIGN or w.shape[2] % _grouped.ALIGN:
+        R, K = x.shape
+        E, N = w.shape[0], w.shape[2]
+        route = _grouped.route(x.dtype)               # raises for float16
+        if route == "wgmma" and (K % _grouped.ALIGN or N % _grouped.ALIGN):
             raise ValueError(
-                f"grouped_mm: the kernel needs K and N multiples of "
-                f"{_grouped.ALIGN}, got K = {x.shape[1]}, N = {w.shape[2]}")
-        R, E = x.shape[0], w.shape[0]
-        if -(-R // _grouped.TILE_ROWS) + min(E, R) > _grouped.MAX_TILES:
+                f"grouped_mm: the bf16 kernel needs K and N multiples of "
+                f"{_grouped.ALIGN}, got K = {K}, N = {N}")
+        if -(-R // _grouped.tile_rows(route, R, E)) + min(E, R) > \
+                _grouped.MAX_TILES:
             raise ValueError(f"grouped_mm: {R} rows over {E} groups are more "
                              f"tiles than the kernel's grid holds "
                              f"({_grouped.MAX_TILES})")

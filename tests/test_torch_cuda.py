@@ -853,7 +853,7 @@ def _rel(got, want) -> float:
     ([0, 0, 200, 0], 64, 128),              # one group holds every row
     ([33], 32, 8),                          # E = 1, less than one tile
     ([1, 1, 2, 0, 1, 3, 0, 0] * 4, 256, 64),   # a decode step's 32 rows
-    ([300, 0, 1, 211], 128, 256),           # 128-row tiles (R >= 64 E)
+    ([300, 0, 1, 211], 128, 256),           # 192 x 192 tiles (R >= 64 E)
 ])
 def test_grouped_mm_kernel_matches_the_plain_version(cuda, sizes, K, N):
     """The kernel against its plain version (bf16 operands, f32 sums):
@@ -901,10 +901,159 @@ def test_one_grouped_graph_serves_two_routings(cuda):
 def test_grouped_mm_on_the_card_refuses_what_the_kernel_does_not_take(cuda):
     x, w, offsets = _grouped_operands([3, 5], 16, 16, cuda)
     with pytest.raises(TypeError, match="bfloat16"):
-        ops.grouped_mm(x.float(), w.float(), offsets)
+        ops.grouped_mm(x.half(), w.half(), offsets)
     with pytest.raises(ValueError, match="multiples of 8"):
         ops.grouped_mm(x[:, :12].contiguous(), w[:, :12].contiguous(),
                        offsets)
+
+
+#: the bf16 route's tile variants
+WGMMA_TILES = ["128x256", "192x192"]
+#: shapes that force every edge of the tiles: a group with more rows than
+#: one tile (300 > 192), R not a multiple of the tile with empty and
+#: one-row groups, K = 96 (not a multiple of the 64-deep stage), N = 136 (a
+#: ragged last column slab), one group holding every row, a decode step
+GROUPED_EDGES = {
+    "a group past one tile": ([300, 0, 1, 211], 128, 256),
+    "ragged rows, K and N": ([70, 0, 1, 129, 0, 63], 96, 136),
+    "one group holds every row": ([0, 0, 200, 0], 64, 128),
+    "one-row groups": ([1, 1, 2, 0, 1, 3, 0, 0] * 4, 256, 64),
+}
+
+
+@pytest.mark.parametrize("case", list(GROUPED_EDGES))
+@pytest.mark.parametrize("tile", WGMMA_TILES)
+def test_each_bf16_grouped_route_matches_the_plain_version(cuda, tile, case):
+    """The bf16 route with each tile named to ``grouped_mm_cuda`` against
+    the plain version: tests/test_kernels.py's bf16 bar of the max-abs,
+    bitwise on a repeat, one launch of the route a call."""
+    from repro_torch.kernels import grouped_mm
+    sizes, K, N = GROUPED_EDGES[case]
+    x, w, offsets = _grouped_operands(sizes, K, N, cuda, seed=3)
+    grouped_mm.reset_route_launches()
+    got = grouped_mm.grouped_mm_cuda(x, w, offsets, tile=tile)
+    again = grouped_mm.grouped_mm_cuda(x, w, offsets, tile=tile)
+    torch.cuda.synchronize()
+    assert grouped_mm.ROUTE_LAUNCHES["wgmma"] == 2
+    want = grouped_mm.plain(x, w, offsets)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _rel(got, want) <= 2e-2
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("tile", WGMMA_TILES)
+def test_one_grouped_graph_serves_two_routings_on_each_route(cuda, tile):
+    """test_one_grouped_graph_serves_two_routings with each tile of the
+    bf16 route named: one capture, two routings written into the offsets,
+    each replay the plain version's result for the routing it found (the
+    tensor maps travel with the graph's node)."""
+    from repro_torch.kernels import grouped_mm
+    x, w, offsets = _grouped_operands([57, 0, 70, 1, 9], 64, 72, cuda)
+    R = x.shape[0]
+    routings = [torch.tensor([0, 5, 5, R - 75, R - 74, R], device=cuda),
+                torch.tensor([0, 0, R - 1, R, R, R], device=cuda)]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                         # warm-up
+        grouped_mm.grouped_mm_cuda(x, w, offsets, tile=tile)
+    torch.cuda.current_stream().wait_stream(side)
+    grouped_mm.reset_route_launches()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = grouped_mm.grouped_mm_cuda(x, w, offsets, tile=tile)
+    assert grouped_mm.ROUTE_LAUNCHES["wgmma"] == 1
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for routing in routings:
+        offsets.copy_(routing)
+        x.copy_(torch.randn(x.shape, generator=g, device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _rel(y, grouped_mm.plain(x, w, offsets)) <= 2e-2
+
+
+def test_a_bf16_grouped_product_of_depth_0_is_zeros(cuda):
+    """K = 0 (an empty sum, which a tensor map cannot describe): the bf16
+    route writes zeros, as the plain version does."""
+    from repro_torch.kernels import grouped_mm
+    x = torch.empty(9, 0, device=cuda, dtype=torch.bfloat16)
+    w = torch.empty(3, 0, 16, device=cuda, dtype=torch.bfloat16)
+    offsets = torch.tensor([0, 4, 4, 9], device=cuda)
+    got = ops.grouped_mm(x, w, offsets)
+    torch.cuda.synchronize()
+    assert torch.equal(got, grouped_mm.plain(x, w, offsets))
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("K,N", [(96, 136), (37, 29)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_grouped_mm_f32_and_f64_match_the_plain_version(cuda, dtype, K, N):
+    """The "simt" route through ``ops.grouped_mm`` (K and N free: 37 and 29
+    are no multiples of 8), empty and one-row groups and a group past one
+    64-row tile, against the plain version: 1e-5 (f32) and 1e-12 (f64) of
+    the max-abs (the same sums in another order), bitwise on a repeat."""
+    from repro_torch.kernels import grouped_mm
+    g = torch.Generator(device=cuda).manual_seed(5)
+    sizes = [70, 0, 1, 129, 0, 63]
+    R, E = sum(sizes), len(sizes)
+    x = torch.randn(R, K, generator=g, device=cuda, dtype=dtype)
+    w = torch.randn(E, K, N, generator=g, device=cuda, dtype=dtype) / K ** .5
+    offsets = torch.tensor([0] + list(np.cumsum(sizes)), device=cuda)
+    grouped_mm.reset_route_launches()
+    got = ops.grouped_mm(x, w, offsets)
+    again = ops.grouped_mm(x, w, offsets)
+    torch.cuda.synchronize()
+    assert grouped_mm.ROUTE_LAUNCHES["simt"] == 2
+    want = grouped_mm.plain(x, w, offsets)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _rel(got.double(), want.double()) <= {torch.float32: 1e-5,
+                                                 torch.float64: 1e-12}[dtype]
+    assert torch.equal(got, again)
+
+
+def test_an_fp32_sort_config_serves_on_the_card_as_its_plain_path(cuda):
+    """C26: deepseek-v3's smoke config in fp32 with the sort dispatch on the
+    card: the prefill's last logits within 1e-4 of the same model's with the
+    plain grouped product patched in; the decode graphed (one CUDA graph,
+    the f32 route's launches in each replay) gives the eager engine's
+    tokens and the plain path's; a replay makes no host sync."""
+    from unittest import mock
+
+    from repro_torch.core.program import _eager_chunks
+    from repro_torch.kernels import grouped_mm
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = _serve_config("deepseek-v3-671b", torch.float32, moe_impl="sort")
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(4))
+    prompts = _prompts(cfg.vocab_size, 2, 10, 6)
+    tokens = torch.tensor(prompts, device=cuda)
+    outs, logits = {}, {}
+    for mode in ("eager", "graph", "plain"):
+        eng = ServingEngine(cfg, ServeConfig(max_batch=2, max_len=32),
+                            params=model, device=cuda)
+        with contextlib.ExitStack() as stack:
+            if mode != "graph":
+                stack.enter_context(_eager_chunks())
+            if mode == "plain":
+                stack.enter_context(mock.patch.object(ops, "grouped_mm",
+                                                      grouped_mm.plain))
+            with torch.inference_mode():
+                logits[mode] = eng.prefill(tokens)[0][:, -1].double()
+            outs[mode] = _serve(eng, prompts, new=4)
+        if mode == "graph":
+            assert eng.stats["decode_program"] == "graph"
+            assert eng.programs[2].launches == {"grouped_mm": 3 * cfg.n_layers}
+            prog = eng.programs[2]
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                prog.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+    assert _rel(logits["eager"], logits["plain"]) <= 1e-4
+    assert torch.equal(logits["eager"], logits["graph"])
+    assert outs["graph"] == outs["eager"] == outs["plain"]
 
 
 def test_mla_decode_on_the_card_matches_the_cpu(cuda):

@@ -6,9 +6,11 @@ The CUDA kernel has no counterpart in the JAX package (it stands in for
 ``ragged_dot``, which XLA lowers); here its plain version, the CPU path
 and the card's oracle, is held to ``ragged_dot`` over empty groups, one
 group holding every row and one group alone, in f32 (1e-5 of the result's
-max-abs: another summation order) and bf16 (2e-2, tests/test_kernels.py's
-bf16 bar: both round the f32 sums to bf16, from other orders); the op's
-fake kernel and its derivative too.  The kernel itself runs in
+max-abs: another summation order), f64 (1e-12, with JAX's x64 on inside
+the test alone) and bf16 (2e-2, tests/test_kernels.py's bf16 bar: both
+round the f32 sums to bf16, from other orders); the op's fake kernel, its
+derivative and the card's choice of route (from the dtype alone) and of
+the bf16 route's tile (from the shapes alone) too.  The kernel itself runs in
 tests/test_torch_cuda.py and chip_smoke.py, on the card.  Inputs come from
 numpy seeds.
 """
@@ -25,9 +27,13 @@ from torch.fx.experimental.proxy_tensor import make_fx  # noqa: E402
 from repro_torch.kernels import grouped_mm as kgrouped  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
-TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+from conftest import enable_x64  # noqa: E402
+
+TOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 2e-2}
+TORCH = {"float32": torch.float32, "float64": torch.float64,
+         "bfloat16": torch.bfloat16}
+JAX = {"float32": jnp.float32, "float64": jnp.float64,
+       "bfloat16": jnp.bfloat16}
 #: case -> the group sizes (R = their sum)
 SIZES = {
     "empty groups": [5, 0, 17, 0, 0, 1, 9, 0],
@@ -40,8 +46,10 @@ def operands(sizes, dtype, K=24, N=16, seed=0):
     """numpy x (R, K), w (E, K, N) rounded to ``dtype``, and the sizes."""
     rng = np.random.default_rng(seed)
     R, E = sum(sizes), len(sizes)
-    x = rng.standard_normal((R, K)).astype(np.float32)
-    w = (rng.standard_normal((E, K, N)) / np.sqrt(K)).astype(np.float32)
+    x = rng.standard_normal((R, K))
+    w = rng.standard_normal((E, K, N)) / np.sqrt(K)
+    if dtype != "float64":
+        x, w = x.astype(np.float32), w.astype(np.float32)
     if dtype == "bfloat16":
         x, w = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
                 for a in (x, w))
@@ -53,18 +61,21 @@ def offsets_of(sizes) -> torch.Tensor:
 
 
 def rel(got, want) -> float:
-    got = got.detach().float().numpy().astype(np.float64)
-    want = np.asarray(jnp.asarray(want, jnp.float32), np.float64)
+    got = got.detach().double().numpy()
+    want = np.asarray(want, np.float64) if want.dtype == jnp.float64 else \
+        np.asarray(jnp.asarray(want, jnp.float32), np.float64)
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
 @pytest.mark.parametrize("case", list(SIZES))
 def test_plain_version_matches_ragged_dot(case, dtype):
     x, w, sizes = operands(SIZES[case], dtype)
-    want = jax.lax.ragged_dot(jnp.asarray(x, JAX[dtype]),
-                              jnp.asarray(w, JAX[dtype]),
-                              jnp.asarray(sizes))
+    with enable_x64(dtype == "float64"):
+        want = np.asarray(jax.lax.ragged_dot(jnp.asarray(x, JAX[dtype]),
+                                             jnp.asarray(w, JAX[dtype]),
+                                             jnp.asarray(sizes)))
+        assert want.dtype == JAX[dtype]
     tx, tw = (torch.from_numpy(a).to(TORCH[dtype]) for a in (x, w))
     got = kgrouped.plain(tx, tw, offsets_of(sizes))
     assert got.dtype == TORCH[dtype] and tuple(got.shape) == want.shape
@@ -132,3 +143,74 @@ def test_the_wrapper_refuses_bad_operands(change, error, match):
     args.update(change)
     with pytest.raises(error, match=match):
         ops.grouped_mm(**args)
+
+
+#: (R, E, K, N) -> the wgmma route's tile: deepseek-v3's decode step (32
+#: rows of a 4-token step at top-8 over 256 experts) and prefill (4 x 1,024
+#: tokens), fewer rows than groups (at and below R = E / 32, once a bf16
+#: crossover, now the same route), and the tile crossover on either side
+ROUTE_CASES = {
+    "decode step": ((32, 256, 7168, 2048), "128x256"),
+    "prefill": ((32768, 256, 7168, 2048), "192x192"),
+    "prefill wo": ((32768, 256, 2048, 7168), "192x192"),
+    "at the crossover": ((8, 256, 64, 64), "128x256"),
+    "below the crossover": ((7, 256, 64, 64), "128x256"),
+    "at the wide tile": ((64 * 16, 16, 64, 64), "192x192"),
+    "below the wide tile": ((64 * 16 - 1, 16, 64, 64), "128x256"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_route_chooses_by_shape_and_dtype_alone(case):
+    """The card's route of a grouped product from the dtype (bf16 on the
+    tensor cores whatever the shape, f32 and f64 on the CUDA cores, float16
+    refused) and the wgmma route's tile from R and E alone."""
+    shape, tile = ROUTE_CASES[case]
+    assert kgrouped.route(torch.bfloat16) == "wgmma"
+    assert kgrouped.wgmma_tile(*shape[:2]) == tile
+    assert kgrouped.tile_rows("wgmma", *shape[:2]) == int(tile[:3])
+    for dtype in (torch.float32, torch.float64):
+        assert kgrouped.route(dtype) == "simt"
+        assert kgrouped.tile_rows("simt", *shape[:2]) == 64
+    with pytest.raises(TypeError, match="bfloat16, float32 or float64"):
+        kgrouped.route(torch.float16)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float64"])
+def test_the_card_path_traces_without_a_host_read(dtype):
+    """``make_fx`` in fake mode over ``ops.grouped_mm`` on fake CUDA
+    operands: the card's checks (the route, the alignment of the bf16
+    route, the tile count) read no value, and the call is one op node;
+    f32 and f64 take K and N that are not multiples of 8."""
+    K, N = (24, 16) if dtype == "bfloat16" else (21, 13)
+    x, w, sizes = operands(SIZES["empty groups"], "float32", K=K, N=N)
+    mode = FakeTensorMode()
+    with mode:
+        fake = [torch.empty(x.shape, dtype=TORCH[dtype], device="cuda"),
+                torch.empty(w.shape, dtype=TORCH[dtype], device="cuda"),
+                torch.empty(len(sizes) + 1, dtype=torch.int64,
+                            device="cuda")]
+    gm = make_fx(ops.grouped_mm, tracing_mode="fake")(*fake)
+    targets = [str(n.target) for n in gm.graph.nodes
+               if n.op == "call_function"]
+    assert targets == ["repro_torch.grouped_mm.default"]
+    with mode:
+        out = ops.grouped_mm(*fake)
+    assert tuple(out.shape) == (x.shape[0], N)
+    assert out.dtype == TORCH[dtype] and out.device.type == "cuda"
+
+
+@pytest.mark.parametrize("dtype,K,match", [
+    (torch.float16, 24, "bfloat16, float32 or float64"),
+    (torch.bfloat16, 12, "multiples of 8"),
+])
+def test_the_card_path_refuses_what_no_route_takes(dtype, K, match):
+    """On (fake) CUDA operands, float16 and a bf16 K that is not a
+    multiple of 8 raise before any launch; nothing falls back to the plain
+    version."""
+    with FakeTensorMode():
+        args = (torch.empty(7, K, dtype=dtype, device="cuda"),
+                torch.empty(2, K, 16, dtype=dtype, device="cuda"),
+                torch.empty(3, dtype=torch.int64, device="cuda"))
+        with pytest.raises((TypeError, ValueError), match=match):
+            ops.grouped_mm(*args)
