@@ -180,12 +180,15 @@ package is missing.  Phases, any failure of which fails the run:
    width in fp32 (TF32 off), depth cut 61 -> 1 and the MTP block off (53.4
    GB of seeded weights), with the sort dispatch served eager and graphed
    on 4 seeded prompts of 64 tokens (3 grouped launches a layer a
-   prefill and a step, all on the "simt" route, the graphed tokens the
+   prefill and a step, all on the "mma" route, the graphed tokens the
    eager ones), the prefill's last logits within 1e-4 of the same model's
    with the plain grouped product patched in (whose tokens agree too), a
-   replay free of host syncs; then the f32 and f64 routes at deepseek's
+   replay free of host syncs; then the f32 and f64 route at deepseek's
    full-width ``wi`` at 32,768 and 32 rows against their plain version
-   (1e-5, 1e-12), timed beside their bound;
+   (1e-5, 1e-12, bitwise repeats), timed beside their bound, the plain
+   loop and ``torch._grouped_mm`` (f32), each of its tiles
+   (``csrc/grouped_mm.cu``), 64 x 128 and 144 x 128, launched by name,
+   held to the same bars and timed in turns;
 5. the solve service (run before 4): ``repro_torch.service.SolveEngine``
    with ``ServiceConfig(max_batch=8, chunk=32, substrate="cuda", tol=1e-8,
    maxiter=2000)`` on 3a's system; a burst of 32 right-hand sides from
@@ -307,7 +310,8 @@ package is missing.  Phases, any failure of which fails the run:
    times at llama4's shape; the grouped row, 4c's, at a decode step's
    shape with ``prefill`` at the prefill's, each with ``kernel_route``
    (the route taken), ``tile`` and ``tile_ms`` (each bf16 tile's time), and
-   ``fp32_fp64``, 4d's f32 and f64 routes, and ``launches_fp32_sort``),
+   ``fp32_fp64``, 4d's f32 and f64 route with its ``tile`` and ``tile_ms``,
+   and ``launches_fp32_sort``),
    then the last line ``{"ok": true, "device": {...}}``.
 
 Every solve of phases 3b-3f runs through a session's programs: each
@@ -487,12 +491,13 @@ MLA_FP32_SHAPE = (2, 1024)          # (B, S) of that check
 # the grouped kernel against its plain version (bf16 operands, f32 sums,
 # both rounded to bf16 from other orders): tests/test_kernels.py's bf16 bar
 GROUPED_TOL = MOE_BF16_TOL
-# f32 and f64 (the "simt" route, sums in the operands' type against the
-# plain version's, another order): tests/test_torch_cuda.py's bars
+# f32 and f64 (the "mma" route: 3xTF32 with each stage's sums joined in
+# f32, and f64 products, against the plain version's f32 / f64 sums in
+# another order): tests/test_torch_cuda.py's bars
 GROUPED_TOL_OF = {"bfloat16": GROUPED_TOL, "float32": 1e-5,
                   "float64": 1e-12}
 # phase 4d (ROADMAP C26): deepseek-v3 at full width in fp32, this many
-# layers, with the sort dispatch, its grouped products on the "simt" route
+# layers, with the sort dispatch, its grouped products on the "mma" route
 # at the shapes an fp32 config sends, held to the same model with the plain
 # grouped product (the same sums in another order, over the logits'
 # max-abs); its prompts' length; then the f32 and f64 routes at
@@ -507,7 +512,7 @@ FP32_GROUPED_SHAPE = (256, 7168, 2048)      # (E, K, N) of deepseek's wi
 MLA_GATHER_TOKENS = 64
 GROUPED_SOURCE = "src/repro_torch/csrc/grouped_mm_sm90.cu"
 GROUPED_SOURCES = {"wgmma": GROUPED_SOURCE,
-                   "simt": "src/repro_torch/csrc/grouped_mm.cu"}
+                   "mma": "src/repro_torch/csrc/grouped_mm.cu"}
 GROUPED_STANDS_IN = ("src/repro/models/moe.py:172 (jax.lax.ragged_dot; no "
                      "Pallas kernel)")
 M = 8                       # columns of the batched path (ServiceConfig.max_batch)
@@ -3699,9 +3704,9 @@ def check_grouped_kernel(torch, ops, w, R: int, label: str, seed: int
     once each, over 3.35 TB/s, against the products over the dtype's peak
     (f32: three TF32 products at the tensor cores' TF32 rate, the least
     that keeps f32's digits, as the fp32 flash kernel's; the CUDA cores'
-    bound beside it).  In bf16 each tile of the route
-    (``grouped_mm.WGMMA_TILES``) is also launched by name, held to the same
-    bar and bitwise repeat, and timed in turns."""
+    bound beside it).  Each tile of the route (``grouped_mm.WGMMA_TILES``
+    in bf16, ``MMA_TILES`` in f32 and f64) is also launched by name, held
+    to the same bar and bitwise repeat, and timed in turns."""
     from repro_torch.kernels import grouped_mm
     E, K, N = w.shape
     dtype = str(w.dtype).replace("torch.", "")
@@ -3733,28 +3738,28 @@ def check_grouped_kernel(torch, ops, w, R: int, label: str, seed: int
     ms = device_ms(torch, lambda: ops.grouped_mm(x, w, offsets), reps=10,
                    trials=3)
     tiles = {}
-    if w.dtype == torch.bfloat16:
-        names = list(grouped_mm.WGMMA_TILES)
-        for name in names:
-            y1 = grouped_mm.grouped_mm_cuda(x, w, offsets, tile=name)
-            y2 = grouped_mm.grouped_mm_cuda(x, w, offsets, tile=name)
-            tiles[name] = dict(err=rel(y1), repeats_bitwise=bool(
-                torch.equal(y1, y2)), ms=[])
-            del y1, y2
-        for name in names + names[::-1]:                        # a b b a
-            tiles[name]["ms"].append(device_ms(
-                torch, lambda: grouped_mm.grouped_mm_cuda(
-                    x, w, offsets, tile=name), reps=10, trials=3))
-        for name, r in tiles.items():
-            r["ms"] = statistics.median(r["ms"])
-            # the host's time to check and enqueue one call (its launch
-            # arguments and two tensor maps), no sync
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(20):
-                grouped_mm.grouped_mm_cuda(x, w, offsets, tile=name)
-            r["host_us"] = (time.perf_counter() - t0) / 20 * 1e6
-            torch.cuda.synchronize()
+    names = list(grouped_mm.WGMMA_TILES if route == "wgmma"
+                 else grouped_mm.MMA_TILES)
+    for name in names:
+        y1 = grouped_mm.grouped_mm_cuda(x, w, offsets, tile=name)
+        y2 = grouped_mm.grouped_mm_cuda(x, w, offsets, tile=name)
+        tiles[name] = dict(err=rel(y1), repeats_bitwise=bool(
+            torch.equal(y1, y2)), ms=[])
+        del y1, y2
+    for name in names + names[::-1]:                            # a b b a
+        tiles[name]["ms"].append(device_ms(
+            torch, lambda: grouped_mm.grouped_mm_cuda(
+                x, w, offsets, tile=name), reps=10, trials=3))
+    for name, r in tiles.items():
+        r["ms"] = statistics.median(r["ms"])
+        # the host's time to check and enqueue one call (its launch
+        # arguments, and two tensor maps on the wgmma route), no sync
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            grouped_mm.grouped_mm_cuda(x, w, offsets, tile=name)
+        r["host_us"] = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     grouped_mm.plain(x, w, offsets)
@@ -3780,22 +3785,23 @@ def check_grouped_kernel(torch, ops, w, R: int, label: str, seed: int
                route_taken=taken, err=err, max_abs_err=float(diff), tol=tol,
                repeats_bitwise=bool(torch.equal(got, again)), ms=ms,
                tile=(grouped_mm.wgmma_tile(R, E) if route == "wgmma"
-                     else None),
+                     else grouped_mm.mma_tile(R, E)),
                tiles=tiles, plain_ms=plain_ms, library_ms=library_ms,
                library_note=library_note, library_rel_err=library_err,
                bound_ms=bound[0], bound_by=bound[1], bytes=nbytes, flop=flop)
     if dtype == "float32":
         rec["cuda_core_bound_ms"] = bound_ms(nbytes, flop, dtype)[0]
     tile_text = ", ".join(f"{k} {v['ms']:.4f} ms (err {v['err']:.2e}, "
-                          f"host {v['host_us']:.1f} us a call)"
+                          f"bitwise {v['repeats_bitwise']}, host "
+                          f"{v['host_us']:.1f} us a call)"
                           for k, v in tiles.items())
     cores = (f"; CUDA cores {rec['cuda_core_bound_ms']:.4f} ms"
              if "cuda_core_bound_ms" in rec else "")
     log(f"grouped_mm {label} ({dtype}, R {R:,}, K {K:,}, N {N:,}, {hit} of "
         f"{E} experts hit, {rec['empty_groups']} empty, "
-        f"{rec['one_row_groups']} of one row): route {route} (taken "
-        f"{taken}), max_rel_err {err:.3e} (tol {tol}), repeat bitwise "
-        f"{rec['repeats_bitwise']}; {ms:.4f} ms, bound {bound[0]:.4f} ms by "
+        f"{rec['one_row_groups']} of one row): route {route}, tile "
+        f"{rec['tile']} (taken {taken}), max_rel_err {err:.3e} (tol "
+        f"{tol}), repeat bitwise {rec['repeats_bitwise']}; {ms:.4f} ms, bound {bound[0]:.4f} ms by "
         f"{bound[1]} ({nbytes / 1e9:.3f} GB, {rec['flop'] / 1e12:.3f} "
         f"TFLOP{cores}), tiles {tile_text or 'not timed'}, plain "
         f"{plain_ms:.4f}, library "
@@ -4142,7 +4148,7 @@ def run_fp32_sort_path(torch, ops, device="cuda") -> dict:
     seeded prompts of FP32_SORT_PROMPT tokens warmed, then served eager and
     graphed (:func:`serve_eager_and_graphed`, the launch counters set to 0
     just before each run and read just after: 3 grouped launches a layer a
-    prefill and a step, all on the "simt" route); the prefill's last logits
+    prefill and a step, all on the "mma" route); the prefill's last logits
     within ``FP32_SORT_TOL`` of the same model's with the plain grouped
     product patched in, whose eager decode gives the same tokens; a replay
     free of host syncs.  Then (not counted) the f32 and f64 routes at
@@ -4246,8 +4252,8 @@ def run_fp32_sort_path(torch, ops, device="cuda") -> dict:
         f"ms graphed, {rec['eager_decode_step_ms']:.3f} eager; replay sync "
         f"{replay_sync or 'none'} [{card()}]")
     if not (err <= FP32_SORT_TOL and rec["tokens_equal_plain"]
-            and replay_sync is None and rec["route"] == "simt"
-            and routes["simt"] > 0 and routes["wgmma"] == 0):
+            and replay_sync is None and rec["route"] == "mma"
+            and routes["mma"] > 0 and routes["wgmma"] == 0):
         raise SystemExit(f"4d fp32 sort: {rec}")
     return rec
 
@@ -4950,7 +4956,8 @@ def main() -> int:
                      for k, r in mla["grouped"].items()
                      if r is not gdec and r is not gpre],
         fp32_fp64=[dict(case=k, dtype=r["dtype"], shape=r["shape"],
-                        kernel_route=r["route"], ms=r["ms"],
+                        kernel_route=r["route"], ms=r["ms"], tile=r["tile"],
+                        tile_ms=tile_ms(r),
                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                         bound_by=r["bound_by"],
                         cuda_core_bound_ms=r.get("cuda_core_bound_ms"),

@@ -93,6 +93,7 @@
 #include <algorithm>
 
 #include "mbarrier.cuh"
+#include "mma_fp32_fp64.cuh"
 
 namespace {
 
@@ -346,22 +347,6 @@ __device__ __forceinline__ void consume(const T* __restrict__ sb, int cs,
       }
     }
   }
-}
-
-// D += A B on the fp64 tensor cores, one 16 x 8 x 16 product a warp (a
-// shape sm_90 added, at the card's full fp64 tensor rate):
-// lane l = 4 g + q holds A[g + 8 (i % 2)][q + 4 (i / 2)] in a[i],
-// B[q + 4 i][g] in b[i], D[g][2 q + {0, 1}] in d[0..1] and
-// D[g + 8][2 q + {0, 1}] in d[2..3]
-__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[8],
-                                     const double (&b)[4]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
-      "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
-        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
 
 // y_g = B_g X_g in fp64 on the tensor cores, by the kWarps warps of one

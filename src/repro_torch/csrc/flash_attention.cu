@@ -74,10 +74,11 @@
 // atomics: a repeat is bitwise equal.
 //
 // Where the split happens, and why.  Each warp splits the fragments it
-// loads, five integer and float instructions an element (tf32_rna below),
-// repeated by the four warps for K and V.  Splitting once per tile into hi
-// and lo planes at staging would spare that, but doubles what is staged: a
-// 32-key stage of K and V is 35 KB at HD = 128, 71 KB as hi and lo planes,
+// loads, five integer and float instructions an element (tf32_rna in
+// mma_fp32_fp64.cuh), repeated by the four warps for K and V.  Splitting
+// once per tile into hi and lo planes at staging would spare that, but
+// doubles what is staged: a 32-key stage of K and V is 35 KB at HD = 128,
+// 71 KB as hi and lo planes,
 // two stages 141 KB, with Q's 37 KB beside them; a block may hold 113 KB
 // if two are to share an SM, and one block of 4 warps per SM leaves each
 // scheduler one warp to hide the mma.sync latency with.  So the tiles are
@@ -100,6 +101,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_fp32_fp64.cuh"
 
 namespace {
 
@@ -128,65 +131,6 @@ __host__ __device__ constexpr int v_stride() {
 template <int HD>
 __host__ __device__ constexpr int smem_floats() {
   return kBQ * qk_stride<HD>() + 2 * kBK * (qk_stride<HD>() + v_stride<HD>());
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; src_bytes 0 fills zeros and
-// reads nothing
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x (10 mantissa
-// bits, to nearest, ties away from zero): half of the dropped unit added to
-// the magnitude bits, then the 13 low bits cleared, two integer
-// instructions where ptxas expands the cvt into four with its NaN test (a
-// NaN x still gives a NaN lo below, so a NaN input still reaches the sums)
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// x = hi + lo as two TF32 numbers (f32 bit patterns, low 13 bits zero)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// d += a b: a the 16 x 8 row-major A fragment, (b0, b1) the 8 x 8
-// column-major B fragment, d the 16 x 8 f32 accumulator
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b in 3xTF32: the small terms first, lo_a lo_b dropped
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           uint32_t bh0, uint32_t bh1,
-                                           uint32_t bl0, uint32_t bl1) {
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
 }
 
 // rows row0 .. row0 + ROWS - 1 of a (S, hd) slab with row stride ld into
@@ -282,7 +226,7 @@ flash_attention_kernel(const float* __restrict__ q,
                                   hd, tid);
     }
     cp_async_commit();           // an empty group on the last tile
-    cp_async_wait_one();         // the query tile and tile it have landed
+    cp_async_wait<1>();         // the query tile and tile it have landed
     __syncthreads();
     if (!causal || k0 <= wq0 + 15) {
       const float* kt = ksm + (it & 1) * kKTile;

@@ -10,7 +10,7 @@
 //   16-byte aligned pointers (the launcher refuses anything else).
 //
 // The "wgmma" route of kernels/grouped_mm.py, every bf16 shape's (f32 and
-// f64 take grouped_mm.cu's "simt" route).  It replaces no Pallas kernel: it
+// f64 take grouped_mm.cu's "mma" route).  It replaces no Pallas kernel: it
 // stands in for jax.lax.ragged_dot, which the JAX package's sort dispatch
 // (src/repro/models/moe.py _moe_sort) calls three times a layer.  The grid
 // depends on (R, E, N) alone and each block finds its row tile in the

@@ -73,8 +73,8 @@ _SIGNATURES = {
     # q, k, v, o, B, H, K, S, hd, strides (12 int64), scale, causal, stream
     "repro_flash_attention": [_VP] * 4 + [ctypes.c_int] * 5 + [
         _VP, ctypes.c_float, ctypes.c_int, _VP],
-    # x, w, offsets, y, R, K, N, E, stream
-    "repro_grouped_mm": [_VP] * 4 + [_I64] + [ctypes.c_int] * 3 + [_VP],
+    # x, w, offsets, y, R, K, N, E, tile, vec, stream
+    "repro_grouped_mm": [_VP] * 4 + [_I64] + [ctypes.c_int] * 5 + [_VP],
     # x, w, offsets, y, R, K, N, E, tile, stream
     "repro_grouped_wgmma": [_VP] * 4 + [_I64] + [ctypes.c_int] * 4 + [_VP],
 }

@@ -19,11 +19,17 @@ alone (never from the offsets, so one CUDA graph serves every routing):
   ring, 128 x 256 tiles, or 192 x 192 once a group averages
   ``WIDE_TILE_ROWS_PER_GROUP`` rows (:func:`wgmma_tile`, from R and E);
   K and N multiples of 8 (16-byte rows);
-* ``"simt"``: float32 and float64, ``csrc/grouped_mm.cu``, FMA on the CUDA
-  cores with the sums in the operands' type (TF32 would miss the plain
-  version's f32 sums); any K and N.
+* ``"mma"``: float32 and float64, ``csrc/grouped_mm.cu``, ``mma.sync``
+  on the tensor cores fed by a four-stage ``cp.async`` ring: f32 as
+  3xTF32 (each operand split into TF32 hi + lo, three products, each
+  stage's sums joined to the running f32 sum by one rounded add, since the
+  tensor cores truncate theirs), f64 on the fp64 tensor cores; 64 x 128
+  tiles, or 144 x 128 once a group averages ``TALL_TILE_ROWS_PER_GROUP``
+  rows (:func:`mma_tile`, from R and E); 16-byte copies when K and N allow
+  them (:func:`mma_vec`), else element copies, so any K and N.
 
-Every route holds at most ``MAX_TILES`` row tiles (about 4 M rows).
+Every route holds at most ``MAX_TILES`` row tiles (about 8 M rows on
+the 128- and 144-row tiles).
 :func:`plain` is the plain version, a loop over the groups that reads the
 offsets to the host, the CPU path and the card's oracle.
 Both require ``offsets[0] == 0``, ``offsets[E] == R`` and non-decreasing
@@ -43,12 +49,18 @@ from . import _build
 NAME = "grouped_mm"
 #: K and N must be multiples of this on the bf16 route (16-byte rows)
 ALIGN = 8
-ROUTES = ("wgmma", "simt")
+ROUTES = ("wgmma", "mma")
 #: the wgmma route's tiles, rows x columns: the launcher's index
 WGMMA_TILES = {"128x256": 0, "192x192": 1}
 #: the wgmma route takes its 192 x 192 tile from this many rows a group,
 #: its 128 x 256 tile below (an A/B on an H100, csrc/grouped_mm_sm90.cu)
 WIDE_TILE_ROWS_PER_GROUP = 64
+#: the mma route's tiles, rows x columns: the launcher's index
+MMA_TILES = {"64x128": 0, "144x128": 1}
+#: the mma route takes its 144 x 128 tile from this many rows a group, its
+#: 64 x 128 tile below (an A/B on an H100: 64 x 128 led at 32 rows a group,
+#: 144 x 128 at 64 and up; csrc/grouped_mm.cu, PERF.md row 12b)
+TALL_TILE_ROWS_PER_GROUP = 64
 #: the most row tiles a grid holds (its y extent): at most
 #: ceil(R / tile_rows(route(dtype), R, E)) + min(E, R)
 MAX_TILES = 65535
@@ -58,10 +70,10 @@ ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 def route(dtype) -> str:
     """The route of a grouped product in ``dtype`` on the card: ``"wgmma"``
-    for bf16, ``"simt"`` for f32 and f64; any other dtype raises.  The
+    for bf16, ``"mma"`` for f32 and f64; any other dtype raises.  The
     dtype alone: never the offsets."""
     if dtype in (torch.float32, torch.float64):
-        return "simt"
+        return "mma"
     if dtype != torch.bfloat16:
         raise TypeError(f"grouped_mm: the kernels take bfloat16, float32 or "
                         f"float64, got {dtype}")
@@ -75,9 +87,26 @@ def wgmma_tile(R: int, E: int) -> str:
     return "192x192" if R >= WIDE_TILE_ROWS_PER_GROUP * E else "128x256"
 
 
+def mma_tile(R: int, E: int) -> str:
+    """The mma route's tile for R rows over E groups: 144 x 128 once the
+    groups average ``TALL_TILE_ROWS_PER_GROUP`` rows (a tile then holds
+    nearly every group whole, so each weight slab is read about once),
+    else 64 x 128 (the launch streams the hit experts' weights)."""
+    return "144x128" if R >= TALL_TILE_ROWS_PER_GROUP * E else "64x128"
+
+
+def mma_vec(dtype, K: int, N: int) -> bool:
+    """Whether the mma route copies 16 bytes at a time for K and N in
+    ``dtype`` (both multiples of 16 bytes' elements: 4 in f32, 2 in f64;
+    the pointers must be 16-byte aligned too), else element by element."""
+    per = 128 // torch.finfo(dtype).bits
+    return K % per == 0 and N % per == 0
+
+
 def tile_rows(name: str, R: int, E: int) -> int:
     """Rows of the tiles route ``name`` takes for R rows over E groups."""
-    return int(wgmma_tile(R, E).split("x")[0]) if name == "wgmma" else 64
+    tile = wgmma_tile(R, E) if name == "wgmma" else mma_tile(R, E)
+    return int(tile.split("x")[0])
 
 
 def reset_route_launches() -> None:
@@ -122,8 +151,10 @@ def weight_grad(x: torch.Tensor, dy: torch.Tensor, offsets: torch.Tensor,
 def grouped_mm_cuda(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
                     tile: Optional[str] = None) -> torch.Tensor:
     """Launch the dtype's route on checked CUDA operands (``tile`` None:
-    :func:`wgmma_tile`'s; the A/B of ``tools/grouped_ab.py`` names one);
-    returns a fresh ``(R, N)`` tensor."""
+    :func:`wgmma_tile`'s or :func:`mma_tile`'s; the A/B of
+    ``tools/grouped_ab.py`` and the card's checks name one); the mma route
+    copies 16 bytes at a time where :func:`mma_vec` and the pointers allow,
+    else element by element; returns a fresh ``(R, N)`` tensor."""
     R, K = x.shape
     E, _, N = w.shape
     name = route(x.dtype)
@@ -136,8 +167,11 @@ def grouped_mm_cuda(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
         _build.launch(NAME, lib.repro_grouped_wgmma_bf16, *args,
                       WGMMA_TILES[tile or wgmma_tile(R, E)], stream)
     else:
+        vec = mma_vec(x.dtype, K, N) and all(
+            t.data_ptr() % 16 == 0 for t in (x, w, y))
         suffix = {torch.float32: "f32", torch.float64: "f64"}[x.dtype]
         _build.launch(NAME, getattr(lib, f"repro_grouped_mm_{suffix}"),
-                      *args, stream)
+                      *args, MMA_TILES[tile or mma_tile(R, E)], int(vec),
+                      stream)
     ROUTE_LAUNCHES[name] += 1
     return y

@@ -985,30 +985,113 @@ def test_a_bf16_grouped_product_of_depth_0_is_zeros(cuda):
     assert torch.equal(got, torch.zeros_like(got))
 
 
-@pytest.mark.parametrize("K,N", [(96, 136), (37, 29)])
+#: the bars of the f32 / f64 route against the plain version, over the
+#: max-abs: the same sums in another order (f32: 3xTF32, each stage's sums
+#: joined in f32)
+MMA_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _float_operands(sizes, K, N, device, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    R, E = sum(sizes), len(sizes)
+    x = torch.randn(R, K, generator=g, device=device, dtype=dtype)
+    w = torch.randn(E, K, N, generator=g, device=device,
+                    dtype=dtype) / max(K, 1) ** .5
+    offsets = torch.tensor([0] + list(np.cumsum(sizes)), device=device)
+    return x, w, offsets
+
+
+@pytest.mark.parametrize("K,N", [(96, 136), (37, 29), (7168, 72)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_grouped_mm_f32_and_f64_match_the_plain_version(cuda, dtype, K, N):
-    """The "simt" route through ``ops.grouped_mm`` (K and N free: 37 and 29
-    are no multiples of 8), empty and one-row groups and a group past one
-    64-row tile, against the plain version: 1e-5 (f32) and 1e-12 (f64) of
-    the max-abs (the same sums in another order), bitwise on a repeat."""
+    """The "mma" route through ``ops.grouped_mm`` (K and N free: 37 and 29
+    are no multiples of 4, so element copies), empty and one-row groups
+    and a group past one 64-row tile, and deepseek's K of 7,168 (where
+    sums truncated by the tensor cores over the whole depth would show),
+    against the plain version: 1e-5 (f32) and 1e-12 (f64) of the max-abs
+    (the same sums in another order), bitwise on a repeat."""
     from repro_torch.kernels import grouped_mm
-    g = torch.Generator(device=cuda).manual_seed(5)
-    sizes = [70, 0, 1, 129, 0, 63]
-    R, E = sum(sizes), len(sizes)
-    x = torch.randn(R, K, generator=g, device=cuda, dtype=dtype)
-    w = torch.randn(E, K, N, generator=g, device=cuda, dtype=dtype) / K ** .5
-    offsets = torch.tensor([0] + list(np.cumsum(sizes)), device=cuda)
+    x, w, offsets = _float_operands([70, 0, 1, 129, 0, 63], K, N, cuda,
+                                    dtype, seed=5)
     grouped_mm.reset_route_launches()
     got = ops.grouped_mm(x, w, offsets)
     again = ops.grouped_mm(x, w, offsets)
     torch.cuda.synchronize()
-    assert grouped_mm.ROUTE_LAUNCHES["simt"] == 2
+    assert grouped_mm.ROUTE_LAUNCHES["mma"] == 2
     want = grouped_mm.plain(x, w, offsets)
     assert got.dtype == dtype and got.shape == want.shape
-    assert _rel(got.double(), want.double()) <= {torch.float32: 1e-5,
-                                                 torch.float64: 1e-12}[dtype]
+    assert _rel(got.double(), want.double()) <= MMA_TOL[dtype]
     assert torch.equal(got, again)
+
+
+#: the f32 / f64 route's tile variants
+MMA_TILES = ["64x128", "144x128"]
+#: (sizes, K, N): a group taller than the tall tile (300 > 144) over
+#: deepseek's K, ragged rows with K and N that take element copies, K and
+#: N 2 mod 4 (element copies in f32, 16-byte ones in f64), one-row groups
+#: (a decode step), one group holding every row, and K = 0 (zeros)
+MMA_EDGES = {
+    "a group past the tall tile, K 7,168": ([300, 0, 1, 211], 7168, 136),
+    "ragged rows, K and N": ([70, 0, 1, 129, 0, 63], 37, 29),
+    "K and N 2 mod 4": ([70, 0, 1, 129], 98, 138),
+    "one-row groups": ([1, 1, 2, 0, 1, 3, 0, 0] * 4, 256, 64),
+    "one group holds every row": ([0, 0, 200, 0], 64, 256),
+    "K = 0": ([5, 0, 4], 0, 16),
+}
+
+
+@pytest.mark.parametrize("case", list(MMA_EDGES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tile", MMA_TILES)
+def test_each_mma_grouped_tile_matches_the_plain_version(cuda, tile, dtype,
+                                                         case):
+    """The f32 / f64 route with each tile named to ``grouped_mm_cuda``
+    against the plain version: 1e-5 / 1e-12 of the max-abs, bitwise on a
+    repeat, one launch of the route a call; K = 0 gives zeros."""
+    from repro_torch.kernels import grouped_mm
+    sizes, K, N = MMA_EDGES[case]
+    x, w, offsets = _float_operands(sizes, K, N, cuda, dtype, seed=3)
+    grouped_mm.reset_route_launches()
+    got = grouped_mm.grouped_mm_cuda(x, w, offsets, tile=tile)
+    again = grouped_mm.grouped_mm_cuda(x, w, offsets, tile=tile)
+    torch.cuda.synchronize()
+    assert grouped_mm.ROUTE_LAUNCHES["mma"] == 2
+    want = grouped_mm.plain(x, w, offsets)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, again)
+    if K == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+    else:
+        assert _rel(got.double(), want.double()) <= MMA_TOL[dtype]
+
+
+@pytest.mark.parametrize("tile", MMA_TILES)
+def test_one_grouped_graph_serves_two_routings_on_each_mma_tile(cuda, tile):
+    """One capture of the f32 route's tile, two routings written into the
+    offsets: each replay gives the plain version's result for the routing
+    it found."""
+    from repro_torch.kernels import grouped_mm
+    x, w, offsets = _float_operands([57, 0, 170, 1, 9], 64, 72, cuda,
+                                    torch.float32, seed=6)
+    R = x.shape[0]
+    routings = [torch.tensor([0, 5, 5, R - 75, R - 74, R], device=cuda),
+                torch.tensor([0, 0, R - 1, R, R, R], device=cuda)]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                         # warm-up
+        grouped_mm.grouped_mm_cuda(x, w, offsets, tile=tile)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = grouped_mm.grouped_mm_cuda(x, w, offsets, tile=tile)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for routing in routings:
+        offsets.copy_(routing)
+        x.copy_(torch.randn(x.shape, generator=g, device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _rel(y, grouped_mm.plain(x, w, offsets)) <= 1e-5
 
 
 def test_an_fp32_sort_config_serves_on_the_card_as_its_plain_path(cuda):

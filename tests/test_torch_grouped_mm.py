@@ -9,8 +9,9 @@ group holding every row and one group alone, in f32 (1e-5 of the result's
 max-abs: another summation order), f64 (1e-12, with JAX's x64 on inside
 the test alone) and bf16 (2e-2, tests/test_kernels.py's bf16 bar: both
 round the f32 sums to bf16, from other orders); the op's fake kernel, its
-derivative and the card's choice of route (from the dtype alone) and of
-the bf16 route's tile (from the shapes alone) too.  The kernel itself runs in
+derivative and the card's choice of route (from the dtype alone), of
+each route's tile (from R and E alone) and of the f32 / f64 route's copies
+(from K and N alone) too.  The kernel itself runs in
 tests/test_torch_cuda.py and chip_smoke.py, on the card.  Inputs come from
 numpy seeds.
 """
@@ -145,33 +146,51 @@ def test_the_wrapper_refuses_bad_operands(change, error, match):
         ops.grouped_mm(**args)
 
 
-#: (R, E, K, N) -> the wgmma route's tile: deepseek-v3's decode step (32
-#: rows of a 4-token step at top-8 over 256 experts) and prefill (4 x 1,024
-#: tokens), fewer rows than groups (at and below R = E / 32, once a bf16
-#: crossover, now the same route), and the tile crossover on either side
+#: (R, E, K, N) -> the wgmma route's tile, the mma route's tile, and
+#: whether the mma route copies 16 bytes at a time in f32 and in f64:
+#: deepseek-v3's decode step (32 rows of a 4-token step at top-8 over 256
+#: experts) and prefill (4 x 1,024 tokens), fewer rows than groups (at and
+#: below R = E / 32, once a bf16 crossover, now the same route), the
+#: tiles' crossover (64 rows a group, for both routes) on either side, and
+#: K or N that break 16-byte rows in f32 alone (2 mod 4) or in both (odd)
 ROUTE_CASES = {
-    "decode step": ((32, 256, 7168, 2048), "128x256"),
-    "prefill": ((32768, 256, 7168, 2048), "192x192"),
-    "prefill wo": ((32768, 256, 2048, 7168), "192x192"),
-    "at the crossover": ((8, 256, 64, 64), "128x256"),
-    "below the crossover": ((7, 256, 64, 64), "128x256"),
-    "at the wide tile": ((64 * 16, 16, 64, 64), "192x192"),
-    "below the wide tile": ((64 * 16 - 1, 16, 64, 64), "128x256"),
+    "decode step": ((32, 256, 7168, 2048), "128x256", "64x128",
+                    (True, True)),
+    "prefill": ((32768, 256, 7168, 2048), "192x192", "144x128",
+                (True, True)),
+    "prefill wo": ((32768, 256, 2048, 7168), "192x192", "144x128",
+                   (True, True)),
+    "at the crossover": ((8, 256, 64, 64), "128x256", "64x128",
+                         (True, True)),
+    "below the crossover": ((7, 256, 64, 64), "128x256", "64x128",
+                            (True, True)),
+    "at the wide tile": ((64 * 16, 16, 64, 64), "192x192", "144x128",
+                         (True, True)),
+    "below the wide tile": ((64 * 16 - 1, 16, 64, 64), "128x256", "64x128",
+                            (True, True)),
+    "K and N 2 mod 4": ((64 * 16, 16, 66, 6), "192x192", "144x128",
+                        (False, True)),
+    "odd K": ((64 * 16 - 1, 16, 37, 64), "128x256", "64x128",
+              (False, False)),
+    "odd N": ((64 * 16, 16, 64, 29), "192x192", "144x128", (False, False)),
 }
 
 
 @pytest.mark.parametrize("case", list(ROUTE_CASES))
 def test_route_chooses_by_shape_and_dtype_alone(case):
-    """The card's route of a grouped product from the dtype (bf16 on the
-    tensor cores whatever the shape, f32 and f64 on the CUDA cores, float16
-    refused) and the wgmma route's tile from R and E alone."""
-    shape, tile = ROUTE_CASES[case]
+    """The card's route of a grouped product from the dtype (bf16 on
+    wgmma, f32 and f64 on mma.sync, whatever the shape; float16 refused),
+    each route's tile from R and E alone, and the mma route's copies from
+    K and N alone."""
+    (R, E, K, N), tile, mma_tile, vec = ROUTE_CASES[case]
     assert kgrouped.route(torch.bfloat16) == "wgmma"
-    assert kgrouped.wgmma_tile(*shape[:2]) == tile
-    assert kgrouped.tile_rows("wgmma", *shape[:2]) == int(tile[:3])
-    for dtype in (torch.float32, torch.float64):
-        assert kgrouped.route(dtype) == "simt"
-        assert kgrouped.tile_rows("simt", *shape[:2]) == 64
+    assert kgrouped.wgmma_tile(R, E) == tile
+    assert kgrouped.tile_rows("wgmma", R, E) == int(tile[:3])
+    assert kgrouped.mma_tile(R, E) == mma_tile
+    assert kgrouped.tile_rows("mma", R, E) == int(mma_tile.split("x")[0])
+    for dtype, v in zip((torch.float32, torch.float64), vec):
+        assert kgrouped.route(dtype) == "mma"
+        assert kgrouped.mma_vec(dtype, K, N) is v
     with pytest.raises(TypeError, match="bfloat16, float32 or float64"):
         kgrouped.route(torch.float16)
 
@@ -181,23 +200,27 @@ def test_the_card_path_traces_without_a_host_read(dtype):
     """``make_fx`` in fake mode over ``ops.grouped_mm`` on fake CUDA
     operands: the card's checks (the route, the alignment of the bf16
     route, the tile count) read no value, and the call is one op node;
-    f32 and f64 take K and N that are not multiples of 8."""
-    K, N = (24, 16) if dtype == "bfloat16" else (21, 13)
-    x, w, sizes = operands(SIZES["empty groups"], "float32", K=K, N=N)
-    mode = FakeTensorMode()
-    with mode:
-        fake = [torch.empty(x.shape, dtype=TORCH[dtype], device="cuda"),
-                torch.empty(w.shape, dtype=TORCH[dtype], device="cuda"),
-                torch.empty(len(sizes) + 1, dtype=torch.int64,
-                            device="cuda")]
-    gm = make_fx(ops.grouped_mm, tracing_mode="fake")(*fake)
-    targets = [str(n.target) for n in gm.graph.nodes
-               if n.op == "call_function"]
-    assert targets == ["repro_torch.grouped_mm.default"]
-    with mode:
-        out = ops.grouped_mm(*fake)
-    assert tuple(out.shape) == (x.shape[0], N)
-    assert out.dtype == TORCH[dtype] and out.device.type == "cuda"
+    f32 and f64 take K and N that break 16-byte rows (21 and 13: element
+    copies) and K and N that keep them (24 and 16)."""
+    shapes = [(24, 16)] if dtype == "bfloat16" else [(21, 13), (24, 16)]
+    for K, N in shapes:
+        x, w, sizes = operands(SIZES["empty groups"], "float32", K=K, N=N)
+        mode = FakeTensorMode()
+        with mode:
+            fake = [torch.empty(x.shape, dtype=TORCH[dtype], device="cuda"),
+                    torch.empty(w.shape, dtype=TORCH[dtype], device="cuda"),
+                    torch.empty(len(sizes) + 1, dtype=torch.int64,
+                                device="cuda")]
+        gm = make_fx(ops.grouped_mm, tracing_mode="fake")(*fake)
+        targets = [str(n.target) for n in gm.graph.nodes
+                   if n.op == "call_function"]
+        assert targets == ["repro_torch.grouped_mm.default"]
+        with mode:
+            out = ops.grouped_mm(*fake)
+        assert tuple(out.shape) == (x.shape[0], N)
+        assert out.dtype == TORCH[dtype] and out.device.type == "cuda"
+        if dtype != "bfloat16":
+            assert kgrouped.mma_vec(TORCH[dtype], K, N) is (K == 24)
 
 
 @pytest.mark.parametrize("dtype,K,match", [

@@ -1,24 +1,28 @@
 """Time the grouped-product kernel of one checkout at deepseek-v3's
 shapes: ``wi`` (K 7,168, N 2,048) and ``wo`` (K 2,048, N 7,168) over 256
-experts of seeded bf16 weights, at a prefill's 32,768 rows and a decode
-step's 32, through chip_smoke.py's ``check_grouped_kernel`` (checked
-against the plain version, timed beside the bound and each bf16 tile, or
-route in an older checkout, in turns); prints the compiler's register and
-spill report of the grouped kernels and one ``AB <label> {...}`` line of
-ms.
+experts of seeded weights in each of ``--dtypes`` (bf16 by default), at
+each of ``--rows`` (a prefill's 32,768 and a decode step's 32 by
+default), through chip_smoke.py's ``check_grouped_kernel`` (checked
+against the plain version, timed beside the bound, the plain loop,
+``torch._grouped_mm`` and each tile of the dtype's route in turns);
+prints the compiler's register and spill report of the grouped kernels
+and one ``AB <label> {...}`` line of ms.
 
     python3 tools/grouped_ab.py ROOT LABEL
+    python3 tools/grouped_ab.py ROOT LABEL --dtypes float32 float64 \\
+        --rows 8 32 2048 8192 32768
     python3 tools/grouped_ab.py ROOT LABEL --tiles 128x256 192x192 \\
         --rows 8 32 2048 8192 32768
 
 ROOT is a checkout (this one, or another unpacked under ``build/``); run
-two checkouts in turns on the card (a b b a) to compare them in one call.
-With ``--tiles`` (this checkout's ``grouped_mm_cuda(..., tile=)``) it
-instead times the named tiles of the bf16 route in turns (a b b a) at
-each of ``--rows`` for ``wi`` and ``wo``, each checked against the plain
-version and bitwise on a repeat, with the bytes each moves from L2 into
-the SMs (its tiles' loads, counted from the routing) and
-``torch._grouped_mm`` beside them.
+two checkouts in turns on the card (a b b a) to compare them in one call:
+the f32 / f64 route of a parent against this one's, for instance.  With
+``--tiles`` (this checkout's ``grouped_mm_cuda(..., tile=)``) it instead
+times the named tiles of the bf16 route in turns (a b b a) at each of
+``--rows`` for ``wi`` and ``wo``, each checked against the plain version
+and bitwise on a repeat, with the bytes each moves from L2 into the SMs
+(its tiles' loads, counted from the routing) and ``torch._grouped_mm``
+beside them.
 """
 import argparse
 import json
@@ -99,8 +103,11 @@ def main(argv) -> int:
     ap.add_argument("label")
     ap.add_argument("--tiles", nargs="*", default=None,
                     help="tiles of the bf16 route, timed in turns")
-    ap.add_argument("--rows", nargs="*", type=int,
-                    default=[32, 2048, 8192, 32768])
+    ap.add_argument("--rows", nargs="*", type=int, default=None,
+                    help="rows of each product (default: 32,768 and 32; "
+                    "with --tiles 32, 2,048, 8,192 and 32,768)")
+    ap.add_argument("--dtypes", nargs="*", default=["bfloat16"],
+                    help="dtypes of the weights, without --tiles")
     args = ap.parse_args(argv)
     root, label = os.path.abspath(args.root), args.label
     sys.path.insert(0, root)
@@ -118,24 +125,28 @@ def main(argv) -> int:
     out = {}
     with torch.inference_mode():
         if args.tiles:
-            ab_tiles(torch, cs, args.tiles, args.rows, label, out)
+            ab_tiles(torch, cs, args.tiles,
+                     args.rows or [32, 2048, 8192, 32768], label, out)
         else:
             g = torch.Generator(device="cuda").manual_seed(0)
-            for key, (K, N) in SHAPES.items():
-                w = (torch.randn(EXPERTS, K, N, generator=g, device="cuda")
-                     / K ** 0.5).bfloat16()
-                for shape, R in (("prefill", 32768), ("decode", 32)):
-                    rec = cs.check_grouped_kernel(torch, ops, w, R,
-                                                  f"{label} {shape} {key}",
-                                                  seed=20)
-                    out[f"{shape}_{key}"] = rec["ms"]
-                    # each tile of the bf16 route ("routes" in an older
-                    # checkout's record)
-                    for name, r in rec.get("tiles",
-                                           rec.get("routes", {})).items():
-                        out[f"{shape}_{key}_{name}"] = r["ms"]
-                del w
-                torch.cuda.empty_cache()
+            for dtype in args.dtypes:
+                dt = getattr(torch, dtype)
+                for key, (K, N) in SHAPES.items():
+                    w = torch.randn(EXPERTS, K, N, generator=g, device="cuda",
+                                    dtype=torch.float64 if dt == torch.float64
+                                    else torch.float32).div_(K ** 0.5).to(dt)
+                    for R in args.rows or [32768, 32]:
+                        rec = cs.check_grouped_kernel(
+                            torch, ops, w, R, f"{label} {dtype} {key}",
+                            seed=20)
+                        out[f"{dtype}_{key}_{R}"] = rec["ms"]
+                        # each tile of the route ("routes" in an older
+                        # checkout's record)
+                        for name, r in rec.get(
+                                "tiles", rec.get("routes", {})).items():
+                            out[f"{dtype}_{key}_{R}_{name}"] = r["ms"]
+                    del w
+                    torch.cuda.empty_cache()
     print("AB", label, json.dumps(out))
     return 0
 
