@@ -189,6 +189,25 @@ package is missing.  Phases, any failure of which fails the run:
    loop and ``torch._grouped_mm`` (f32), each of its tiles
    (``csrc/grouped_mm.cu``), 64 x 128 and 144 x 128, launched by name,
    held to the same bars and timed in turns;
+4e. the hybrid family (run after 4d): ``ServingEngine`` on zamba2-1.2b at
+   full width and depth (38 Mamba2 layers, the shared attention + SwiGLU
+   block at every 6th, d 2,048, 64 SSM heads, a 4,096-token window;
+   1,170,473,856 seeded bf16 parameters), max_len 4,608 (a 4,096-row ring
+   per application of the shared block): warmed on 256-token prompts at B
+   = 4 (its decode graph captured there, the rings not full), then 4
+   prompts of 5,120 tokens (20 SSD chunks, 1,024 past the window) and 16
+   new tokens served eager and graphed as in 4 (the same greedy tokens,
+   nothing captured in the run), every step rolling the rings on the
+   device; no kernel of the port launched (the window keeps the shared
+   block off flash, as in the reference); a replay free of host syncs; the
+   prefill's ms, device time and kernels beside its TFLOP, a step's
+   (median, range) beside its bytes' bound with and without the roll,
+   tokens/s, busy share, peak memory, cache and graph-pool bytes; then
+   ``decode_step`` run eagerly over 15 greedy tokens (the engine's)
+   against ``forward`` over the prompt and those tokens: in bf16 within
+   0.15 of the logits' max-abs (5e-2 recorded) and no further from the
+   fp32 forward on the same weights than twice the bf16 forward is; in
+   fp32 at depth 7 (two rings) within 1e-3;
 5. the solve service (run before 4): ``repro_torch.service.SolveEngine``
    with ``ServiceConfig(max_batch=8, chunk=32, substrate="cuda", tol=1e-8,
    maxiter=2000)`` on 3a's system; a burst of 32 right-hand sides from
@@ -306,7 +325,8 @@ package is missing.  Phases, any failure of which fails the run:
 7. a ``{"kernels": [...]}`` JSON line (rows 1-4 and 7 with
    ``launches_scenarios``: 3j's counted runs; rows 1 and 2 with
    ``launches_nk``, ``launches_nk_torch`` and ``nk_fp32``, 6b's and 6c's;
-   the flash row with ``launches_moe``, 4b's, and ``moe_shape``, 2d's
+   the flash row with ``launches_moe``, 4b's, ``launches_hybrid``, 4e's
+   (0), and ``moe_shape``, 2d's
    times at llama4's shape; the grouped row, 4c's, at a decode step's
    shape with ``prefill`` at the prefill's, each with ``kernel_route``
    (the route taken), ``tile`` and ``tile_ms`` (each bf16 tile's time), and
@@ -327,7 +347,7 @@ the allocator holds is printed after each solver phase, and the session
 cache is cleared before phase 4.
 
 The run goes 1, 3a (the matrix), 2, 2b, 2c, 2d, 3b-3f, the profiler's
-counts, 3g, 5, 3h, 3i, 3j, 4, 4b, 4c, 6a-6c, 7.  Each path is driven with the
+counts, 3g, 5, 3h, 3i, 3j, 4, 4b, 4c, 4d, 4e, 6a-6c, 7.  Each path is driven with the
 launch counters set to 0 just before it and read just after; the kernels'
 checks and timings are not counted.
 """
@@ -510,6 +530,30 @@ FP32_GROUPED_SHAPE = (256, 7168, 2048)      # (E, K, N) of deepseek's wi
 # the gather dispatch with capacity E against sort on this many of the
 # prefill's tokens: at 4,096 tokens its (G, E, C, d) input would be 120 GB
 MLA_GATHER_TOKENS = 64
+# phase 4e: zamba2-1.2b (the hybrid family: 38 Mamba2 layers, one shared
+# attention block applied at every 6th, a 4,096-token window) at full width
+# and depth, bf16.  Its prompts: 20 SSD chunks of 256, 1,024 tokens past the
+# window, so the prefill's window mask and its K/V cut both act; a multiple
+# of the plain attention's 1,024-row query blocks (4,352 tokens, 256 past
+# the window, is not: both packages refuse it).  max_len at or above the
+# window gives a 4,096-row ring, full from the first decode step on, so
+# every step rolls it
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_PROMPT = 5120
+HYBRID_MAX_LEN = 4608
+# the teacher-forced check: ``decode_step`` over the generated tokens
+# against ``forward`` over the prompt and those tokens, max-abs over the
+# logits' max-abs.  bf16 through 38 layers: phase 4's bar is recorded; the
+# phase holds the decode under HYBRID_TF_OUTER (twice the 7.2e-2 the check
+# reads on the H100, so a gross fault fails) and no further from the fp32
+# forward of the same weights (TF32 off) than twice the bf16 forward is
+# (the CPU tests' rule).  fp32 (TF32 off) at a depth with two applications
+# of the shared block, so two rings, where decode and forward differ by
+# f32 rounding alone, under HYBRID_TF_TOL_F32
+HYBRID_TF_TOL = SERVE_LOGITS_TOL
+HYBRID_TF_OUTER = 0.15
+HYBRID_TF_TOL_F32 = 1e-3
+HYBRID_F32_LAYERS = 7
 GROUPED_SOURCE = "src/repro_torch/csrc/grouped_mm_sm90.cu"
 GROUPED_SOURCES = {"wgmma": GROUPED_SOURCE,
                    "mma": "src/repro_torch/csrc/grouped_mm.cu"}
@@ -4258,6 +4302,266 @@ def run_fp32_sort_path(torch, ops, device="cuda") -> dict:
     return rec
 
 
+def hybrid_prefill_flop(cfg, B: int, S: int) -> dict:
+    """The products of one hybrid prefill of B x S tokens: the projections
+    (the shared block's once per application), the plain attention's
+    scores and probabilities over every (query, key) pair (the window is a
+    mask: it saves no work), and the SSD's einsums at 256-token chunks."""
+    d, din, ns, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    P, hd, L = din // H, cfg.hd, cfg.n_layers
+    npts = -(-L // cfg.hybrid_shared_period)
+    mamba_w = d * (2 * din + 2 * ns + H) + din * d
+    shared_w = d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd \
+        + cfg.n_heads * hd * d + 3 * d * cfg.d_ff
+    Q = 256 if S % 256 == 0 else S
+    ssd = L * 2 * B * S * (Q * ns + Q * H * P + 2 * H * P * ns)
+    return dict(projections=2 * B * S * (L * mamba_w + npts * shared_w
+                                         + d * cfg.vocab_size),
+                attention=npts * 4 * B * cfg.n_heads * S * S * hd, ssd=ssd)
+
+
+def hybrid_decode_bytes(torch, model, cfg, B: int, W: int) -> dict:
+    """The bytes a hybrid decode step must move: every weight it reads (the
+    shared block's once per application: 134 MB do not stay in the 50 MB
+    L2), B rows of the embedding, the SSM state read and written, the rings
+    read; and a full ring's roll, ideal (each ring read and written once)
+    and as run (gathered into a temporary, then copied back)."""
+    def nbytes(params):
+        return sum(p.numel() * p.element_size() for p in params)
+    npts = -(-cfg.n_layers // cfg.hybrid_shared_period)
+    H, ns = cfg.n_ssm_heads, cfg.ssm_state
+    el = torch.empty((), dtype=cfg.dtype).element_size()
+    state = 2 * cfg.n_layers * B * (H * (cfg.d_inner // H) * ns * 4
+                                   + (cfg.ssm_conv - 1)
+                                   * (cfg.d_inner + 2 * ns) * el)
+    ring = 2 * npts * B * W * cfg.n_kv_heads * cfg.hd * el
+    base = dict(mamba=nbytes(model.layers.parameters()),
+                shared=npts * nbytes(model.shared_attn.parameters()),
+                head=nbytes([model.lm_head, model.final_norm]),
+                embed_rows=B * cfg.d_model * model.embed.element_size(),
+                state=state, rings=ring)
+    total = sum(base.values())
+    return dict(base, total=total, roll_ideal=2 * ring, roll_run=4 * ring)
+
+
+@contextlib.contextmanager
+def no_tf32(torch):
+    """fp32 matrix products in full f32 (TF32 off), restored after."""
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+def hybrid_teacher_forced(torch, model, cfg, prompts, n: int,
+                          device="cuda", fp32_reference=False) -> dict:
+    """The prompts' prefill spliced into a fresh decode program of
+    HYBRID_MAX_LEN, then ``n`` greedy steps of it run eagerly (``cache_len``
+    a 0-d device tensor), against ``forward`` over the prompt
+    and the n fed tokens, zero-padded at the end to a multiple of 1,024
+    (the plain attention's query blocks; every layer is causal, so the
+    padding moves no logit before it): the max-abs difference over those n
+    positions over the forward's max-abs, and the tokens fed.  With
+    ``fp32_reference``, also the distances of the decode's and the
+    forward's logits from those of ``forward`` in fp32 (TF32 off) on the
+    same weights, upcast."""
+    import copy
+    from repro_torch.models import forward, prefill_step
+    from repro_torch.serve.engine import DecodeProgram
+    B, S = len(prompts), len(prompts[0])
+
+    def dist(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    with torch.inference_mode():
+        tokens = torch.tensor(prompts, device=device)
+        logits, pcache = prefill_step(model, cfg, {"tokens": tokens})
+        prog = DecodeProgram(model, cfg, B, HYBRID_MAX_LEN, device)
+        prog.start(pcache, logits[:, -1].argmax(dim=-1), S, graphed=False)
+        del logits, pcache
+        steps, fed = [], []
+        for _ in range(n):
+            fed.append(prog.tokens.clone())
+            prog.step()
+            steps.append(prog.logits[:, 0].float())
+        del prog
+        fed = torch.cat(fed, 1)
+        total = -(-(S + n) // 1024) * 1024
+        seq = torch.zeros((B, total), dtype=torch.long, device=device)
+        seq[:, :S] = tokens
+        seq[:, S:S + n] = fed
+        want = forward(model, cfg, {"tokens": seq})[0][:, S:S + n].float()
+        got = torch.stack(steps, 1)
+        rec = dict(err=dist(got, want), fed=fed.tolist(),
+                   positions=[S, S + n - 1], forward_len=total)
+        if fp32_reference:
+            m32 = copy.deepcopy(model).float()
+            c32 = cfg.replace(dtype=torch.float32, param_dtype=torch.float32)
+            with no_tf32(torch):
+                ref = forward(m32, c32, {"tokens": seq})[0][:, S:S + n]
+            del m32
+            rec.update(forward_vs_fp32=dist(want, ref),
+                       decode_vs_fp32=dist(got, ref))
+    return rec
+
+
+def run_hybrid_serving_path(torch, ops, device="cuda") -> dict:
+    """Phase 4e: zamba2-1.2b at full width and depth (seeded bf16 weights)
+    through ``ServingEngine`` at B = SERVE_REQUESTS, max_len
+    HYBRID_MAX_LEN: warmed on the prompts' first 256 tokens (its decode
+    graph captured there, the rings not full), then SERVE_REQUESTS prompts
+    of HYBRID_PROMPT tokens served eager and graphed
+    (:func:`serve_eager_and_graphed`: the same greedy tokens, nothing
+    captured in the run), every decode step rolling the rings; the launch
+    counters, set to 0 just before each run and read just after, read 0
+    (the window keeps the shared block off the flash kernel, as in the
+    reference); a replay free of host syncs; the prefill's and a step's
+    times, kernels and busy share against their bounds; peak memory; then
+    the teacher-forced check (:func:`hybrid_teacher_forced`), in bf16
+    (HYBRID_TF_TOL recorded; under HYBRID_TF_OUTER, no further from the fp32
+    forward than twice the bf16 forward is, fed the engine's tokens) and in
+    fp32 at depth HYBRID_F32_LAYERS under HYBRID_TF_TOL_F32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = get_config(HYBRID_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=device).manual_seed(9))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator().manual_seed(10)
+    prompts = [torch.randint(1, cfg.vocab_size, (HYBRID_PROMPT,),
+                             generator=gen).tolist()
+               for _ in range(SERVE_REQUESTS)]
+    eng = ServingEngine(cfg, ServeConfig(max_batch=SERVE_REQUESTS,
+                                         max_len=HYBRID_MAX_LEN),
+                        params=model, device=device)
+    warm_engine(torch, eng, prompts)
+    runs = serve_eager_and_graphed(torch, ops, eng, prompts, "4e hybrid")
+    zero = dict.fromkeys(ops.LAUNCHES, 0)
+    for mode, r in runs.items():
+        if r["launches"] != zero or r["prefill_batches"] != 1:
+            raise SystemExit(f"4e hybrid ({mode} decode): launches "
+                             f"{r['launches']} over {r['prefill_batches']} "
+                             "prefill batches; want none over 1")
+    prog = eng.programs[SERVE_REQUESTS]
+    W = prog.cache["attn_k"].shape[2]
+    last_len = int(prog.cache_len)
+    if not (W == cfg.sliding_window and HYBRID_PROMPT >= W
+            and last_len == HYBRID_PROMPT + SERVE_NEW - 1):
+        raise SystemExit(f"4e hybrid: ring {W} rows, cache_len {last_len} "
+                         "after the run: not every step rolled the ring")
+    serve_peak = torch.cuda.max_memory_allocated()
+    tokens = torch.tensor(prompts, device=device)
+    act = decode_activity(torch, eng, tokens)
+    with torch.inference_mode():
+        prefill_act = device_activity(torch, lambda: eng.prefill(tokens),
+                                      reps=1)
+    del tokens
+    dec = log_decode_runs("4e hybrid", runs, act, eng)
+    flop = hybrid_prefill_flop(cfg, SERVE_REQUESTS, HYBRID_PROMPT)
+    nbytes = hybrid_decode_bytes(torch, model, cfg, SERVE_REQUESTS, W)
+    bound = nbytes["total"] / HBM_BYTES_PER_S * 1e3
+    bound_roll = (nbytes["total"] + nbytes["roll_ideal"]) \
+        / HBM_BYTES_PER_S * 1e3
+    bound_run = (nbytes["total"] + nbytes["roll_run"]) \
+        / HBM_BYTES_PER_S * 1e3
+    del eng, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    tf = hybrid_teacher_forced(torch, model, cfg, prompts, SERVE_NEW - 1,
+                               device, fp32_reference=True)
+    tf["fed_are_the_engines"] = tf["fed"] == [
+        o[:SERVE_NEW - 1] for o in runs["graph"]["outputs"]]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    c32 = cfg.replace(n_layers=HYBRID_F32_LAYERS, dtype=torch.float32,
+                      param_dtype=torch.float32)
+    with no_tf32(torch):
+        m32 = init_params(c32, torch.Generator(device=device).manual_seed(9))
+        tf32 = hybrid_teacher_forced(torch, m32, c32, prompts,
+                                     SERVE_NEW - 1, device)
+    tf32["rings"] = -(-HYBRID_F32_LAYERS // cfg.hybrid_shared_period)
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    g, e = runs["graph"], runs["eager"]
+    rec = dict(
+        arch=HYBRID_ARCH, config="full width and depth", dtype="bfloat16",
+        parameters=n_params, init_s=init_s, layers=cfg.n_layers,
+        shared_applications=-(-cfg.n_layers // cfg.hybrid_shared_period),
+        requests=SERVE_REQUESTS, prompt_len=HYBRID_PROMPT,
+        max_len=HYBRID_MAX_LEN, ring_rows=W, new_tokens=SERVE_NEW,
+        launches=g["launches"], eager_launches=e["launches"],
+        prefill_ms=g["prefill_ms"], eager_prefill_ms=e["prefill_ms"],
+        prefill_kernels=prefill_act["kernels"],
+        prefill_device_ms=prefill_act["busy_ms"],
+        prefill_tflop={k: v / 1e12 for k, v in flop.items()},
+        decode_step_ms=g["decode_step_ms"],
+        decode_step_ms_range=g["decode_step_ms_range"],
+        eager_decode_step_ms=e["decode_step_ms"],
+        eager_decode_step_ms_range=e["decode_step_ms_range"],
+        tokens_per_s=g["tokens_per_s"],
+        decode_tokens_per_s=g["decode_tokens_per_s"],
+        decode_bytes=nbytes, decode_bound_ms=bound,
+        decode_bound_with_roll_ms=bound_roll,
+        decode_bound_as_run_ms=bound_run, peak_memory_gb=serve_peak / 1e9,
+        teacher_forced=dict(tf, fed=None), teacher_forced_tol=HYBRID_TF_TOL,
+        teacher_forced_within_tol=tf["err"] <= HYBRID_TF_TOL,
+        teacher_forced_outer_tol=HYBRID_TF_OUTER,
+        teacher_forced_fp32=dict(tf32, fed=None, layers=HYBRID_F32_LAYERS,
+                                 tol=HYBRID_TF_TOL_F32),
+        **dec)
+    log(f"4e hybrid ({HYBRID_ARCH}, {n_params:,} parameters, "
+        f"{cfg.n_layers} Mamba2 layers, the shared block "
+        f"{rec['shared_applications']} times, bf16; drawn in {init_s:.2f} "
+        f"s): {SERVE_REQUESTS} x {HYBRID_PROMPT} tokens, {SERVE_NEW} new, "
+        f"max_len {HYBRID_MAX_LEN} (a {W}-row ring, rolled at every step); "
+        f"launches {g['launches']} graphed, {e['launches']} eager (the "
+        f"window keeps flash off); prefill {g['prefill_ms']:.2f} ms "
+        f"(eager run {e['prefill_ms']:.2f}), {prefill_act['busy_ms']:.2f} ms "
+        f"of device and {prefill_act['kernels']:.0f} kernels, for "
+        f"{flop['projections'] / 1e12:.2f} TFLOP of projections, "
+        f"{flop['attention'] / 1e12:.2f} of attention scores and "
+        f"{flop['ssd'] / 1e12:.2f} of SSD einsums; a graphed step "
+        f"{g['decode_step_ms']:.3f} ms against its "
+        f"{nbytes['total'] / 1e9:.3f} GB bound of {bound:.3f} ms "
+        f"({bound_roll:.3f} with an ideal roll of "
+        f"{nbytes['roll_ideal'] / 1e9:.3f} GB, {bound_run:.3f} with the "
+        f"roll as run, {nbytes['roll_run'] / 1e9:.3f} GB); eager "
+        f"{e['decode_step_ms']:.3f} ms; peak memory "
+        f"{serve_peak / 1e9:.2f} GB [{card()}]")
+    log(f"4e hybrid teacher-forced: decode_step over {SERVE_NEW - 1} tokens "
+        f"at positions {tf['positions'][0]}-{tf['positions'][1]} against "
+        f"forward over {tf['forward_len']} tokens: {tf['err']:.3e} of the "
+        f"logits' max-abs (bf16; phase 4's bar {HYBRID_TF_TOL}: "
+        f"{rec['teacher_forced_within_tol']}; outer bar {HYBRID_TF_OUTER}); "
+        f"from the fp32 forward on the same weights the bf16 forward is "
+        f"{tf['forward_vs_fp32']:.3e}, the bf16 decode "
+        f"{tf['decode_vs_fp32']:.3e} (bar twice the forward's); the fed "
+        f"tokens the engine's: {tf['fed_are_the_engines']}; fp32 at depth "
+        f"{HYBRID_F32_LAYERS} ({tf32['rings']} rings): {tf32['err']:.3e} (tol "
+        f"{HYBRID_TF_TOL_F32}) [{card()}]")
+    ok = (tf["err"] <= HYBRID_TF_OUTER
+          and tf["decode_vs_fp32"] <= 2 * tf["forward_vs_fp32"]
+          and tf["fed_are_the_engines"]
+          and tf32["err"] <= HYBRID_TF_TOL_F32)
+    for mode in ("eager", "graph"):
+        bad = [t for o in runs[mode]["outputs"] for t in o
+               if not 0 <= t < cfg.vocab_size]
+        if bad or len(runs[mode]["outputs"]) != SERVE_REQUESTS or any(
+                len(o) != SERVE_NEW for o in runs[mode]["outputs"]):
+            ok = False
+    if not ok:
+        raise SystemExit(f"4e hybrid: {rec}")
+    return rec
+
+
 def run_training_path(torch, ops, seed: int) -> dict:
     """Phase 6a: ``repro_torch.train.train`` on phi3-mini-3.8b (full width,
     depth ``TRAIN_LAYERS``, bf16 weights, f32 moments) on the card, with the
@@ -4810,6 +5114,10 @@ def main() -> int:
     # -- 4d. an fp32 sort config (C26) and the f32 / f64 grouped routes -----
     fp32_sort = run_fp32_sort_path(torch, ops)
 
+    # -- 4e. the hybrid family: zamba2-1.2b at full width -------------------
+    hybrid = run_hybrid_serving_path(torch, ops)
+    log_memory(torch, "4e (the zamba2 model freed)")
+
     # -- 6. training and the Newton-Krylov step -------------------------------
     training = run_training_path(torch, ops, args.seed)
     log_memory(torch, "6a")
@@ -4906,6 +5214,7 @@ def main() -> int:
         fp32_cuda_core_bound_ms=f32["cuda_core_bound"][0],
         fp32_launches=serving["fp32_launches"]["flash_attention"],
         launches_moe=moe["launches"]["flash_attention"],
+        launches_hybrid=hybrid["launches"]["flash_attention"],
         moe_shape=dict(shape_bhksd=list(FLASH_SHAPE_MOE), causal=True,
                        dtype="bfloat16", ms=moe_flash["ms"],
                        plain_ms=moe_flash["plain_ms"],

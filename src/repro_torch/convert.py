@@ -57,6 +57,7 @@ from .core.linear_operator import (CSROperator, DenseOperator, ELLOperator,
                                    Stencil7Operator)
 from .core.types import resolve_device
 from .models import ModelConfig, Transformer
+from .models.ssm import F32_LEAVES as SSM_F32_LEAVES
 from .precond import (BlockJacobiPreconditioner, JacobiPreconditioner,
                       NeumannPreconditioner, SSORPreconditioner)
 
@@ -140,8 +141,9 @@ def preconditioner_from_numpy(kind: str, arrays: Mapping, *, op=None,
                               int(arrays["terms"]))
 
 
-#: leaves the JAX package draws in f32 whatever ``cfg.param_dtype``
-F32_LEAVES = ("router", "router_bias")
+#: leaves the JAX package draws in f32 whatever ``cfg.param_dtype``: the
+#: MoE router's and Mamba2's
+F32_LEAVES = ("router", "router_bias") + SSM_F32_LEAVES
 
 
 def lm_params_from_numpy(cfg: ModelConfig, params: Mapping[str, Any], *,
@@ -149,10 +151,11 @@ def lm_params_from_numpy(cfg: ModelConfig, params: Mapping[str, Any], *,
     """The port's :class:`~repro_torch.models.Transformer` for ``cfg`` with
     the weights of the JAX package's tree ``params`` (nested dicts of float
     arrays; ``layers`` stacked on a leading ``L`` axis, an ``mtp`` block
-    unstacked), cast to ``dtype``
+    and the hybrid family's ``shared_attn`` unstacked), cast to ``dtype``
     (``None``: ``cfg.param_dtype``) on ``device`` (``None`` means
-    ``"cuda"``).  The MoE router's leaves (``F32_LEAVES``) stay in f32 at
-    least, as the JAX package keeps them whatever its ``param_dtype``."""
+    ``"cuda"``).  The MoE router's and Mamba2's ``a_log``, ``dt_bias`` and
+    ``d_skip`` (``F32_LEAVES``) stay in f32 at least, as the JAX package
+    keeps them whatever its ``param_dtype``."""
     device = resolve_device(device)
     dtype = cfg.param_dtype if dtype is None else dtype
     wide = torch.promote_types(dtype, torch.float32)
@@ -172,15 +175,19 @@ def lm_params_from_numpy(cfg: ModelConfig, params: Mapping[str, Any], *,
         return tensor(tree, name)
 
     stacked = params["layers"]
-    n = len(np.asarray(stacked["ln1"]))
+    leaf = stacked
+    while isinstance(leaf, Mapping):
+        leaf = next(iter(leaf.values()))
+    n = len(np.asarray(leaf))
     if n != cfg.n_layers:
         raise ValueError(f"{cfg.name}: the tree has {n} layers, the config "
                          f"{cfg.n_layers}")
     tree = {k: tensor(params[k]) for k in ("embed", "final_norm", "lm_head")
             if k in params}
     tree["layers"] = [layer(stacked, i) for i in range(n)]
-    if "mtp" in params:
-        tree["mtp"] = unstacked(params["mtp"])
+    for key in ("mtp", "shared_attn"):
+        if key in params:
+            tree[key] = unstacked(params[key])
     return Transformer(cfg, tree)
 
 

@@ -1,4 +1,4 @@
-"""The decoder LM, dense and MoE families (PyTorch port of
+"""The decoder LM, dense, MoE and hybrid families (PyTorch port of
 ``repro.models.transformer``).
 
 A :class:`Transformer` module of :class:`DecoderBlock` modules, each with an
@@ -6,7 +6,10 @@ A :class:`Transformer` module of :class:`DecoderBlock` modules, each with an
 :class:`DenseFFN` submodule (``mlp``), or with ``cfg.moe_experts`` a
 :class:`~repro_torch.models.moe.MoEFFN` (``moe``); with ``cfg.use_mtp``
 also DeepSeek-V3's multi-token-prediction block (:class:`MTP`, ``mtp``),
-which only ``loss_fn`` runs.
+which only ``loss_fn`` runs.  The hybrid family (zamba2) has a
+:class:`~repro_torch.models.ssm.Mamba2` module per layer and one
+:class:`SharedBlock` (``shared_attn``: attention and a SwiGLU MLP) applied
+before the Mamba2 block of every ``cfg.hybrid_shared_period``-th layer.
 Weights keep the JAX package's layout (``x @ W``), so a JAX parameter tree
 carries across as a copy (:func:`repro_torch.convert.lm_params_from_numpy`).
 The entry points keep the JAX package's functional signatures, with the
@@ -16,19 +19,27 @@ module as ``params``:
 * ``forward(params, cfg, batch)``                        ``(logits (B,S,V), aux)``
 * ``prefill_step(params, cfg, batch)``                   ``(logits, cache)``
 * ``loss_fn(params, cfg, batch)``                        ``(loss, metrics)``
-* ``init_cache(cfg, batch, max_len, device=)``           ``{"k", "v"}`` / ``{"ckv", "krope"}``
+* ``init_cache(cfg, batch, max_len, device=)``           ``{"k", "v"}`` / ``{"ckv", "krope"}`` / hybrid
 * ``decode_step(params, cfg, cache, tokens, cache_len)`` ``(logits (B,1,V), cache)``
 
 The cache is ``{"k", "v"}``, each ``(L, B, T, K, hd)``, and with MLA the
 latent cache ``{"ckv", "krope"}``, ``(L, B, T, kv_lora_rank)`` and ``(L, B,
 T, qk_rope_head_dim)``; a decode step writes the new token's rows into it
-in place.  Layers run in a Python loop (the JAX package's ``lax.scan``);
-its sharding constraints have no counterpart on one device.  ``forward``
-sums the MoE layers' load-balance losses into its ``aux``; the prefill and
-decode steps drop them.  The hybrid, SSM, audio and VLM families raise
-``NotImplementedError`` and name the slice of the port that brings them;
-MLA outside the MoE family raises too (the JAX package cannot decode it,
-ROADMAP C25).
+in place.  The hybrid cache is ``{"ssm_h" (L, B, H, P, N) f32, "ssm_conv"
+(L, B, k - 1, d_inner + 2 N), "attn_k", "attn_v" (npts, B, W, K, hd)}``,
+one ring per application of the shared block (``npts = ceil(L /
+period)``), ``W = min(max_len, sliding_window)`` rows wide: a decode step
+writes row ``min(cache_len, W - 1)``, and once ``cache_len >= W`` first
+rolls each ring left by one, on the device, as the reference does
+(``repro.models.transformer.decode_step``); so with ``max_len`` under the
+window the ring narrows attention to ``max_len`` tokens (ROADMAP C27, which
+the serving engine refuses).  Layers run in a Python loop (the JAX
+package's ``lax.scan``); its sharding constraints have no counterpart on
+one device.  ``forward`` sums the MoE layers' load-balance losses into its
+``aux``; the prefill and decode steps drop them.  The SSM, audio and VLM
+families raise ``NotImplementedError`` and name the slice of the port that
+brings them; MLA outside the MoE family raises too (the JAX package cannot
+decode it, ROADMAP C25).
 
 The weights are trainable parameters; serving runs under
 ``torch.inference_mode()``, which records nothing for them.  With
@@ -56,12 +67,12 @@ from .attention import (decode_attention, init_attention_params,
 from .common import ModelConfig, dense_init, embed_init, rms_norm
 from .mla import init_mla_params, mla_attention, mla_decode
 from .moe import MoEFFN, dense_ffn, dense_ffn_init, init_moe_params
+from .ssm import Mamba2, init_mamba2_params, mamba2_init_state
 
 #: the families the port runs
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "hybrid")
 #: the slice of the port that brings each family the port does not run yet
 LATER_SLICES = {
-    "hybrid": "the hybrid (Mamba2 + shared attention) slice",
     "ssm": "the SSM (xLSTM) slice", "audio": "the audio (whisper) slice",
     "vlm": "the VLM (M-RoPE) slice",
 }
@@ -73,7 +84,8 @@ def check_supported(cfg: ModelConfig) -> None:
         later = LATER_SLICES.get(cfg.family, "a later slice")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family waits for {later} of "
-            "the PyTorch port; only the dense and MoE families run so far")
+            "the PyTorch port; only the dense, MoE and hybrid families run "
+            "so far")
     if cfg.use_mla and cfg.family != "moe":
         raise NotImplementedError(
             f"{cfg.name}: MLA runs in the MoE family only: the JAX package "
@@ -252,13 +264,49 @@ class MTP(nn.Module):
         self.block = DecoderBlock(params["block"], mla=mla)
 
 
+class SharedBlock(nn.Module):
+    """The hybrid family's shared block (the JAX package's
+    ``params["shared_attn"]``): ``x + attn(ln(x))``, then ``+ mlp(ln2(.))``,
+    the attention causal under ``cfg.sliding_window``, the MLP SwiGLU."""
+
+    def __init__(self, params: Mapping):
+        super().__init__()
+        self.ln = nn.Parameter(params["ln"])
+        self.attn = Attention(params["attn"])
+        self.ln2 = nn.Parameter(params["ln2"])
+        self.mlp = DenseFFN(params["mlp"])
+
+    def _mlp(self, x, cfg: ModelConfig):
+        return x + self.mlp(rms_norm(self.ln2, x, cfg.norm_eps))
+
+    def forward(self, x, positions, cfg: ModelConfig,
+                return_kv: bool = False):
+        """``x`` after the block, with ``return_kv`` also the attention's
+        ``(k, v)``, each ``(B, S, K, hd)``."""
+        a = self.attn(rms_norm(self.ln, x, cfg.norm_eps), positions, cfg,
+                      causal=True, return_kv=return_kv)
+        a, kv = a if return_kv else (a, None)
+        x = self._mlp(x + a, cfg)
+        return (x, kv) if return_kv else x
+
+    def decode(self, x, position, k_ring, v_ring,
+               wpos: Union[int, torch.Tensor], cfg: ModelConfig):
+        """One token against one application's rings, its K/V written at
+        row ``wpos`` in place."""
+        a, _, _ = self.attn.decode(rms_norm(self.ln, x, cfg.norm_eps),
+                                   position, k_ring, v_ring, wpos, cfg)
+        return self._mlp(x + a, cfg)
+
+
 class Transformer(nn.Module):
     """The decoder LM.  ``params`` is the JAX package's tree with the
     stacked ``layers`` given as a list of per-layer trees: ``embed (V,
     d)``, ``final_norm (d,)``, ``lm_head (d, V)`` (absent with
     ``tie_embeddings``), per layer ``ln1``, ``ln2``, ``attn`` and
     ``mlp`` (``moe`` with ``cfg.moe_experts``), and ``mtp`` where the tree
-    has it."""
+    has it.  In the hybrid family each layer's tree is a Mamba2 layer's
+    and ``shared_attn`` the shared block's (``ln``, ``attn``, ``ln2``,
+    ``mlp``)."""
 
     def __init__(self, cfg: ModelConfig, params: Mapping):
         super().__init__()
@@ -271,8 +319,12 @@ class Transformer(nn.Module):
         self.final_norm = nn.Parameter(params["final_norm"])
         self.lm_head = None if cfg.tie_embeddings \
             else nn.Parameter(params["lm_head"])
-        self.layers = nn.ModuleList(DecoderBlock(lp, mla=cfg.use_mla)
-                                    for lp in params["layers"])
+        if cfg.family == "hybrid":
+            self.layers = nn.ModuleList(Mamba2(lp) for lp in params["layers"])
+            self.shared_attn = SharedBlock(params["shared_attn"])
+        else:
+            self.layers = nn.ModuleList(DecoderBlock(lp, mla=cfg.use_mla)
+                                        for lp in params["layers"])
         self.mtp = MTP(params["mtp"], mla=cfg.use_mla) \
             if "mtp" in params else None
 
@@ -307,6 +359,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Transformer:
             layer["mlp"] = dense_ffn_init(g, cfg)
         return layer
 
+    if cfg.family == "hybrid":
+        tree["layers"] = [init_mamba2_params(g, cfg)
+                          for _ in range(cfg.n_layers)]
+        tree["shared_attn"] = {"ln": ones(cfg.d_model),
+                               "attn": init_attention_params(g, cfg),
+                               "ln2": ones(cfg.d_model),
+                               "mlp": dense_ffn_init(g, cfg)}
+        return Transformer(cfg, tree)
     tree["layers"] = [block() for _ in range(cfg.n_layers)]
     if cfg.use_mtp:
         tree["mtp"] = {"proj": dense_init(g, (2 * cfg.d_model, cfg.d_model),
@@ -355,16 +415,36 @@ def _maybe_remat(block: nn.Module, cfg: ModelConfig):
     return functools.partial(checkpoint, block, use_reentrant=False, **kw)
 
 
+def _hybrid_block(layer: Mamba2, shared, x, positions, cfg: ModelConfig):
+    if shared is not None:
+        x = shared(x, positions, cfg)
+    return x + layer(x, cfg)
+
+
+def _run_hybrid_stack(params: Transformer, cfg: ModelConfig, x, positions):
+    """The Mamba2 layers, the shared block before every ``period``-th; each
+    layer (with its shared block) one unit of ``cfg.remat``."""
+    period = cfg.hybrid_shared_period
+    block = _maybe_remat(_hybrid_block, cfg)
+    for i, layer in enumerate(params.layers):
+        shared = params.shared_attn if i % period == 0 else None
+        x = block(layer, shared, x, positions, cfg)
+    return x
+
+
 def forward(params: Transformer, cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(logits (B, S, V), aux_loss)``: the sum of the MoE
-    layers' load-balance losses (0 in the dense family)."""
+    layers' load-balance losses (0 in the dense and hybrid families)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed_tokens(params, cfg, tokens)
     positions = _positions(B, S, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "hybrid":
+        return _lm_head(params, cfg, _run_hybrid_stack(params, cfg, x,
+                                                       positions)), aux
     for block in params.layers:
         x, a = _maybe_remat(block, cfg)(x, positions, cfg)
         if a is not None:
@@ -378,11 +458,15 @@ def prefill_step(params: Transformer, cfg: ModelConfig,
     prompt: ``(logits (B, S, V), {"k", "v"})``, each ``(L, B, S, K, hd)``,
     or with MLA ``{"ckv", "krope"}``, ``(L, B, S, kv_lora_rank)`` and
     ``(L, B, S, qk_rope_head_dim)`` (the serving engine pads it to its max
-    length)."""
+    length).  The hybrid family's cache is described in the module's
+    docstring; its rings hold the last ``min(S, sliding_window)`` rows of
+    each application of the shared block."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed_tokens(params, cfg, tokens)
     positions = _positions(B, S, x.device)
+    if cfg.family == "hybrid":
+        return _hybrid_prefill(params, cfg, x, positions)
     ks, vs = [], []
     for block in params.layers:
         x, _, (k, v) = block(x, positions, cfg, return_kv=True)
@@ -391,6 +475,41 @@ def prefill_step(params: Transformer, cfg: ModelConfig,
     k1, k2 = cache_keys(cfg)
     cache = {k1: torch.stack(ks), k2: torch.stack(vs)}
     return _lm_head(params, cfg, x), cache
+
+
+def _hybrid_prefill(params: Transformer, cfg: ModelConfig, x, positions):
+    S = x.shape[1]
+    W = cache_rows(cfg, S)
+    period = cfg.hybrid_shared_period
+    cache = {"ssm_h": [], "ssm_conv": [], "attn_k": [], "attn_v": []}
+    for i, layer in enumerate(params.layers):
+        if i % period == 0:
+            x, (k, v) = params.shared_attn(x, positions, cfg, return_kv=True)
+            cache["attn_k"].append(k[:, -W:])
+            cache["attn_v"].append(v[:, -W:])
+        m, state = layer(x, cfg, return_state=True)
+        x = x + m
+        cache["ssm_h"].append(state["h"])
+        cache["ssm_conv"].append(state["conv"])
+    return _lm_head(params, cfg, x), {key: torch.stack(rows)
+                                      for key, rows in cache.items()}
+
+
+#: the hybrid cache's SSM state, which a prefill hands over and a decode
+#: step overwrites whole
+SSM_STATE = ("ssm_h", "ssm_conv")
+#: the hybrid cache's rings, which a decode step rolls once full
+RINGS = ("attn_k", "attn_v")
+
+
+def cache_rows(cfg: ModelConfig, n: int) -> int:
+    """The rows along the decode cache's sequence axis that ``n`` tokens
+    take: ``n``, or in the hybrid family, whose rings keep the last
+    ``sliding_window`` rows, ``min(n, sliding_window)``.  So a cache of
+    ``max_len`` holds ``cache_rows(cfg, max_len)`` rows (the ring's ``W``)."""
+    if cfg.family == "hybrid" and cfg.sliding_window:
+        return min(n, cfg.sliding_window)
+    return n
 
 
 def cache_keys(cfg: ModelConfig) -> Tuple[str, str]:
@@ -405,8 +524,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     hd)``, or with MLA the latent ``{"ckv", "krope"}``, ``(L, batch,
     max_len, kv_lora_rank)`` and ``(L, batch, max_len,
     qk_rope_head_dim)``, in ``cfg.dtype`` (``device=None`` means
-    ``"cuda"``)."""
+    ``"cuda"``); in the hybrid family the SSM state and the rings of the
+    module's docstring."""
     check_supported(cfg)
+    if cfg.family == "hybrid":
+        return _hybrid_cache(cfg, batch, max_len, resolve_device(device))
     lead = (cfg.n_layers, batch, max_len)
     if cfg.use_mla:
         shapes = (lead + (cfg.kv_lora_rank,), lead + (cfg.qk_rope_head_dim,))
@@ -417,12 +539,64 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             for key, shape in zip(cache_keys(cfg), shapes)}
 
 
+def _hybrid_cache(cfg: ModelConfig, batch: int, max_len: int, dev):
+    npts = -(-cfg.n_layers // cfg.hybrid_shared_period)
+    W = cache_rows(cfg, max_len)
+    state = mamba2_init_state(cfg, batch, cfg.dtype, device=dev)
+    ring = (npts, batch, W, cfg.n_kv_heads, cfg.hd)
+    return {
+        "ssm_h": state["h"].expand(cfg.n_layers, *state["h"].shape).clone(),
+        "ssm_conv": state["conv"].expand(cfg.n_layers,
+                                         *state["conv"].shape).clone(),
+        "attn_k": torch.zeros(ring, dtype=cfg.dtype, device=dev),
+        "attn_v": torch.zeros(ring, dtype=cfg.dtype, device=dev),
+    }
+
+
+def _roll_full(ring: torch.Tensor, full: Union[bool, torch.Tensor]) -> None:
+    """Once ``full``, shift the ``(B, W, K, hd)`` ring left by one row in
+    place (the reference's ``roll(-1)``: row 0 goes to row W - 1, which the
+    step then writes).  The rows are gathered by ``(t + full) mod W``, so a
+    0-d tensor ``full`` stays on the device (the identity while the ring
+    fills)."""
+    if full is False:
+        return
+    idx = (torch.arange(ring.shape[1], device=ring.device) + full) \
+        % ring.shape[1]
+    ring.copy_(ring.index_select(1, idx))
+
+
+def _hybrid_decode(params: Transformer, cfg: ModelConfig, cache, x, pos,
+                   cache_len: Union[int, torch.Tensor]):
+    W = cache["attn_k"].shape[2]
+    if isinstance(cache_len, torch.Tensor):
+        wpos = cache_len.clamp(max=W - 1)
+    else:
+        wpos = min(cache_len, W - 1)
+    full = cache_len >= W
+    period = cfg.hybrid_shared_period
+    for i, layer in enumerate(params.layers):
+        if i % period == 0:
+            kc = cache["attn_k"][i // period]
+            vc = cache["attn_v"][i // period]
+            _roll_full(kc, full)
+            _roll_full(vc, full)
+            x = params.shared_attn.decode(x, pos, kc, vc, wpos, cfg)
+        m, state = layer.decode(x, {"h": cache["ssm_h"][i],
+                                    "conv": cache["ssm_conv"][i]}, cfg)
+        cache["ssm_h"][i].copy_(state["h"])
+        cache["ssm_conv"][i].copy_(state["conv"])
+        x = x + m
+    return x
+
+
 def decode_step(params: Transformer, cfg: ModelConfig,
                 cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
                 cache_len: Union[int, torch.Tensor]):
     """One-token decode.  tokens: (B, 1) -> ``(logits (B, 1, V), cache)``;
     the new K/V (MLA: latent) rows are written into ``cache`` at
-    ``cache_len`` in place.
+    ``cache_len`` in place (hybrid: the SSM state overwritten and the rings
+    written as the module's docstring says).
     ``cache_len`` is an int or a 0-d integer tensor (the JAX package's
     traced ``jnp.int32``); a tensor is never read by the host, so the step
     captures as one CUDA graph (the serving engine's decode program)."""
@@ -432,6 +606,9 @@ def decode_step(params: Transformer, cfg: ModelConfig,
         pos = cache_len.reshape(1).expand(B)
     else:
         pos = torch.full((B,), cache_len, dtype=torch.int32, device=x.device)
+    if cfg.family == "hybrid":
+        x = _hybrid_decode(params, cfg, cache, x, pos, cache_len)
+        return _lm_head(params, cfg, x), cache
     k1, k2 = cache_keys(cfg)
     for l, block in enumerate(params.layers):
         x = block.decode(x, pos, cache[k1][l], cache[k2][l], cache_len, cfg)

@@ -21,8 +21,11 @@ once per step: the B next tokens, in one copy.  On the CPU and under
 :func:`~repro_torch.core.program._eager_chunks` the same step runs eagerly
 on the same buffers; a failed capture raises.  Every family's step
 captures: the MLA latent cache ``{"ckv", "krope"}`` is spliced and written
-in place as the K/V cache is, and the MoE sort dispatch reads nothing to
-the host (its grouped product takes the offsets on the device).
+in place as the K/V cache is, the MoE sort dispatch reads nothing to
+the host (its grouped product takes the offsets on the device), and the
+hybrid family's SSM state is spliced whole and overwritten in place, its
+rings (``min(max_len, sliding_window)`` rows) rolled on the device once
+full.
 Everything runs under ``torch.inference_mode()``.
 
 ``stats``: the wall time of each prefill (``prefill_s``, the splice
@@ -48,6 +51,7 @@ from repro_torch.core.types import resolve_device
 from repro_torch.kernels._build import LAUNCHES
 from repro_torch.models import (ModelConfig, Transformer, decode_step,
                                 init_cache, init_params, prefill_step)
+from repro_torch.models.transformer import RINGS, SSM_STATE, cache_rows
 
 
 @dataclasses.dataclass
@@ -112,14 +116,20 @@ class DecodeProgram:
 
     def start(self, pcache: Dict[str, torch.Tensor], first: torch.Tensor,
               plen: int, graphed: bool) -> None:
-        """Splice a prefill's ``(L, B, plen, ...)`` cache (K/V, or MLA's
-        latent rows) into the cache (the rows from ``plen`` on zeroed),
+        """Splice a prefill's ``(L, B, n, ...)`` cache (K/V, MLA's latent
+        rows, or a hybrid's rings, n = ``plen`` or the window) into the
+        cache (the rows from n on zeroed) and a hybrid's SSM state whole,
         ``first`` (B,) into the tokens buffer and ``plen`` into
         ``cache_len``; the batch's steps replay the graph when ``graphed``,
         else run eagerly."""
         for key, dst in self.cache.items():
-            dst[:, :, :plen].copy_(pcache[key])
-            dst[:, :, plen:].zero_()
+            src = pcache[key]
+            if key in SSM_STATE:
+                dst.copy_(src)
+                continue
+            n = src.shape[2]
+            dst[:, :, :n].copy_(src)
+            dst[:, :, n:].zero_()
         self.tokens.copy_(first.reshape(-1, 1))
         self.cache_len.fill_(plen)
         self.graphed = graphed
@@ -135,18 +145,25 @@ class DecodeProgram:
         """Capture the step as a CUDA graph; returns the seconds it took.
         The warm-up runs the step on copies of the tokens and ``cache_len``:
         it writes the new token's K/V row into the cache, the row the first
-        replay then writes again from the same inputs."""
+        replay then writes again from the same inputs.  A hybrid step also
+        advances its SSM state and may roll its rings, so its warm-up puts
+        the cache back as it found it."""
         t0 = time.perf_counter()
         out = {}
 
         def body():
             out["logits"] = self._step(self.tokens, self.cache_len)
 
+        def warm_up():
+            saved = {k: self.cache[k].clone() for k in SSM_STATE + RINGS
+                     if k in self.cache}
+            self._step(self.tokens.clone(), self.cache_len.clone())
+            for k, t in saved.items():
+                self.cache[k].copy_(t)
+
         self.graph, self.launches, _, self.pool_bytes = _program.capture(
             f"the decode program {self.key!r}", self.device,
-            torch.cuda.graph_pool_handle(),
-            lambda: self._step(self.tokens.clone(), self.cache_len.clone()),
-            body)
+            torch.cuda.graph_pool_handle(), warm_up, body)
         self.logits = out["logits"]
         torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
@@ -227,14 +244,7 @@ class ServingEngine:
         B = len(reqs)
         plen = max(len(r.prompt) for r in reqs)
         max_new = max(r.max_new_tokens for r in reqs)
-        # the last decode step writes cache row plen + max_new - 2; the JAX
-        # engine clamps that write and overwrites the last row, this one
-        # refuses the batch before it starts
-        if plen + max_new - 1 > self.scfg.max_len:
-            raise ValueError(
-                f"a prompt of {plen} tokens and {max_new} new tokens need "
-                f"{plen + max_new - 1} cache rows; max_len is "
-                f"{self.scfg.max_len}")
+        self._check_rows(plen, max_new)
         toks = np.zeros((B, plen), np.int64)
         for i, r in enumerate(reqs):
             toks[i, -len(r.prompt):] = r.prompt      # left-pad
@@ -269,6 +279,24 @@ class ServingEngine:
                     active[i] = False
                     continue
                 r.output.append(int(nxt[i]))
+
+    def _check_rows(self, plen: int, max_new: int) -> None:
+        """Refuse, before its prefill, a batch whose cache rows do not fit.
+        The last decode step writes cache row plen + max_new - 2; the JAX
+        engine clamps that write and overwrites the last row (ROADMAP C12).
+        A hybrid's rings hold ``cache_rows(cfg, max_len)`` =
+        min(max_len, window) rows: with max_len under the window the JAX
+        engine would narrow attention to max_len tokens once the ring
+        fills (ROADMAP C27)."""
+        need = cache_rows(self.cfg, plen + max_new - 1)
+        held = cache_rows(self.cfg, self.scfg.max_len)
+        if need > held:
+            raise ValueError(
+                f"a prompt of {plen} tokens and {max_new} new tokens need "
+                f"{need} cache rows; max_len is {self.scfg.max_len}, so the "
+                f"cache holds {held} (ROADMAP C12; a hybrid's rings hold "
+                "min(max_len, window) rows, and under the window the JAX "
+                "engine would narrow attention to max_len tokens: C27)")
 
     def _splice(self, pcache: Dict[str, torch.Tensor], first: torch.Tensor,
                 plen: int) -> DecodeProgram:

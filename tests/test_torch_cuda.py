@@ -793,6 +793,53 @@ def test_a_sort_config_decodes_eagerly_and_says_so(cuda, arch):
     assert outs["graph"] == outs["eager"]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_graphed_hybrid_decode_past_the_window_gives_the_eager_tokens(
+        cuda, dtype):
+    """The smoke zamba2 (a 64-token window) at ``max_len`` 128: a batch of
+    16-token prompts first (the graph captured there, its rings not full),
+    then two prompts of 40 tokens (the rings fill at ``cache_len`` 64 and
+    roll from then on) and two of 70 (rolling from the first step), 40 new
+    tokens each.  The graphed engine gives the tokens of the same engine
+    under ``_eager_chunks``, no kernel of the port is launched (the window
+    keeps the shared block off the flash kernel), and a replay makes no
+    host sync."""
+    from repro_torch.core.program import _eager_chunks
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = _serve_config("zamba2-1.2b", dtype)
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(5))
+    outs = {}
+    for mode in ("eager", "graph"):
+        eng = ServingEngine(cfg, ServeConfig(max_batch=2, max_len=128),
+                            params=model, device=cuda)
+        with _eager_chunks() if mode == "eager" else \
+                contextlib.nullcontext():
+            _serve(eng, _prompts(cfg.vocab_size, 2, 16, 6), new=4)
+            ops.reset_launches()
+            outs[mode] = [_serve(eng, _prompts(cfg.vocab_size, 2, S, S),
+                                 new=40) for S in (40, 70)]
+            torch.cuda.synchronize()
+        assert not any(ops.LAUNCHES.values())
+        if mode == "graph":
+            assert eng.stats["decode_program"] == "graph"
+            assert eng.stats["decode_graphs"] == 1
+            assert eng.programs[2].launches == {}
+        else:
+            assert eng.stats["decode_program"].startswith("eager: ")
+    assert outs["graph"] == outs["eager"]
+    prog = eng.programs[2]
+    with torch.inference_mode():
+        before = int(prog.cache_len)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            prog.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert int(prog.cache_len) == before + 1
+
+
 def test_decode_attention_on_the_card_sums_bf16_products_in_f32(cuda):
     """bf16 ``decode_attention`` on the card (scores from ``bmm`` with an
     f32 output over the cache as it lies) against the same call on the CPU

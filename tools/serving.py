@@ -1,14 +1,16 @@
 """Phases 2d (its cases at qwen3-8b's and llama4-scout's prefill shapes),
 4 (qwen3-8b served at full width), 4b (llama4-scout served at full width,
-depth 12) and 4c (deepseek-v3 served at full width, depth 2, with the
-grouped kernel's checks) of chip_smoke.py alone, after the kernels' build;
-then the card tests that a pytest -k expression selects, if one is given.
+depth 12), 4c (deepseek-v3 served at full width, depth 2, with the
+grouped kernel's checks) and 4e (zamba2-1.2b served at full width and
+depth, which launches no kernel of the port) of chip_smoke.py alone, after
+the kernels' build (skipped when only 4e runs); then the card tests that a
+pytest -k expression selects, if one is given.
 
-    python3 tools/serving.py [4] [4b] [4c] [-k EXPR]
+    python3 tools/serving.py [4] [4b] [4c] [4e] [-k EXPR]
 
-With no phase named, all three run, in that order, each model freed before
-the next; 2d runs when 4 or 4b does.  Run on the card from the root of a
-checkout (about three minutes of command, plus the tests)."""
+With no phase named, 4, 4b and 4c run, in that order, each model freed
+before the next; 2d runs when 4 or 4b does.  Run on the card from the root
+of a checkout (about three minutes of command, plus the tests)."""
 import os
 import subprocess
 import sys
@@ -31,10 +33,11 @@ def main(argv) -> int:
         expr, argv = argv[i + 1], argv[:i] + argv[i + 2:]
     phases = argv or ["4", "4b", "4c"]
     cs.log(cs.card())
-    t0 = time.perf_counter()
-    _build.build(_build.library_path())
-    _build.library()
-    cs.log(f"build {time.perf_counter() - t0:.1f} s")
+    if set(phases) - {"4e"}:
+        t0 = time.perf_counter()
+        _build.build(_build.library_path())
+        _build.library()
+        cs.log(f"build {time.perf_counter() - t0:.1f} s")
     cs.FLASH_CASES = ((cs.FLASH_SHAPE, True, "bfloat16"),
                       (cs.FLASH_SHAPE, True, "float32"),
                       (cs.FLASH_SHAPE_MOE, True, "bfloat16"))
@@ -57,6 +60,10 @@ def main(argv) -> int:
         t = time.perf_counter()
         cs.run_mla_serving_path(torch, ops)
         cs.log(f"4c {time.perf_counter() - t:.1f} s")
+    if "4e" in phases:
+        t = time.perf_counter()
+        cs.run_hybrid_serving_path(torch, ops)
+        cs.log(f"4e {time.perf_counter() - t:.1f} s")
     if expr is None:
         return 0
     return subprocess.call([sys.executable, "-m", "pytest", "-q", "-m", "gpu",
