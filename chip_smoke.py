@@ -208,6 +208,28 @@ package is missing.  Phases, any failure of which fails the run:
    0.15 of the logits' max-abs (5e-2 recorded) and no further from the
    fp32 forward on the same weights than twice the bf16 forward is; in
    fp32 at depth 7 (two rings) within 1e-3;
+4f. the SSM family (run after 4e): ``ServingEngine`` on xlstm-350m at full
+   width and depth (12 sLSTM + mLSTM pairs, d 1,024, 4 heads, vocab
+   50,304; 442,283,104 seeded bf16 parameters), max_len 256, under the
+   prompt (the decode state, 202.5 MB of f32 at B = 4, has no sequence
+   axis, so no batch is refused): warmed on 256-token prompts at B = 4
+   (its decode graph captured there), then 4 prompts of 1,024 tokens (four
+   256-token mLSTM chunks) and 16 new tokens served eager and graphed as
+   in 4 (the same greedy tokens, nothing captured in the run); no kernel
+   of the port launched (the family runs none); a replay free of host
+   syncs; the prefill's ms, device time and kernels beside its TFLOP, the
+   sLSTM loop's part of it (its 12 blocks' span by CUDA events, its
+   kernels from one block profiled alone), a step's (median, range)
+   beside its bytes' bound (the weights but the embedding, the state read
+   and written), tokens/s, busy share, peak memory, cache and graph-pool
+   bytes; then ``decode_step`` run eagerly over 15 greedy tokens (the
+   engine's) against ``forward`` over the prompt and those tokens (padded
+   to the 256-token chunk): at full depth in bf16 no further from the fp32
+   forward on the same weights than twice the bf16 forward is (its
+   distance from the bf16 forward recorded beside 0.15 and 5e-2: bf16
+   rounding decorrelates 24 layers), the same weights in fp32 (TF32 off)
+   within 1e-3; at depth 4 (two pairs) bf16 within 0.15 and the same rule,
+   fp32 within 1e-3;
 5. the solve service (run before 4): ``repro_torch.service.SolveEngine``
    with ``ServiceConfig(max_batch=8, chunk=32, substrate="cuda", tol=1e-8,
    maxiter=2000)`` on 3a's system; a burst of 32 right-hand sides from
@@ -327,7 +349,8 @@ package is missing.  Phases, any failure of which fails the run:
    ``launches_nk``, ``launches_nk_torch`` and ``nk_fp32``, 6b's and 6c's;
    the flash row with ``launches_moe``, 4b's, ``launches_hybrid``, 4e's
    (0), and ``moe_shape``, 2d's
-   times at llama4's shape; the grouped row, 4c's, at a decode step's
+   times at llama4's shape; every row with ``launches_ssm``, 4f's (0); the
+   grouped row, 4c's, at a decode step's
    shape with ``prefill`` at the prefill's, each with ``kernel_route``
    (the route taken), ``tile`` and ``tile_ms`` (each bf16 tile's time), and
    ``fp32_fp64``, 4d's f32 and f64 route with its ``tile`` and ``tile_ms``,
@@ -347,7 +370,7 @@ the allocator holds is printed after each solver phase, and the session
 cache is cleared before phase 4.
 
 The run goes 1, 3a (the matrix), 2, 2b, 2c, 2d, 3b-3f, the profiler's
-counts, 3g, 5, 3h, 3i, 3j, 4, 4b, 4c, 4d, 4e, 6a-6c, 7.  Each path is driven with the
+counts, 3g, 5, 3h, 3i, 3j, 4, 4b, 4c, 4d, 4e, 4f, 6a-6c, 7.  Each path is driven with the
 launch counters set to 0 just before it and read just after; the kernels'
 checks and timings are not counted.
 """
@@ -554,6 +577,32 @@ HYBRID_TF_TOL = SERVE_LOGITS_TOL
 HYBRID_TF_OUTER = 0.15
 HYBRID_TF_TOL_F32 = 1e-3
 HYBRID_F32_LAYERS = 7
+# phase 4f: xlstm-350m (the SSM family: 12 sLSTM + mLSTM pairs, d 1,024, 4
+# heads) at full width and depth, bf16, on phase 4's prompt length (four
+# 256-token mLSTM chunks).  Its decode state has no sequence axis, so
+# max_len bounds nothing: it is set under the prompt, as the JAX engine
+# serves such a batch and the port's must not refuse it.  The
+# teacher-forced check, the forward's input padded to the mLSTM's chunk so
+# that it runs chunked as the prefill does: at full depth the bf16 decode
+# no further from the fp32 forward (TF32 off) than twice the bf16 forward
+# is, and the same weights in fp32 (TF32 off) under XLSTM_TF_TOL_F32; at
+# depth XLSTM_F32_LAYERS (two pairs) bf16 under XLSTM_TF_OUTER (and the
+# same rule against fp32) and fp32 under XLSTM_TF_TOL_F32.  At full depth
+# bf16 rounding alone decorrelates the stack: on the H100 the bf16 forward
+# reads 0.70 of the logits' max-abs from the fp32 forward of the same
+# weights, and the bf16 decode 0.40 from the bf16 forward, so 4e's
+# XLSTM_TF_OUTER and phase 4's bar are recorded there, not held (the JAX
+# package's own bf16 forward is 0.47-0.77 from its fp32 one at 24 layers
+# on the CPU at d 64 and 256); fp32 at full depth reads 4.3e-4
+XLSTM_ARCH = "xlstm-350m"
+XLSTM_PROMPT = SERVE_PROMPT
+XLSTM_MAX_LEN = 256
+XLSTM_CHUNK = 256
+XLSTM_TF_TOL = SERVE_LOGITS_TOL
+XLSTM_TF_OUTER = 0.15
+XLSTM_TF_TOL_F32 = 1e-3
+XLSTM_F32_LAYERS = 4
+XLSTM_PARAMS = 442_283_104      # the JAX package's count, jax.eval_shape
 GROUPED_SOURCE = "src/repro_torch/csrc/grouped_mm_sm90.cu"
 GROUPED_SOURCES = {"wgmma": GROUPED_SOURCE,
                    "mma": "src/repro_torch/csrc/grouped_mm.cu"}
@@ -4355,15 +4404,16 @@ def no_tf32(torch):
         torch.backends.cuda.matmul.allow_tf32 = allow
 
 
-def hybrid_teacher_forced(torch, model, cfg, prompts, n: int,
-                          device="cuda", fp32_reference=False) -> dict:
+def teacher_forced(torch, model, cfg, prompts, n: int, max_len: int,
+                   pad: int, device="cuda", fp32_reference=False) -> dict:
     """The prompts' prefill spliced into a fresh decode program of
-    HYBRID_MAX_LEN, then ``n`` greedy steps of it run eagerly (``cache_len``
+    ``max_len``, then ``n`` greedy steps of it run eagerly (``cache_len``
     a 0-d device tensor), against ``forward`` over the prompt
-    and the n fed tokens, zero-padded at the end to a multiple of 1,024
-    (the plain attention's query blocks; every layer is causal, so the
-    padding moves no logit before it): the max-abs difference over those n
-    positions over the forward's max-abs, and the tokens fed.  With
+    and the n fed tokens, zero-padded at the end to a multiple of ``pad``
+    (the plain attention's 1,024-row query blocks, or the mLSTM's 256-token
+    chunks; every layer is causal, so the padding moves no logit before
+    it): the max-abs difference over those n positions over the forward's
+    max-abs, and the tokens fed.  With
     ``fp32_reference``, also the distances of the decode's and the
     forward's logits from those of ``forward`` in fp32 (TF32 off) on the
     same weights, upcast."""
@@ -4378,7 +4428,7 @@ def hybrid_teacher_forced(torch, model, cfg, prompts, n: int,
     with torch.inference_mode():
         tokens = torch.tensor(prompts, device=device)
         logits, pcache = prefill_step(model, cfg, {"tokens": tokens})
-        prog = DecodeProgram(model, cfg, B, HYBRID_MAX_LEN, device)
+        prog = DecodeProgram(model, cfg, B, max_len, device)
         prog.start(pcache, logits[:, -1].argmax(dim=-1), S, graphed=False)
         del logits, pcache
         steps, fed = [], []
@@ -4388,7 +4438,7 @@ def hybrid_teacher_forced(torch, model, cfg, prompts, n: int,
             steps.append(prog.logits[:, 0].float())
         del prog
         fed = torch.cat(fed, 1)
-        total = -(-(S + n) // 1024) * 1024
+        total = -(-(S + n) // pad) * pad
         seq = torch.zeros((B, total), dtype=torch.long, device=device)
         seq[:, :S] = tokens
         seq[:, S:S + n] = fed
@@ -4419,7 +4469,7 @@ def run_hybrid_serving_path(torch, ops, device="cuda") -> dict:
     (the window keeps the shared block off the flash kernel, as in the
     reference); a replay free of host syncs; the prefill's and a step's
     times, kernels and busy share against their bounds; peak memory; then
-    the teacher-forced check (:func:`hybrid_teacher_forced`), in bf16
+    the teacher-forced check (:func:`teacher_forced`), in bf16
     (HYBRID_TF_TOL recorded; under HYBRID_TF_OUTER, no further from the fp32
     forward than twice the bf16 forward is, fed the engine's tokens) and in
     fp32 at depth HYBRID_F32_LAYERS under HYBRID_TF_TOL_F32."""
@@ -4473,8 +4523,8 @@ def run_hybrid_serving_path(torch, ops, device="cuda") -> dict:
     del eng, prog
     gc.collect()
     torch.cuda.empty_cache()
-    tf = hybrid_teacher_forced(torch, model, cfg, prompts, SERVE_NEW - 1,
-                               device, fp32_reference=True)
+    tf = teacher_forced(torch, model, cfg, prompts, SERVE_NEW - 1,
+                        HYBRID_MAX_LEN, 1024, device, fp32_reference=True)
     tf["fed_are_the_engines"] = tf["fed"] == [
         o[:SERVE_NEW - 1] for o in runs["graph"]["outputs"]]
     del model
@@ -4484,8 +4534,8 @@ def run_hybrid_serving_path(torch, ops, device="cuda") -> dict:
                       param_dtype=torch.float32)
     with no_tf32(torch):
         m32 = init_params(c32, torch.Generator(device=device).manual_seed(9))
-        tf32 = hybrid_teacher_forced(torch, m32, c32, prompts,
-                                     SERVE_NEW - 1, device)
+        tf32 = teacher_forced(torch, m32, c32, prompts, SERVE_NEW - 1,
+                              HYBRID_MAX_LEN, 1024, device)
     tf32["rings"] = -(-HYBRID_F32_LAYERS // cfg.hybrid_shared_period)
     del m32
     gc.collect()
@@ -4559,6 +4609,274 @@ def run_hybrid_serving_path(torch, ops, device="cuda") -> dict:
             ok = False
     if not ok:
         raise SystemExit(f"4e hybrid: {rec}")
+    return rec
+
+
+def xlstm_prefill_flop(cfg, B: int, S: int) -> dict:
+    """The products of one xLSTM prefill of B x S tokens: the projections
+    (the sLSTM's input, FFN; the mLSTM's up, q / k / v, gates, down; the
+    head), the sLSTM's recurrent products (a (hd, 4 hd) block per head a
+    token), and the mLSTM's chunk einsums at XLSTM_CHUNK tokens (scores
+    and their product with v over each chunk's (t, j) pairs, the carry's
+    read and update)."""
+    d, H, V = cfg.d_model, cfg.n_heads, cfg.vocab_size
+    pairs, dp = cfg.n_layers // 2, 2 * cfg.d_model
+    hd_m, hd_s = dp // H, d // H
+    ff = int(d * 4 / 3 / 64) * 64 * 2 or 2 * d
+    s_w = d * 4 * d + d * ff + ff // 2 * d
+    m_w = d * 2 * dp + 3 * dp * dp + dp * 2 * H + dp * d
+    Q = XLSTM_CHUNK if S % XLSTM_CHUNK == 0 else S
+    chunk = 2 * B * S * H * (2 * Q * hd_m + 2 * hd_m * hd_m + 2 * hd_m)
+    return dict(projections=2 * B * S * (pairs * (s_w + m_w) + d * V),
+                recurrent=pairs * 2 * B * S * H * hd_s * 4 * hd_s,
+                mlstm=pairs * chunk)
+
+
+def xlstm_decode_bytes(torch, model, cfg, B: int) -> dict:
+    """The bytes an xLSTM decode step must move: every weight but the
+    embedding (the pairs' and the head's), B rows of the embedding, and the
+    state (the matrix memory ``m_c`` most of it) read and written once."""
+    from repro_torch.models import init_cache
+
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+    parts = dict(
+        pairs=nbytes(model.layers.parameters()),
+        head=nbytes([model.lm_head, model.final_norm]),
+        embed_rows=B * cfg.d_model * model.embed.element_size(),
+        state_read_written=2 * nbytes(
+            init_cache(cfg, B, 1, device="meta").values()))
+    return dict(parts, total=sum(parts.values()))
+
+
+def slstm_in_prefill(torch, model, cfg, tokens) -> dict:
+    """The sLSTM blocks' part of one prefill of ``tokens``: their span on
+    the device (CUDA events recorded by a forward pre-hook and a forward
+    hook on each block, summed), beside the prefill's (events around it);
+    and their kernels: one block at the prefill's shape profiled alone
+    (every pair's block launches the same kernels), times the pairs."""
+    from repro_torch.models import prefill_step
+    spans, hooks = [], []
+
+    def pre(module, args):
+        spans.append([torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True)])
+        spans[-1][0].record()
+
+    def post(module, args, out):
+        spans[-1][1].record()
+    for pair in model.layers:
+        hooks.append(pair.slstm.register_forward_pre_hook(pre))
+        hooks.append(pair.slstm.register_forward_hook(post))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    try:
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            prefill_step(model, cfg, {"tokens": tokens})
+            end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for h in hooks:
+            h.remove()
+    slstm_ms = sum(a.elapsed_time(b) for a, b in spans)
+    block = model.layers[0].slstm
+    with torch.inference_mode():
+        x = model.embed[tokens.long()].to(cfg.dtype)
+        one = device_activity(torch, lambda: block(x, cfg), reps=1)
+    del x
+    prefill_ms = start.elapsed_time(end)
+    return dict(blocks=len(spans), ms=slstm_ms, prefill_ms=prefill_ms,
+                prefill_wall_ms=wall * 1e3, share=slstm_ms / prefill_ms,
+                kernels_per_block=one["kernels"],
+                device_ms_per_block=one["busy_ms"],
+                kernels=one["kernels"] * len(spans))
+
+
+def xlstm_teacher_forced(torch, model, cfg, prompts, device) -> tuple:
+    """:func:`teacher_forced` of the bf16 ``model`` (with its distances
+    from the fp32 forward), then of its weights upcast to fp32, TF32 off:
+    both records; the fp32 copy freed."""
+    import copy
+    tf = teacher_forced(torch, model, cfg, prompts, SERVE_NEW - 1,
+                        XLSTM_MAX_LEN, XLSTM_CHUNK, device,
+                        fp32_reference=True)
+    c32 = cfg.replace(dtype=torch.float32, param_dtype=torch.float32)
+    with no_tf32(torch):
+        m32 = copy.deepcopy(model).float()
+        tf32 = teacher_forced(torch, m32, c32, prompts, SERVE_NEW - 1,
+                              XLSTM_MAX_LEN, XLSTM_CHUNK, device)
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tf, tf32
+
+
+def run_xlstm_serving_path(torch, ops, device="cuda") -> dict:
+    """Phase 4f: xlstm-350m at full width and depth (seeded bf16 weights)
+    through ``ServingEngine`` at B = SERVE_REQUESTS, max_len XLSTM_MAX_LEN
+    (under the prompt: the state has no rows): warmed on the prompts'
+    first 256 tokens (its decode graph captured there), then
+    SERVE_REQUESTS prompts of XLSTM_PROMPT tokens served eager and graphed
+    (:func:`serve_eager_and_graphed`: the same greedy tokens, nothing
+    captured in the run); the launch counters, set to 0 just before each
+    run and read just after, read 0 (the family runs no kernel of the
+    port); a replay free of host syncs; the prefill's time, kernels and
+    device time beside its TFLOP, the sLSTM loop's part of it
+    (:func:`slstm_in_prefill`), a step's times, kernels and busy share
+    against its bytes' bound; peak memory; then the teacher-forced check
+    (:func:`xlstm_teacher_forced`): at full depth in bf16, fed the
+    engine's tokens, no further from the fp32 forward than twice the bf16
+    forward is (XLSTM_TF_TOL and XLSTM_TF_OUTER recorded), and the same
+    weights in fp32 under XLSTM_TF_TOL_F32; at depth XLSTM_F32_LAYERS in
+    bf16 under XLSTM_TF_OUTER (and the same rule against fp32) and in fp32
+    under XLSTM_TF_TOL_F32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = get_config(XLSTM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=device).manual_seed(11))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator().manual_seed(12)
+    prompts = [torch.randint(1, cfg.vocab_size, (XLSTM_PROMPT,),
+                             generator=gen).tolist()
+               for _ in range(SERVE_REQUESTS)]
+    eng = ServingEngine(cfg, ServeConfig(max_batch=SERVE_REQUESTS,
+                                         max_len=XLSTM_MAX_LEN),
+                        params=model, device=device)
+    warm_engine(torch, eng, prompts)
+    runs = serve_eager_and_graphed(torch, ops, eng, prompts, "4f xlstm")
+    zero = dict.fromkeys(ops.LAUNCHES, 0)
+    for mode, r in runs.items():
+        if r["launches"] != zero or r["prefill_batches"] != 1:
+            raise SystemExit(f"4f xlstm ({mode} decode): launches "
+                             f"{r['launches']} over {r['prefill_batches']} "
+                             "prefill batches; want none over 1")
+    prog = eng.programs[SERVE_REQUESTS]
+    if int(prog.cache_len) != XLSTM_PROMPT + SERVE_NEW - 1:
+        raise SystemExit(f"4f xlstm: cache_len {int(prog.cache_len)} after "
+                         "the run")
+    serve_peak = torch.cuda.max_memory_allocated()
+    tokens = torch.tensor(prompts, device=device)
+    slstm = slstm_in_prefill(torch, model, cfg, tokens)
+    act = decode_activity(torch, eng, tokens)
+    with torch.inference_mode():
+        prefill_act = device_activity(torch, lambda: eng.prefill(tokens),
+                                      reps=1)
+    del tokens
+    dec = log_decode_runs("4f xlstm", runs, act, eng)
+    flop = xlstm_prefill_flop(cfg, SERVE_REQUESTS, XLSTM_PROMPT)
+    nbytes = xlstm_decode_bytes(torch, model, cfg, SERVE_REQUESTS)
+    bound = nbytes["total"] / HBM_BYTES_PER_S * 1e3
+    del eng, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    tf, tf32_full = xlstm_teacher_forced(torch, model, cfg, prompts, device)
+    tf["fed_are_the_engines"] = tf["fed"] == [
+        o[:SERVE_NEW - 1] for o in runs["graph"]["outputs"]]
+    del model
+    gc.collect()
+    c4 = cfg.replace(n_layers=XLSTM_F32_LAYERS)
+    tf4, tf32 = xlstm_teacher_forced(
+        torch, init_params(c4, torch.Generator(device=device).manual_seed(11)),
+        c4, prompts, device)
+    g, e = runs["graph"], runs["eager"]
+    rec = dict(
+        arch=XLSTM_ARCH, config="full width and depth", dtype="bfloat16",
+        parameters=n_params, init_s=init_s, layers=cfg.n_layers,
+        pairs=cfg.n_layers // 2, requests=SERVE_REQUESTS,
+        prompt_len=XLSTM_PROMPT, max_len=XLSTM_MAX_LEN,
+        new_tokens=SERVE_NEW, launches=g["launches"],
+        eager_launches=e["launches"], prefill_ms=g["prefill_ms"],
+        eager_prefill_ms=e["prefill_ms"],
+        prefill_kernels=prefill_act["kernels"],
+        prefill_device_ms=prefill_act["busy_ms"],
+        prefill_tflop={k: v / 1e12 for k, v in flop.items()},
+        slstm_in_prefill=slstm,
+        decode_step_ms=g["decode_step_ms"],
+        decode_step_ms_range=g["decode_step_ms_range"],
+        eager_decode_step_ms=e["decode_step_ms"],
+        eager_decode_step_ms_range=e["decode_step_ms_range"],
+        tokens_per_s=g["tokens_per_s"],
+        decode_tokens_per_s=g["decode_tokens_per_s"],
+        decode_bytes=nbytes, decode_bound_ms=bound,
+        peak_memory_gb=serve_peak / 1e9,
+        teacher_forced=dict(tf, fed=None), teacher_forced_tol=XLSTM_TF_TOL,
+        teacher_forced_within_tol=tf["err"] <= XLSTM_TF_TOL,
+        teacher_forced_outer_tol=XLSTM_TF_OUTER,
+        teacher_forced_fp32_full=dict(tf32_full, fed=None,
+                                      tol=XLSTM_TF_TOL_F32),
+        teacher_forced_shallow=dict(tf4, fed=None, layers=XLSTM_F32_LAYERS,
+                                    tol=XLSTM_TF_OUTER),
+        teacher_forced_fp32=dict(tf32, fed=None, layers=XLSTM_F32_LAYERS,
+                                 tol=XLSTM_TF_TOL_F32),
+        **dec)
+    log(f"4f xlstm ({XLSTM_ARCH}, {n_params:,} parameters, "
+        f"{rec['pairs']} sLSTM + mLSTM pairs, bf16; drawn in {init_s:.2f} "
+        f"s): {SERVE_REQUESTS} x {XLSTM_PROMPT} tokens, {SERVE_NEW} new, "
+        f"max_len {XLSTM_MAX_LEN} (the state holds no rows); launches "
+        f"{g['launches']} graphed, {e['launches']} eager; prefill "
+        f"{g['prefill_ms']:.2f} ms (eager run {e['prefill_ms']:.2f}), "
+        f"{prefill_act['busy_ms']:.2f} ms of device and "
+        f"{prefill_act['kernels']:.0f} kernels, for "
+        f"{flop['projections'] / 1e12:.3f} TFLOP of projections, "
+        f"{flop['recurrent'] / 1e12:.4f} of sLSTM recurrent products and "
+        f"{flop['mlstm'] / 1e12:.3f} of mLSTM chunk einsums; a graphed "
+        f"step {g['decode_step_ms']:.3f} ms against its "
+        f"{nbytes['total'] / 1e9:.3f} GB bound of {bound:.3f} ms (weights "
+        f"but the embedding {(nbytes['pairs'] + nbytes['head']) / 1e9:.3f} "
+        f"GB, the state read and written "
+        f"{nbytes['state_read_written'] / 1e9:.3f} GB); eager "
+        f"{e['decode_step_ms']:.3f} ms; peak memory "
+        f"{serve_peak / 1e9:.2f} GB [{card()}]")
+    log(f"4f xlstm sLSTM loop: {slstm['blocks']} blocks of "
+        f"{XLSTM_PROMPT} sequential steps, {slstm['ms']:.2f} ms of the "
+        f"prefill's {slstm['prefill_ms']:.2f} (events; share "
+        f"{slstm['share']:.3f}; wall {slstm['prefill_wall_ms']:.2f}); "
+        f"{slstm['kernels_per_block']:.0f} kernels a block "
+        f"({slstm['kernels_per_block'] / XLSTM_PROMPT:.1f} a token), "
+        f"{slstm['kernels']:.0f} in the prefill, "
+        f"{slstm['device_ms_per_block']:.2f} ms of device a block "
+        f"[{card()}]")
+    log(f"4f xlstm teacher-forced: decode_step over {SERVE_NEW - 1} tokens "
+        f"at positions {tf['positions'][0]}-{tf['positions'][1]} against "
+        f"forward over {tf['forward_len']} tokens, max-abs over the "
+        f"logits' max-abs.  Depth {cfg.n_layers}: bf16 {tf['err']:.3e} "
+        f"(phase 4's bar {XLSTM_TF_TOL}: {rec['teacher_forced_within_tol']}"
+        f"; {XLSTM_TF_OUTER}: {tf['err'] <= XLSTM_TF_OUTER}, recorded); "
+        f"from the fp32 forward on the same weights the bf16 forward is "
+        f"{tf['forward_vs_fp32']:.3e}, the bf16 decode "
+        f"{tf['decode_vs_fp32']:.3e} (bar twice the forward's); the fed "
+        f"tokens the engine's: {tf['fed_are_the_engines']}; the same "
+        f"weights in fp32: {tf32_full['err']:.3e} (tol "
+        f"{XLSTM_TF_TOL_F32}).  Depth {XLSTM_F32_LAYERS}: bf16 "
+        f"{tf4['err']:.3e} (bar {XLSTM_TF_OUTER}), the forward "
+        f"{tf4['forward_vs_fp32']:.3e} and the decode "
+        f"{tf4['decode_vs_fp32']:.3e} from fp32; fp32 {tf32['err']:.3e} "
+        f"(tol {XLSTM_TF_TOL_F32}) [{card()}]")
+    ok = (n_params == XLSTM_PARAMS
+          and tf["decode_vs_fp32"] <= 2 * tf["forward_vs_fp32"]
+          and tf["fed_are_the_engines"]
+          and tf32_full["err"] <= XLSTM_TF_TOL_F32
+          and tf4["err"] <= XLSTM_TF_OUTER
+          and tf4["decode_vs_fp32"] <= 2 * tf4["forward_vs_fp32"]
+          and tf32["err"] <= XLSTM_TF_TOL_F32
+          and slstm["blocks"] == cfg.n_layers // 2)
+    for mode in ("eager", "graph"):
+        bad = [t for o in runs[mode]["outputs"] for t in o
+               if not 0 <= t < cfg.vocab_size]
+        if bad or len(runs[mode]["outputs"]) != SERVE_REQUESTS or any(
+                len(o) != SERVE_NEW for o in runs[mode]["outputs"]):
+            ok = False
+    if not ok:
+        raise SystemExit(f"4f xlstm: {rec}")
     return rec
 
 
@@ -5118,6 +5436,10 @@ def main() -> int:
     hybrid = run_hybrid_serving_path(torch, ops)
     log_memory(torch, "4e (the zamba2 model freed)")
 
+    # -- 4f. the SSM family: xlstm-350m at full width and depth --------------
+    xlstm = run_xlstm_serving_path(torch, ops)
+    log_memory(torch, "4f (the xlstm model freed)")
+
     # -- 6. training and the Newton-Krylov step -------------------------------
     training = run_training_path(torch, ops, args.seed)
     log_memory(torch, "6a")
@@ -5158,6 +5480,7 @@ def main() -> int:
                          library_omits="the probe row (row 10)")
         else:
             extra = dict(m=M)
+        extra["launches_ssm"] = xlstm["launches"][kname]
         if kname in service_launches:
             extra["launches_service"] = service_launches[kname]
         if kname in mesh_launches:
@@ -5215,6 +5538,7 @@ def main() -> int:
         fp32_launches=serving["fp32_launches"]["flash_attention"],
         launches_moe=moe["launches"]["flash_attention"],
         launches_hybrid=hybrid["launches"]["flash_attention"],
+        launches_ssm=xlstm["launches"]["flash_attention"],
         moe_shape=dict(shape_bhksd=list(FLASH_SHAPE_MOE), causal=True,
                        dtype="bfloat16", ms=moe_flash["ms"],
                        plain_ms=moe_flash["plain_ms"],
@@ -5242,6 +5566,7 @@ def main() -> int:
         launches=mla["launches"]["grouped_mm"],
         launches_eager=mla["eager_launches"]["grouped_mm"],
         launches_fp32_sort=fp32_sort["launches"]["grouped_mm"],
+        launches_ssm=xlstm["launches"]["grouped_mm"],
         max_abs_err=gdec["max_abs_err"], ms=gdec["ms"],
         plain_ms=gdec["plain_ms"], bound_ms=gdec["bound_ms"],
         bound_by=gdec["bound_by"], library_ms=gdec["library_ms"],

@@ -3,9 +3,10 @@
 ``get_config(arch)`` returns the assigned full-size config and
 ``smoke_config(arch)`` a reduced one of the same family for CPU tests, for
 the four dense architectures, the two MoE ones (llama4-scout, and
-deepseek-v3 with multi-head latent attention) and the hybrid zamba2-1.2b
-(Mamba2 layers and one shared attention block), whose files carry over
-from the JAX package as they are.  The other three ids raise
+deepseek-v3 with multi-head latent attention), the hybrid zamba2-1.2b
+(Mamba2 layers and one shared attention block) and the SSM xlstm-350m
+(sLSTM + mLSTM pairs), whose files carry over from the JAX package as
+they are.  The other two ids raise
 ``NotImplementedError`` and name the slice of the port that brings them.  The dry-run tooling of the JAX
 package's ``base`` (``input_specs``, ``SHAPES``, the applicability table)
 waits for the port of ``launch/``.
@@ -24,7 +25,6 @@ ARCH_IDS = [
 
 #: the architectures of later slices, and the slice that brings each
 LATER = {
-    "xlstm-350m": "the SSM slice",
     "whisper-tiny": "the audio slice",
     "qwen2-vl-72b": "the VLM slice",
 }
@@ -37,8 +37,8 @@ def _module(arch: str):
     if arch in LATER:
         raise NotImplementedError(
             f"{arch} waits for {LATER[arch]} of the PyTorch port; the port "
-            "runs the dense, MoE (MLA included) and hybrid families so "
-            "far")
+            "runs the dense, MoE (MLA included), hybrid and SSM families "
+            "so far")
     mod = arch.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 

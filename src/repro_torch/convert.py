@@ -58,6 +58,7 @@ from .core.linear_operator import (CSROperator, DenseOperator, ELLOperator,
 from .core.types import resolve_device
 from .models import ModelConfig, Transformer
 from .models.ssm import F32_LEAVES as SSM_F32_LEAVES
+from .models.transformer import stacked_layers
 from .precond import (BlockJacobiPreconditioner, JacobiPreconditioner,
                       NeumannPreconditioner, SSORPreconditioner)
 
@@ -150,7 +151,8 @@ def lm_params_from_numpy(cfg: ModelConfig, params: Mapping[str, Any], *,
                          device=None, dtype=None) -> Transformer:
     """The port's :class:`~repro_torch.models.Transformer` for ``cfg`` with
     the weights of the JAX package's tree ``params`` (nested dicts of float
-    arrays; ``layers`` stacked on a leading ``L`` axis, an ``mtp`` block
+    arrays; ``layers`` stacked on a leading ``L`` axis, in the SSM family
+    ``n_layers // 2`` sLSTM + mLSTM pairs, an ``mtp`` block
     and the hybrid family's ``shared_attn`` unstacked), cast to ``dtype``
     (``None``: ``cfg.param_dtype``) on ``device`` (``None`` means
     ``"cuda"``).  The MoE router's and Mamba2's ``a_log``, ``dt_bias`` and
@@ -179,9 +181,9 @@ def lm_params_from_numpy(cfg: ModelConfig, params: Mapping[str, Any], *,
     while isinstance(leaf, Mapping):
         leaf = next(iter(leaf.values()))
     n = len(np.asarray(leaf))
-    if n != cfg.n_layers:
+    if n != stacked_layers(cfg):
         raise ValueError(f"{cfg.name}: the tree has {n} layers, the config "
-                         f"{cfg.n_layers}")
+                         f"{stacked_layers(cfg)}")
     tree = {k: tensor(params[k]) for k in ("embed", "final_norm", "lm_head")
             if k in params}
     tree["layers"] = [layer(stacked, i) for i in range(n)]

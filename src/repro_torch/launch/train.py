@@ -1,14 +1,13 @@
 """Training launcher: trains a reduced config end to end on one device
 (PyTorch port of ``repro.launch.train``).
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \
       --steps 200 --batch-size 8 --seq-len 128
 
 ``--device cpu`` runs it on the CPU (the default is the card).  The flags
-and defaults are the JAX launcher's but two: ``--arch`` defaults to
-phi3-mini-3.8b (the JAX default, xlstm-350m, waits for the SSM slice of
-the port), and ``--production-mesh`` refuses: the JAX package's HLO
-dry-run has no counterpart in the port yet (ROADMAP A11.11).
+and defaults are the JAX launcher's (``--arch`` xlstm-350m), but
+``--production-mesh`` refuses: the JAX package's HLO dry-run has no
+counterpart in the port yet (ROADMAP A11.11).
 """
 from __future__ import annotations
 
@@ -17,7 +16,7 @@ import argparse
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="phi3-mini-3.8b")
+    ap.add_argument("--arch", default="xlstm-350m")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)

@@ -1,7 +1,8 @@
 """The LM stack of the port (PyTorch port of ``repro.models``): the dense
 and MoE decoder families (multi-head latent attention and its latent cache
-included) and the hybrid one (Mamba2 layers and a shared attention block,
-``models/ssm.py``), prefill and cached decode, with the CUDA
+included), the hybrid one (Mamba2 layers and a shared attention block,
+``models/ssm.py``) and the SSM one (xLSTM: sLSTM + mLSTM pairs,
+``models/xlstm.py``), prefill and cached decode, with the CUDA
 flash-attention kernel under ``cfg.use_flash_kernel`` and the
 grouped-product kernel in the MoE sort dispatch, and the training loss
 (with DeepSeek-V3's MTP)."""

@@ -3,9 +3,9 @@
 
 The config has the JAX package's fields and defaults, so its architecture
 files carry over as they are; the dtypes are ``torch`` dtypes.  The dense
-and MoE decoder families (MLA and MTP included) run in the port so far:
-fields of the other families (SSM, encoder-decoder, M-RoPE) are kept and
-refused where a model reads them.
+and MoE decoder families (MLA and MTP included), the hybrid and the SSM
+(xLSTM) families run in the port so far: fields of the other families
+(encoder-decoder, M-RoPE) are kept and refused where a model reads them.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""The decoder LM, dense, MoE and hybrid families (PyTorch port of
+"""The decoder LM, dense, MoE, hybrid and SSM families (PyTorch port of
 ``repro.models.transformer``).
 
 A :class:`Transformer` module of :class:`DecoderBlock` modules, each with an
@@ -10,6 +10,9 @@ which only ``loss_fn`` runs.  The hybrid family (zamba2) has a
 :class:`~repro_torch.models.ssm.Mamba2` module per layer and one
 :class:`SharedBlock` (``shared_attn``: attention and a SwiGLU MLP) applied
 before the Mamba2 block of every ``cfg.hybrid_shared_period``-th layer.
+The SSM family (xLSTM) has ``cfg.n_layers // 2``
+:class:`~repro_torch.models.xlstm.XLSTMPair` modules, an sLSTM and an
+mLSTM block each, and no attention.
 Weights keep the JAX package's layout (``x @ W``), so a JAX parameter tree
 carries across as a copy (:func:`repro_torch.convert.lm_params_from_numpy`).
 The entry points keep the JAX package's functional signatures, with the
@@ -19,7 +22,7 @@ module as ``params``:
 * ``forward(params, cfg, batch)``                        ``(logits (B,S,V), aux)``
 * ``prefill_step(params, cfg, batch)``                   ``(logits, cache)``
 * ``loss_fn(params, cfg, batch)``                        ``(loss, metrics)``
-* ``init_cache(cfg, batch, max_len, device=)``           ``{"k", "v"}`` / ``{"ckv", "krope"}`` / hybrid
+* ``init_cache(cfg, batch, max_len, device=)``           ``{"k", "v"}`` / ``{"ckv", "krope"}`` / hybrid / SSM
 * ``decode_step(params, cfg, cache, tokens, cache_len)`` ``(logits (B,1,V), cache)``
 
 The cache is ``{"k", "v"}``, each ``(L, B, T, K, hd)``, and with MLA the
@@ -33,12 +36,17 @@ writes row ``min(cache_len, W - 1)``, and once ``cache_len >= W`` first
 rolls each ring left by one, on the device, as the reference does
 (``repro.models.transformer.decode_step``); so with ``max_len`` under the
 window the ring narrows attention to ``max_len`` tokens (ROADMAP C27, which
-the serving engine refuses).  Layers run in a Python loop (the JAX
-package's ``lax.scan``); its sharding constraints have no counterpart on
-one device.  ``forward`` sums the MoE layers' load-balance losses into its
-``aux``; the prefill and decode steps drop them.  The SSM, audio and VLM
-families raise ``NotImplementedError`` and name the slice of the port that
-brings them; MLA outside the MoE family raises too (the JAX package cannot
+the serving engine refuses).  The SSM cache is the recurrent state of
+every pair, stacked on a leading ``n_layers // 2`` axis, all f32 and with
+no sequence axis: the sLSTM's ``{"s_c", "s_n", "s_h", "s_m"}``, each
+``(np, B, H, d / H)``, and the mLSTM's ``{"m_c" (np, B, H, hd, hd), "m_n"
+(np, B, H, hd), "m_m" (np, B, H)}`` (hd = 2 d / H); a decode step
+overwrites it in place and never reads ``cache_len``.  Layers run in a
+Python loop (the JAX package's ``lax.scan``); its sharding constraints
+have no counterpart on one device.  ``forward`` sums the MoE layers'
+load-balance losses into its ``aux``; the prefill and decode steps drop
+them.  The audio and VLM families raise ``NotImplementedError`` and name
+the slice of the port that brings them; MLA outside the MoE family raises too (the JAX package cannot
 decode it, ROADMAP C25).
 
 The weights are trainable parameters; serving runs under
@@ -68,13 +76,14 @@ from .common import ModelConfig, dense_init, embed_init, rms_norm
 from .mla import init_mla_params, mla_attention, mla_decode
 from .moe import MoEFFN, dense_ffn, dense_ffn_init, init_moe_params
 from .ssm import Mamba2, init_mamba2_params, mamba2_init_state
+from .xlstm import (XLSTMPair, init_mlstm_params, init_slstm_params,
+                    mlstm_init_state, slstm_init_state)
 
 #: the families the port runs
-FAMILIES = ("dense", "moe", "hybrid")
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
 #: the slice of the port that brings each family the port does not run yet
 LATER_SLICES = {
-    "ssm": "the SSM (xLSTM) slice", "audio": "the audio (whisper) slice",
-    "vlm": "the VLM (M-RoPE) slice",
+    "audio": "the audio (whisper) slice", "vlm": "the VLM (M-RoPE) slice",
 }
 
 
@@ -84,8 +93,8 @@ def check_supported(cfg: ModelConfig) -> None:
         later = LATER_SLICES.get(cfg.family, "a later slice")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family waits for {later} of "
-            "the PyTorch port; only the dense, MoE and hybrid families run "
-            "so far")
+            "the PyTorch port; only the dense, MoE, hybrid and SSM "
+            "families run so far")
     if cfg.use_mla and cfg.family != "moe":
         raise NotImplementedError(
             f"{cfg.name}: MLA runs in the MoE family only: the JAX package "
@@ -306,14 +315,15 @@ class Transformer(nn.Module):
     ``mlp`` (``moe`` with ``cfg.moe_experts``), and ``mtp`` where the tree
     has it.  In the hybrid family each layer's tree is a Mamba2 layer's
     and ``shared_attn`` the shared block's (``ln``, ``attn``, ``ln2``,
-    ``mlp``)."""
+    ``mlp``); in the SSM family ``layers`` holds ``n_layers // 2`` pairs,
+    each ``{"slstm", "mlstm"}``."""
 
     def __init__(self, cfg: ModelConfig, params: Mapping):
         super().__init__()
         check_supported(cfg)
-        if len(params["layers"]) != cfg.n_layers:
+        if len(params["layers"]) != stacked_layers(cfg):
             raise ValueError(f"{cfg.name}: {len(params['layers'])} layers "
-                             f"given, the config has {cfg.n_layers}")
+                             f"given, the config has {stacked_layers(cfg)}")
         self.cfg = cfg
         self.embed = nn.Parameter(params["embed"])
         self.final_norm = nn.Parameter(params["final_norm"])
@@ -322,6 +332,9 @@ class Transformer(nn.Module):
         if cfg.family == "hybrid":
             self.layers = nn.ModuleList(Mamba2(lp) for lp in params["layers"])
             self.shared_attn = SharedBlock(params["shared_attn"])
+        elif cfg.family == "ssm":
+            self.layers = nn.ModuleList(XLSTMPair(lp)
+                                        for lp in params["layers"])
         else:
             self.layers = nn.ModuleList(DecoderBlock(lp, mla=cfg.use_mla)
                                         for lp in params["layers"])
@@ -367,6 +380,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Transformer:
                                "ln2": ones(cfg.d_model),
                                "mlp": dense_ffn_init(g, cfg)}
         return Transformer(cfg, tree)
+    if cfg.family == "ssm":
+        tree["layers"] = [{"slstm": init_slstm_params(g, cfg),
+                           "mlstm": init_mlstm_params(g, cfg)}
+                          for _ in range(stacked_layers(cfg))]
+        return Transformer(cfg, tree)
     tree["layers"] = [block() for _ in range(cfg.n_layers)]
     if cfg.use_mtp:
         tree["mtp"] = {"proj": dense_init(g, (2 * cfg.d_model, cfg.d_model),
@@ -374,6 +392,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Transformer:
                        "block": block(), "ln_h": ones(cfg.d_model),
                        "ln_e": ones(cfg.d_model)}
     return Transformer(cfg, tree)
+
+
+def stacked_layers(cfg: ModelConfig) -> int:
+    """The entries of the stacked ``layers``: ``cfg.n_layers``, or in the
+    SSM family its ``n_layers // 2`` sLSTM + mLSTM pairs."""
+    if cfg.family == "ssm":
+        if cfg.n_layers % 2:
+            raise ValueError(f"{cfg.name}: an xLSTM stack is of pairs; "
+                             f"n_layers {cfg.n_layers} is odd")
+        return cfg.n_layers // 2
+    return cfg.n_layers
 
 
 def _lm_head(params: Transformer, cfg: ModelConfig, x: torch.Tensor):
@@ -432,11 +461,19 @@ def _run_hybrid_stack(params: Transformer, cfg: ModelConfig, x, positions):
     return x
 
 
+def _run_ssm_stack(params: Transformer, cfg: ModelConfig, x):
+    """The sLSTM + mLSTM pairs, each one unit of ``cfg.remat``."""
+    for pair in params.layers:
+        x = _maybe_remat(pair, cfg)(x, cfg)
+    return x
+
+
 def forward(params: Transformer, cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(logits (B, S, V), aux_loss)``: the sum of the MoE
-    layers' load-balance losses (0 in the dense and hybrid families)."""
+    layers' load-balance losses (0 in the dense, hybrid and SSM
+    families)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed_tokens(params, cfg, tokens)
@@ -445,6 +482,8 @@ def forward(params: Transformer, cfg: ModelConfig,
     if cfg.family == "hybrid":
         return _lm_head(params, cfg, _run_hybrid_stack(params, cfg, x,
                                                        positions)), aux
+    if cfg.family == "ssm":
+        return _lm_head(params, cfg, _run_ssm_stack(params, cfg, x)), aux
     for block in params.layers:
         x, a = _maybe_remat(block, cfg)(x, positions, cfg)
         if a is not None:
@@ -458,15 +497,18 @@ def prefill_step(params: Transformer, cfg: ModelConfig,
     prompt: ``(logits (B, S, V), {"k", "v"})``, each ``(L, B, S, K, hd)``,
     or with MLA ``{"ckv", "krope"}``, ``(L, B, S, kv_lora_rank)`` and
     ``(L, B, S, qk_rope_head_dim)`` (the serving engine pads it to its max
-    length).  The hybrid family's cache is described in the module's
-    docstring; its rings hold the last ``min(S, sliding_window)`` rows of
-    each application of the shared block."""
+    length).  The hybrid and SSM families' caches are described in the
+    module's docstring; the hybrid's rings hold the last ``min(S,
+    sliding_window)`` rows of each application of the shared block, the
+    SSM's state is each pair's after the prompt."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed_tokens(params, cfg, tokens)
     positions = _positions(B, S, x.device)
     if cfg.family == "hybrid":
         return _hybrid_prefill(params, cfg, x, positions)
+    if cfg.family == "ssm":
+        return _ssm_prefill(params, cfg, x)
     ks, vs = [], []
     for block in params.layers:
         x, _, (k, v) = block(x, positions, cfg, return_kv=True)
@@ -495,21 +537,46 @@ def _hybrid_prefill(params: Transformer, cfg: ModelConfig, x, positions):
                                       for key, rows in cache.items()}
 
 
-#: the hybrid cache's SSM state, which a prefill hands over and a decode
-#: step overwrites whole
-SSM_STATE = ("ssm_h", "ssm_conv")
+#: the SSM cache's entries: each pair's sLSTM and mLSTM state
+XLSTM_STATE = ("s_c", "s_n", "s_h", "s_m", "m_c", "m_n", "m_m")
+#: per family, the cache's state entries: they have no sequence axis, a
+#: prefill hands them over whole and a decode step overwrites them whole
+STATE_ENTRIES = {"hybrid": ("ssm_h", "ssm_conv"), "ssm": XLSTM_STATE}
 #: the hybrid cache's rings, which a decode step rolls once full
 RINGS = ("attn_k", "attn_v")
 
 
+def state_entries(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The decode cache's state entries in ``cfg``'s family (none in the
+    dense and MoE families): spliced whole, not along a sequence axis."""
+    return STATE_ENTRIES.get(cfg.family, ())
+
+
 def cache_rows(cfg: ModelConfig, n: int) -> int:
     """The rows along the decode cache's sequence axis that ``n`` tokens
-    take: ``n``, or in the hybrid family, whose rings keep the last
-    ``sliding_window`` rows, ``min(n, sliding_window)``.  So a cache of
-    ``max_len`` holds ``cache_rows(cfg, max_len)`` rows (the ring's ``W``)."""
+    take: ``n``; in the hybrid family, whose rings keep the last
+    ``sliding_window`` rows, ``min(n, sliding_window)``; in the SSM family,
+    whose state has no sequence axis, 0.  So a cache of ``max_len`` holds
+    ``cache_rows(cfg, max_len)`` rows (the ring's ``W``)."""
+    if cfg.family == "ssm":
+        return 0
     if cfg.family == "hybrid" and cfg.sliding_window:
         return min(n, cfg.sliding_window)
     return n
+
+
+def _ssm_prefill(params: Transformer, cfg: ModelConfig, x):
+    states = []
+    for pair in params.layers:
+        s, sfin = pair.slstm(x, cfg, return_state=True)
+        x = x + s
+        m, mfin = pair.mlstm(x, cfg, return_state=True)
+        x = x + m
+        states.append((sfin["c"], sfin["n"], sfin["h"], sfin["m"],
+                       mfin["c"], mfin["n"], mfin["m"]))
+    return _lm_head(params, cfg, x), {
+        key: torch.stack(rows) for key, rows in zip(XLSTM_STATE,
+                                                    zip(*states))}
 
 
 def cache_keys(cfg: ModelConfig) -> Tuple[str, str]:
@@ -525,10 +592,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     max_len, kv_lora_rank)`` and ``(L, batch, max_len,
     qk_rope_head_dim)``, in ``cfg.dtype`` (``device=None`` means
     ``"cuda"``); in the hybrid family the SSM state and the rings of the
-    module's docstring."""
+    module's docstring, in the SSM family the pairs' f32 state (the
+    stabilisers at -1e30), whatever ``max_len``."""
     check_supported(cfg)
     if cfg.family == "hybrid":
         return _hybrid_cache(cfg, batch, max_len, resolve_device(device))
+    if cfg.family == "ssm":
+        return _ssm_cache(cfg, batch, resolve_device(device))
     lead = (cfg.n_layers, batch, max_len)
     if cfg.use_mla:
         shapes = (lead + (cfg.kv_lora_rank,), lead + (cfg.qk_rope_head_dim,))
@@ -551,6 +621,16 @@ def _hybrid_cache(cfg: ModelConfig, batch: int, max_len: int, dev):
         "attn_k": torch.zeros(ring, dtype=cfg.dtype, device=dev),
         "attn_v": torch.zeros(ring, dtype=cfg.dtype, device=dev),
     }
+
+
+def _ssm_cache(cfg: ModelConfig, batch: int, dev):
+    s0 = slstm_init_state(cfg, batch, device=dev)
+    m0 = mlstm_init_state(cfg, batch, device=dev)
+    n = stacked_layers(cfg)
+    state = {"s_" + k: s0[k] for k in ("c", "n", "h", "m")}
+    state.update({"m_" + k: m0[k] for k in ("c", "n", "m")})
+    return {key: state[key].expand(n, *state[key].shape).clone()
+            for key in XLSTM_STATE}
 
 
 def _roll_full(ring: torch.Tensor, full: Union[bool, torch.Tensor]) -> None:
@@ -590,13 +670,28 @@ def _hybrid_decode(params: Transformer, cfg: ModelConfig, cache, x, pos,
     return x
 
 
+def _ssm_decode(params: Transformer, cfg: ModelConfig, cache, x):
+    for i, pair in enumerate(params.layers):
+        s, st = pair.slstm.decode(x, {k: cache["s_" + k][i]
+                                      for k in ("c", "n", "h", "m")}, cfg)
+        x = x + s
+        m, mt = pair.mlstm.decode(x, {k: cache["m_" + k][i]
+                                      for k in ("c", "n", "m")}, cfg)
+        x = x + m
+        for prefix, state in (("s_", st), ("m_", mt)):
+            for k, new in state.items():
+                cache[prefix + k][i].copy_(new)
+    return x
+
+
 def decode_step(params: Transformer, cfg: ModelConfig,
                 cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
                 cache_len: Union[int, torch.Tensor]):
     """One-token decode.  tokens: (B, 1) -> ``(logits (B, 1, V), cache)``;
     the new K/V (MLA: latent) rows are written into ``cache`` at
     ``cache_len`` in place (hybrid: the SSM state overwritten and the rings
-    written as the module's docstring says).
+    written as the module's docstring says; SSM: the pairs' state
+    overwritten, ``cache_len`` unused).
     ``cache_len`` is an int or a 0-d integer tensor (the JAX package's
     traced ``jnp.int32``); a tensor is never read by the host, so the step
     captures as one CUDA graph (the serving engine's decode program)."""
@@ -609,6 +704,9 @@ def decode_step(params: Transformer, cfg: ModelConfig,
     if cfg.family == "hybrid":
         x = _hybrid_decode(params, cfg, cache, x, pos, cache_len)
         return _lm_head(params, cfg, x), cache
+    if cfg.family == "ssm":
+        return _lm_head(params, cfg, _ssm_decode(params, cfg, cache, x)), \
+            cache
     k1, k2 = cache_keys(cfg)
     for l, block in enumerate(params.layers):
         x = block.decode(x, pos, cache[k1][l], cache[k2][l], cache_len, cfg)

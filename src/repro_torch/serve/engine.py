@@ -25,7 +25,8 @@ in place as the K/V cache is, the MoE sort dispatch reads nothing to
 the host (its grouped product takes the offsets on the device), and the
 hybrid family's SSM state is spliced whole and overwritten in place, its
 rings (``min(max_len, sliding_window)`` rows) rolled on the device once
-full.
+full; the SSM family's (xLSTM) cache is its state alone, spliced whole and
+overwritten in place, so its batches take any number of new tokens.
 Everything runs under ``torch.inference_mode()``.
 
 ``stats``: the wall time of each prefill (``prefill_s``, the splice
@@ -51,7 +52,7 @@ from repro_torch.core.types import resolve_device
 from repro_torch.kernels._build import LAUNCHES
 from repro_torch.models import (ModelConfig, Transformer, decode_step,
                                 init_cache, init_params, prefill_step)
-from repro_torch.models.transformer import RINGS, SSM_STATE, cache_rows
+from repro_torch.models.transformer import RINGS, cache_rows, state_entries
 
 
 @dataclasses.dataclass
@@ -118,13 +119,15 @@ class DecodeProgram:
               plen: int, graphed: bool) -> None:
         """Splice a prefill's ``(L, B, n, ...)`` cache (K/V, MLA's latent
         rows, or a hybrid's rings, n = ``plen`` or the window) into the
-        cache (the rows from n on zeroed) and a hybrid's SSM state whole,
+        cache (the rows from n on zeroed) and the state entries
+        (:func:`~repro_torch.models.transformer.state_entries`) whole,
         ``first`` (B,) into the tokens buffer and ``plen`` into
         ``cache_len``; the batch's steps replay the graph when ``graphed``,
         else run eagerly."""
+        whole = state_entries(self.cfg)
         for key, dst in self.cache.items():
             src = pcache[key]
-            if key in SSM_STATE:
+            if key in whole:
                 dst.copy_(src)
                 continue
             n = src.shape[2]
@@ -145,9 +148,9 @@ class DecodeProgram:
         """Capture the step as a CUDA graph; returns the seconds it took.
         The warm-up runs the step on copies of the tokens and ``cache_len``:
         it writes the new token's K/V row into the cache, the row the first
-        replay then writes again from the same inputs.  A hybrid step also
-        advances its SSM state and may roll its rings, so its warm-up puts
-        the cache back as it found it."""
+        replay then writes again from the same inputs.  A hybrid or SSM step
+        also advances its state entries, and a hybrid's may roll its rings,
+        so the warm-up puts those back as it found them."""
         t0 = time.perf_counter()
         out = {}
 
@@ -155,7 +158,8 @@ class DecodeProgram:
             out["logits"] = self._step(self.tokens, self.cache_len)
 
         def warm_up():
-            saved = {k: self.cache[k].clone() for k in SSM_STATE + RINGS
+            saved = {k: self.cache[k].clone()
+                     for k in state_entries(self.cfg) + RINGS
                      if k in self.cache}
             self._step(self.tokens.clone(), self.cache_len.clone())
             for k, t in saved.items():
@@ -287,7 +291,8 @@ class ServingEngine:
         A hybrid's rings hold ``cache_rows(cfg, max_len)`` =
         min(max_len, window) rows: with max_len under the window the JAX
         engine would narrow attention to max_len tokens once the ring
-        fills (ROADMAP C27)."""
+        fills (ROADMAP C27).  The SSM family's state takes no rows, so no
+        batch of it is refused."""
         need = cache_rows(self.cfg, plen + max_new - 1)
         held = cache_rows(self.cfg, self.scfg.max_len)
         if need > held:

@@ -840,6 +840,55 @@ def test_graphed_hybrid_decode_past_the_window_gives_the_eager_tokens(
         assert int(prog.cache_len) == before + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_graphed_xlstm_decode_gives_the_eager_tokens(cuda, dtype):
+    """The smoke xlstm (2 sLSTM + mLSTM pairs) at ``max_len`` 16: a batch
+    of 16-token prompts first (the graph captured there, its warm-up's
+    state put back), then two prompts of 40 tokens (one mLSTM chunk of
+    40) and two of 512 (two chunks of 256), 30 new tokens each, far past
+    ``max_len``: the state has no rows.  The graphed engine
+    gives the tokens of the same engine under ``_eager_chunks``,
+    ``decode_program_mode`` reads ``"graph"``, no kernel of the port is
+    launched, and a replay makes no host sync."""
+    from repro_torch.core.program import _eager_chunks
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeConfig, ServingEngine
+    from repro_torch.serve.engine import decode_program_mode
+    cfg = _serve_config("xlstm-350m", dtype)
+    assert decode_program_mode(cfg, cuda) == "graph"
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(6))
+    outs = {}
+    for mode in ("eager", "graph"):
+        eng = ServingEngine(cfg, ServeConfig(max_batch=2, max_len=16),
+                            params=model, device=cuda)
+        with _eager_chunks() if mode == "eager" else \
+                contextlib.nullcontext():
+            _serve(eng, _prompts(cfg.vocab_size, 2, 16, 7), new=4)
+            ops.reset_launches()
+            outs[mode] = [_serve(eng, _prompts(cfg.vocab_size, 2, S, S),
+                                 new=30) for S in (40, 512)]
+            torch.cuda.synchronize()
+        assert not any(ops.LAUNCHES.values())
+        if mode == "graph":
+            assert eng.stats["decode_program"] == "graph"
+            assert eng.stats["decode_graphs"] == 1
+            assert eng.programs[2].launches == {}
+        else:
+            assert eng.stats["decode_program"].startswith("eager: ")
+    assert outs["graph"] == outs["eager"]
+    assert all(len(o) == 30 for run in outs["graph"] for o in run)
+    prog = eng.programs[2]
+    with torch.inference_mode():
+        before = int(prog.cache_len)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            prog.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert int(prog.cache_len) == before + 1
+
+
 def test_decode_attention_on_the_card_sums_bf16_products_in_f32(cuda):
     """bf16 ``decode_attention`` on the card (scores from ``bmm`` with an
     f32 output over the cache as it lies) against the same call on the CPU

@@ -8,8 +8,9 @@ on the host, so on the card it captures as one CUDA graph (that capture
 runs in tests/test_torch_cuda.py and chip_smoke.py).  Here: several
 consecutive steps against the JAX ``decode_step`` under ``jax.jit`` with a
 traced ``jnp.int32`` ``cache_len`` (dense, MoE gather, MoE sort, a sliding
-window, deepseek's MLA with its latent cache, and the hybrid zamba2 with a
-window of 8, so that its rings roll at every step), the step traced by
+window, deepseek's MLA with its latent cache, the hybrid zamba2 with a
+window of 8, so that its rings roll at every step, and the SSM xlstm,
+whose cache is its pairs' state), the step traced by
 ``make_fx`` in fake mode (no host read left, the MoE sort dispatch's
 grouped product included), the in-place splice across batches, and the
 engine's choice of graph or eager.  Weights and inputs come from numpy
@@ -49,12 +50,13 @@ CASES = {
     "sliding-window": ("qwen3-8b", {"sliding_window": 5}),
     "mla": ("deepseek-v3-671b", {}),
     "hybrid": ("zamba2-1.2b", {"sliding_window": 8}),
+    "xlstm": ("xlstm-350m", {}),
 }
 #: leaves redrawn around their initial value, and by how much
 REDRAWN = {"ln1": 0.3, "ln2": 0.3, "final_norm": 0.3, "q_norm": 0.3,
            "k_norm": 0.3, "kv_norm": 0.3, "router_bias": 0.05,
            "ln": 0.3, "norm": 0.3, "norm_in": 0.3, "a_log": 0.3,
-           "dt_bias": 0.3, "d_skip": 0.3}
+           "dt_bias": 0.3, "d_skip": 0.3, "b_if": 0.5, "bias": 0.3}
 
 
 def np_(a):
@@ -101,7 +103,8 @@ def test_decode_steps_with_a_device_cache_len_match_the_jitted_jax_step(name):
     JAX step's greedy tokens: the port's ``cache_len`` a 0-d int32 tensor,
     the JAX one a traced ``jnp.int32`` under ``jax.jit``; logits and every
     cache entry within ``ATOL_MODEL`` after every step (the hybrid's: its
-    SSM state and its 8-row rings, full from the first step)."""
+    SSM state and its 8-row rings, full from the first step; the xlstm's:
+    its seven state entries)."""
     jc, tc, jparams, model = case(name, seed=1)
     B, S, steps = 2, 12, 5
     T = S + steps + 1
@@ -113,7 +116,7 @@ def test_decode_steps_with_a_device_cache_len_match_the_jitted_jax_step(name):
         cache = ttr.init_cache(tc, B, T, device=CPU)
         for key, dst in cache.items():
             src = gcache[key]
-            if key in ttr.SSM_STATE:
+            if key in ttr.state_entries(tc):
                 dst.copy_(src)
             else:
                 dst[:, :, :src.shape[2]] = src
@@ -162,18 +165,21 @@ def fake_trace(model, cfg, B=2, T=16, cache_len=9):
 
 
 @pytest.mark.parametrize("name", ["dense", "moe-gather", "sliding-window",
-                                  "mla", "hybrid"])
+                                  "mla", "hybrid", "xlstm"])
 def test_decode_step_traces_in_fake_mode_without_a_host_read(name):
     """No data-dependent host read is left in the step: ``make_fx`` in fake
     mode traces it whole, the cache (K/V, MLA's latent rows, or the
     hybrid's rings, rolled at ``cache_len`` 9 past their 8 rows) written by
-    ``index_copy_`` and no node reads a value to the host."""
+    ``index_copy_`` (the xlstm, which has no attention, writes its state
+    by ``copy_``: seven a pair) and no node reads a value to the host."""
     _, tc, _, model = case(name)
     gm = fake_trace(model, tc)
     targets = [str(n.target) for n in gm.graph.nodes
                if n.op == "call_function"]
-    attention_layers = tc.n_layers if tc.family != "hybrid" else \
-        -(-tc.n_layers // tc.hybrid_shared_period)
+    attention_layers = {"hybrid": -(-tc.n_layers // tc.hybrid_shared_period),
+                        "ssm": 0}.get(tc.family, tc.n_layers)
+    if tc.family == "ssm":
+        assert targets.count("aten.copy_.default") == 7 * tc.n_layers // 2
     assert targets.count("aten.index_copy_.default") == 2 * attention_layers
     assert not [t for t in targets if t in ("aten._local_scalar_dense.default",
                                             "aten.item.default")]
@@ -230,13 +236,15 @@ def test_the_engine_serves_two_batches_in_turn_as_fresh_engines_do():
 
 
 def test_decode_program_mode_names_why_a_step_runs_eagerly():
-    """``"graph"`` for a dense, MoE gather, MoE sort, MLA or hybrid config
-    on the card; ``"eager: ..."`` on the CPU and under ``_eager_chunks``."""
+    """``"graph"`` for a dense, MoE gather, MoE sort, MLA, hybrid or xlstm
+    config on the card; ``"eager: ..."`` on the CPU and under
+    ``_eager_chunks``."""
     cuda = torch.device("cuda")
-    dense, gather, sort, mla, hybrid = (tsmoke(a).replace(**kw) for a, kw in (
-        CASES["dense"], CASES["moe-gather"], CASES["moe-sort"],
-        CASES["mla"], CASES["hybrid"]))
-    for cfg in (dense, gather, sort, mla, hybrid):
+    dense, gather, sort, mla, hybrid, xlstm = (
+        tsmoke(a).replace(**kw) for a, kw in (
+            CASES["dense"], CASES["moe-gather"], CASES["moe-sort"],
+            CASES["mla"], CASES["hybrid"], CASES["xlstm"]))
+    for cfg in (dense, gather, sort, mla, hybrid, xlstm):
         assert decode_program_mode(cfg, cuda) == "graph"
         assert decode_program_mode(cfg, CPU).startswith("eager: ")
     with _eager_chunks():

@@ -395,15 +395,19 @@ def test_train_lowers_the_loss(tmp_path):
     assert out["checkpoint"]["saves"] == 3
 
 
-def test_launcher_trains_three_smoke_steps(tmp_path):
+@pytest.mark.parametrize("arch", [None, "phi3-mini-3.8b"])
+def test_launcher_trains_three_smoke_steps(tmp_path, arch):
+    """The default arch, xlstm-350m as in the JAX launcher, and phi3 named
+    explicitly."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    flags = [] if arch is None else ["--arch", arch]
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
          "--steps", "3", "--batch-size", "2", "--seq-len", "16",
-         "--ckpt-dir", str(tmp_path / "ckpt")],
+         "--ckpt-dir", str(tmp_path / "ckpt")] + flags,
         env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert "arch=phi3-mini-3.8b steps=3" in proc.stdout
+    assert f"arch={arch or 'xlstm-350m'} steps=3" in proc.stdout
     assert (tmp_path / "ckpt" / "step_00000003.npz").exists()
     with pytest.raises(SystemExit), redirect_stdout(io.StringIO()):
         launch_train.main(["--production-mesh"])

@@ -1,12 +1,13 @@
 """Phases 2d (its cases at qwen3-8b's and llama4-scout's prefill shapes),
 4 (qwen3-8b served at full width), 4b (llama4-scout served at full width,
 depth 12), 4c (deepseek-v3 served at full width, depth 2, with the
-grouped kernel's checks) and 4e (zamba2-1.2b served at full width and
-depth, which launches no kernel of the port) of chip_smoke.py alone, after
-the kernels' build (skipped when only 4e runs); then the card tests that a
-pytest -k expression selects, if one is given.
+grouped kernel's checks), 4e (zamba2-1.2b served at full width and
+depth) and 4f (xlstm-350m served at full width and depth), which launch no
+kernel of the port, of chip_smoke.py alone, after the kernels' build
+(skipped when only 4e or 4f run); then the card tests that a pytest -k
+expression selects, if one is given.
 
-    python3 tools/serving.py [4] [4b] [4c] [4e] [-k EXPR]
+    python3 tools/serving.py [4] [4b] [4c] [4e] [4f] [-k EXPR]
 
 With no phase named, 4, 4b and 4c run, in that order, each model freed
 before the next; 2d runs when 4 or 4b does.  Run on the card from the root
@@ -33,7 +34,7 @@ def main(argv) -> int:
         expr, argv = argv[i + 1], argv[:i] + argv[i + 2:]
     phases = argv or ["4", "4b", "4c"]
     cs.log(cs.card())
-    if set(phases) - {"4e"}:
+    if set(phases) - {"4e", "4f"}:
         t0 = time.perf_counter()
         _build.build(_build.library_path())
         _build.library()
@@ -64,6 +65,10 @@ def main(argv) -> int:
         t = time.perf_counter()
         cs.run_hybrid_serving_path(torch, ops)
         cs.log(f"4e {time.perf_counter() - t:.1f} s")
+    if "4f" in phases:
+        t = time.perf_counter()
+        cs.run_xlstm_serving_path(torch, ops)
+        cs.log(f"4f {time.perf_counter() - t:.1f} s")
     if expr is None:
         return 0
     return subprocess.call([sys.executable, "-m", "pytest", "-q", "-m", "gpu",
