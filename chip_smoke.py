@@ -96,9 +96,11 @@ package is missing.  Phases, any failure of which fails the run:
    128), causal, in bf16 (``flash_attention_mma.cu``) and fp32
    (``flash_attention.cu``, 3xTF32), both on the tensor cores, then
    llama4-scout's prefill shape (4, 40, 8, 1024, 128) in bf16 (G = 5: an
-   odd grouping), phi3's (1, 32, 32, 1024, 96) full (non-causal) and a
-   ragged S = 1000 in both types; a bitwise repeat; at qwen3's and
-   llama4's shapes the kernel's device time
+   odd grouping), phi3's (1, 32, 32, 1024, 96) full (non-causal), a
+   ragged S = 1000 in both types, and whisper-tiny's decoder prefill (4,
+   6, 6, 432, 64) causal (head dim 64, G = 1) in both types; a bitwise
+   repeat; at qwen3's, llama4's and whisper's shapes the kernel's device
+   time
    beside the plain version's, one ``scaled_dot_product_attention``
    call's, the bound (fp32: three TF32 products at the tensor cores' TF32
    rate, and beside it the CUDA cores' bound) and an earlier run's time
@@ -230,6 +232,30 @@ package is missing.  Phases, any failure of which fails the run:
    rounding decorrelates 24 layers), the same weights in fp32 (TF32 off)
    within 1e-3; at depth 4 (two pairs) bf16 within 0.15 and the same rule,
    fp32 within 1e-3;
+4g. the audio family (run after 4f): ``ServingEngine`` on whisper-tiny at
+   full width and depth (4 encoder and 4 decoder layers, d 384, 6 heads of
+   64, vocab 51,865, the 32,768-row learned position table; 49,046,016
+   seeded bf16 parameters) with ``use_flash_kernel=True``, max_len 448
+   (whisper's decoder context): warmed at B = 4 on the measured prompts
+   (its decode graph captured there), then 4 prompts of 432 tokens (the
+   frames all-zero, as the JAX engine builds them) and 16 new tokens
+   served eager and graphed as in 4 (the same greedy tokens, nothing
+   captured in the run); exactly 4 flash launches a prefill (the decoder's
+   causal self-attention; the encoder and the cross-attention stay plain,
+   as in the reference) and none in a decode step; a replay free of host
+   syncs; the prefill's last logits within 5e-2 of the same model's with
+   ``use_flash_kernel=False`` (the argmax agreement printed); the
+   prefill's ms, device time and kernels beside its FLOP, a step's
+   (median, range) beside its bytes' bound, tokens/s, busy share, peak
+   memory, cache and graph-pool bytes; then ``prefill_step`` through the
+   entry points on seeded frames (4, 1,024, 384), the largest encoder both
+   packages take (ROADMAP C30), and 15 eager ``decode_step``s, timed; then
+   the same weights in fp32 (TF32 off) at B = 1, 15 teacher-forced
+   ``decode_step``s on the card against the same steps on this machine's
+   CPU: within 1e-4 of the logits' max-abs; the decode's distance from
+   ``forward`` over the same tokens printed as C29's reading (the
+   reference's decode rotates with RoPE, its prefill does not), not
+   gated;
 5. the solve service (run before 4): ``repro_torch.service.SolveEngine``
    with ``ServiceConfig(max_batch=8, chunk=32, substrate="cuda", tol=1e-8,
    maxiter=2000)`` on 3a's system; a burst of 32 right-hand sides from
@@ -348,8 +374,9 @@ package is missing.  Phases, any failure of which fails the run:
    ``launches_scenarios``: 3j's counted runs; rows 1 and 2 with
    ``launches_nk``, ``launches_nk_torch`` and ``nk_fp32``, 6b's and 6c's;
    the flash row with ``launches_moe``, 4b's, ``launches_hybrid``, 4e's
-   (0), and ``moe_shape``, 2d's
-   times at llama4's shape; every row with ``launches_ssm``, 4f's (0); the
+   (0), ``moe_shape``, 2d's times at llama4's shape, and ``audio_shape``,
+   2d's at whisper's; every row with ``launches_ssm``, 4f's (0), and
+   ``launches_audio``, 4g's (flash: 4 a prefill batch; 0 elsewhere); the
    grouped row, 4c's, at a decode step's
    shape with ``prefill`` at the prefill's, each with ``kernel_route``
    (the route taken), ``tile`` and ``tile_ms`` (each bf16 tile's time), and
@@ -370,7 +397,7 @@ the allocator holds is printed after each solver phase, and the session
 cache is cleared before phase 4.
 
 The run goes 1, 3a (the matrix), 2, 2b, 2c, 2d, 3b-3f, the profiler's
-counts, 3g, 5, 3h, 3i, 3j, 4, 4b, 4c, 4d, 4e, 4f, 6a-6c, 7.  Each path is driven with the
+counts, 3g, 5, 3h, 3i, 3j, 4, 4b, 4c, 4d, 4e, 4f, 4g, 6a-6c, 7.  Each path is driven with the
 launch counters set to 0 just before it and read just after; the kernels'
 checks and timings are not counted.
 """
@@ -456,8 +483,11 @@ FLASH_SHAPE = (4, 32, 8, 1024, 128)
 # llama4-scout's prefill of the same prompts (phase 4b): 40 query heads on
 # 8 KV heads, G = 5 (odd; qwen3's is 4)
 FLASH_SHAPE_MOE = (4, 40, 8, 1024, 128)
+# whisper-tiny's decoder prefill in phase 4g: 4 prompts of 432 tokens, 6
+# query heads on 6 KV heads (G = 1) of head dim 64
+FLASH_SHAPE_AUDIO = (4, 6, 6, 432, 64)
 # the shapes timed (and repeated bitwise) in phase 2d
-FLASH_TIMED = (FLASH_SHAPE, FLASH_SHAPE_MOE)
+FLASH_TIMED = (FLASH_SHAPE, FLASH_SHAPE_MOE, FLASH_SHAPE_AUDIO)
 # (shape, causal, dtype name): the full shape, phi3's heads without the
 # mask, and a ragged S (no multiple of the kernels' tiles), in both types;
 # llama4's shape in bf16, the route its prefill takes
@@ -466,7 +496,9 @@ FLASH_CASES = ((FLASH_SHAPE, True, "bfloat16"), (FLASH_SHAPE, True, "float32"),
                ((1, 32, 32, 1024, 96), False, "bfloat16"),
                ((4, 32, 8, 1000, 128), True, "bfloat16"),
                ((1, 32, 32, 1024, 96), False, "float32"),
-               ((4, 32, 8, 1000, 128), True, "float32"))
+               ((4, 32, 8, 1000, 128), True, "float32"),
+               (FLASH_SHAPE_AUDIO, True, "bfloat16"),
+               (FLASH_SHAPE_AUDIO, True, "float32"))
 # the flash check, per output row (b, s, h): max |kernel - plain| over that
 # row's max-abs, the largest over all rows (a row's scale falls with its
 # causal length, so one max-abs for the whole output would let the late rows
@@ -603,6 +635,19 @@ XLSTM_TF_OUTER = 0.15
 XLSTM_TF_TOL_F32 = 1e-3
 XLSTM_F32_LAYERS = 4
 XLSTM_PARAMS = 442_283_104      # the JAX package's count, jax.eval_shape
+# phase 4g: whisper-tiny (the audio family) at full width and depth, bf16,
+# max_len 448 (whisper's decoder context): 4 prompts of 432 tokens, 16 new
+AUDIO_ARCH = "whisper-tiny"
+AUDIO_PROMPT = 432
+AUDIO_MAX_LEN = 448
+AUDIO_PARAMS = 49_046_016       # the JAX package's count, jax.eval_shape
+# the encoder's frames in 4g's entry-point prefill: 1,024, the largest one
+# query block of the plain attention takes in both packages (1,500, whisper's
+# own, is refused by both: ROADMAP C30)
+AUDIO_FRAMES = 1024
+# the fp32 (TF32 off) decode on the card against the same steps on the CPU,
+# over the logits' max-abs: both sum the same f32 products in other orders
+AUDIO_DECODE_TOL_F32 = 1e-4
 GROUPED_SOURCE = "src/repro_torch/csrc/grouped_mm_sm90.cu"
 GROUPED_SOURCES = {"wgmma": GROUPED_SOURCE,
                    "mma": "src/repro_torch/csrc/grouped_mm.cu"}
@@ -4880,6 +4925,296 @@ def run_xlstm_serving_path(torch, ops, device="cuda") -> dict:
     return rec
 
 
+def whisper_prefill_flop(cfg, B: int, S: int, T: int) -> dict:
+    """The products of one whisper prefill of B x S tokens against B x T
+    frames: the projections (an encoder layer's q, k, v, o and MLP over T;
+    a decoder layer's self q, k, v, o, cross q and o and MLP over S, cross
+    k and v over T; the head over S) and the attention's two einsums (the
+    encoder's T x T pairs, the decoder's S (S + 1) / 2 causal ones and S x
+    T cross ones; H * hd = d)."""
+    d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    L, Le = cfg.n_layers, cfg.n_encoder_layers
+    return dict(
+        projections=2 * B * (Le * T * (4 * d * d + 2 * d * ff)
+                             + L * (S * (4 * d * d + 2 * d * ff + 2 * d * d)
+                                    + T * 2 * d * d) + S * d * V),
+        attention=4 * B * d * (Le * T * T + L * (S * (S + 1) // 2 + S * T)))
+
+
+def whisper_decode_bytes(model, prog, B: int) -> dict:
+    """The bytes a whisper decode step must move: the decoder's weights,
+    the head (the tied embedding) and B rows of it and of the learned
+    positions, the self K/V and the encoder's K/V as the decode program
+    holds them (max_len rows each, read once; the new row written)."""
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+    d = model.embed.shape[1]
+    parts = dict(
+        decoder=nbytes(model.dec_layers.parameters()),
+        head=nbytes([model.embed, model.final_norm]),
+        rows=2 * B * d * model.embed.element_size(),
+        self_kv=nbytes([prog.cache["k"], prog.cache["v"]]),
+        cross_kv=nbytes([prog.cache["cross_k"], prog.cache["cross_v"]]))
+    return dict(parts, total=sum(parts.values()))
+
+
+def whisper_fp32_decode(torch, model, cfg, tokens, frames, device) -> dict:
+    """The bf16 ``model``'s weights in fp32 (TF32 off) at B = 1: the
+    prefill of ``tokens`` against ``frames`` on the card (its decoder on
+    the fp32 kernel) and on this machine's CPU (the plain path), then
+    SERVE_NEW - 1 ``decode_step``s on each from its own cache, both fed the
+    CPU's greedy tokens: the largest distance of a step's logits (max-abs
+    over the CPU's max-abs); and, as ROADMAP C29's reading, the card's
+    decode logits against ``forward`` on the card over the prompt and the
+    fed tokens."""
+    import copy
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    prefill_step)
+    c32 = cfg.replace(dtype=torch.float32, param_dtype=torch.float32)
+    S = tokens.shape[1]
+
+    def dist(a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        return float((a - b).abs().max() / b.abs().max())
+
+    def spliced(pcache, dev):
+        cache = init_cache(c32, 1, AUDIO_MAX_LEN, enc_len=frames.shape[1],
+                           device=dev)
+        for key, dst in cache.items():
+            dst[:, :, :pcache[key].shape[2]].copy_(pcache[key])
+        return cache
+
+    with torch.inference_mode(), no_tf32(torch):
+        card32 = copy.deepcopy(model).float()
+        cpu32 = copy.deepcopy(card32).to("cpu")
+        batch = {"tokens": tokens, "frames": frames.float()}
+        gl, gpc = prefill_step(card32, c32, batch)
+        cl, cpc = prefill_step(cpu32, c32, {k: v.cpu() for k, v in
+                                            batch.items()})
+        prefill_err = dist(gl[:, -1], cl[:, -1])
+        gcache, ccache = spliced(gpc, device), spliced(cpc, "cpu")
+        del gpc, cpc
+        nxt = cl[:, -1].argmax(-1, keepdim=True)
+        fed, errs, got = [], [], []
+        for i in range(SERVE_NEW - 1):
+            fed.append(nxt)
+            glog, _ = decode_step(card32, c32, gcache, nxt.to(device),
+                                  torch.tensor(S + i, device=device))
+            clog, _ = decode_step(cpu32, c32, ccache, nxt, torch.tensor(S + i))
+            errs.append(dist(glog, clog))
+            got.append(glog[:, 0].float())
+            nxt = clog[:, 0].argmax(-1, keepdim=True)
+        seq = torch.cat([tokens] + [f.to(device) for f in fed], 1)
+        fwd = forward(card32, c32, dict(batch, tokens=seq))[0]
+        c29 = dist(torch.stack(got, 1), fwd[:, S:S + len(fed)])
+    del card32, cpu32, gcache, ccache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(err=max(errs), errs=errs, prefill_err=prefill_err,
+                c29_decode_vs_forward=c29, positions=[S, S + len(fed) - 1],
+                fed=torch.cat(fed, 1).tolist())
+
+
+def run_whisper_serving_path(torch, ops, flash_ms: float,
+                             device="cuda") -> dict:
+    """Phase 4g: whisper-tiny at full width and depth (seeded bf16
+    weights) with the flash kernel through ``ServingEngine`` at B =
+    SERVE_REQUESTS, max_len AUDIO_MAX_LEN: warmed on the measured prompts
+    (its decode graph captured there), then SERVE_REQUESTS prompts of
+    AUDIO_PROMPT tokens served eager and graphed
+    (:func:`serve_eager_and_graphed`: the same greedy tokens, nothing
+    captured in the run); the launch counters, set to 0 just before each
+    run and read just after, read one flash launch a decoder layer in the
+    prefill and none in the decode; a replay free of host syncs; the
+    prefill's last logits against the plain branch's; its time, kernels
+    and device time beside its FLOP, a step's against its bytes' bound;
+    then ``prefill_step`` on AUDIO_FRAMES seeded frames and 15 eager
+    ``decode_step``s through the entry points, timed; then
+    :func:`whisper_fp32_decode`.  ``flash_ms``: 2d's kernel time at this
+    prefill's shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill_step)
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    cfg = get_config(AUDIO_ARCH).replace(use_flash_kernel=True)
+    B = SERVE_REQUESTS
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=device).manual_seed(13))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator().manual_seed(14)
+    prompts = [torch.randint(1, cfg.vocab_size, (AUDIO_PROMPT,),
+                             generator=gen).tolist() for _ in range(B)]
+    scfg = ServeConfig(max_batch=B, max_len=AUDIO_MAX_LEN)
+    eng = ServingEngine(cfg, scfg, params=model, device=device)
+    for p in prompts:                   # warm at the measured length
+        eng.submit(Request(prompt=p, max_new_tokens=2))
+    eng.run()
+    eng.done.clear()
+    eng.stats["prefill_s"].clear()
+    eng.stats["decode_s"].clear()
+    torch.cuda.synchronize()
+    runs = serve_eager_and_graphed(torch, ops, eng, prompts, "4g whisper")
+    want = dict(dict.fromkeys(ops.LAUNCHES, 0), flash_attention=cfg.n_layers)
+    for mode, r in runs.items():
+        if r["launches"] != want or r["prefill_batches"] != 1:
+            raise SystemExit(f"4g whisper ({mode} decode): launches "
+                             f"{r['launches']} over {r['prefill_batches']} "
+                             f"prefill batches; want {cfg.n_layers} flash "
+                             "launches over 1 (none in a decode step)")
+    prog = eng.programs[B]
+    if int(prog.cache_len) != AUDIO_PROMPT + SERVE_NEW - 1 \
+            or int(prog.enc_len) != AUDIO_PROMPT:
+        raise SystemExit(f"4g whisper: cache_len {int(prog.cache_len)}, "
+                         f"enc_len {int(prog.enc_len)} after the run")
+    serve_peak = torch.cuda.max_memory_allocated()
+    tokens = torch.tensor(prompts, device=device)
+    plain = ServingEngine(cfg.replace(use_flash_kernel=False), scfg,
+                          params=model, device=device)
+    with torch.inference_mode():
+        last = {"flash": eng.prefill(tokens)[0][:, -1].float(),
+                "plain": plain.prefill(tokens)[0][:, -1].float()}
+        pre = device_activity(torch, lambda: eng.prefill(tokens), reps=1)
+    del plain
+    outputs = runs["graph"]["outputs"]
+    finite = all(bool(torch.isfinite(t).all()) for t in last.values())
+    err = float((last["flash"] - last["plain"]).abs().max()
+                / last["plain"].abs().max())
+    agree = (last["flash"].argmax(-1) == last["plain"].argmax(-1)).tolist()
+    first = [o[0] for o in outputs] == last["flash"].argmax(-1).tolist()
+    act = decode_activity(torch, eng, tokens)
+    dec = log_decode_runs("4g whisper", runs, act, eng)
+    nbytes = whisper_decode_bytes(model, prog, B)
+    bound = nbytes["total"] / HBM_BYTES_PER_S * 1e3
+    flop = whisper_prefill_flop(cfg, B, AUDIO_PROMPT, AUDIO_PROMPT)
+    del eng, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the entry points: a prefill on AUDIO_FRAMES seeded frames, then 15
+    # eager decode steps, each timed (synchronized)
+    g = torch.Generator(device=device).manual_seed(15)
+    frames = torch.randn(B, AUDIO_FRAMES, cfg.d_model, generator=g,
+                         device=device).to(cfg.dtype)
+    with torch.inference_mode():
+        prefill_step(model, cfg, {"tokens": tokens, "frames": frames})
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits, pcache = prefill_step(model, cfg, {"tokens": tokens,
+                                                   "frames": frames})
+        torch.cuda.synchronize()
+        ep_prefill_ms = (time.perf_counter() - t0) * 1e3
+        ep_launches = dict(ops.LAUNCHES)
+        cache = init_cache(cfg, B, AUDIO_MAX_LEN, enc_len=AUDIO_FRAMES,
+                           device=device)
+        for key, dst in cache.items():
+            dst[:, :, :pcache[key].shape[2]].copy_(pcache[key])
+        cur = logits[:, -1].argmax(-1, keepdim=True)
+        ep_finite = bool(torch.isfinite(logits[:, -1]).all())
+        del logits, pcache
+        ep_steps = []
+        for i in range(SERVE_NEW - 1):
+            t0 = time.perf_counter()
+            out, _ = decode_step(model, cfg, cache, cur,
+                                 torch.tensor(AUDIO_PROMPT + i,
+                                              device=device))
+            cur = out[:, 0].argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            ep_steps.append((time.perf_counter() - t0) * 1e3)
+            ep_finite &= bool(torch.isfinite(out).all())
+        del cache, out
+    f32 = whisper_fp32_decode(torch, model, cfg, tokens[:1], frames[:1],
+                              device)
+    g_run, e_run = runs["graph"], runs["eager"]
+    rec = dict(
+        arch=AUDIO_ARCH, config="full width and depth", dtype="bfloat16",
+        parameters=n_params, init_s=init_s, encoder_layers=cfg.n_encoder_layers,
+        decoder_layers=cfg.n_layers, requests=B, prompt_len=AUDIO_PROMPT,
+        max_len=AUDIO_MAX_LEN, new_tokens=SERVE_NEW,
+        launches=g_run["launches"], eager_launches=e_run["launches"],
+        prefill_ms=g_run["prefill_ms"], eager_prefill_ms=e_run["prefill_ms"],
+        prefill_kernels=pre["kernels"], prefill_device_ms=pre["busy_ms"],
+        prefill_busy_share=pre["busy_ms"] / g_run["prefill_ms"],
+        prefill_gflop={k: v / 1e9 for k, v in flop.items()},
+        flash_share_of_prefill=flash_ms * cfg.n_layers / g_run["prefill_ms"],
+        decode_step_ms=g_run["decode_step_ms"],
+        decode_step_ms_range=g_run["decode_step_ms_range"],
+        eager_decode_step_ms=e_run["decode_step_ms"],
+        eager_decode_step_ms_range=e_run["decode_step_ms_range"],
+        tokens_per_s=g_run["tokens_per_s"],
+        decode_tokens_per_s=g_run["decode_tokens_per_s"],
+        decode_bytes=nbytes, decode_bound_ms=bound,
+        peak_memory_gb=serve_peak / 1e9, logits_finite=finite,
+        logits_max_rel_err=err, logits_tol=SERVE_LOGITS_TOL,
+        argmax_agree=agree, first_tokens_are_logits_argmax=first,
+        entry_points=dict(frames=AUDIO_FRAMES, prefill_ms=ep_prefill_ms,
+                          launches=ep_launches,
+                          decode_step_ms=statistics.median(ep_steps),
+                          decode_step_ms_range=[min(ep_steps),
+                                                max(ep_steps)],
+                          finite=ep_finite),
+        fp32_decode=dict(f32, fed=None, tol=AUDIO_DECODE_TOL_F32,
+                         frames=AUDIO_FRAMES),
+        outputs=outputs, **dec)
+    log(f"4g whisper ({AUDIO_ARCH}, {n_params:,} parameters, "
+        f"{cfg.n_encoder_layers} + {cfg.n_layers} layers, bf16; drawn in "
+        f"{init_s:.2f} s): {B} x {AUDIO_PROMPT} tokens on zero frames, "
+        f"{SERVE_NEW} new, max_len {AUDIO_MAX_LEN}; launches "
+        f"{g_run['launches']} graphed, {e_run['launches']} eager; prefill "
+        f"{g_run['prefill_ms']:.2f} ms (eager run {e_run['prefill_ms']:.2f})"
+        f", {pre['busy_ms']:.3f} ms of device and {pre['kernels']:.0f} "
+        f"kernels (busy {rec['prefill_busy_share']:.3f}), for "
+        f"{flop['projections'] / 1e9:.2f} GFLOP of projections and "
+        f"{flop['attention'] / 1e9:.2f} of attention; the flash kernel "
+        f"{rec['flash_share_of_prefill']:.4f} of it; a graphed step "
+        f"{g_run['decode_step_ms']:.3f} ms (range "
+        f"{g_run['decode_step_ms_range'][0]:.3f}-"
+        f"{g_run['decode_step_ms_range'][1]:.3f}) against its "
+        f"{nbytes['total'] / 1e6:.1f} MB bound of {bound:.4f} ms (decoder "
+        f"and head {(nbytes['decoder'] + nbytes['head']) / 1e6:.1f} MB, "
+        f"self K/V {nbytes['self_kv'] / 1e6:.1f}, cross K/V "
+        f"{nbytes['cross_kv'] / 1e6:.1f}); eager "
+        f"{e_run['decode_step_ms']:.3f} ms; {g_run['tokens_per_s']:.1f} "
+        f"tokens/s; peak memory {serve_peak / 1e9:.3f} GB [{card()}]")
+    log(f"4g whisper prefill logits: the kernel's last-position logits "
+        f"{err:.3e} off the plain branch's max-abs (tol {SERVE_LOGITS_TOL})"
+        f", argmax agreement {sum(agree)}/{len(agree)}, finite {finite}; "
+        f"the first tokens are the prefill's argmax: {first}")
+    log(f"4g whisper entry points: prefill_step on {B} x {AUDIO_PROMPT} "
+        f"tokens and {B} x {AUDIO_FRAMES} seeded frames "
+        f"{ep_prefill_ms:.2f} ms (launches {ep_launches}), 15 eager "
+        f"decode_steps median {statistics.median(ep_steps):.3f} ms (range "
+        f"{min(ep_steps):.3f}-{max(ep_steps):.3f}), finite {ep_finite} "
+        f"[{card()}]")
+    log(f"4g whisper fp32 decode (TF32 off, B = 1, {AUDIO_FRAMES} frames): "
+        f"{SERVE_NEW - 1} steps at positions {f32['positions'][0]}-"
+        f"{f32['positions'][1]} on the card against the same steps on the "
+        f"CPU: {f32['err']:.3e} of the logits' max-abs at worst (tol "
+        f"{AUDIO_DECODE_TOL_F32:.0e}); the prefill's last logits "
+        f"{f32['prefill_err']:.3e}.  C29 (a reading, not a gate): the "
+        f"card's decode against its forward over the same tokens "
+        f"{f32['c29_decode_vs_forward']:.3e} of the forward's max-abs "
+        f"(the decode rotates q and the new k with RoPE, the prefill "
+        f"rotates nothing, as in the reference) [{card()}]")
+    ok = (n_params == AUDIO_PARAMS and finite and err <= SERVE_LOGITS_TOL
+          and ep_finite and ep_launches == want
+          and f32["err"] <= AUDIO_DECODE_TOL_F32)
+    for mode in ("eager", "graph"):
+        outs = runs[mode]["outputs"]
+        if len(outs) != B or any(len(o) != SERVE_NEW for o in outs) or any(
+                not 0 <= t < cfg.vocab_size for o in outs for t in o):
+            ok = False
+    if not ok:
+        raise SystemExit(f"4g whisper: {rec}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def run_training_path(torch, ops, seed: int) -> dict:
     """Phase 6a: ``repro_torch.train.train`` on phi3-mini-3.8b (full width,
     depth ``TRAIN_LAYERS``, bf16 weights, f32 moments) on the card, with the
@@ -5440,6 +5775,11 @@ def main() -> int:
     xlstm = run_xlstm_serving_path(torch, ops)
     log_memory(torch, "4f (the xlstm model freed)")
 
+    # -- 4g. the audio family: whisper-tiny at full width and depth ----------
+    audio_flash = flash[(FLASH_SHAPE_AUDIO, True, "bfloat16")]
+    whisper = run_whisper_serving_path(torch, ops, audio_flash["ms"])
+    log_memory(torch, "4g (the whisper model freed)")
+
     # -- 6. training and the Newton-Krylov step -------------------------------
     training = run_training_path(torch, ops, args.seed)
     log_memory(torch, "6a")
@@ -5481,6 +5821,7 @@ def main() -> int:
         else:
             extra = dict(m=M)
         extra["launches_ssm"] = xlstm["launches"][kname]
+        extra["launches_audio"] = whisper["launches"][kname]
         if kname in service_launches:
             extra["launches_service"] = service_launches[kname]
         if kname in mesh_launches:
@@ -5539,6 +5880,16 @@ def main() -> int:
         launches_moe=moe["launches"]["flash_attention"],
         launches_hybrid=hybrid["launches"]["flash_attention"],
         launches_ssm=xlstm["launches"]["flash_attention"],
+        launches_audio=whisper["launches"]["flash_attention"],
+        audio_shape=dict(shape_bhksd=list(FLASH_SHAPE_AUDIO), causal=True,
+                         dtype="bfloat16", ms=audio_flash["ms"],
+                         plain_ms=audio_flash["plain_ms"],
+                         library_ms=audio_flash["library_ms"],
+                         bound_ms=audio_flash["bound"][0],
+                         bound_by=audio_flash["bound"][1],
+                         max_row_rel_err=audio_flash["err"],
+                         max_abs_err=audio_flash["max_abs_err"],
+                         repeats_bitwise=audio_flash["repeats_bitwise"]),
         moe_shape=dict(shape_bhksd=list(FLASH_SHAPE_MOE), causal=True,
                        dtype="bfloat16", ms=moe_flash["ms"],
                        plain_ms=moe_flash["plain_ms"],
@@ -5551,10 +5902,12 @@ def main() -> int:
         fp32_max_abs_err=f32["max_abs_err"],
         fp32_repeats_bitwise=f32["repeats_bitwise"],
         other_cases=[dict(shape=r["shape"], causal=r["causal"],
-                          dtype=r["dtype"], max_row_rel_err=r["err"])
+                          dtype=r["dtype"], max_row_rel_err=r["err"],
+                          ms=r.get("ms"), library_ms=r.get("library_ms"),
+                          bound_ms=r["bound"][0] if "bound" in r else None)
                      for key, r in flash.items()
                      if r is not main_flash and r is not f32
-                     and r is not moe_flash]))
+                     and r is not moe_flash and r is not audio_flash]))
     gdec, gpre = mla["grouped"]["decode_wi"], mla["grouped"]["prefill_wi"]
 
     def tile_ms(r):
@@ -5567,6 +5920,7 @@ def main() -> int:
         launches_eager=mla["eager_launches"]["grouped_mm"],
         launches_fp32_sort=fp32_sort["launches"]["grouped_mm"],
         launches_ssm=xlstm["launches"]["grouped_mm"],
+        launches_audio=whisper["launches"]["grouped_mm"],
         max_abs_err=gdec["max_abs_err"], ms=gdec["ms"],
         plain_ms=gdec["plain_ms"], bound_ms=gdec["bound_ms"],
         bound_by=gdec["bound_by"], library_ms=gdec["library_ms"],

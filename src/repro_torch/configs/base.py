@@ -5,9 +5,10 @@
 the four dense architectures, the two MoE ones (llama4-scout, and
 deepseek-v3 with multi-head latent attention), the hybrid zamba2-1.2b
 (Mamba2 layers and one shared attention block) and the SSM xlstm-350m
-(sLSTM + mLSTM pairs), whose files carry over from the JAX package as
-they are.  The other two ids raise
-``NotImplementedError`` and name the slice of the port that brings them.  The dry-run tooling of the JAX
+(sLSTM + mLSTM pairs) and the audio whisper-tiny (an encoder over frame
+embeddings and a decoder with cross-attention), whose files carry over
+from the JAX package as they are.  The VLM id raises
+``NotImplementedError`` and names the slice of the port that brings it.  The dry-run tooling of the JAX
 package's ``base`` (``input_specs``, ``SHAPES``, the applicability table)
 waits for the port of ``launch/``.
 """
@@ -25,7 +26,6 @@ ARCH_IDS = [
 
 #: the architectures of later slices, and the slice that brings each
 LATER = {
-    "whisper-tiny": "the audio slice",
     "qwen2-vl-72b": "the VLM slice",
 }
 
@@ -37,8 +37,8 @@ def _module(arch: str):
     if arch in LATER:
         raise NotImplementedError(
             f"{arch} waits for {LATER[arch]} of the PyTorch port; the port "
-            "runs the dense, MoE (MLA included), hybrid and SSM families "
-            "so far")
+            "runs the dense, MoE (MLA included), hybrid, SSM and audio "
+            "families so far")
     mod = arch.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 

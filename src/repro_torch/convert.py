@@ -58,7 +58,7 @@ from .core.linear_operator import (CSROperator, DenseOperator, ELLOperator,
 from .core.types import resolve_device
 from .models import ModelConfig, Transformer
 from .models.ssm import F32_LEAVES as SSM_F32_LEAVES
-from .models.transformer import stacked_layers
+from .models.transformer import layer_stacks
 from .precond import (BlockJacobiPreconditioner, JacobiPreconditioner,
                       NeumannPreconditioner, SSORPreconditioner)
 
@@ -152,10 +152,11 @@ def lm_params_from_numpy(cfg: ModelConfig, params: Mapping[str, Any], *,
     """The port's :class:`~repro_torch.models.Transformer` for ``cfg`` with
     the weights of the JAX package's tree ``params`` (nested dicts of float
     arrays; ``layers`` stacked on a leading ``L`` axis, in the SSM family
-    ``n_layers // 2`` sLSTM + mLSTM pairs, an ``mtp`` block
-    and the hybrid family's ``shared_attn`` unstacked), cast to ``dtype``
-    (``None``: ``cfg.param_dtype``) on ``device`` (``None`` means
-    ``"cuda"``).  The MoE router's and Mamba2's ``a_log``, ``dt_bias`` and
+    ``n_layers // 2`` sLSTM + mLSTM pairs, in the audio family the two
+    stacks ``enc_layers`` and ``dec_layers`` and no ``layers``; an ``mtp``
+    block and the hybrid family's ``shared_attn`` unstacked), cast to
+    ``dtype`` (``None``: ``cfg.param_dtype``) on ``device`` (``None``
+    means ``"cuda"``).  The MoE router's and Mamba2's ``a_log``, ``dt_bias`` and
     ``d_skip`` (``F32_LEAVES``) stay in f32 at least, as the JAX package
     keeps them whatever its ``param_dtype``."""
     device = resolve_device(device)
@@ -176,20 +177,19 @@ def lm_params_from_numpy(cfg: ModelConfig, params: Mapping[str, Any], *,
             return {k: unstacked(v, k) for k, v in tree.items()}
         return tensor(tree, name)
 
-    stacked = params["layers"]
-    leaf = stacked
-    while isinstance(leaf, Mapping):
-        leaf = next(iter(leaf.values()))
-    n = len(np.asarray(leaf))
-    if n != stacked_layers(cfg):
-        raise ValueError(f"{cfg.name}: the tree has {n} layers, the config "
-                         f"{stacked_layers(cfg)}")
-    tree = {k: tensor(params[k]) for k in ("embed", "final_norm", "lm_head")
-            if k in params}
-    tree["layers"] = [layer(stacked, i) for i in range(n)]
-    for key in ("mtp", "shared_attn"):
-        if key in params:
-            tree[key] = unstacked(params[key])
+    stacks = layer_stacks(cfg)
+    tree = {}
+    for key, want in stacks.items():
+        leaf = params[key]
+        while isinstance(leaf, Mapping):
+            leaf = next(iter(leaf.values()))
+        n = len(np.asarray(leaf))
+        if n != want:
+            raise ValueError(f"{cfg.name}: the tree has {n} {key}, the "
+                             f"config {want}")
+        tree[key] = [layer(params[key], i) for i in range(n)]
+    tree.update({k: unstacked(v, k) for k, v in params.items()
+                 if k not in stacks})
     return Transformer(cfg, tree)
 
 

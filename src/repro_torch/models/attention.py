@@ -4,14 +4,18 @@
 Parameters are a mapping of tensors in the JAX package's layout (``x @
 W``: ``wq`` is ``(d, H * hd)``), so weights carry across as copies.  Three
 prefill branches, chosen as the JAX package chooses them: the flash kernel
-(``cfg.use_flash_kernel``, causal, no sliding window, ``S >= 256``), one
-block of plain attention (``S <= q_block``), and plain attention chunked
-over query blocks.  The plain branches are einsums and a softmax, never a
-library attention call: nothing on the path stands in for the kernel.
-Cross-attention (whisper) and M-RoPE (qwen2-vl) wait for the audio and VLM
-slices of the port.  The flash branch has no derivative, in either
-package: with gradients enabled it runs through an autograd function whose
-backward and forward-mode rule raise ``NotImplementedError``.
+(``cfg.use_flash_kernel``, causal self-attention, no sliding window, ``S
+>= 256``), one block of plain attention (``S <= q_block``), and plain
+attention chunked over query blocks.  The plain branches are einsums and a
+softmax, never a library attention call: nothing on the path stands in for
+the kernel.  Cross-attention (whisper) takes its K/V from ``x_kv`` and
+rotates nothing; RoPE is applied only where ``positions`` are given (the
+JAX package passes none in whisper's prefill, but rotates q, and a
+self-attention's new k, at its decode: ROADMAP C29).  M-RoPE (qwen2-vl)
+waits for the VLM slice of the port.  The flash branch has no derivative,
+in either package: with gradients enabled it runs through an autograd
+function whose backward and forward-mode rule raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -50,27 +54,37 @@ def init_attention_params(generator: torch.Generator,
     return p
 
 
-def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    B, S, _ = x.shape
-    hd, H, K = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
+def _project(p: Params, x: torch.Tensor, key: str, heads: int,
+             cfg: ModelConfig) -> torch.Tensor:
+    y = x @ p["w" + key].to(x.dtype)
     if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, K, hd)
-    v = v.reshape(B, S, K, hd)
+        y = y + p["b" + key].to(x.dtype)
+    return y.reshape(*x.shape[:2], heads, cfg.hd)
+
+
+def _project_q(p: Params, x: torch.Tensor, cfg: ModelConfig,
+               positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """``(B, S, H, hd)`` queries of x, rotated at ``positions`` unless
+    ``None``."""
+    q = _project(p, x, "q", cfg.n_heads, cfg)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+    return q if positions is None else apply_rope(q, positions,
+                                                  cfg.rope_theta)
+
+
+def _project_kv(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                positions: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(B, T, K, hd)`` keys and values of x, the keys rotated at
+    ``positions`` unless ``None``."""
+    k = _project(p, x, "k", cfg.n_kv_heads, cfg)
+    v = _project(p, x, "v", cfg.n_kv_heads, cfg)
+    if cfg.qk_norm:
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    if positions is not None:
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return k, v
 
 
 NO_FLASH_DERIVATIVE = (
@@ -122,20 +136,29 @@ def _causal_mask(rows: torch.Tensor, cols: torch.Tensor,
     return mask
 
 
-def multihead_attention(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                        cfg: ModelConfig, *, causal: bool = True,
+def multihead_attention(p: Params, x: torch.Tensor,
+                        positions: Optional[torch.Tensor], cfg: ModelConfig,
+                        *, causal: bool = True,
+                        x_kv: Optional[torch.Tensor] = None,
                         q_block: int = 1024, return_kv: bool = False):
-    """Self-attention over a sequence (prefill).  x: (B, S, d); positions:
-    (B, S).  With ``return_kv`` also the un-repeated ``(k, v)``, each
-    ``(B, S, K, hd)``: what the decode cache stores."""
+    """Attention over a sequence (prefill, encoder, cross).  x: (B, S, d);
+    positions: (B, S), or ``None`` for no RoPE; ``x_kv`` (B, T, d): the
+    sequence the keys and values come from (cross-attention, never
+    rotated), x itself by default.  With ``return_kv`` also the un-repeated
+    ``(k, v)``, each ``(B, T, K, hd)``: what the decode cache stores."""
+    cross = x_kv is not None
+    x_kv = x if x_kv is None else x_kv
     B, S, _ = x.shape
+    T = x_kv.shape[1]
     hd, H, K = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     G = H // K
     scale = 1.0 / math.sqrt(hd)
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    rope = None if cross else positions
+    q = _project_q(p, x, cfg, rope)
+    k, v = _project_kv(p, x_kv, cfg, rope)
 
-    if cfg.use_flash_kernel and causal and cfg.sliding_window == 0 \
-            and S >= 256:
+    if cfg.use_flash_kernel and causal and not cross \
+            and cfg.sliding_window == 0 and S == T and S >= 256:
         # the kernel reads query head h's KV from head h // G: no repeat
         qg = q.reshape(B, S, K, G, hd)
         if torch.is_grad_enabled():
@@ -145,9 +168,10 @@ def multihead_attention(p: Params, x: torch.Tensor, positions: torch.Tensor,
     else:
         kr = k.repeat_interleave(G, dim=2) if G > 1 else k
         vr = v.repeat_interleave(G, dim=2) if G > 1 else v
-        idx = torch.arange(S, device=x.device)
+        cols = torch.arange(T, device=x.device)
         if S <= q_block:
-            mask = _causal_mask(idx, idx, cfg) if causal else None
+            mask = _causal_mask(cols, cols, cfg) if causal and S == T \
+                else None
             o = _sdpa_block(q, kr, vr, mask, scale)
         else:
             # q-block chunking: the (S x S) score matrix never exists
@@ -155,8 +179,9 @@ def multihead_attention(p: Params, x: torch.Tensor, positions: torch.Tensor,
                 raise ValueError(f"S={S} not divisible by q_block={q_block}")
             blocks = []
             for i in range(S // q_block):
-                rows = idx[i * q_block:(i + 1) * q_block]
-                mask = _causal_mask(rows, idx, cfg) if causal else None
+                rows = torch.arange(i * q_block, (i + 1) * q_block,
+                                    device=x.device)
+                mask = _causal_mask(rows, cols, cfg) if causal else None
                 blocks.append(_sdpa_block(
                     q[:, i * q_block:(i + 1) * q_block], kr, vr, mask, scale))
             o = torch.cat(blocks, dim=1)
@@ -195,25 +220,32 @@ def _decode_scores(qg: torch.Tensor, k_cache: torch.Tensor) -> torch.Tensor:
 
 def decode_attention(p: Params, x: torch.Tensor, position: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     cache_len: Union[int, torch.Tensor], cfg: ModelConfig):
-    """Single-token decode against a (B, T, K, hd) KV cache.
+                     cache_len: Union[int, torch.Tensor], cfg: ModelConfig,
+                     *, update_cache: bool = True):
+    """Single-token decode against a (B, T, K, hd) KV cache, rows up to
+    ``cache_len`` valid.
 
     ``cache_len`` is an int or a 0-d integer tensor, which stays on the
-    device: the new token's K/V are written into the caches at that row in
-    place by an index tensor (the JAX package returns updated copies), and
-    the mask compares with it on the device.  Returns ``(y, k_cache,
-    v_cache)`` as the JAX package does.  x: (B, 1, d); position: (B,) or
-    (B, 1)."""
+    device: with ``update_cache`` the new token's K/V are written into the
+    caches at that row in place by an index tensor (the JAX package returns
+    updated copies), and the mask compares with it on the device.  Without
+    it (whisper's cross-attention against the encoder's K/V) nothing is
+    written, and the K/V the JAX package projects from x and drops are not
+    computed; q is rotated at ``position`` all the same, as the JAX
+    package rotates it (ROADMAP C29).  Returns ``(y, k_cache, v_cache)`` as
+    the JAX package does.  x: (B, 1, d); position: (B,) or (B, 1)."""
     B = x.shape[0]
     hd, H, K = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     G = H // K
     T = k_cache.shape[1]
     scale = 1.0 / math.sqrt(hd)
     positions = position[:, None] if position.dim() == 1 else position
-    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    q = _project_q(p, x, cfg, positions)
     row = _cache_row(cache_len, x.device)
-    k_cache.index_copy_(1, row, k_new.to(k_cache.dtype))
-    v_cache.index_copy_(1, row, v_new.to(v_cache.dtype))
+    if update_cache:
+        k_new, v_new = _project_kv(p, x, cfg, positions)
+        k_cache.index_copy_(1, row, k_new.to(k_cache.dtype))
+        v_cache.index_copy_(1, row, v_new.to(v_cache.dtype))
 
     qg = q.reshape(B, 1, K, G, hd)
     logits = _decode_scores(qg, k_cache.to(x.dtype)) * scale

@@ -3,9 +3,10 @@
 
 The config has the JAX package's fields and defaults, so its architecture
 files carry over as they are; the dtypes are ``torch`` dtypes.  The dense
-and MoE decoder families (MLA and MTP included), the hybrid and the SSM
-(xLSTM) families run in the port so far: fields of the other families
-(encoder-decoder, M-RoPE) are kept and refused where a model reads them.
+and MoE decoder families (MLA and MTP included), the hybrid, the SSM
+(xLSTM) and the audio (whisper's encoder-decoder) families run in the port
+so far: the VLM's fields (M-RoPE) are kept and refused where a model reads
+them.
 """
 from __future__ import annotations
 
@@ -125,6 +126,18 @@ def rms_norm(scale: torch.Tensor, x: torch.Tensor,
     return out.to(dt)
 
 
+def layer_norm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in f32 (the biased variance), cast
+    back to x's dtype, as the JAX package's."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------
@@ -158,3 +171,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int) -> np.ndarray:
+    """Whisper-style sinusoidal embeddings (n, d), f32: sines in the even
+    columns, cosines in the odd ones."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    ang = pos / (10000.0 ** (dim / d))
+    out = np.zeros((n, d), dtype=np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def sinusoidal_on(n: int, d: int, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """:func:`sinusoidal_positions` rounded to ``dtype`` on ``device``,
+    copied there once per shape (made outside inference mode, so that
+    every caller may use it)."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(sinusoidal_positions(n, d)).to(
+            device=device, dtype=dtype)

@@ -1,5 +1,6 @@
 """Feed-forward blocks (PyTorch port of ``repro.models.moe``): the SwiGLU
-MLP of the dense family and the Mixture-of-Experts MLP.
+MLP of the dense family, whisper's GELU MLP and the Mixture-of-Experts
+MLP.
 
 MoE routing: a softmax over the router's logits in f32; the optional
 aux-loss-free bias (DeepSeek-V3) moves the *selection* only, the weights
@@ -254,3 +255,24 @@ def dense_ffn(p: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     h = x @ p["wi"].to(x.dtype)
     g = x @ p["wg"].to(x.dtype)
     return (F.silu(g) * h) @ p["wo"].to(x.dtype)
+
+
+def gelu_ffn_init(generator: torch.Generator,
+                  cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    d, ff, pdt = cfg.d_model, cfg.d_ff, cfg.param_dtype
+    dev = generator.device
+    return {
+        "wi": dense_init(generator, (d, ff), pdt),
+        "bi": torch.zeros(ff, dtype=pdt, device=dev),
+        "wo": dense_init(generator, (ff, d), pdt),
+        "bo": torch.zeros(d, dtype=pdt, device=dev),
+    }
+
+
+def gelu_ffn(p: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """GELU MLP (whisper): ``gelu(x @ wi + bi) @ wo + bo``, the GELU's tanh
+    form (``jax.nn.gelu``'s default; the exact erf form differs by about
+    1e-3)."""
+    h = F.gelu(x @ p["wi"].to(x.dtype) + p["bi"].to(x.dtype),
+               approximate="tanh")
+    return h @ p["wo"].to(x.dtype) + p["bo"].to(x.dtype)

@@ -1,4 +1,4 @@
-"""The decoder LM, dense, MoE, hybrid and SSM families (PyTorch port of
+"""The LM, dense, MoE, hybrid, SSM and audio families (PyTorch port of
 ``repro.models.transformer``).
 
 A :class:`Transformer` module of :class:`DecoderBlock` modules, each with an
@@ -12,7 +12,15 @@ which only ``loss_fn`` runs.  The hybrid family (zamba2) has a
 before the Mamba2 block of every ``cfg.hybrid_shared_period``-th layer.
 The SSM family (xLSTM) has ``cfg.n_layers // 2``
 :class:`~repro_torch.models.xlstm.XLSTMPair` modules, an sLSTM and an
-mLSTM block each, and no attention.
+mLSTM block each, and no attention.  The audio family (whisper) has two
+stacks of :class:`AudioBlock` modules, ``enc_layers`` (LayerNorm,
+bidirectional self-attention, LayerNorm, GELU MLP) over the frame
+embeddings plus sinusoidal positions, closed by a LayerNorm
+(``enc_final_s``, ``enc_final_b``), and ``dec_layers`` (causal
+self-attention, cross-attention ``xattn`` against the encoder's output, GELU
+MLP) over the token embeddings plus the learned ``dec_pos_embed``; its
+head is ``final_norm`` as an RMSNorm and the tied embedding, as the JAX
+package's.
 Weights keep the JAX package's layout (``x @ W``), so a JAX parameter tree
 carries across as a copy (:func:`repro_torch.convert.lm_params_from_numpy`).
 The entry points keep the JAX package's functional signatures, with the
@@ -22,8 +30,8 @@ module as ``params``:
 * ``forward(params, cfg, batch)``                        ``(logits (B,S,V), aux)``
 * ``prefill_step(params, cfg, batch)``                   ``(logits, cache)``
 * ``loss_fn(params, cfg, batch)``                        ``(loss, metrics)``
-* ``init_cache(cfg, batch, max_len, device=)``           ``{"k", "v"}`` / ``{"ckv", "krope"}`` / hybrid / SSM
-* ``decode_step(params, cfg, cache, tokens, cache_len)`` ``(logits (B,1,V), cache)``
+* ``init_cache(cfg, batch, max_len, enc_len=, device=)`` ``{"k", "v"}`` / ``{"ckv", "krope"}`` / hybrid / SSM / audio
+* ``decode_step(params, cfg, cache, tokens, cache_len, enc_len=)`` ``(logits (B,1,V), cache)``
 
 The cache is ``{"k", "v"}``, each ``(L, B, T, K, hd)``, and with MLA the
 latent cache ``{"ckv", "krope"}``, ``(L, B, T, kv_lora_rank)`` and ``(L, B,
@@ -41,13 +49,19 @@ every pair, stacked on a leading ``n_layers // 2`` axis, all f32 and with
 no sequence axis: the sLSTM's ``{"s_c", "s_n", "s_h", "s_m"}``, each
 ``(np, B, H, d / H)``, and the mLSTM's ``{"m_c" (np, B, H, hd, hd), "m_n"
 (np, B, H, hd), "m_m" (np, B, H)}`` (hd = 2 d / H); a decode step
-overwrites it in place and never reads ``cache_len``.  Layers run in a
+overwrites it in place and never reads ``cache_len``.  The audio cache is
+``{"k", "v"}`` of the decoder's self-attention, each ``(L, B, T, K, hd)``,
+and the encoder's K/V of every decoder layer, ``{"cross_k", "cross_v"}``,
+each ``(L, B, T_enc, K, hd)``, which a decode step reads (rows under
+``enc_len``) and never writes.  Whisper's prefill applies no RoPE, its
+decode rotates q and the new k at ``cache_len`` (the JAX package's
+behaviour, kept: ROADMAP C29).  Layers run in a
 Python loop (the JAX package's ``lax.scan``); its sharding constraints
 have no counterpart on one device.  ``forward`` sums the MoE layers'
 load-balance losses into its ``aux``; the prefill and decode steps drop
-them.  The audio and VLM families raise ``NotImplementedError`` and name
-the slice of the port that brings them; MLA outside the MoE family raises too (the JAX package cannot
-decode it, ROADMAP C25).
+them.  The VLM family raises ``NotImplementedError`` and names the slice
+of the port that brings it; MLA outside the MoE family raises too (the JAX
+package cannot decode it, ROADMAP C25).
 
 The weights are trainable parameters; serving runs under
 ``torch.inference_mode()``, which records nothing for them.  With
@@ -72,19 +86,23 @@ from repro_torch.core.types import resolve_device
 
 from .attention import (decode_attention, init_attention_params,
                         multihead_attention)
-from .common import ModelConfig, dense_init, embed_init, rms_norm
+from .common import (ModelConfig, dense_init, embed_init, layer_norm,
+                     rms_norm, sinusoidal_on)
 from .mla import init_mla_params, mla_attention, mla_decode
-from .moe import MoEFFN, dense_ffn, dense_ffn_init, init_moe_params
+from .moe import (MoEFFN, dense_ffn, dense_ffn_init, gelu_ffn, gelu_ffn_init,
+                  init_moe_params)
 from .ssm import Mamba2, init_mamba2_params, mamba2_init_state
 from .xlstm import (XLSTMPair, init_mlstm_params, init_slstm_params,
                     mlstm_init_state, slstm_init_state)
 
 #: the families the port runs
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio")
 #: the slice of the port that brings each family the port does not run yet
-LATER_SLICES = {
-    "audio": "the audio (whisper) slice", "vlm": "the VLM (M-RoPE) slice",
-}
+LATER_SLICES = {"vlm": "the VLM (M-RoPE) slice"}
+#: the rows of whisper's learned decoder position table (the JAX package
+#: sizes it for its decode_32k cell; a decode past it reads the last row,
+#: where the JAX gather clamps, and the engine refuses such a max_len)
+DEC_POSITIONS = 32768
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -93,29 +111,34 @@ def check_supported(cfg: ModelConfig) -> None:
         later = LATER_SLICES.get(cfg.family, "a later slice")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family waits for {later} of "
-            "the PyTorch port; only the dense, MoE, hybrid and SSM "
-            "families run so far")
+            "the PyTorch port; only the dense, MoE, hybrid, SSM and "
+            "audio families run so far")
     if cfg.use_mla and cfg.family != "moe":
         raise NotImplementedError(
             f"{cfg.name}: MLA runs in the MoE family only: the JAX package "
             f"gives a {cfg.family} config with MLA a {{k, v}} cache that its "
             "decode step cannot read (ROADMAP C25)")
-    for flag, key in ((cfg.mrope_sections is not None, "vlm"),
-                      (cfg.is_encoder_decoder, "audio")):
-        if flag:
-            raise NotImplementedError(
-                f"{cfg.name}: {key} layers wait for {LATER_SLICES[key]} of "
-                "the PyTorch port")
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: vlm layers wait for {LATER_SLICES['vlm']} of the "
+            "PyTorch port")
+
+
+#: the stacked entries of the JAX package's trees: the decoder's layers, or
+#: the audio family's encoder and decoder stacks
+STACKS = ("layers", "enc_layers", "dec_layers")
 
 
 def param_path(name: str) -> Tuple[Tuple[str, ...], int]:
     """The JAX package's tree path of the port's parameter ``name`` and its
-    layer (-1 outside the stacked ``layers``): ``"layers.3.attn.p.wq"`` is
-    ``(("layers", "attn", "wq"), 3)``.  Names sorted by it are in the JAX
-    package's leaf order (sorted keys, a stacked leaf's layers in turn)."""
+    layer (-1 outside the stacks, ``STACKS``): ``"layers.3.attn.p.wq"`` is
+    ``(("layers", "attn", "wq"), 3)``, ``"dec_layers.1.xattn.p.wk"``
+    ``(("dec_layers", "xattn", "wk"), 1)``.  Names sorted by it are in the
+    JAX package's leaf order (sorted keys, a stacked leaf's layers in
+    turn)."""
     parts = [p for p in name.split(".") if p != "p"]
-    if parts[0] == "layers":
-        return ("layers",) + tuple(parts[2:]), int(parts[1])
+    if parts[0] in STACKS:
+        return (parts[0],) + tuple(parts[2:]), int(parts[1])
     return tuple(parts), -1
 
 
@@ -178,9 +201,10 @@ class Attention(nn.Module):
         return multihead_attention(self.p, x, positions, cfg, **kw)
 
     def decode(self, x, position, k_cache, v_cache,
-               cache_len: Union[int, torch.Tensor], cfg: ModelConfig):
+               cache_len: Union[int, torch.Tensor], cfg: ModelConfig,
+               update_cache: bool = True):
         return decode_attention(self.p, x, position, k_cache, v_cache,
-                                cache_len, cfg)
+                                cache_len, cfg, update_cache=update_cache)
 
 
 class MLA(nn.Module):
@@ -215,6 +239,72 @@ class DenseFFN(nn.Module):
 
     def forward(self, x):
         return dense_ffn(self.p, x)
+
+
+class GeluFFN(nn.Module):
+    """Whisper's GELU MLP of one block; ``p`` holds ``wi, bi, wo, bo``."""
+
+    def __init__(self, params: Mapping[str, torch.Tensor]):
+        super().__init__()
+        self.p = _parameter_dict(params)
+
+    def forward(self, x):
+        return gelu_ffn(self.p, x)
+
+
+class AudioBlock(nn.Module):
+    """Whisper's pre-LayerNorm block.  An encoder block (no ``xattn``):
+    ``x + attn(ln1(x))``, bidirectional, then ``+ mlp(ln2(.))``.  A decoder
+    block: ``x + attn(ln1(x))``, causal, then ``+ xattn(lnx(.), enc)``
+    against the encoder's output, then ``+ mlp(ln2(.))``.  Each LayerNorm
+    is a scale ``*_s`` and a bias ``*_b``; no attention is rotated in the
+    prefill (the JAX package passes no positions)."""
+
+    def __init__(self, params: Mapping):
+        super().__init__()
+        names = ("ln1", "lnx", "ln2") if "xattn" in params else ("ln1", "ln2")
+        for n in names:
+            setattr(self, n + "_s", nn.Parameter(params[n + "_s"]))
+            setattr(self, n + "_b", nn.Parameter(params[n + "_b"]))
+        self.attn = Attention(params["attn"])
+        self.xattn = Attention(params["xattn"]) if "xattn" in params \
+            else None
+        self.mlp = GeluFFN(params["mlp"])
+
+    def _ln(self, n: str, x):
+        return layer_norm(getattr(self, n + "_s"), getattr(self, n + "_b"), x)
+
+    def forward(self, x, cfg: ModelConfig, enc=None, return_kv: bool = False):
+        """The encoder block with ``enc=None``, else the decoder block
+        against ``enc``.  With ``return_kv`` (decoder) also ``(k, v,
+        cross_k, cross_v)``, each ``(B, S or T_enc, K, hd)``."""
+        a = self.attn(self._ln("ln1", x), None, cfg, causal=enc is not None,
+                      return_kv=return_kv)
+        a, kv = a if return_kv else (a, ())
+        x = x + a
+        if enc is not None:
+            c = self.xattn(self._ln("lnx", x), None, cfg, causal=False,
+                           x_kv=enc, return_kv=return_kv)
+            c, xkv = c if return_kv else (c, ())
+            x = x + c
+            kv = tuple(kv) + tuple(xkv)
+        x = x + self.mlp(self._ln("ln2", x))
+        return (x, kv) if return_kv else x
+
+    def decode(self, x, position, k_cache, v_cache, cross_k, cross_v,
+               cache_len: Union[int, torch.Tensor],
+               enc_last: Union[int, torch.Tensor], cfg: ModelConfig):
+        """One token of a decoder block: its K/V written into the self
+        caches at ``cache_len`` in place, the cross caches read at rows up
+        to ``enc_last`` and left as they are."""
+        a, _, _ = self.attn.decode(self._ln("ln1", x), position, k_cache,
+                                   v_cache, cache_len, cfg)
+        x = x + a
+        c, _, _ = self.xattn.decode(self._ln("lnx", x), position, cross_k,
+                                    cross_v, enc_last, cfg,
+                                    update_cache=False)
+        x = x + c
+        return x + self.mlp(self._ln("ln2", x))
 
 
 class DecoderBlock(nn.Module):
@@ -316,20 +406,31 @@ class Transformer(nn.Module):
     has it.  In the hybrid family each layer's tree is a Mamba2 layer's
     and ``shared_attn`` the shared block's (``ln``, ``attn``, ``ln2``,
     ``mlp``); in the SSM family ``layers`` holds ``n_layers // 2`` pairs,
-    each ``{"slstm", "mlstm"}``."""
+    each ``{"slstm", "mlstm"}``; the audio family has no ``layers`` but
+    ``enc_layers`` and ``dec_layers`` (each a list of :class:`AudioBlock`
+    trees), ``enc_final_s``, ``enc_final_b`` and ``dec_pos_embed``
+    (``(DEC_POSITIONS, d)``)."""
 
     def __init__(self, cfg: ModelConfig, params: Mapping):
         super().__init__()
         check_supported(cfg)
-        if len(params["layers"]) != stacked_layers(cfg):
-            raise ValueError(f"{cfg.name}: {len(params['layers'])} layers "
-                             f"given, the config has {stacked_layers(cfg)}")
+        for key, n in layer_stacks(cfg).items():
+            if len(params[key]) != n:
+                raise ValueError(f"{cfg.name}: {len(params[key])} {key} "
+                                 f"given, the config has {n}")
         self.cfg = cfg
         self.embed = nn.Parameter(params["embed"])
         self.final_norm = nn.Parameter(params["final_norm"])
         self.lm_head = None if cfg.tie_embeddings \
             else nn.Parameter(params["lm_head"])
-        if cfg.family == "hybrid":
+        if cfg.family == "audio":
+            self.enc_layers = nn.ModuleList(AudioBlock(lp)
+                                            for lp in params["enc_layers"])
+            self.dec_layers = nn.ModuleList(AudioBlock(lp)
+                                            for lp in params["dec_layers"])
+            for key in ("enc_final_s", "enc_final_b", "dec_pos_embed"):
+                setattr(self, key, nn.Parameter(params[key]))
+        elif cfg.family == "hybrid":
             self.layers = nn.ModuleList(Mamba2(lp) for lp in params["layers"])
             self.shared_attn = SharedBlock(params["shared_attn"])
         elif cfg.family == "ssm":
@@ -385,6 +486,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Transformer:
                            "mlstm": init_mlstm_params(g, cfg)}
                           for _ in range(stacked_layers(cfg))]
         return Transformer(cfg, tree)
+    if cfg.family == "audio":
+        def norms(*names):
+            out = {}
+            for n in names:
+                out[n + "_s"] = ones(cfg.d_model)
+                out[n + "_b"] = torch.zeros(cfg.d_model, dtype=pdt,
+                                            device=dev)
+            return out
+
+        tree["enc_layers"] = [dict(norms("ln1", "ln2"),
+                                   attn=init_attention_params(g, cfg),
+                                   mlp=gelu_ffn_init(g, cfg))
+                              for _ in range(cfg.n_encoder_layers)]
+        tree["dec_layers"] = [dict(norms("ln1", "lnx", "ln2"),
+                                   attn=init_attention_params(g, cfg),
+                                   xattn=init_attention_params(g, cfg),
+                                   mlp=gelu_ffn_init(g, cfg))
+                              for _ in range(cfg.n_layers)]
+        tree.update(norms("enc_final"))
+        tree["dec_pos_embed"] = embed_init(g, (DEC_POSITIONS, cfg.d_model),
+                                           pdt)
+        return Transformer(cfg, tree)
     tree["layers"] = [block() for _ in range(cfg.n_layers)]
     if cfg.use_mtp:
         tree["mtp"] = {"proj": dense_init(g, (2 * cfg.d_model, cfg.d_model),
@@ -392,6 +515,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Transformer:
                        "block": block(), "ln_h": ones(cfg.d_model),
                        "ln_e": ones(cfg.d_model)}
     return Transformer(cfg, tree)
+
+
+def layer_stacks(cfg: ModelConfig) -> Dict[str, int]:
+    """Each stack of the JAX package's tree and its entries: ``{"layers":
+    stacked_layers(cfg)}``, or in the audio family ``{"enc_layers":
+    n_encoder_layers, "dec_layers": n_layers}``."""
+    if cfg.family == "audio":
+        return {"enc_layers": cfg.n_encoder_layers,
+                "dec_layers": cfg.n_layers}
+    return {"layers": stacked_layers(cfg)}
 
 
 def stacked_layers(cfg: ModelConfig) -> int:
@@ -468,14 +601,40 @@ def _run_ssm_stack(params: Transformer, cfg: ModelConfig, x):
     return x
 
 
+def _whisper_encode(params: Transformer, cfg: ModelConfig,
+                    frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over ``frames`` (B, T, d) plus sinusoidal positions
+    (both in ``cfg.dtype``), each block one unit of ``cfg.remat``, then the
+    final LayerNorm."""
+    B, T, d = frames.shape
+    x = frames.to(cfg.dtype) + sinusoidal_on(T, d, cfg.dtype,
+                                             frames.device)[None]
+    for block in params.enc_layers:
+        x = _maybe_remat(block, cfg)(x, cfg)
+    return layer_norm(params.enc_final_s, params.enc_final_b, x)
+
+
+def _whisper_decoder_input(params: Transformer, cfg: ModelConfig, tokens):
+    """The token embeddings plus the learned positions ``dec_pos_embed[:S]``."""
+    x = _embed_tokens(params, cfg, tokens)
+    return x + params.dec_pos_embed[:tokens.shape[1]][None].to(x.dtype)
+
+
 def forward(params: Transformer, cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(logits (B, S, V), aux_loss)``: the sum of the MoE
-    layers' load-balance losses (0 in the dense, hybrid and SSM
-    families)."""
+    layers' load-balance losses (0 in the dense, hybrid, SSM and audio
+    families).  The audio family reads ``batch["frames"]`` (B, T, d) too."""
     tokens = batch["tokens"]
     B, S = tokens.shape
+    if cfg.family == "audio":
+        enc = _whisper_encode(params, cfg, batch["frames"])
+        x = _whisper_decoder_input(params, cfg, tokens)
+        for block in params.dec_layers:
+            x = _maybe_remat(block, cfg)(x, cfg, enc)
+        return _lm_head(params, cfg, x), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
     x = _embed_tokens(params, cfg, tokens)
     positions = _positions(B, S, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -497,12 +656,16 @@ def prefill_step(params: Transformer, cfg: ModelConfig,
     prompt: ``(logits (B, S, V), {"k", "v"})``, each ``(L, B, S, K, hd)``,
     or with MLA ``{"ckv", "krope"}``, ``(L, B, S, kv_lora_rank)`` and
     ``(L, B, S, qk_rope_head_dim)`` (the serving engine pads it to its max
-    length).  The hybrid and SSM families' caches are described in the
-    module's docstring; the hybrid's rings hold the last ``min(S,
+    length).  The hybrid, SSM and audio families' caches are described in
+    the module's docstring; the hybrid's rings hold the last ``min(S,
     sliding_window)`` rows of each application of the shared block, the
-    SSM's state is each pair's after the prompt."""
+    SSM's state is each pair's after the prompt, the audio's cross K/V the
+    ``T`` rows of the encoder's output over ``batch["frames"]`` (B, T,
+    d)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
+    if cfg.family == "audio":
+        return _whisper_prefill(params, cfg, tokens, batch["frames"])
     x = _embed_tokens(params, cfg, tokens)
     positions = _positions(B, S, x.device)
     if cfg.family == "hybrid":
@@ -517,6 +680,17 @@ def prefill_step(params: Transformer, cfg: ModelConfig,
     k1, k2 = cache_keys(cfg)
     cache = {k1: torch.stack(ks), k2: torch.stack(vs)}
     return _lm_head(params, cfg, x), cache
+
+
+def _whisper_prefill(params: Transformer, cfg: ModelConfig, tokens, frames):
+    enc = _whisper_encode(params, cfg, frames)
+    x = _whisper_decoder_input(params, cfg, tokens)
+    rows = []
+    for block in params.dec_layers:
+        x, kv = block(x, cfg, enc, return_kv=True)
+        rows.append(kv)
+    return _lm_head(params, cfg, x), {key: torch.stack(r) for key, r in
+                                      zip(AUDIO_CACHE, zip(*rows))}
 
 
 def _hybrid_prefill(params: Transformer, cfg: ModelConfig, x, positions):
@@ -544,6 +718,10 @@ XLSTM_STATE = ("s_c", "s_n", "s_h", "s_m", "m_c", "m_n", "m_m")
 STATE_ENTRIES = {"hybrid": ("ssm_h", "ssm_conv"), "ssm": XLSTM_STATE}
 #: the hybrid cache's rings, which a decode step rolls once full
 RINGS = ("attn_k", "attn_v")
+#: the audio cache's entries: the decoder's self K/V, the encoder's K/V
+AUDIO_CACHE = ("k", "v", "cross_k", "cross_v")
+#: the entries a decode step reads and never writes (rows under enc_len)
+CROSS = ("cross_k", "cross_v")
 
 
 def state_entries(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -586,15 +764,24 @@ def cache_keys(cfg: ModelConfig) -> Tuple[str, str]:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device=None) -> Dict[str, torch.Tensor]:
+               enc_len: int = 0, device=None) -> Dict[str, torch.Tensor]:
     """An all-zero ``{"k", "v"}`` cache, each ``(L, batch, max_len, K,
     hd)``, or with MLA the latent ``{"ckv", "krope"}``, ``(L, batch,
     max_len, kv_lora_rank)`` and ``(L, batch, max_len,
     qk_rope_head_dim)``, in ``cfg.dtype`` (``device=None`` means
     ``"cuda"``); in the hybrid family the SSM state and the rings of the
     module's docstring, in the SSM family the pairs' f32 state (the
-    stabilisers at -1e30), whatever ``max_len``."""
+    stabilisers at -1e30), whatever ``max_len``; in the audio family also
+    ``{"cross_k", "cross_v"}`` of ``enc_len`` rows (0: 1,500, whisper's
+    frames, as the JAX package's default)."""
     check_supported(cfg)
+    if cfg.family == "audio":
+        dev = resolve_device(device)
+        shapes = ((cfg.n_layers, batch, n, cfg.n_kv_heads, cfg.hd)
+                  for n in (max_len, max_len, enc_len or 1500,
+                            enc_len or 1500))
+        return {key: torch.zeros(shape, dtype=cfg.dtype, device=dev)
+                for key, shape in zip(AUDIO_CACHE, shapes)}
     if cfg.family == "hybrid":
         return _hybrid_cache(cfg, batch, max_len, resolve_device(device))
     if cfg.family == "ssm":
@@ -684,23 +871,57 @@ def _ssm_decode(params: Transformer, cfg: ModelConfig, cache, x):
     return x
 
 
+def _learned_position(params: Transformer,
+                      cache_len: Union[int, torch.Tensor]) -> torch.Tensor:
+    """Row ``cache_len`` of ``dec_pos_embed``, ``(1, d)``, read on the
+    device for a tensor ``cache_len``; past the last row, the last (the
+    JAX gather clamps)."""
+    last = params.dec_pos_embed.shape[0] - 1
+    if isinstance(cache_len, torch.Tensor):
+        row = cache_len.reshape(1).long().clamp(max=last)
+    else:
+        row = torch.full((1,), min(cache_len, last), dtype=torch.int64,
+                         device=params.dec_pos_embed.device)
+    return params.dec_pos_embed.index_select(0, row)
+
+
+def _whisper_decode(params: Transformer, cfg: ModelConfig, cache, x, pos,
+                    cache_len: Union[int, torch.Tensor],
+                    enc_len: Union[None, int, torch.Tensor]):
+    x = x + _learned_position(params, cache_len)[None].to(x.dtype)
+    enc_last = (cache["cross_k"].shape[2] if enc_len is None
+                else enc_len) - 1
+    for l, block in enumerate(params.dec_layers):
+        x = block.decode(x, pos, cache["k"][l], cache["v"][l],
+                         cache["cross_k"][l], cache["cross_v"][l], cache_len,
+                         enc_last, cfg)
+    return x
+
+
 def decode_step(params: Transformer, cfg: ModelConfig,
                 cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                cache_len: Union[int, torch.Tensor]):
+                cache_len: Union[int, torch.Tensor],
+                enc_len: Union[None, int, torch.Tensor] = None):
     """One-token decode.  tokens: (B, 1) -> ``(logits (B, 1, V), cache)``;
     the new K/V (MLA: latent) rows are written into ``cache`` at
     ``cache_len`` in place (hybrid: the SSM state overwritten and the rings
     written as the module's docstring says; SSM: the pairs' state
-    overwritten, ``cache_len`` unused).
-    ``cache_len`` is an int or a 0-d integer tensor (the JAX package's
-    traced ``jnp.int32``); a tensor is never read by the host, so the step
-    captures as one CUDA graph (the serving engine's decode program)."""
+    overwritten, ``cache_len`` unused; audio: the self K/V written, the
+    cross K/V read at rows under ``enc_len``, all of them for ``None`` as
+    in the JAX package, where the engine's cache holds fewer).
+    ``cache_len`` and ``enc_len`` are ints or 0-d integer tensors (the JAX
+    package's traced ``jnp.int32``); a tensor is never read by the host, so
+    the step captures as one CUDA graph (the serving engine's decode
+    program)."""
     B = tokens.shape[0]
     x = _embed_tokens(params, cfg, tokens)
     if isinstance(cache_len, torch.Tensor):
         pos = cache_len.reshape(1).expand(B)
     else:
         pos = torch.full((B,), cache_len, dtype=torch.int32, device=x.device)
+    if cfg.family == "audio":
+        x = _whisper_decode(params, cfg, cache, x, pos, cache_len, enc_len)
+        return _lm_head(params, cfg, x), cache
     if cfg.family == "hybrid":
         x = _hybrid_decode(params, cfg, cache, x, pos, cache_len)
         return _lm_head(params, cfg, x), cache
@@ -726,7 +947,8 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor, mask=None):
 def loss_fn(params: Transformer, cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor]):
     """Next-token cross-entropy: ``(loss, {"ce_loss", "aux_loss",
-    "loss"})``, 0-d f32 tensors.  Without ``labels`` in ``batch`` the
+    "loss"})``, 0-d f32 tensors (audio: over ``forward`` of the tokens
+    and ``batch["frames"]``).  Without ``labels`` in ``batch`` the
     labels are the tokens shifted by one and the last position is masked
     out; with them, ``loss_mask`` (if any) weighs the positions.  With
     ``cfg.use_mtp`` and an ``mtp`` block, ``cfg.mtp_loss_weight`` times

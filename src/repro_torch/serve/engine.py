@@ -26,7 +26,14 @@ the host (its grouped product takes the offsets on the device), and the
 hybrid family's SSM state is spliced whole and overwritten in place, its
 rings (``min(max_len, sliding_window)`` rows) rolled on the device once
 full; the SSM family's (xLSTM) cache is its state alone, spliced whole and
-overwritten in place, so its batches take any number of new tokens.
+overwritten in place, so its batches take any number of new tokens.  The
+audio family (whisper) prefills on all-zero frames of the prompt's length
+(``(B, plen, d)``, as the JAX engine builds them), so its cross K/V hold
+``plen`` rows; the program's cross buffers hold ``max_len`` rows, and a
+0-d device ``enc_len`` (set at each splice) masks the rows past the
+batch's to ``NEG_INF`` in the cross softmax, an exact zero weight: one
+program serves every prompt length, and no zero-padded row weighs in (the
+JAX engine sizes its cross K/V to each batch's ``plen``).
 Everything runs under ``torch.inference_mode()``.
 
 ``stats``: the wall time of each prefill (``prefill_s``, the splice
@@ -52,7 +59,8 @@ from repro_torch.core.types import resolve_device
 from repro_torch.kernels._build import LAUNCHES
 from repro_torch.models import (ModelConfig, Transformer, decode_step,
                                 init_cache, init_params, prefill_step)
-from repro_torch.models.transformer import RINGS, cache_rows, state_entries
+from repro_torch.models.transformer import (CROSS, DEC_POSITIONS, RINGS,
+                                            cache_rows, state_entries)
 
 
 @dataclasses.dataclass
@@ -89,18 +97,24 @@ class DecodeProgram:
     (after :meth:`capture` when graphed) advances the batch by one token
     and returns the tokens buffer, ``(B, 1)``, then holding the next
     tokens; ``logits`` is the last step's ``(B, 1, V)``.  The buffers are
-    written in place: nothing is copied per step."""
+    written in place: nothing is copied per step.  An audio program's
+    cross K/V have ``max_len`` rows, of which ``enc_len`` (0-d, on the
+    device) hold the batch's."""
 
     def __init__(self, params: Transformer, cfg: ModelConfig, batch: int,
                  max_len: int, device):
         self.params, self.cfg = params, cfg
         self.device = torch.device(device)
         self.key = ("decode", cfg.name, batch, max_len)
-        self.cache = init_cache(cfg, batch, max_len, device=self.device)
+        self.cache = init_cache(cfg, batch, max_len, enc_len=max_len,
+                                device=self.device)
         self.tokens = torch.zeros((batch, 1), dtype=torch.int64,
                                   device=self.device)
         self.cache_len = torch.zeros((), dtype=torch.int64,
                                      device=self.device)
+        self.enc_len = torch.zeros((), dtype=torch.int64,
+                                   device=self.device) \
+            if CROSS[0] in self.cache else None
         self.logits: Optional[torch.Tensor] = None
         self.graphed = False
         self.graph = None
@@ -121,9 +135,9 @@ class DecodeProgram:
         rows, or a hybrid's rings, n = ``plen`` or the window) into the
         cache (the rows from n on zeroed) and the state entries
         (:func:`~repro_torch.models.transformer.state_entries`) whole,
-        ``first`` (B,) into the tokens buffer and ``plen`` into
-        ``cache_len``; the batch's steps replay the graph when ``graphed``,
-        else run eagerly."""
+        ``first`` (B,) into the tokens buffer, ``plen`` into ``cache_len``
+        and the cross K/V's rows into ``enc_len``; the batch's steps replay
+        the graph when ``graphed``, else run eagerly."""
         whole = state_entries(self.cfg)
         for key, dst in self.cache.items():
             src = pcache[key]
@@ -135,11 +149,13 @@ class DecodeProgram:
             dst[:, :, n:].zero_()
         self.tokens.copy_(first.reshape(-1, 1))
         self.cache_len.fill_(plen)
+        if self.enc_len is not None:
+            self.enc_len.fill_(pcache[CROSS[0]].shape[2])
         self.graphed = graphed
 
     def _step(self, tokens: torch.Tensor, cache_len: torch.Tensor):
         logits, _ = decode_step(self.params, self.cfg, self.cache, tokens,
-                                cache_len)
+                                cache_len, enc_len=self.enc_len)
         tokens.copy_(logits[:, 0].argmax(dim=-1, keepdim=True))
         cache_len.add_(1)
         return logits
@@ -148,9 +164,10 @@ class DecodeProgram:
         """Capture the step as a CUDA graph; returns the seconds it took.
         The warm-up runs the step on copies of the tokens and ``cache_len``:
         it writes the new token's K/V row into the cache, the row the first
-        replay then writes again from the same inputs.  A hybrid or SSM step
-        also advances its state entries, and a hybrid's may roll its rings,
-        so the warm-up puts those back as it found them."""
+        replay then writes again from the same inputs (an audio step reads
+        its cross K/V and writes none).  A hybrid or SSM step also advances
+        its state entries, and a hybrid's may roll its rings, so the
+        warm-up puts those back as it found them."""
         t0 = time.perf_counter()
         out = {}
 
@@ -240,8 +257,14 @@ class ServingEngine:
 
     def prefill(self, tokens: torch.Tensor):
         """``prefill_step`` of a (B, S) token batch on the engine's model:
-        ``(logits (B, S, V), cache)``."""
-        return prefill_step(self.params, self.cfg, {"tokens": tokens})
+        ``(logits (B, S, V), cache)``; an audio model's frames all-zero,
+        ``(B, S, d)`` in ``cfg.dtype``, as the JAX engine's."""
+        batch = {"tokens": tokens}
+        if self.cfg.family == "audio":
+            batch["frames"] = torch.zeros(
+                (*tokens.shape, self.cfg.d_model), dtype=self.cfg.dtype,
+                device=tokens.device)
+        return prefill_step(self.params, self.cfg, batch)
 
     # ------------------------------------------------------------------
     def _run_batch(self, reqs: List[Request]):
@@ -292,7 +315,14 @@ class ServingEngine:
         min(max_len, window) rows: with max_len under the window the JAX
         engine would narrow attention to max_len tokens once the ring
         fills (ROADMAP C27).  The SSM family's state takes no rows, so no
-        batch of it is refused."""
+        batch of it is refused.  An audio engine's ``max_len`` may not pass
+        the ``DEC_POSITIONS`` rows of whisper's learned positions, which the
+        JAX gather clamps past the last (ROADMAP C30)."""
+        if self.cfg.family == "audio" and self.scfg.max_len > DEC_POSITIONS:
+            raise ValueError(
+                f"max_len {self.scfg.max_len} passes the {DEC_POSITIONS} "
+                "rows of the decoder's learned positions (the JAX gather "
+                "would read the last row past them: ROADMAP C30)")
         need = cache_rows(self.cfg, plen + max_new - 1)
         held = cache_rows(self.cfg, self.scfg.max_len)
         if need > held:

@@ -889,6 +889,57 @@ def test_graphed_xlstm_decode_gives_the_eager_tokens(cuda, dtype):
         assert int(prog.cache_len) == before + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_graphed_whisper_decode_gives_the_eager_tokens(cuda, dtype):
+    """The smoke whisper with the flash kernel at ``max_len`` 320: a batch
+    of 16-token prompts first (the graph captured there), then a batch of
+    300 tokens (the decoder's prefill on the kernel, one launch a decoder
+    layer) and one of 40 (the plain branch), 12 new tokens each, through
+    one program whose 320 cross rows are masked past each batch's by a
+    device ``enc_len``.  The graphed engine gives the tokens of the same
+    engine under ``_eager_chunks``, the decode launches no kernel, and a
+    replay makes no host sync."""
+    from repro_torch.core.program import _eager_chunks
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeConfig, ServingEngine
+    from repro_torch.serve.engine import decode_program_mode
+    cfg = _serve_config("whisper-tiny", dtype, use_flash_kernel=True)
+    assert decode_program_mode(cfg, cuda) == "graph"
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(8))
+    outs = {}
+    for mode in ("eager", "graph"):
+        eng = ServingEngine(cfg, ServeConfig(max_batch=2, max_len=320),
+                            params=model, device=cuda)
+        with _eager_chunks() if mode == "eager" else \
+                contextlib.nullcontext():
+            _serve(eng, _prompts(cfg.vocab_size, 2, 16, 7), new=4)
+            ops.reset_launches()
+            outs[mode] = [_serve(eng, _prompts(cfg.vocab_size, 2, S, S),
+                                 new=12) for S in (300, 40)]
+            torch.cuda.synchronize()
+        assert dict(ops.LAUNCHES) == dict(dict.fromkeys(ops.LAUNCHES, 0),
+                                          flash_attention=cfg.n_layers)
+        if mode == "graph":
+            assert eng.stats["decode_program"] == "graph"
+            assert eng.stats["decode_graphs"] == 1
+            assert eng.programs[2].launches == {}
+        else:
+            assert eng.stats["decode_program"].startswith("eager: ")
+    assert outs["graph"] == outs["eager"]
+    assert all(len(o) == 12 for run in outs["graph"] for o in run)
+    prog = eng.programs[2]
+    assert int(prog.enc_len) == 40
+    with torch.inference_mode():
+        before = int(prog.cache_len)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            prog.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert int(prog.cache_len) == before + 1
+
+
 def test_decode_attention_on_the_card_sums_bf16_products_in_f32(cuda):
     """bf16 ``decode_attention`` on the card (scores from ``bmm`` with an
     f32 output over the cache as it lies) against the same call on the CPU

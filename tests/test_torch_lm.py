@@ -492,7 +492,6 @@ def test_later_families_name_their_slice(arch):
 
 
 @pytest.mark.parametrize("change,word", [
-    (dict(family="audio"), "audio"),
     (dict(family="vlm"), "VLM"),
     (dict(use_mla=True), "C25"),       # MLA outside the MoE family
     (dict(mrope_sections=(2, 3, 3)), "VLM"),

@@ -9,8 +9,10 @@ runs in tests/test_torch_cuda.py and chip_smoke.py).  Here: several
 consecutive steps against the JAX ``decode_step`` under ``jax.jit`` with a
 traced ``jnp.int32`` ``cache_len`` (dense, MoE gather, MoE sort, a sliding
 window, deepseek's MLA with its latent cache, the hybrid zamba2 with a
-window of 8, so that its rings roll at every step, and the SSM xlstm,
-whose cache is its pairs' state), the step traced by
+window of 8, so that its rings roll at every step, the SSM xlstm,
+whose cache is its pairs' state, and the audio whisper, whose decoder
+reads its learned positions at ``cache_len`` and the encoder's K/V under a
+device ``enc_len``), the step traced by
 ``make_fx`` in fake mode (no host read left, the MoE sort dispatch's
 grouped product included), the in-place splice across batches, and the
 engine's choice of graph or eager.  Weights and inputs come from numpy
@@ -51,12 +53,18 @@ CASES = {
     "mla": ("deepseek-v3-671b", {}),
     "hybrid": ("zamba2-1.2b", {"sliding_window": 8}),
     "xlstm": ("xlstm-350m", {}),
+    "whisper": ("whisper-tiny", {}),
 }
 #: leaves redrawn around their initial value, and by how much
 REDRAWN = {"ln1": 0.3, "ln2": 0.3, "final_norm": 0.3, "q_norm": 0.3,
            "k_norm": 0.3, "kv_norm": 0.3, "router_bias": 0.05,
            "ln": 0.3, "norm": 0.3, "norm_in": 0.3, "a_log": 0.3,
-           "dt_bias": 0.3, "d_skip": 0.3, "b_if": 0.5, "bias": 0.3}
+           "dt_bias": 0.3, "d_skip": 0.3, "b_if": 0.5, "bias": 0.3,
+           "ln1_s": 0.3, "ln1_b": 0.3, "lnx_s": 0.3, "lnx_b": 0.3,
+           "ln2_s": 0.3, "ln2_b": 0.3, "enc_final_s": 0.3,
+           "enc_final_b": 0.3, "bi": 0.1, "bo": 0.1}
+#: whisper's encoder frames in these tests (its cross K/V rows)
+FRAMES = 7
 
 
 def np_(a):
@@ -104,23 +112,32 @@ def test_decode_steps_with_a_device_cache_len_match_the_jitted_jax_step(name):
     the JAX one a traced ``jnp.int32`` under ``jax.jit``; logits and every
     cache entry within ``ATOL_MODEL`` after every step (the hybrid's: its
     SSM state and its 8-row rings, full from the first step; the xlstm's:
-    its seven state entries)."""
+    its seven state entries; the whisper's: its self K/V and the encoder's
+    K/V over ``FRAMES`` seeded frames, which no step writes)."""
     jc, tc, jparams, model = case(name, seed=1)
     B, S, steps = 2, 12, 5
     T = S + steps + 1
     toks = np.asarray(prompts(jc.vocab_size, B, S, 3), np.int32)
-    wlog, wcache = jtr.prefill_step(jparams, jc, {"tokens": jnp.asarray(toks)})
+    frames, enc = {}, {}
+    if tc.family == "audio":
+        frames["frames"] = np.random.default_rng(4).standard_normal(
+            (B, FRAMES, jc.d_model)).astype(np.float32)
+        enc["enc_len"] = FRAMES
+    wlog, wcache = jtr.prefill_step(
+        jparams, jc, {"tokens": jnp.asarray(toks),
+                      **{k: jnp.asarray(v) for k, v in frames.items()}})
     with torch.inference_mode():
-        _, gcache = ttr.prefill_step(model, tc,
-                                     {"tokens": torch.from_numpy(toks)})
-        cache = ttr.init_cache(tc, B, T, device=CPU)
+        _, gcache = ttr.prefill_step(
+            model, tc, {"tokens": torch.from_numpy(toks),
+                        **{k: torch.from_numpy(v) for k, v in frames.items()}})
+        cache = ttr.init_cache(tc, B, T, device=CPU, **enc)
         for key, dst in cache.items():
             src = gcache[key]
             if key in ttr.state_entries(tc):
                 dst.copy_(src)
             else:
                 dst[:, :, :src.shape[2]] = src
-    target = jtr.init_cache(jc, B, T)
+    target = jtr.init_cache(jc, B, T, **enc)
     jcache = {k: jnp.pad(v, [(0, d - s) for d, s in
                              zip(target[k].shape, v.shape)])
               for k, v in wcache.items()}
@@ -144,34 +161,41 @@ def test_decode_steps_with_a_device_cache_len_match_the_jitted_jax_step(name):
 
 
 def fake_trace(model, cfg, B=2, T=16, cache_len=9):
-    """``decode_step`` with a tensor ``cache_len`` traced by ``make_fx`` in
-    fake mode (nothing runs; the weights are constants), after one real
+    """``decode_step`` with a tensor ``cache_len`` (and, for whisper, a
+    tensor ``enc_len`` under the cross K/V's T rows) traced by ``make_fx``
+    in fake mode (nothing runs; the weights are constants), after one real
     step on the same shapes: the graph module."""
-    cache = ttr.init_cache(cfg, B, T, device=CPU)
+    cache = ttr.init_cache(cfg, B, T, enc_len=T, device=CPU)
     keys = list(cache)
     tokens = torch.ones((B, 1), dtype=torch.int64)
     n = torch.tensor(cache_len)
+    kw = {"enc_len": torch.tensor(FRAMES)} if "cross_k" in cache else {}
 
     def step(*args):
-        *caches, tokens, n = args
+        caches, (tokens, n), rest = (args[:len(keys)],
+                                     args[len(keys):len(keys) + 2],
+                                     args[len(keys) + 2:])
         return ttr.decode_step(model, cfg, dict(zip(keys, caches)), tokens,
-                               n)[0]
+                               n, **dict(zip(kw, rest)))[0]
 
+    inputs = (*cache.values(), tokens, n, *kw.values())
     with torch.no_grad():
-        step(*cache.values(), tokens, n)             # the real step
+        step(*inputs)                                # the real step
         mode = FakeTensorMode(allow_non_fake_inputs=True)
-        args = [mode.from_tensor(t) for t in (*cache.values(), tokens, n)]
+        args = [mode.from_tensor(t) for t in inputs]
         return make_fx(step, tracing_mode="fake")(*args)
 
 
 @pytest.mark.parametrize("name", ["dense", "moe-gather", "sliding-window",
-                                  "mla", "hybrid", "xlstm"])
+                                  "mla", "hybrid", "xlstm", "whisper"])
 def test_decode_step_traces_in_fake_mode_without_a_host_read(name):
     """No data-dependent host read is left in the step: ``make_fx`` in fake
     mode traces it whole, the cache (K/V, MLA's latent rows, or the
     hybrid's rings, rolled at ``cache_len`` 9 past their 8 rows) written by
     ``index_copy_`` (the xlstm, which has no attention, writes its state
-    by ``copy_``: seven a pair) and no node reads a value to the host."""
+    by ``copy_``: seven a pair; whisper writes its self K/V alone, its
+    learned position read by ``index_select`` at ``cache_len``) and no
+    node reads a value to the host."""
     _, tc, _, model = case(name)
     gm = fake_trace(model, tc)
     targets = [str(n.target) for n in gm.graph.nodes
@@ -180,6 +204,8 @@ def test_decode_step_traces_in_fake_mode_without_a_host_read(name):
                         "ssm": 0}.get(tc.family, tc.n_layers)
     if tc.family == "ssm":
         assert targets.count("aten.copy_.default") == 7 * tc.n_layers // 2
+    if tc.family == "audio":
+        assert targets.count("aten.index_select.default") == 1
     assert targets.count("aten.index_copy_.default") == 2 * attention_layers
     assert not [t for t in targets if t in ("aten._local_scalar_dense.default",
                                             "aten.item.default")]
@@ -236,15 +262,16 @@ def test_the_engine_serves_two_batches_in_turn_as_fresh_engines_do():
 
 
 def test_decode_program_mode_names_why_a_step_runs_eagerly():
-    """``"graph"`` for a dense, MoE gather, MoE sort, MLA, hybrid or xlstm
-    config on the card; ``"eager: ..."`` on the CPU and under
+    """``"graph"`` for a dense, MoE gather, MoE sort, MLA, hybrid, xlstm or
+    whisper config on the card; ``"eager: ..."`` on the CPU and under
     ``_eager_chunks``."""
     cuda = torch.device("cuda")
-    dense, gather, sort, mla, hybrid, xlstm = (
+    dense, gather, sort, mla, hybrid, xlstm, whisper = (
         tsmoke(a).replace(**kw) for a, kw in (
             CASES["dense"], CASES["moe-gather"], CASES["moe-sort"],
-            CASES["mla"], CASES["hybrid"], CASES["xlstm"]))
-    for cfg in (dense, gather, sort, mla, hybrid, xlstm):
+            CASES["mla"], CASES["hybrid"], CASES["xlstm"],
+            CASES["whisper"]))
+    for cfg in (dense, gather, sort, mla, hybrid, xlstm, whisper):
         assert decode_program_mode(cfg, cuda) == "graph"
         assert decode_program_mode(cfg, CPU).startswith("eager: ")
     with _eager_chunks():

@@ -1,16 +1,18 @@
-"""Phases 2d (its cases at qwen3-8b's and llama4-scout's prefill shapes),
-4 (qwen3-8b served at full width), 4b (llama4-scout served at full width,
-depth 12), 4c (deepseek-v3 served at full width, depth 2, with the
-grouped kernel's checks), 4e (zamba2-1.2b served at full width and
-depth) and 4f (xlstm-350m served at full width and depth), which launch no
-kernel of the port, of chip_smoke.py alone, after the kernels' build
-(skipped when only 4e or 4f run); then the card tests that a pytest -k
-expression selects, if one is given.
+"""Phases 2d (its cases at qwen3-8b's, llama4-scout's and whisper-tiny's
+prefill shapes), 4 (qwen3-8b served at full width), 4b (llama4-scout
+served at full width, depth 12), 4c (deepseek-v3 served at full width,
+depth 2, with the grouped kernel's checks), 4e (zamba2-1.2b served at full
+width and depth) and 4f (xlstm-350m served at full width and depth),
+which launch no kernel of the port, and 4g (whisper-tiny served at full
+width and depth, its decoder prefill on the flash kernel) of chip_smoke.py
+alone, after the kernels' build (skipped when only 4e or 4f run); then the
+card tests that a pytest -k expression selects, if one is given.
 
-    python3 tools/serving.py [4] [4b] [4c] [4e] [4f] [-k EXPR]
+    python3 tools/serving.py [4] [4b] [4c] [4e] [4f] [4g] [-k EXPR]
 
 With no phase named, 4, 4b and 4c run, in that order, each model freed
-before the next; 2d runs when 4 or 4b does.  Run on the card from the root
+before the next; 2d runs when 4, 4b or 4g does, its cases those of the
+phases named.  Run on the card from the root
 of a checkout (about three minutes of command, plus the tests)."""
 import os
 import subprocess
@@ -39,10 +41,17 @@ def main(argv) -> int:
         _build.build(_build.library_path())
         _build.library()
         cs.log(f"build {time.perf_counter() - t0:.1f} s")
-    cs.FLASH_CASES = ((cs.FLASH_SHAPE, True, "bfloat16"),
-                      (cs.FLASH_SHAPE, True, "float32"),
-                      (cs.FLASH_SHAPE_MOE, True, "bfloat16"))
-    if "4" in phases or "4b" in phases:
+    cases = []
+    if "4" in phases:
+        cases += [(cs.FLASH_SHAPE, True, "bfloat16"),
+                  (cs.FLASH_SHAPE, True, "float32")]
+    if "4b" in phases:
+        cases += [(cs.FLASH_SHAPE_MOE, True, "bfloat16")]
+    if "4g" in phases:
+        cases += [(cs.FLASH_SHAPE_AUDIO, True, "bfloat16"),
+                  (cs.FLASH_SHAPE_AUDIO, True, "float32")]
+    cs.FLASH_CASES = tuple(cases)
+    if cases:
         t = time.perf_counter()
         flash = cs.check_flash_kernel(torch, ops, ref)
         cs.log(f"2d {time.perf_counter() - t:.1f} s")
@@ -69,6 +78,11 @@ def main(argv) -> int:
         t = time.perf_counter()
         cs.run_xlstm_serving_path(torch, ops)
         cs.log(f"4f {time.perf_counter() - t:.1f} s")
+    if "4g" in phases:
+        t = time.perf_counter()
+        cs.run_whisper_serving_path(
+            torch, ops, flash[(cs.FLASH_SHAPE_AUDIO, True, "bfloat16")]["ms"])
+        cs.log(f"4g {time.perf_counter() - t:.1f} s")
     if expr is None:
         return 0
     return subprocess.call([sys.executable, "-m", "pytest", "-q", "-m", "gpu",
