@@ -97,11 +97,11 @@ package is missing.  Phases, any failure of which fails the run:
    (``flash_attention.cu``, 3xTF32), both on the tensor cores, then
    llama4-scout's prefill shape (4, 40, 8, 1024, 128) in bf16 (G = 5: an
    odd grouping), phi3's (1, 32, 32, 1024, 96) full (non-causal), a
-   ragged S = 1000 in both types, and whisper-tiny's decoder prefill (4,
-   6, 6, 432, 64) causal (head dim 64, G = 1) in both types; a bitwise
-   repeat; at qwen3's, llama4's and whisper's shapes the kernel's device
-   time
-   beside the plain version's, one ``scaled_dot_product_attention``
+   ragged S = 1000 in both types, whisper-tiny's decoder prefill (4,
+   6, 6, 432, 64) causal (head dim 64, G = 1) in both types, and
+   qwen2-vl-72b's prefill (4, 64, 8, 1024, 128) causal (G = 8) in both
+   types; a bitwise repeat; at qwen3's, llama4's, whisper's and qwen2-vl's
+   shapes the kernel's device time beside the plain version's, one ``scaled_dot_product_attention``
    call's, the bound (fp32: three TF32 products at the tensor cores' TF32
    rate, and beside it the CUDA cores' bound) and an earlier run's time
    before the redesign;
@@ -256,6 +256,27 @@ package is missing.  Phases, any failure of which fails the run:
    ``forward`` over the same tokens printed as C29's reading (the
    reference's decode rotates with RoPE, its prefill does not), not
    gated;
+4h. the VLM family (run after 4g, every earlier model freed):
+   ``ServingEngine`` on qwen2-vl-72b at full width (d 8,192, 64 query heads
+   on 8 KV heads of 128, d_ff 29,568, vocab 152,064, QKV biases, M-RoPE
+   sections (16, 24, 24)), depth cut 80 -> 32 (30,577,336,320 seeded bf16
+   parameters, 61.15 GB) with ``use_flash_kernel=True``: warmed on the
+   prompts' first 256 tokens at B = 4 (its decode graph captured there),
+   then phase 4's 4 prompts of 1,024 tokens (text positions, t = h = w, as
+   the JAX engine serves them) and 16 new tokens served eager and graphed
+   as in 4 (the same greedy tokens, nothing captured in the run); exactly
+   32 flash launches a prefill (G = 8) and none in a decode step; a replay
+   free of host syncs; the prefill's last logits within 5e-2 of the plain
+   branch's; the prefill's ms, device time and kernels beside its TFLOP, a
+   step's (median, range) beside its bytes' bound (``vlm_decode_bytes``:
+   the layers, the head and the K/V cache), tokens/s, busy share, the
+   draw's and the phase's peak memory; then ``prefill_step`` through the
+   entry point with an image (256 seeded patch rows at row 1, their (t, h,
+   w) ids t fixed over a 16 x 16 grid, the text after them): 32 flash
+   launches, the kernel's last logits within 5e-2 of the plain branch's,
+   and how far the same tokens on text positions land (a reading); then
+   ``apply_mrope`` with t = h = w against ``apply_rope`` on the card, bit
+   for bit, in bf16 and f32;
 5. the solve service (run before 4): ``repro_torch.service.SolveEngine``
    with ``ServiceConfig(max_batch=8, chunk=32, substrate="cuda", tol=1e-8,
    maxiter=2000)`` on 3a's system; a burst of 32 right-hand sides from
@@ -376,7 +397,10 @@ package is missing.  Phases, any failure of which fails the run:
    the flash row with ``launches_moe``, 4b's, ``launches_hybrid``, 4e's
    (0), ``moe_shape``, 2d's times at llama4's shape, and ``audio_shape``,
    2d's at whisper's; every row with ``launches_ssm``, 4f's (0), and
-   ``launches_audio``, 4g's (flash: 4 a prefill batch; 0 elsewhere); the
+   ``launches_audio``, 4g's (flash: 4 a prefill batch; 0 elsewhere), and
+   ``launches_vlm``, 4h's (flash: 32 a prefill batch; 0 elsewhere); the
+   flash row with ``vlm_shape``, 2d's times at qwen2-vl's shape (G = 8),
+   bf16 and its ``fp32``; the
    grouped row, 4c's, at a decode step's
    shape with ``prefill`` at the prefill's, each with ``kernel_route``
    (the route taken), ``tile`` and ``tile_ms`` (each bf16 tile's time), and
@@ -397,7 +421,7 @@ the allocator holds is printed after each solver phase, and the session
 cache is cleared before phase 4.
 
 The run goes 1, 3a (the matrix), 2, 2b, 2c, 2d, 3b-3f, the profiler's
-counts, 3g, 5, 3h, 3i, 3j, 4, 4b, 4c, 4d, 4e, 4f, 4g, 6a-6c, 7.  Each path is driven with the
+counts, 3g, 5, 3h, 3i, 3j, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 6a-6c, 7.  Each path is driven with the
 launch counters set to 0 just before it and read just after; the kernels'
 checks and timings are not counted.
 """
@@ -486,8 +510,12 @@ FLASH_SHAPE_MOE = (4, 40, 8, 1024, 128)
 # whisper-tiny's decoder prefill in phase 4g: 4 prompts of 432 tokens, 6
 # query heads on 6 KV heads (G = 1) of head dim 64
 FLASH_SHAPE_AUDIO = (4, 6, 6, 432, 64)
+# qwen2-vl-72b's prefill in phase 4h: 4 prompts of 1,024 tokens, 64 query
+# heads on 8 KV heads (G = 8) of head dim 128
+FLASH_SHAPE_VLM = (4, 64, 8, 1024, 128)
 # the shapes timed (and repeated bitwise) in phase 2d
-FLASH_TIMED = (FLASH_SHAPE, FLASH_SHAPE_MOE, FLASH_SHAPE_AUDIO)
+FLASH_TIMED = (FLASH_SHAPE, FLASH_SHAPE_MOE, FLASH_SHAPE_AUDIO,
+               FLASH_SHAPE_VLM)
 # (shape, causal, dtype name): the full shape, phi3's heads without the
 # mask, and a ragged S (no multiple of the kernels' tiles), in both types;
 # llama4's shape in bf16, the route its prefill takes
@@ -498,7 +526,9 @@ FLASH_CASES = ((FLASH_SHAPE, True, "bfloat16"), (FLASH_SHAPE, True, "float32"),
                ((1, 32, 32, 1024, 96), False, "float32"),
                ((4, 32, 8, 1000, 128), True, "float32"),
                (FLASH_SHAPE_AUDIO, True, "bfloat16"),
-               (FLASH_SHAPE_AUDIO, True, "float32"))
+               (FLASH_SHAPE_AUDIO, True, "float32"),
+               (FLASH_SHAPE_VLM, True, "bfloat16"),
+               (FLASH_SHAPE_VLM, True, "float32"))
 # the flash check, per output row (b, s, h): max |kernel - plain| over that
 # row's max-abs, the largest over all rows (a row's scale falls with its
 # causal length, so one max-abs for the whole output would let the late rows
@@ -648,6 +678,19 @@ AUDIO_FRAMES = 1024
 # the fp32 (TF32 off) decode on the card against the same steps on the CPU,
 # over the logits' max-abs: both sum the same f32 products in other orders
 AUDIO_DECODE_TOL_F32 = 1e-4
+# phase 4h: qwen2-vl-72b (the VLM family: M-RoPE, QKV biases, 64 query
+# heads on 8 KV heads) at full width, bf16, depth cut 80 -> 32: a layer is
+# 877,684,224 parameters (1.755 GB of bf16), the embedding and the untied
+# head 4.98 GB, so 32 layers are 61.15 GB of weights and leave the
+# prefill and the plain branch's f32 scores room on the 80 GB card (80
+# layers are 145 GB)
+VLM_ARCH = "qwen2-vl-72b"
+VLM_LAYERS = 32
+VLM_PARAMS = 30_577_336_320     # the JAX package's count at depth 32
+# the entry point with an image: 256 seeded patch rows spliced in at row 1
+# of each prompt, their (t, h, w) ids t fixed over a 16 x 16 grid, the
+# text after them from the largest id plus one
+VLM_GRID = (16, 16)
 GROUPED_SOURCE = "src/repro_torch/csrc/grouped_mm_sm90.cu"
 GROUPED_SOURCES = {"wgmma": GROUPED_SOURCE,
                    "mma": "src/repro_torch/csrc/grouped_mm.cu"}
@@ -3621,7 +3664,7 @@ def run_moe_serving_path(torch, ops, flash_ms: float) -> dict:
         cfg.n_layers * N * cfg.moe_top_k)
 
     # each layer on the same input, with and without the kernel
-    positions = _positions(SERVE_REQUESTS, SERVE_PROMPT, eng.device)
+    positions = _positions(cfg, SERVE_REQUESTS, SERVE_PROMPT, eng.device)
     layer_agree, layer_err = [], []
     with torch.inference_mode():
         for i, blk in enumerate(eng.params.layers):
@@ -5215,6 +5258,268 @@ def run_whisper_serving_path(torch, ops, flash_ms: float,
     return rec
 
 
+def vlm_prefill_flop(cfg, B: int, S: int) -> dict:
+    """The products of one qwen2-vl prefill of B x S tokens: a layer's
+    projections (q and o of H * hd, k and v of K * hd, the SwiGLU MLP's
+    three), the head over every position, and the causal attention's two
+    einsums, S (S + 1) / 2 pairs a head."""
+    d, ff, V, hd = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.hd
+    H, K, L, N = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers, B * S
+    return dict(
+        projections=2 * N * (L * (2 * d * H * hd + 2 * d * K * hd
+                                  + 3 * d * ff) + d * V),
+        attention=4 * B * H * hd * L * (S * (S + 1) // 2))
+
+
+def vlm_decode_bytes(model, prog, B: int) -> dict:
+    """The bytes a qwen2-vl decode step must move: every layer's weights,
+    the head (``lm_head`` and the final norm) and B rows of the embedding,
+    and the K/V cache as the decode program holds it (``max_len`` rows,
+    read once; the new row written)."""
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+    parts = dict(
+        layers=nbytes(model.layers.parameters()),
+        head=nbytes([model.lm_head, model.final_norm]),
+        rows=B * model.embed.shape[1] * model.embed.element_size(),
+        kv=nbytes([prog.cache["k"], prog.cache["v"]]))
+    return dict(parts, total=sum(parts.values()))
+
+
+def vlm_image_batch(torch, cfg, tokens, device) -> dict:
+    """``prefill_step``'s batch for prompts with one image each: ``tokens``
+    (B, S), VLM_GRID's patch rows (seeded, ``cfg.dtype``) spliced in at row
+    1, and the (t, h, w) ids Qwen2-VL gives such a prompt: row 0 at 0, the
+    patches t = 1 over the grid's (1 + row, 1 + column), the text after
+    them from the largest id plus one."""
+    B, S = tokens.shape
+    gh, gw = VLM_GRID
+    P = gh * gw
+    g = torch.Generator(device=device).manual_seed(16)
+    r = torch.arange(P, device=device)
+    pos = torch.zeros(S, 3, dtype=torch.int64, device=device)
+    pos[1:1 + P] = torch.stack([torch.ones_like(r), 1 + r // gw,
+                                1 + r % gw], 1)
+    pos[1 + P:] = (max(gh, gw) + 1 + torch.arange(
+        S - 1 - P, device=device))[:, None]
+    return {"tokens": tokens,
+            "patch_embeds": torch.randn(B, P, cfg.d_model, generator=g,
+                                        device=device).to(cfg.dtype),
+            "positions": pos[None].expand(B, S, 3)}
+
+
+def check_mrope_is_rope(torch, cfg, device) -> dict:
+    """``apply_mrope`` with t = h = w (the engine's text positions) against
+    ``apply_rope`` on the card, bit for bit, at the prefill's query shape
+    (4, 1024, H, hd) in bf16 and f32, seeded; and how far distinct (t, h,
+    w) streams move the rotation (a reading)."""
+    from repro_torch.models.common import apply_mrope, apply_rope
+    g = torch.Generator(device=device).manual_seed(17)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(SERVE_REQUESTS, SERVE_PROMPT, cfg.n_heads, cfg.hd,
+                        generator=g, device=device).to(dtype)
+        pos = torch.arange(SERVE_PROMPT, device=device)[None].expand(
+            SERVE_REQUESTS, SERVE_PROMPT)
+        rope = apply_rope(x, pos, cfg.rope_theta)
+        same = apply_mrope(x, pos[..., None].expand(*pos.shape, 3),
+                           cfg.rope_theta, cfg.mrope_sections)
+        grid = torch.stack([pos, pos // 2, pos % 7], -1)
+        other = apply_mrope(x, grid, cfg.rope_theta, cfg.mrope_sections)
+        out[str(dtype).replace("torch.", "")] = dict(
+            bitwise=torch.equal(same, rope),
+            distinct_streams_move=float(
+                (other.float() - rope.float()).abs().max()
+                / rope.float().abs().max()))
+        del x, rope, same, other
+    return out
+
+
+def run_vlm_serving_path(torch, ops, flash_ms: float,
+                         device="cuda") -> dict:
+    """Phase 4h: qwen2-vl-72b at full width, depth VLM_LAYERS (seeded bf16
+    weights) with the flash kernel through ``ServingEngine`` at B =
+    SERVE_REQUESTS: warmed on the prompts' first 256 tokens (its decode
+    graph captured there), then phase 4's prompt length and SERVE_NEW new
+    tokens served eager and graphed (:func:`serve_eager_and_graphed`: the
+    same greedy tokens, nothing captured in the run; the engine prefills on
+    text positions, t = h = w); the launch counters, set to 0 just before
+    each run and read just after, read one flash launch a layer in the
+    prefill (G = 8) and none in the decode; a replay free of host syncs;
+    the prefill's last logits against the plain branch's; its time,
+    kernels and device time beside its FLOP, a step's against its bytes'
+    bound; then ``prefill_step`` through the entry point with an image
+    (:func:`vlm_image_batch`), the kernel against the plain branch, timed;
+    then :func:`check_mrope_is_rope`.  ``flash_ms``: 2d's bf16 kernel time
+    at FLASH_SHAPE_VLM.  The model is freed before it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import prefill_step
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = get_config(VLM_ARCH).replace(n_layers=VLM_LAYERS,
+                                       use_flash_kernel=True)
+    B = SERVE_REQUESTS
+    scfg = ServeConfig(max_batch=B, max_len=SERVE_PROMPT + 2 * SERVE_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, scfg, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    model = eng.params
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    prompts = serve_prompts(torch, cfg.vocab_size)
+    warm_engine(torch, eng, prompts)
+    log(f"4h vlm ({VLM_ARCH}, depth {VLM_LAYERS}): warmed at batch {B}, "
+        f"the decode graph captured in {eng.stats['capture_s']:.3f} s")
+    runs = serve_eager_and_graphed(torch, ops, eng, prompts, "4h vlm")
+    want = dict(dict.fromkeys(ops.LAUNCHES, 0), flash_attention=cfg.n_layers)
+    for mode, r in runs.items():
+        if r["launches"] != want or r["prefill_batches"] != 1:
+            raise SystemExit(f"4h vlm ({mode} decode): launches "
+                             f"{r['launches']} over {r['prefill_batches']} "
+                             f"prefill batches; want {cfg.n_layers} flash "
+                             "launches over 1 (none in a decode step)")
+    serve_peak = torch.cuda.max_memory_allocated()
+    prog = eng.programs[B]
+    tokens = torch.tensor(prompts, device=device)
+    plain = ServingEngine(cfg.replace(use_flash_kernel=False), scfg,
+                          params=model, device=device)
+    with torch.inference_mode():
+        last = {"flash": eng.prefill(tokens)[0][:, -1].float(),
+                "plain": plain.prefill(tokens)[0][:, -1].float()}
+        torch.cuda.empty_cache()
+        pre = device_activity(torch, lambda: eng.prefill(tokens), reps=1)
+    del plain
+    outputs = runs["graph"]["outputs"]
+    finite = all(bool(torch.isfinite(t).all()) for t in last.values())
+    err = float((last["flash"] - last["plain"]).abs().max()
+                / last["plain"].abs().max())
+    agree = (last["flash"].argmax(-1) == last["plain"].argmax(-1)).tolist()
+    first = [o[0] for o in outputs] == last["flash"].argmax(-1).tolist()
+    act = decode_activity(torch, eng, tokens)
+    torch.cuda.empty_cache()
+    dec = log_decode_runs("4h vlm", runs, act, eng)
+    nbytes = vlm_decode_bytes(model, prog, B)
+    bound = nbytes["total"] / HBM_BYTES_PER_S * 1e3
+    flop = vlm_prefill_flop(cfg, B, SERVE_PROMPT)
+    del eng, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the entry point with an image: the kernel's prefill (counted on its
+    # own) against the plain branch's on the same batch, then the same
+    # tokens on text positions (how far the image's ids move the logits)
+    batch = vlm_image_batch(torch, cfg, tokens, device)
+    text = {k: v for k, v in batch.items() if k != "positions"}
+    with torch.inference_mode():
+        prefill_step(model, cfg, batch)                   # warm-up
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits = prefill_step(model, cfg, batch)[0]
+        torch.cuda.synchronize()
+        ep_prefill_ms = (time.perf_counter() - t0) * 1e3
+        ep_launches = dict(ops.LAUNCHES)
+        ep = {"flash": logits[:, -1].float()}
+        del logits
+        torch.cuda.empty_cache()
+        ep["plain"] = prefill_step(model, cfg.replace(use_flash_kernel=False),
+                                   batch)[0][:, -1].float()
+        torch.cuda.empty_cache()
+        ep["text"] = prefill_step(model, cfg, text)[0][:, -1].float()
+        torch.cuda.empty_cache()
+    ep_finite = all(bool(torch.isfinite(t).all()) for t in ep.values())
+    ep_err = float((ep["flash"] - ep["plain"]).abs().max()
+                   / ep["plain"].abs().max())
+    image_moves = float((ep["text"] - ep["flash"]).abs().max()
+                        / ep["flash"].abs().max())
+    mrope = check_mrope_is_rope(torch, cfg, device)
+    peak = torch.cuda.max_memory_allocated()
+    g_run, e_run = runs["graph"], runs["eager"]
+    rec = dict(
+        arch=VLM_ARCH, config=f"full width, depth {VLM_LAYERS} of 80",
+        dtype="bfloat16", parameters=n_params, weight_gb=weight_bytes / 1e9,
+        init_s=init_s, init_peak_memory_gb=init_peak / 1e9,
+        reduced={"n_layers": [80, VLM_LAYERS]}, requests=B,
+        prompt_len=SERVE_PROMPT, max_len=scfg.max_len, new_tokens=SERVE_NEW,
+        launches=g_run["launches"], eager_launches=e_run["launches"],
+        prefill_ms=g_run["prefill_ms"], eager_prefill_ms=e_run["prefill_ms"],
+        prefill_kernels=pre["kernels"], prefill_device_ms=pre["busy_ms"],
+        prefill_busy_share=pre["busy_ms"] / g_run["prefill_ms"],
+        prefill_tflop={k: v / 1e12 for k, v in flop.items()},
+        prefill_bound_ms=sum(flop.values()) / PEAK_FLOPS["bfloat16"] * 1e3,
+        flash_ms=flash_ms,
+        flash_share_of_prefill=flash_ms * cfg.n_layers / g_run["prefill_ms"],
+        decode_step_ms=g_run["decode_step_ms"],
+        decode_step_ms_range=g_run["decode_step_ms_range"],
+        eager_decode_step_ms=e_run["decode_step_ms"],
+        eager_decode_step_ms_range=e_run["decode_step_ms_range"],
+        tokens_per_s=g_run["tokens_per_s"],
+        decode_tokens_per_s=g_run["decode_tokens_per_s"],
+        decode_bytes=nbytes, decode_bound_ms=bound,
+        serve_peak_memory_gb=serve_peak / 1e9, peak_memory_gb=peak / 1e9,
+        logits_finite=finite, logits_max_rel_err=err,
+        logits_tol=SERVE_LOGITS_TOL, argmax_agree=agree,
+        first_tokens_are_logits_argmax=first,
+        image_entry_point=dict(
+            patches=VLM_GRID[0] * VLM_GRID[1], grid=list(VLM_GRID),
+            prefill_ms=ep_prefill_ms, launches=ep_launches,
+            logits_max_rel_err=ep_err, logits_tol=SERVE_LOGITS_TOL,
+            finite=ep_finite, text_positions_move_logits=image_moves),
+        mrope_vs_rope=mrope, outputs=outputs, **dec)
+    log(f"4h vlm: {json.dumps(rec)}")
+    log(f"4h vlm ({VLM_ARCH}, {n_params:,} parameters, depth {VLM_LAYERS} "
+        f"of 80, {weight_bytes / 1e9:.2f} GB of bf16 drawn in "
+        f"{init_s:.2f} s, {init_peak / 1e9:.2f} GB at the draw's peak): "
+        f"{B} x {SERVE_PROMPT} tokens, {SERVE_NEW} new; launches "
+        f"{g_run['launches']} graphed, {e_run['launches']} eager; prefill "
+        f"{g_run['prefill_ms']:.2f} ms (eager run {e_run['prefill_ms']:.2f})"
+        f", {pre['busy_ms']:.3f} ms of device and {pre['kernels']:.0f} "
+        f"kernels (busy {rec['prefill_busy_share']:.3f}) for "
+        f"{flop['projections'] / 1e12:.2f} TFLOP of projections and "
+        f"{flop['attention'] / 1e12:.3f} of attention (bound "
+        f"{rec['prefill_bound_ms']:.2f} ms at 989 TFLOP/s); the flash "
+        f"kernel {rec['flash_share_of_prefill']:.4f} of it; a graphed step "
+        f"{g_run['decode_step_ms']:.3f} ms (range "
+        f"{g_run['decode_step_ms_range'][0]:.3f}-"
+        f"{g_run['decode_step_ms_range'][1]:.3f}) against its "
+        f"{nbytes['total'] / 1e9:.2f} GB bound of {bound:.3f} ms (layers "
+        f"{nbytes['layers'] / 1e9:.2f} GB, head {nbytes['head'] / 1e9:.2f}, "
+        f"K/V {nbytes['kv'] / 1e9:.3f}); eager "
+        f"{e_run['decode_step_ms']:.3f} ms; {g_run['tokens_per_s']:.1f} "
+        f"tokens/s; peak memory {serve_peak / 1e9:.2f} GB serving, "
+        f"{peak / 1e9:.2f} GB in the phase [{card()}]")
+    log(f"4h vlm prefill logits: the kernel's last-position logits "
+        f"{err:.3e} off the plain branch's max-abs (tol {SERVE_LOGITS_TOL})"
+        f", argmax agreement {sum(agree)}/{len(agree)}, finite {finite}; "
+        f"the first tokens are the prefill's argmax: {first}")
+    log(f"4h vlm entry point with an image: prefill_step on {B} x "
+        f"{SERVE_PROMPT} tokens with {VLM_GRID[0] * VLM_GRID[1]} patch rows "
+        f"at row 1 and their (t, h, w) ids over a {VLM_GRID[0]} x "
+        f"{VLM_GRID[1]} grid: {ep_prefill_ms:.2f} ms (launches "
+        f"{ep_launches}); the kernel's last logits {ep_err:.3e} off the "
+        f"plain branch's (tol {SERVE_LOGITS_TOL}), finite {ep_finite}; the "
+        f"same batch on text positions {image_moves:.3e} away; M-RoPE with "
+        f"t = h = w against RoPE on the card: {mrope} [{card()}]")
+    ok = (n_params == VLM_PARAMS and finite and err <= SERVE_LOGITS_TOL
+          and ep_finite and ep_err <= SERVE_LOGITS_TOL and ep_launches == want
+          and all(r["bitwise"] for r in mrope.values()))
+    for mode in ("eager", "graph"):
+        outs = runs[mode]["outputs"]
+        if len(outs) != B or any(len(o) != SERVE_NEW for o in outs) or any(
+                not 0 <= t < cfg.vocab_size for o in outs for t in o):
+            ok = False
+    if not ok:
+        raise SystemExit(f"4h vlm: {rec}")
+    del model, batch, text, ep, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def run_training_path(torch, ops, seed: int) -> dict:
     """Phase 6a: ``repro_torch.train.train`` on phi3-mini-3.8b (full width,
     depth ``TRAIN_LAYERS``, bf16 weights, f32 moments) on the card, with the
@@ -5780,6 +6085,12 @@ def main() -> int:
     whisper = run_whisper_serving_path(torch, ops, audio_flash["ms"])
     log_memory(torch, "4g (the whisper model freed)")
 
+    # -- 4h. the VLM family: qwen2-vl-72b at full width, depth 32 ------------
+    vlm_flash = flash[(FLASH_SHAPE_VLM, True, "bfloat16")]
+    vlm_f32 = flash[(FLASH_SHAPE_VLM, True, "float32")]
+    vlm = run_vlm_serving_path(torch, ops, vlm_flash["ms"])
+    log_memory(torch, "4h (the qwen2-vl model freed)")
+
     # -- 6. training and the Newton-Krylov step -------------------------------
     training = run_training_path(torch, ops, args.seed)
     log_memory(torch, "6a")
@@ -5822,6 +6133,7 @@ def main() -> int:
             extra = dict(m=M)
         extra["launches_ssm"] = xlstm["launches"][kname]
         extra["launches_audio"] = whisper["launches"][kname]
+        extra["launches_vlm"] = vlm["launches"][kname]
         if kname in service_launches:
             extra["launches_service"] = service_launches[kname]
         if kname in mesh_launches:
@@ -5881,6 +6193,25 @@ def main() -> int:
         launches_hybrid=hybrid["launches"]["flash_attention"],
         launches_ssm=xlstm["launches"]["flash_attention"],
         launches_audio=whisper["launches"]["flash_attention"],
+        launches_vlm=vlm["launches"]["flash_attention"],
+        vlm_shape=dict(shape_bhksd=list(FLASH_SHAPE_VLM), causal=True,
+                       dtype="bfloat16", ms=vlm_flash["ms"],
+                       plain_ms=vlm_flash["plain_ms"],
+                       library_ms=vlm_flash["library_ms"],
+                       bound_ms=vlm_flash["bound"][0],
+                       bound_by=vlm_flash["bound"][1],
+                       max_row_rel_err=vlm_flash["err"],
+                       max_abs_err=vlm_flash["max_abs_err"],
+                       repeats_bitwise=vlm_flash["repeats_bitwise"],
+                       fp32=dict(ms=vlm_f32["ms"],
+                                 plain_ms=vlm_f32["plain_ms"],
+                                 library_ms=vlm_f32["library_ms"],
+                                 bound_ms=vlm_f32["bound"][0],
+                                 bound_by=vlm_f32["bound"][1],
+                                 cuda_core_bound_ms=vlm_f32[
+                                     "cuda_core_bound"][0],
+                                 max_row_rel_err=vlm_f32["err"],
+                                 max_abs_err=vlm_f32["max_abs_err"])),
         audio_shape=dict(shape_bhksd=list(FLASH_SHAPE_AUDIO), causal=True,
                          dtype="bfloat16", ms=audio_flash["ms"],
                          plain_ms=audio_flash["plain_ms"],
@@ -5907,7 +6238,8 @@ def main() -> int:
                           bound_ms=r["bound"][0] if "bound" in r else None)
                      for key, r in flash.items()
                      if r is not main_flash and r is not f32
-                     and r is not moe_flash and r is not audio_flash]))
+                     and r is not moe_flash and r is not audio_flash
+                     and r is not vlm_flash and r is not vlm_f32]))
     gdec, gpre = mla["grouped"]["decode_wi"], mla["grouped"]["prefill_wi"]
 
     def tile_ms(r):
@@ -5921,6 +6253,7 @@ def main() -> int:
         launches_fp32_sort=fp32_sort["launches"]["grouped_mm"],
         launches_ssm=xlstm["launches"]["grouped_mm"],
         launches_audio=whisper["launches"]["grouped_mm"],
+        launches_vlm=vlm["launches"]["grouped_mm"],
         max_abs_err=gdec["max_abs_err"], ms=gdec["ms"],
         plain_ms=gdec["plain_ms"], bound_ms=gdec["bound_ms"],
         bound_by=gdec["bound_by"], library_ms=gdec["library_ms"],

@@ -4,13 +4,15 @@
 ``smoke_config(arch)`` a reduced one of the same family for CPU tests, for
 the four dense architectures, the two MoE ones (llama4-scout, and
 deepseek-v3 with multi-head latent attention), the hybrid zamba2-1.2b
-(Mamba2 layers and one shared attention block) and the SSM xlstm-350m
-(sLSTM + mLSTM pairs) and the audio whisper-tiny (an encoder over frame
-embeddings and a decoder with cross-attention), whose files carry over
-from the JAX package as they are.  The VLM id raises
-``NotImplementedError`` and names the slice of the port that brings it.  The dry-run tooling of the JAX
-package's ``base`` (``input_specs``, ``SHAPES``, the applicability table)
-waits for the port of ``launch/``.
+(Mamba2 layers and one shared attention block), the SSM xlstm-350m
+(sLSTM + mLSTM pairs), the audio whisper-tiny (an encoder over frame
+embeddings and a decoder with cross-attention) and the VLM qwen2-vl-72b
+(M-RoPE, patch embeddings spliced into the prompt), whose files carry
+over from the JAX package as they are.  ``LATER`` names the
+architectures of later slices of the port, each of which raises
+``NotImplementedError`` naming its slice: none is left.  The dry-run
+tooling of the JAX package's ``base`` (``input_specs``, ``SHAPES``, the
+applicability table) waits for the port of ``launch/``.
 """
 from __future__ import annotations
 
@@ -25,9 +27,7 @@ ARCH_IDS = [
 ]
 
 #: the architectures of later slices, and the slice that brings each
-LATER = {
-    "qwen2-vl-72b": "the VLM slice",
-}
+LATER: dict = {}
 
 
 def _module(arch: str):
@@ -36,9 +36,7 @@ def _module(arch: str):
                          f"{ARCH_IDS}")
     if arch in LATER:
         raise NotImplementedError(
-            f"{arch} waits for {LATER[arch]} of the PyTorch port; the port "
-            "runs the dense, MoE (MLA included), hybrid, SSM and audio "
-            "families so far")
+            f"{arch} waits for {LATER[arch]} of the PyTorch port")
     mod = arch.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 

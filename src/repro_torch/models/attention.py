@@ -11,8 +11,10 @@ softmax, never a library attention call: nothing on the path stands in for
 the kernel.  Cross-attention (whisper) takes its K/V from ``x_kv`` and
 rotates nothing; RoPE is applied only where ``positions`` are given (the
 JAX package passes none in whisper's prefill, but rotates q, and a
-self-attention's new k, at its decode: ROADMAP C29).  M-RoPE (qwen2-vl)
-waits for the VLM slice of the port.  The flash branch has no derivative,
+self-attention's new k, at its decode: ROADMAP C29).  With
+``cfg.mrope_sections`` (qwen2-vl) the rotation is M-RoPE at ``(B, S, 3)``
+(t, h, w) positions; a decode step's ``(B, 1)`` position is taken on all
+three streams, as the JAX package takes it.  The flash branch has no derivative,
 in either package: with gradients enabled it runs through an autograd
 function whose backward and forward-mode rule raise
 ``NotImplementedError``.
@@ -26,7 +28,8 @@ import torch
 
 from repro_torch.kernels import ops as kops
 
-from .common import ModelConfig, apply_rope, dense_init, rms_norm
+from .common import (ModelConfig, apply_mrope, apply_rope, dense_init,
+                     rms_norm)
 
 Params = Mapping[str, torch.Tensor]
 
@@ -62,6 +65,15 @@ def _project(p: Params, x: torch.Tensor, key: str, heads: int,
     return y.reshape(*x.shape[:2], heads, cfg.hd)
 
 
+def _rotate(t: torch.Tensor, positions: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """RoPE at ``(B, S)`` positions, or with ``cfg.mrope_sections``
+    M-RoPE at ``(B, S, 3)`` ones."""
+    if cfg.mrope_sections is not None:
+        return apply_mrope(t, positions, cfg.rope_theta, cfg.mrope_sections)
+    return apply_rope(t, positions, cfg.rope_theta)
+
+
 def _project_q(p: Params, x: torch.Tensor, cfg: ModelConfig,
                positions: Optional[torch.Tensor]) -> torch.Tensor:
     """``(B, S, H, hd)`` queries of x, rotated at ``positions`` unless
@@ -69,8 +81,7 @@ def _project_q(p: Params, x: torch.Tensor, cfg: ModelConfig,
     q = _project(p, x, "q", cfg.n_heads, cfg)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
-    return q if positions is None else apply_rope(q, positions,
-                                                  cfg.rope_theta)
+    return q if positions is None else _rotate(q, positions, cfg)
 
 
 def _project_kv(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -83,7 +94,7 @@ def _project_kv(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if cfg.qk_norm:
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
     if positions is not None:
-        k = apply_rope(k, positions, cfg.rope_theta)
+        k = _rotate(k, positions, cfg)
     return k, v
 
 
@@ -142,9 +153,9 @@ def multihead_attention(p: Params, x: torch.Tensor,
                         x_kv: Optional[torch.Tensor] = None,
                         q_block: int = 1024, return_kv: bool = False):
     """Attention over a sequence (prefill, encoder, cross).  x: (B, S, d);
-    positions: (B, S), or ``None`` for no RoPE; ``x_kv`` (B, T, d): the
-    sequence the keys and values come from (cross-attention, never
-    rotated), x itself by default.  With ``return_kv`` also the un-repeated
+    positions: (B, S) (M-RoPE: (B, S, 3)), or ``None`` for no RoPE;
+    ``x_kv`` (B, T, d): the sequence the keys and values come from
+    (cross-attention, never rotated), x itself by default.  With ``return_kv`` also the un-repeated
     ``(k, v)``, each ``(B, T, K, hd)``: what the decode cache stores."""
     cross = x_kv is not None
     x_kv = x if x_kv is None else x_kv
@@ -233,13 +244,16 @@ def decode_attention(p: Params, x: torch.Tensor, position: torch.Tensor,
     written, and the K/V the JAX package projects from x and drops are not
     computed; q is rotated at ``position`` all the same, as the JAX
     package rotates it (ROADMAP C29).  Returns ``(y, k_cache, v_cache)`` as
-    the JAX package does.  x: (B, 1, d); position: (B,) or (B, 1)."""
+    the JAX package does.  x: (B, 1, d); position: (B,) or (B, 1), with
+    M-RoPE also (B, 1, 3); a (B, 1) one is taken on all three streams."""
     B = x.shape[0]
     hd, H, K = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     G = H // K
     T = k_cache.shape[1]
     scale = 1.0 / math.sqrt(hd)
     positions = position[:, None] if position.dim() == 1 else position
+    if cfg.mrope_sections is not None and positions.dim() == 2:
+        positions = positions[..., None].expand(*positions.shape, 3)
     q = _project_q(p, x, cfg, positions)
     row = _cache_row(cache_len, x.device)
     if update_cache:

@@ -2,11 +2,11 @@
 ``repro.models.common``).
 
 The config has the JAX package's fields and defaults, so its architecture
-files carry over as they are; the dtypes are ``torch`` dtypes.  The dense
-and MoE decoder families (MLA and MTP included), the hybrid, the SSM
-(xLSTM) and the audio (whisper's encoder-decoder) families run in the port
-so far: the VLM's fields (M-RoPE) are kept and refused where a model reads
-them.
+files carry over as they are; the dtypes are ``torch`` dtypes.  Every
+family of the JAX package runs in the port: the dense and MoE decoder
+families (MLA and MTP included), the hybrid, the SSM (xLSTM), the audio
+(whisper's encoder-decoder) and the VLM (qwen2-vl's M-RoPE,
+:func:`apply_mrope`).
 """
 from __future__ import annotations
 
@@ -163,14 +163,46 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (..., S, H, hd); positions: broadcastable to (..., S).  The
     frequencies are computed in fp64 and cast to f32, the angles are f32
     positions times f32 frequencies, as in the JAX package."""
-    hd = x.shape[-1]
-    freqs = _rope_freqs_on(hd, float(theta), x.device)
-    ang = positions.float()[..., None] * freqs              # (..., S, hd/2)
+    freqs = _rope_freqs_on(x.shape[-1], float(theta), x.device)
+    return _rotate_angles(x, positions.float()[..., None] * freqs)
+
+
+def _rotate_angles(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, hd) rotated by the f32 angles ``ang`` (..., S, hd/2),
+    the halves of its last axis as the real and imaginary parts, in f32,
+    cast back to x's dtype."""
     cos = torch.cos(ang)[..., None, :]                      # (..., S, 1, hd/2)
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _mrope_slots_on(sections: Tuple[int, ...],
+                    device: torch.device) -> torch.Tensor:
+    # each frequency slot's position stream, copied to the device once (as
+    # _rope_freqs_on), so that a decode step reads nothing on the host
+    with torch.inference_mode(False):
+        return torch.as_tensor(np.repeat(np.arange(len(sections)), sections),
+                               dtype=torch.int64, device=device)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): x (..., S, H, hd), positions (..., S, 3)
+    = the (t, h, w) ids; the hd/2 frequency slots are split into
+    ``sections`` (sum = hd/2), each rotated by its own position stream.
+    The angles are f32 positions times f32 frequencies, as in
+    :func:`apply_rope`, so with t = h = w the two agree bit for bit."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} sum to "
+                         f"{sum(sections)}, not hd / 2 = {hd // 2}")
+    freqs = _rope_freqs_on(hd, float(theta), x.device)
+    slots = _mrope_slots_on(tuple(sections), x.device)
+    pos = positions.float().index_select(-1, slots)          # (..., S, hd/2)
+    return _rotate_angles(x, pos * freqs)
 
 
 def sinusoidal_positions(n: int, d: int) -> np.ndarray:

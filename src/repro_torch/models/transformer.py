@@ -1,5 +1,5 @@
-"""The LM, dense, MoE, hybrid, SSM and audio families (PyTorch port of
-``repro.models.transformer``).
+"""The LM, dense, MoE, hybrid, SSM, audio and VLM families (PyTorch port
+of ``repro.models.transformer``).
 
 A :class:`Transformer` module of :class:`DecoderBlock` modules, each with an
 :class:`Attention` (with ``cfg.use_mla`` an :class:`MLA`) and a
@@ -20,7 +20,14 @@ embeddings plus sinusoidal positions, closed by a LayerNorm
 self-attention, cross-attention ``xattn`` against the encoder's output, GELU
 MLP) over the token embeddings plus the learned ``dec_pos_embed``; its
 head is ``final_norm`` as an RMSNorm and the tied embedding, as the JAX
-package's.
+package's.  The VLM family (qwen2-vl) is the dense stack with M-RoPE
+(``cfg.mrope_sections``): ``forward`` and ``prefill_step`` read
+``batch["positions"]`` ``(B, S, 3)``, the (t, h, w) ids (``arange(S)`` on
+all three streams by default), and splice ``batch["patch_embeds"]``
+``(B, P, d)`` in over rows 1 to P, the start clamped to ``S - P`` as
+``jax.lax.dynamic_update_slice`` clamps it (ROADMAP C31); its cache and
+decode are the dense family's, a step's position ``cache_len`` on all
+three streams (C32).
 Weights keep the JAX package's layout (``x @ W``), so a JAX parameter tree
 carries across as a copy (:func:`repro_torch.convert.lm_params_from_numpy`).
 The entry points keep the JAX package's functional signatures, with the
@@ -59,8 +66,7 @@ behaviour, kept: ROADMAP C29).  Layers run in a
 Python loop (the JAX package's ``lax.scan``); its sharding constraints
 have no counterpart on one device.  ``forward`` sums the MoE layers'
 load-balance losses into its ``aux``; the prefill and decode steps drop
-them.  The VLM family raises ``NotImplementedError`` and names the slice
-of the port that brings it; MLA outside the MoE family raises too (the JAX
+them.  MLA outside the MoE family raises ``NotImplementedError`` (the JAX
 package cannot decode it, ROADMAP C25).
 
 The weights are trainable parameters; serving runs under
@@ -95,10 +101,8 @@ from .ssm import Mamba2, init_mamba2_params, mamba2_init_state
 from .xlstm import (XLSTMPair, init_mlstm_params, init_slstm_params,
                     mlstm_init_state, slstm_init_state)
 
-#: the families the port runs
-FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio")
-#: the slice of the port that brings each family the port does not run yet
-LATER_SLICES = {"vlm": "the VLM (M-RoPE) slice"}
+#: the families the port runs (every family of the JAX package)
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
 #: the rows of whisper's learned decoder position table (the JAX package
 #: sizes it for its decode_32k cell; a decode past it reads the last row,
 #: where the JAX gather clamps, and the engine refuses such a max_len)
@@ -106,22 +110,17 @@ DEC_POSITIONS = 32768
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what only later slices run."""
+    """Raise ``NotImplementedError`` for a family the port does not run,
+    and for MLA outside the MoE family."""
     if cfg.family not in FAMILIES:
-        later = LATER_SLICES.get(cfg.family, "a later slice")
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family waits for {later} of "
-            "the PyTorch port; only the dense, MoE, hybrid, SSM and "
-            "audio families run so far")
+            f"{cfg.name}: the port runs the families {FAMILIES}, not "
+            f"{cfg.family!r}")
     if cfg.use_mla and cfg.family != "moe":
         raise NotImplementedError(
             f"{cfg.name}: MLA runs in the MoE family only: the JAX package "
             f"gives a {cfg.family} config with MLA a {{k, v}} cache that its "
             "decode step cannot read (ROADMAP C25)")
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: vlm layers wait for {LATER_SLICES['vlm']} of the "
-            "PyTorch port")
 
 
 #: the stacked entries of the JAX package's trees: the decoder's layers, or
@@ -551,8 +550,51 @@ def _embed_tokens(params: Transformer, cfg: ModelConfig, tokens):
     return params.embed[tokens.long()].to(cfg.dtype)
 
 
-def _positions(B: int, S: int, device) -> torch.Tensor:
-    return torch.arange(S, device=device)[None].expand(B, S)
+def _positions(cfg: ModelConfig, B: int, S: int, device) -> torch.Tensor:
+    """``arange(S)`` for each row, ``(B, S)``; with M-RoPE on all three
+    streams, ``(B, S, 3)``."""
+    pos = torch.arange(S, device=device)[None].expand(B, S)
+    if cfg.mrope_sections is not None:
+        return pos[..., None].expand(B, S, 3)
+    return pos
+
+
+def _batch_positions(cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
+                     B: int, S: int, device) -> torch.Tensor:
+    """With M-RoPE ``batch["positions"]`` ``(B, S, 3)`` where given (the
+    JAX package reads it only then), else :func:`_positions`."""
+    given = batch.get("positions") if cfg.mrope_sections is not None \
+        else None
+    if given is None:
+        return _positions(cfg, B, S, device)
+    if tuple(given.shape) != (B, S, 3):
+        raise ValueError(f"{cfg.name}: M-RoPE positions must be (B, S, 3) = "
+                         f"{(B, S, 3)}, got {tuple(given.shape)}")
+    return given.to(device)
+
+
+def _splice_patches(cfg: ModelConfig, x: torch.Tensor,
+                    batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The VLM's ``batch["patch_embeds"]`` ``(B, P, d)`` written over rows
+    1 to P of the embedded prompt x ``(B, S, d)``, in x's dtype, as the
+    reference's ``jax.lax.dynamic_update_slice(x, pe, (0, 1, 0))``: a start
+    that would run past row S - 1 is clamped to ``S - P`` (an S-row ``pe``
+    lands at row 0; ROADMAP C31).  More than S rows are refused (the
+    reference fails on the shapes)."""
+    pe = batch.get("patch_embeds") if cfg.family == "vlm" else None
+    if pe is None:
+        return x
+    B, S, d = x.shape
+    if pe.dim() != 3 or pe.shape[0] != B or pe.shape[2] != d:
+        raise ValueError(f"{cfg.name}: patch_embeds must be (B, P, d) with "
+                         f"B = {B}, d = {d}, got {tuple(pe.shape)}")
+    P = pe.shape[1]
+    if P > S:
+        raise ValueError(f"{cfg.name}: {P} patch_embeds rows do not fit in "
+                         f"a prompt of {S} tokens")
+    start = min(1, S - P)
+    return torch.cat([x[:, :start], pe.to(device=x.device, dtype=x.dtype),
+                      x[:, start + P:]], dim=1)
 
 
 def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -624,8 +666,10 @@ def forward(params: Transformer, cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(logits (B, S, V), aux_loss)``: the sum of the MoE
-    layers' load-balance losses (0 in the dense, hybrid, SSM and audio
-    families).  The audio family reads ``batch["frames"]`` (B, T, d) too."""
+    layers' load-balance losses (0 in the other families).  The audio
+    family reads ``batch["frames"]`` (B, T, d) too, the VLM
+    ``batch["patch_embeds"]`` and ``batch["positions"]`` (the module's
+    docstring)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     if cfg.family == "audio":
@@ -635,8 +679,8 @@ def forward(params: Transformer, cfg: ModelConfig,
             x = _maybe_remat(block, cfg)(x, cfg, enc)
         return _lm_head(params, cfg, x), torch.zeros(
             (), dtype=torch.float32, device=x.device)
-    x = _embed_tokens(params, cfg, tokens)
-    positions = _positions(B, S, x.device)
+    x = _splice_patches(cfg, _embed_tokens(params, cfg, tokens), batch)
+    positions = _batch_positions(cfg, batch, B, S, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         return _lm_head(params, cfg, _run_hybrid_stack(params, cfg, x,
@@ -661,13 +705,13 @@ def prefill_step(params: Transformer, cfg: ModelConfig,
     sliding_window)`` rows of each application of the shared block, the
     SSM's state is each pair's after the prompt, the audio's cross K/V the
     ``T`` rows of the encoder's output over ``batch["frames"]`` (B, T,
-    d)."""
+    d).  The VLM reads its batch as ``forward`` does."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     if cfg.family == "audio":
         return _whisper_prefill(params, cfg, tokens, batch["frames"])
-    x = _embed_tokens(params, cfg, tokens)
-    positions = _positions(B, S, x.device)
+    x = _splice_patches(cfg, _embed_tokens(params, cfg, tokens), batch)
+    positions = _batch_positions(cfg, batch, B, S, x.device)
     if cfg.family == "hybrid":
         return _hybrid_prefill(params, cfg, x, positions)
     if cfg.family == "ssm":
@@ -987,7 +1031,7 @@ def _mtp_loss(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor):
     hcat = torch.cat([rms_norm(mtp.ln_h, h, cfg.norm_eps),
                       rms_norm(mtp.ln_e, e_next, cfg.norm_eps)], dim=-1)
     x = hcat @ mtp.proj.to(h.dtype)
-    x, _ = mtp.block(x, _positions(B, S, x.device), cfg)
+    x, _ = mtp.block(x, _positions(cfg, B, S, x.device), cfg)
     logits = _lm_head(params, cfg, x)
     labels = torch.roll(tokens, -2, dims=1)
     mask = torch.ones((B, S), dtype=torch.float32, device=tokens.device)

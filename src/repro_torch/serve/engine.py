@@ -33,7 +33,11 @@ audio family (whisper) prefills on all-zero frames of the prompt's length
 0-d device ``enc_len`` (set at each splice) masks the rows past the
 batch's to ``NEG_INF`` in the cross softmax, an exact zero weight: one
 program serves every prompt length, and no zero-padded row weighs in (the
-JAX engine sizes its cross K/V to each batch's ``plen``).
+JAX engine sizes its cross K/V to each batch's ``plen``).  The VLM
+family (qwen2-vl) prefills on ``prefill_step``'s default positions, t = h
+= w = ``arange(plen)``: the text positions the JAX engine passes (M-RoPE
+then equals RoPE); it decodes as the dense family, each step's position
+``cache_len`` on all three streams.
 Everything runs under ``torch.inference_mode()``.
 
 ``stats``: the wall time of each prefill (``prefill_s``, the splice
@@ -258,7 +262,9 @@ class ServingEngine:
     def prefill(self, tokens: torch.Tensor):
         """``prefill_step`` of a (B, S) token batch on the engine's model:
         ``(logits (B, S, V), cache)``; an audio model's frames all-zero,
-        ``(B, S, d)`` in ``cfg.dtype``, as the JAX engine's."""
+        ``(B, S, d)`` in ``cfg.dtype``, as the JAX engine's (a VLM's
+        positions are the default, ``arange(S)`` on the three streams, the
+        JAX engine's text positions)."""
         batch = {"tokens": tokens}
         if self.cfg.family == "audio":
             batch["frames"] = torch.zeros(

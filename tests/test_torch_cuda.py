@@ -940,6 +940,123 @@ def test_graphed_whisper_decode_gives_the_eager_tokens(cuda, dtype):
         assert int(prog.cache_len) == before + 1
 
 
+#: (B, K, G, S, hd): qwen2-vl-72b's prefill of 4 prompts of 1,024 tokens
+#: (64 query heads on 8 KV heads, G = 8) and a ragged S at that grouping
+VLM_FLASH_SHAPES = [(4, 8, 8, 1024, 128), (2, 2, 8, 300, 128)]
+
+
+@pytest.mark.parametrize("shape", VLM_FLASH_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_vlm_flash_kernel_at_g8_matches_the_plain_version(cuda, dtype,
+                                                          shape):
+    """The flash kernel at qwen2-vl's grouping, G = 8 (every query head of
+    a KV head's group read from the one KV head), causal: one launch, the
+    error per output row within the flash bar of its dtype."""
+    B, K, G, S, hd = shape
+    qg, k, v = flash_operands(B, K, G, S, hd, dtype, cuda, seed=S + G)
+    scale = 1.0 / hd ** 0.5
+    before = dict(ops.LAUNCHES)
+    got = ops.flash_attention(qg, k, v, scale=scale, causal=True)
+    torch.cuda.synchronize()
+    assert {n: ops.LAUNCHES[n] - before[n] for n in before} == \
+        launches(flash_attention=1)
+    want = plain_flash(qg, k, v, scale, True)
+    assert flash_row_err(got, want, hd) <= TOL_FLASH[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_vlm_apply_mrope_on_the_card_matches_the_cpu(cuda, dtype):
+    """``apply_mrope`` at qwen2-vl's (16, 24, 24) sections over (4, 1024,
+    64, 128) queries and distinct seeded (t, h, w) positions: the card
+    within 1e-5 of the CPU's f32 result (another cos / sin), a bf16 input
+    within its rounding; with t = h = w equal to ``apply_rope`` on the
+    card bit for bit, the engine's case."""
+    from repro_torch.models.common import apply_mrope, apply_rope
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(4, 1024, 64, 128, generator=g).to(dtype)
+    pos = torch.randint(0, 4096, (4, 1024, 3), generator=g)
+    sections = (16, 24, 24)
+    want = apply_mrope(x, pos, 1e6, sections).float()
+    got = apply_mrope(x.to(cuda), pos.to(cuda), 1e6, sections).float().cpu()
+    bar = 1e-5 if dtype == torch.float32 else 2 ** -7
+    assert float((got - want).abs().max() / want.abs().max()) <= bar
+    one = pos[..., 0].to(cuda)
+    xc = x.to(cuda)
+    assert torch.equal(apply_mrope(xc, one[..., None].expand(4, 1024, 3),
+                                   1e6, sections),
+                       apply_rope(xc, one, 1e6))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_graphed_vlm_decode_gives_the_eager_tokens(cuda, dtype):
+    """The smoke qwen2-vl with the flash kernel at ``max_len`` 320: a batch
+    of 16-token prompts first (the graph captured there), then a batch of
+    300 tokens (the prefill on the kernel, G = 2, one launch a layer) and
+    one of 40 (the plain branch), 12 new tokens each.  The graphed engine
+    gives the tokens of the same engine under ``_eager_chunks``, the decode
+    launches no kernel, and a replay makes no host sync.  Then
+    ``prefill_step`` with 64 seeded patch rows and the (t, h, w) ids of an
+    8 x 8 grid at S = 300: the kernel's logits within the serving bar
+    (bf16 5e-2, fp32 1e-4) of the plain branch's."""
+    from repro_torch.core.program import _eager_chunks
+    from repro_torch.models import init_params, prefill_step
+    from repro_torch.serve import ServeConfig, ServingEngine
+    from repro_torch.serve.engine import decode_program_mode
+    cfg = _serve_config("qwen2-vl-72b", dtype, use_flash_kernel=True)
+    assert decode_program_mode(cfg, cuda) == "graph"
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(9))
+    outs = {}
+    for mode in ("eager", "graph"):
+        eng = ServingEngine(cfg, ServeConfig(max_batch=2, max_len=320),
+                            params=model, device=cuda)
+        with _eager_chunks() if mode == "eager" else \
+                contextlib.nullcontext():
+            _serve(eng, _prompts(cfg.vocab_size, 2, 16, 7), new=4)
+            ops.reset_launches()
+            outs[mode] = [_serve(eng, _prompts(cfg.vocab_size, 2, S, S),
+                                 new=12) for S in (300, 40)]
+            torch.cuda.synchronize()
+        assert dict(ops.LAUNCHES) == dict(dict.fromkeys(ops.LAUNCHES, 0),
+                                          flash_attention=cfg.n_layers)
+        if mode == "graph":
+            assert eng.stats["decode_program"] == "graph"
+            assert eng.stats["decode_graphs"] == 1
+            assert eng.programs[2].launches == {}
+        else:
+            assert eng.stats["decode_program"].startswith("eager: ")
+    assert outs["graph"] == outs["eager"]
+    assert all(len(o) == 12 for run in outs["graph"] for o in run)
+    prog = eng.programs[2]
+    with torch.inference_mode():
+        before = int(prog.cache_len)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            prog.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert int(prog.cache_len) == before + 1
+    g = torch.Generator(device=cuda).manual_seed(10)
+    S, P = 300, 64
+    r = torch.arange(P, device=cuda)
+    pos = torch.arange(S, device=cuda)[:, None].repeat(1, 3)
+    pos[1:1 + P] = torch.stack([torch.ones_like(r), 1 + r // 8, 1 + r % 8], 1)
+    pos[1 + P:] = (9 + torch.arange(S - 1 - P, device=cuda))[:, None]
+    b = {"tokens": torch.randint(1, cfg.vocab_size, (2, S), generator=g,
+                                 device=cuda),
+         "patch_embeds": torch.randn(2, P, cfg.d_model, generator=g,
+                                     device=cuda).to(dtype),
+         "positions": pos[None].expand(2, S, 3)}
+    with torch.inference_mode():
+        ops.reset_launches()
+        flash = prefill_step(model, cfg, b)[0][:, -1].float()
+        assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+        plain = prefill_step(model, cfg.replace(use_flash_kernel=False),
+                             b)[0][:, -1].float()
+    bar = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((flash - plain).abs().max() / plain.abs().max()) <= bar
+
+
 def test_decode_attention_on_the_card_sums_bf16_products_in_f32(cuda):
     """bf16 ``decode_attention`` on the card (scores from ``bmm`` with an
     f32 output over the cache as it lies) against the same call on the CPU

@@ -482,13 +482,20 @@ def test_dense_configs_equal_the_jax_ones():
             assert not t.use_flash_kernel
 
 
-@pytest.mark.parametrize("arch", sorted(LATER))
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b"])
 def test_later_families_name_their_slice(arch):
-    assert arch in ARCH_IDS
-    with pytest.raises(NotImplementedError, match=LATER[arch].split()[1]):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match=LATER[arch].split()[1]):
-        tsmoke(arch)
+    """The VLM was the last architecture of a later slice: ``LATER`` is
+    empty, and its configs, full and smoke, come out of the registry; the
+    smoke one builds its model and its ``{"k", "v"}`` cache."""
+    assert arch in ARCH_IDS and not LATER
+    assert get_config(arch).family == tsmoke(arch).family == "vlm"
+    cfg = tsmoke(arch)
+    model = ttr.init_params(cfg, torch.Generator().manual_seed(0))
+    assert len(model.layers) == cfg.n_layers
+    assert "bq" in model.layers[0].attn.p
+    cache = ttr.init_cache(cfg, 1, 8, device=CPU)
+    assert {k: tuple(v.shape) for k, v in cache.items()} == dict.fromkeys(
+        ("k", "v"), (cfg.n_layers, 1, 8, cfg.n_kv_heads, cfg.hd))
 
 
 @pytest.mark.parametrize("change,word", [
@@ -497,8 +504,18 @@ def test_later_families_name_their_slice(arch):
     (dict(mrope_sections=(2, 3, 3)), "VLM"),
 ])
 def test_model_entry_points_refuse_later_families(change, word):
+    """MLA outside the MoE family is refused (C25).  The VLM family and
+    M-RoPE, refused until the VLM slice, now build their params and their
+    cache (the dense family's)."""
     cfg = tsmoke("qwen3-8b").replace(**change)
-    with pytest.raises(NotImplementedError, match=word):
-        ttr.init_params(cfg, torch.Generator())
-    with pytest.raises(NotImplementedError, match=word):
-        ttr.init_cache(cfg, 1, 8, device=CPU)
+    if word == "C25":
+        with pytest.raises(NotImplementedError, match=word):
+            ttr.init_params(cfg, torch.Generator())
+        with pytest.raises(NotImplementedError, match=word):
+            ttr.init_cache(cfg, 1, 8, device=CPU)
+        return
+    model = ttr.init_params(cfg, torch.Generator().manual_seed(0))
+    assert len(model.layers) == cfg.n_layers
+    cache = ttr.init_cache(cfg, 1, 8, device=CPU)
+    assert {k: tuple(v.shape) for k, v in cache.items()} == dict.fromkeys(
+        ("k", "v"), (cfg.n_layers, 1, 8, cfg.n_kv_heads, cfg.hd))

@@ -12,7 +12,8 @@ window, deepseek's MLA with its latent cache, the hybrid zamba2 with a
 window of 8, so that its rings roll at every step, the SSM xlstm,
 whose cache is its pairs' state, and the audio whisper, whose decoder
 reads its learned positions at ``cache_len`` and the encoder's K/V under a
-device ``enc_len``), the step traced by
+device ``enc_len``, and the VLM qwen2-vl, whose M-RoPE takes ``cache_len``
+on all three streams), the step traced by
 ``make_fx`` in fake mode (no host read left, the MoE sort dispatch's
 grouped product included), the in-place splice across batches, and the
 engine's choice of graph or eager.  Weights and inputs come from numpy
@@ -54,6 +55,7 @@ CASES = {
     "hybrid": ("zamba2-1.2b", {"sliding_window": 8}),
     "xlstm": ("xlstm-350m", {}),
     "whisper": ("whisper-tiny", {}),
+    "vlm": ("qwen2-vl-72b", {}),
 }
 #: leaves redrawn around their initial value, and by how much
 REDRAWN = {"ln1": 0.3, "ln2": 0.3, "final_norm": 0.3, "q_norm": 0.3,
@@ -62,7 +64,8 @@ REDRAWN = {"ln1": 0.3, "ln2": 0.3, "final_norm": 0.3, "q_norm": 0.3,
            "dt_bias": 0.3, "d_skip": 0.3, "b_if": 0.5, "bias": 0.3,
            "ln1_s": 0.3, "ln1_b": 0.3, "lnx_s": 0.3, "lnx_b": 0.3,
            "ln2_s": 0.3, "ln2_b": 0.3, "enc_final_s": 0.3,
-           "enc_final_b": 0.3, "bi": 0.1, "bo": 0.1}
+           "enc_final_b": 0.3, "bi": 0.1, "bo": 0.1, "bq": 0.3, "bk": 0.3,
+           "bv": 0.3}
 #: whisper's encoder frames in these tests (its cross K/V rows)
 FRAMES = 7
 
@@ -187,7 +190,8 @@ def fake_trace(model, cfg, B=2, T=16, cache_len=9):
 
 
 @pytest.mark.parametrize("name", ["dense", "moe-gather", "sliding-window",
-                                  "mla", "hybrid", "xlstm", "whisper"])
+                                  "mla", "hybrid", "xlstm", "whisper",
+                                  "vlm"])
 def test_decode_step_traces_in_fake_mode_without_a_host_read(name):
     """No data-dependent host read is left in the step: ``make_fx`` in fake
     mode traces it whole, the cache (K/V, MLA's latent rows, or the
@@ -262,16 +266,16 @@ def test_the_engine_serves_two_batches_in_turn_as_fresh_engines_do():
 
 
 def test_decode_program_mode_names_why_a_step_runs_eagerly():
-    """``"graph"`` for a dense, MoE gather, MoE sort, MLA, hybrid, xlstm or
-    whisper config on the card; ``"eager: ..."`` on the CPU and under
-    ``_eager_chunks``."""
+    """``"graph"`` for a dense, MoE gather, MoE sort, MLA, hybrid, xlstm,
+    whisper or VLM config on the card; ``"eager: ..."`` on the CPU and
+    under ``_eager_chunks``."""
     cuda = torch.device("cuda")
-    dense, gather, sort, mla, hybrid, xlstm, whisper = (
+    dense, gather, sort, mla, hybrid, xlstm, whisper, vlm = (
         tsmoke(a).replace(**kw) for a, kw in (
             CASES["dense"], CASES["moe-gather"], CASES["moe-sort"],
             CASES["mla"], CASES["hybrid"], CASES["xlstm"],
-            CASES["whisper"]))
-    for cfg in (dense, gather, sort, mla, hybrid, xlstm, whisper):
+            CASES["whisper"], CASES["vlm"]))
+    for cfg in (dense, gather, sort, mla, hybrid, xlstm, whisper, vlm):
         assert decode_program_mode(cfg, cuda) == "graph"
         assert decode_program_mode(cfg, CPU).startswith("eager: ")
     with _eager_chunks():
