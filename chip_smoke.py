@@ -375,7 +375,13 @@ package is missing.  Phases, any failure of which fails the run:
    with a failure injected at step 6 under ``run_with_restarts``: one
    restart, resumed from step 4, steps 4-7's losses within
    ``TRAIN_RESUME_RTOL`` of the uninterrupted run's; then 2 steps with
-   8-bit moments (losses finite, peak memory).  6b ``newton_krylov_step``
+   8-bit moments (losses finite, peak memory).  6d: 6a's run (its model,
+   data, seed and steps, one checkpoint at the last) through ``train(lm=)``
+   on a one-rank NCCL (1, 1) ("data", "model") mesh: every parameter a
+   DTensor placed as ``module_param_specs`` gives, each step's loss beside
+   6a's and bitwise equal, ms a step against 6a's, the busy share of one
+   profiled step, peak memory, no kernel launched, and the mesh's
+   checkpoint restored by the plain trainer bit for bit.  6b ``newton_krylov_step``
    on phi3-mini-3.8b at full width, depth 1 (310,256,640 parameters), f32,
    remat none, 2 x 128 tokens, the JAX model test's settings, its inner
    p-BiCGSafe solve on ``substrate="cuda"`` and then ``"torch"`` from the
@@ -398,7 +404,8 @@ package is missing.  Phases, any failure of which fails the run:
    (0), ``moe_shape``, 2d's times at llama4's shape, and ``audio_shape``,
    2d's at whisper's; every row with ``launches_ssm``, 4f's (0), and
    ``launches_audio``, 4g's (flash: 4 a prefill batch; 0 elsewhere), and
-   ``launches_vlm``, 4h's (flash: 32 a prefill batch; 0 elsewhere); the
+   ``launches_vlm``, 4h's (flash: 32 a prefill batch; 0 elsewhere), and
+   ``launches_train_mesh``, 6d's (0); the
    flash row with ``vlm_shape``, 2d's times at qwen2-vl's shape (G = 8),
    bf16 and its ``fp32``; the
    grouped row, 4c's, at a decode step's
@@ -421,7 +428,7 @@ the allocator holds is printed after each solver phase, and the session
 cache is cleared before phase 4.
 
 The run goes 1, 3a (the matrix), 2, 2b, 2c, 2d, 3b-3f, the profiler's
-counts, 3g, 5, 3h, 3i, 3j, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 6a-6c, 7.  Each path is driven with the
+counts, 3g, 5, 3h, 3i, 3j, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 6a, 6d, 6b, 6c, 7.  Each path is driven with the
 launch counters set to 0 just before it and read just after; the kernels'
 checks and timings are not counted.
 """
@@ -750,6 +757,12 @@ TRAIN_DIR = os.path.join(ROOT, "build", "train")
 # relative: both step from the same restored state, but the card's
 # reductions (the embedding's backward among them) may sum in another order
 TRAIN_RESUME_RTOL = 1e-3
+# phase 6d: 6a's run (model, data, seed, steps) on a one-rank NCCL (1, 1)
+# ("data", "model") mesh, one checkpoint at its last step (restored by the
+# plain trainer, bit for bit); the losses are held bitwise to 6a's, the gap
+# printed if not (a one-rank mesh runs the same local products)
+TRAIN_MESH_SHAPE, TRAIN_MESH_NAMES = (1, 1), ("data", "model")
+TRAIN_MESH_DIR = os.path.join(ROOT, "build", "train_mesh")
 # phase 6b: one Newton-Krylov step on phi3-mini-3.8b at full width, depth 1
 # (310,256,640 parameters, as the JAX package's model test has one layer),
 # f32, remat none, 2 x 128 tokens, the JAX model test's settings, through
@@ -1862,11 +1875,11 @@ def run_mesh_path(torch, repro_torch, ops, stencil, b) -> dict:
 
 
 @contextlib.contextmanager
-def one_rank_mesh(sessions: list):
+def one_rank_mesh(sessions: list, shape=(1,), names=("rows",)):
     """A one-rank NCCL process group (``file://`` store under ``build/``)
-    and its ``(1,)`` DeviceMesh, for the length of a ``with``; the
-    sessions put in ``sessions`` are released before the group goes
-    (their programs hold it)."""
+    and its DeviceMesh of ``shape`` (ones) with the dimensions ``names``,
+    for the length of a ``with``; the sessions put in ``sessions`` are
+    released before the group goes (their programs hold it)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     store = os.path.join(ROOT, "build", "nccl_store")
@@ -1876,7 +1889,7 @@ def one_rank_mesh(sessions: list):
     dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
                             world_size=1)
     try:
-        yield init_device_mesh("cuda", (1,), mesh_dim_names=("rows",))
+        yield init_device_mesh("cuda", shape, mesh_dim_names=names)
     finally:
         for sess in sessions:
             sess.release()
@@ -5644,6 +5657,140 @@ def run_training_path(torch, ops, seed: int) -> dict:
     return dict(train=ref, restart=restart, i8=i8)
 
 
+def run_train_mesh_path(torch, ops, seed: int, plain: dict) -> dict:
+    """Phase 6d: 6a's run (``plain``, its record) through ``train(lm=)`` on
+    a one-rank NCCL (1, 1) ("data", "model") mesh: every parameter a
+    DTensor placed as ``module_param_specs`` says, each step's loss beside
+    6a's (bitwise expected), ms a step against 6a's (DTensor's dispatch on
+    the host), the device's busy share of one profiled step, peak memory,
+    no kernel of the port launched; the mesh's checkpoint (its last step,
+    under ``build/train_mesh/``, deleted after) restored by the plain
+    trainer bit for bit."""
+    import shutil
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_dataset
+    from repro_torch.optim import AdamWConfig, adamw_init, pipelined_clip_init
+    from repro_torch.parallel import LogicalMesh, module_param_specs
+    from repro_torch.train import TrainConfig, make_train_step, train
+    from repro_torch.train.train_loop import place_opt_state
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS)
+    dcfg = DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                      vocab_size=cfg.vocab_size, seed=seed)
+    tcfg = TrainConfig(
+        steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS, ckpt_dir=TRAIN_MESH_DIR,
+        seed=seed, opt=AdamWConfig(lr=TRAIN_LR,
+                                   warmup_steps=max(1, TRAIN_STEPS // 20),
+                                   decay_steps=TRAIN_STEPS))
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+    t_phase = time.perf_counter()
+    with one_rank_mesh([], TRAIN_MESH_SHAPE, TRAIN_MESH_NAMES) as mesh:
+        lm = LogicalMesh(mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = train(cfg, dcfg, tcfg, lm=lm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        model = out["params"]
+        losses = [h["loss"] for h in out["history"]]
+        gaps = [abs(a - b) for a, b in zip(losses, plain["losses"])]
+        rec = dict(wall_s=wall, losses=losses, plain_losses=plain["losses"],
+                   max_abs_gap=max(gaps), bitwise=losses == plain["losses"],
+                   accepted=[h["accepted"] for h in out["history"]],
+                   ms_per_step=statistics.median(
+                       h["time_s"] for h in out["history"]) * 1e3,
+                   plain_ms_per_step=plain["ms_per_step"],
+                   peak_memory_gb=peak,
+                   plain_peak_memory_gb=plain["peak_memory_gb"],
+                   checkpoint=out["checkpoint"], launches=launched)
+        # the values the checkpoint of the last step holds (copied: on one
+        # rank full_tensor() is the parameter's own storage, which the
+        # profiled step below writes)
+        full = {k: p.full_tensor().clone()
+                for k, p in model.named_parameters()}
+        # every parameter a DTensor on the mesh, placed by the rules
+        specs = module_param_specs(model, lm)
+        wrong = [k for k, p in model.named_parameters()
+                 if not isinstance(p, DTensor) or p.device_mesh is not mesh
+                 or tuple(p.placements) != lm.placements(specs[k])]
+        rec["params_placed"] = len(specs) - len(wrong)
+        rec["params"] = len(specs)
+        rec["sharded_specs"] = sum(any(e is not None for e in spec)
+                                   for spec in specs.values())
+        log(f"6d train on a (1, 1) mesh: {json.dumps(rec)} [{card()}]")
+        if wrong:
+            raise SystemExit(f"6d: parameters not placed by the rules: "
+                             f"{wrong[:5]}")
+        if launched:
+            raise SystemExit(f"6d: the training path launched {launched}; "
+                             "it runs no kernel of the port")
+        if len(losses) != TRAIN_STEPS or not all(rec["accepted"]) \
+                or not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"6d: a step was rejected or a loss is not "
+                             f"finite: {losses} {rec['accepted']}")
+        for step, (a, b) in enumerate(zip(losses, plain["losses"])):
+            log(f"6d step {step}: loss {a!r} on the mesh, {b!r} in 6a, gap "
+                f"{abs(a - b):.3e} [{card()}]")
+        if not rec["bitwise"]:
+            raise SystemExit(f"6d: the mesh's losses are not 6a's bit for "
+                             f"bit: largest gap {rec['max_abs_gap']:.3e}")
+
+        # the device's busy share of one fused step on the mesh, profiled
+        step_fn = make_train_step(cfg, tcfg, lm)
+        params = dict(model.named_parameters())
+        opt = place_opt_state(adamw_init(params, tcfg.opt), specs, lm)
+        clip = pipelined_clip_init("cuda")
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+                 make_dataset(dcfg, cfg)(TRAIN_STEPS).items()}
+        spike = torch.tensor(1e9, device="cuda")
+
+        def one_step():
+            m = step_fn(model, opt, clip, batch, spike)[3]
+            float(m["loss"])
+        one_step()
+        prof = profile_device(torch, one_step, "chip_smoke_train_mesh_step")
+        rec.update(step_kernels=prof["kernels"],
+                   step_device_ms=prof["busy_ms"],
+                   step_wall_ms=prof["wall_s"] * 1e3,
+                   step_busy_share=prof["busy_ms"] / (prof["wall_s"] * 1e3),
+                   plain_step_busy_share=plain["step_busy_share"])
+        log(f"6d train on a (1, 1) mesh: {rec['ms_per_step']:.1f} ms a step "
+            f"(median of {TRAIN_STEPS}) against 6a's "
+            f"{plain['ms_per_step']:.1f}; one profiled step "
+            f"{rec['step_wall_ms']:.1f} ms, device busy "
+            f"{rec['step_device_ms']:.1f} ms ({rec['step_busy_share']:.3f}; "
+            f"6a {plain['step_busy_share']:.3f}), {prof['kernels']} kernels; "
+            f"peak {peak:.2f} GB (6a {plain['peak_memory_gb']:.2f}); "
+            f"{rec['params_placed']} of {rec['params']} parameters DTensors "
+            f"placed by module_param_specs [{card()}]")
+        del step_fn, opt, clip, batch, params, model, out, prof
+    # the mesh's checkpoint, restored by the plain trainer (its last step:
+    # no step runs)
+    t0 = time.perf_counter()
+    back = train(cfg, dcfg, tcfg, device="cuda")
+    rec["restore_s"] = time.perf_counter() - t0
+    restored = dict(back["params"].named_parameters())
+    same = [k for k, t in full.items() if torch.equal(restored[k], t)]
+    rec["restored_bitwise"] = len(same)
+    log(f"6d: the mesh's checkpoint of step {TRAIN_STEPS} restored by the "
+        f"plain trainer (start step {back['start_step']}) in "
+        f"{rec['restore_s']:.1f} s: {len(same)} of {len(full)} parameters "
+        f"bit for bit; the phase took {time.perf_counter() - t_phase:.1f} s "
+        f"[{card()}]")
+    if back["start_step"] != TRAIN_STEPS or len(same) != len(full):
+        raise SystemExit("6d: the mesh's checkpoint does not restore bit "
+                         "for bit in the plain trainer")
+    del back, restored, full
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def run_newton_krylov_path(torch, ops, seed: int) -> dict:
     """Phase 6b: ``newton_krylov_step`` on phi3-mini-3.8b (full width, depth
     ``NK_LAYERS``, f32, remat none) on the card, its inner p-BiCGSafe solve
@@ -6094,6 +6241,8 @@ def main() -> int:
     # -- 6. training and the Newton-Krylov step -------------------------------
     training = run_training_path(torch, ops, args.seed)
     log_memory(torch, "6a")
+    train_mesh = run_train_mesh_path(torch, ops, args.seed, training["train"])
+    log_memory(torch, "6d")
     nk = run_newton_krylov_path(torch, ops, args.seed)
     log_memory(torch, "6b")
     nk_kernels = check_nk_kernels(torch, ops, ref, NK_PARAMS)
@@ -6134,6 +6283,7 @@ def main() -> int:
         extra["launches_ssm"] = xlstm["launches"][kname]
         extra["launches_audio"] = whisper["launches"][kname]
         extra["launches_vlm"] = vlm["launches"][kname]
+        extra["launches_train_mesh"] = train_mesh["launches"].get(kname, 0)
         if kname in service_launches:
             extra["launches_service"] = service_launches[kname]
         if kname in mesh_launches:
@@ -6194,6 +6344,7 @@ def main() -> int:
         launches_ssm=xlstm["launches"]["flash_attention"],
         launches_audio=whisper["launches"]["flash_attention"],
         launches_vlm=vlm["launches"]["flash_attention"],
+        launches_train_mesh=train_mesh["launches"].get("flash_attention", 0),
         vlm_shape=dict(shape_bhksd=list(FLASH_SHAPE_VLM), causal=True,
                        dtype="bfloat16", ms=vlm_flash["ms"],
                        plain_ms=vlm_flash["plain_ms"],
@@ -6254,6 +6405,7 @@ def main() -> int:
         launches_ssm=xlstm["launches"]["grouped_mm"],
         launches_audio=whisper["launches"]["grouped_mm"],
         launches_vlm=vlm["launches"]["grouped_mm"],
+        launches_train_mesh=train_mesh["launches"].get("grouped_mm", 0),
         max_abs_err=gdec["max_abs_err"], ms=gdec["ms"],
         plain_ms=gdec["plain_ms"], bound_ms=gdec["bound_ms"],
         bound_by=gdec["bound_by"], library_ms=gdec["library_ms"],

@@ -8,8 +8,10 @@ flash-attention kernel under ``cfg.use_flash_kernel`` and the
 grouped-product kernel in the MoE sort dispatch, and the training loss
 (with DeepSeek-V3's MTP)."""
 from .common import ModelConfig
-from .transformer import (Transformer, decode_step, forward, init_cache,
-                          init_params, loss_fn, prefill_step)
+from .transformer import (Transformer, cache_logical_axes, decode_step,
+                          forward, init_cache, init_params, loss_fn,
+                          prefill_step)
 
-__all__ = ["ModelConfig", "Transformer", "decode_step", "forward",
-           "init_cache", "init_params", "loss_fn", "prefill_step"]
+__all__ = ["ModelConfig", "Transformer", "cache_logical_axes",
+           "decode_step", "forward", "init_cache", "init_params", "loss_fn",
+           "prefill_step"]

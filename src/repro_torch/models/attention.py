@@ -21,12 +21,14 @@ function whose backward and forward-mode rule raise
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel.sharding import shard_map, splittable
 
 from .common import (ModelConfig, apply_mrope, apply_rope, dense_init,
                      rms_norm)
@@ -62,7 +64,7 @@ def _project(p: Params, x: torch.Tensor, key: str, heads: int,
     y = x @ p["w" + key].to(x.dtype)
     if cfg.qkv_bias:
         y = y + p["b" + key].to(x.dtype)
-    return y.reshape(*x.shape[:2], heads, cfg.hd)
+    return splittable(y, -1, heads).reshape(*x.shape[:2], heads, cfg.hd)
 
 
 def _rotate(t: torch.Tensor, positions: torch.Tensor,
@@ -131,7 +133,18 @@ class _FlashNoDerivative(torch.autograd.Function):
 def _sdpa_block(q, k, v, mask: Optional[torch.Tensor], scale: float):
     """q: (B, Sq, H, hd), k/v: (B, T, H, hd) (KV repeated to H heads).
     The scores and the softmax in f32, the probabilities cast back to q's
-    dtype for the product with v, as in the JAX package."""
+    dtype for the product with v, as in the JAX package.  On a mesh each
+    rank computes its own batch rows and heads: the JAX package's
+    constraints, the logits on ("batch", "heads") and the output on
+    ("batch", None, "heads"), are the placements of that region (an
+    einsum of DTensors sharded on batch and heads folds both into one
+    dimension, whose sharding propagation does not end on a 3-D mesh)."""
+    bh = ("batch", None, "heads", None)
+    return shard_map(functools.partial(_sdpa_local, scale=scale),
+                     (bh, bh, bh, None), bh)(q, k, v, mask)
+
+
+def _sdpa_local(q, k, v, mask: Optional[torch.Tensor], scale: float):
     logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
     if mask is not None:
         logits = logits + torch.where(mask, 0.0, NEG_INF)

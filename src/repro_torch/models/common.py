@@ -74,7 +74,7 @@ class ModelConfig:
     param_dtype: Any = torch.bfloat16
     remat: str = "full"            # none | full | dots (training: loss_fn)
     use_flash_kernel: bool = False # the CUDA flash-attention kernel
-    seq_shard_attn: bool = True    # mesh layout of the JAX package; unused here
+    seq_shard_attn: bool = True    # the cache's mesh layout (cache_logical_axes)
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
 

@@ -26,6 +26,8 @@ from typing import Dict, Mapping, Union
 
 import torch
 
+from repro_torch.parallel.sharding import splittable
+
 from .attention import NEG_INF, _cache_row
 from .common import ModelConfig, apply_rope, dense_init, rms_norm
 
@@ -58,7 +60,7 @@ def _compress(p: Params, x: torch.Tensor, cfg: ModelConfig, positions):
     H = cfg.n_heads
     dn, kvr = cfg.qk_nope_head_dim, cfg.kv_lora_rank
     cq = rms_norm(p["q_norm"], x @ p["wdq"].to(x.dtype), cfg.norm_eps)
-    q = (cq @ p["wuq"].to(x.dtype)).reshape(B, S, H, -1)
+    q = splittable(cq @ p["wuq"].to(x.dtype), -1, H).reshape(B, S, H, -1)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     ckv_full = x @ p["wdkv"].to(x.dtype)
     c_kv = rms_norm(p["kv_norm"], ckv_full[..., :kvr], cfg.norm_eps)
@@ -83,8 +85,9 @@ def mla_attention(p: Params, x: torch.Tensor, positions: torch.Tensor,
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     scale = 1.0 / math.sqrt(dn + dr)
     q_nope, q_rope, c_kv, k_rope = _compress(p, x, cfg, positions)
-    k_nope = (c_kv @ p["wuk"].to(x.dtype)).reshape(B, S, H, dn).float()
-    v = (c_kv @ p["wuv"].to(x.dtype)).reshape(B, S, H, dv)
+    k_nope = splittable(c_kv @ p["wuk"].to(x.dtype), -1, H).reshape(
+        B, S, H, dn).float()
+    v = splittable(c_kv @ p["wuv"].to(x.dtype), -1, H).reshape(B, S, H, dv)
     kr = k_rope.float()
     col = torch.arange(S, device=x.device)
 

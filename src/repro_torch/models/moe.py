@@ -34,6 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel import logical_constraint as shard
+from repro_torch.parallel.sharding import grad_splittable
 
 from .common import ModelConfig, dense_init
 
@@ -105,7 +107,7 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if impl not in MOE_IMPLS:
         raise ValueError(f"moe_impl must be gather | sort, not {impl!r}")
     B, S, d = x.shape
-    xf = x.reshape(B * S, d)
+    xf = grad_splittable(x.reshape(B * S, d), 0, B)
     probs, experts, aux = _route(p, xf, cfg)
     if impl == "sort":
         y = _moe_sort(p, xf, probs, experts, cfg)
@@ -172,19 +174,24 @@ def _moe_gather(p: Params, xf: torch.Tensor, probs: torch.Tensor,
     # every dropped token writes the sentinel column E C, which is thrown
     # away, so the order of those duplicate writes does not matter
     g_idx = torch.arange(G, device=dev)[:, None]                # (G, 1)
-    ginv = torch.full((G, E * C + 1), n, dtype=torch.int64, device=dev)
-    ginv[g_idx[:, :, None].expand(G, n, k), eidx] = \
-        torch.arange(n, device=dev)[None, :, None].expand(G, n, k)
+    ginv = torch.full((G, E * C + 1), n, dtype=torch.int64,
+                      device=dev).index_put(
+        (g_idx[:, :, None].expand(G, n, k), eidx),
+        torch.arange(n, device=dev)[None, :, None].expand(G, n, k))
     inv = ginv[:, :E * C]                                       # (G, E C)
 
     xgp = torch.cat([xg, xg.new_zeros(G, 1, d)], dim=1)
     # indexed with broadcast (G, 1) x (G, E C) indices: no (G, E C, d)
     # index tensor as torch.gather would want
-    xin = xgp[g_idx, inv].reshape(G, E, C, d)
+    xin = shard(xgp[g_idx, inv].reshape(G, E, C, d),
+                "batch", "experts", None, None)
+    # expert FFN (EP: E sharded on 'model', G rides the data axis; the
+    # (batch -> experts) resharding is the EP all-to-all)
     h = torch.einsum("gecd,edf->gecf", xin, p["wi"].to(xf.dtype))
     g_ = torch.einsum("gecd,edf->gecf", xin, p["wg"].to(xf.dtype))
     yout = torch.einsum("gecf,efd->gecd", F.silu(g_) * h,
                         p["wo"].to(xf.dtype))
+    yout = shard(yout, "batch", "experts", None, None)
     yflat = yout.reshape(G, E * C, d)
 
     # combine: one k at a time, accumulated in the activations' dtype
@@ -251,10 +258,13 @@ def dense_ffn_init(generator: torch.Generator, cfg: ModelConfig,
 
 
 def dense_ffn(p: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP: ``(silu(x @ wg) * (x @ wi)) @ wo``."""
+    """SwiGLU MLP: ``(silu(x @ wg) * (x @ wi)) @ wo``.  On a mesh the
+    intermediate is pinned ff-sharded, so the wi/wg -> wo chain stays local
+    per model shard."""
     h = x @ p["wi"].to(x.dtype)
     g = x @ p["wg"].to(x.dtype)
-    return (F.silu(g) * h) @ p["wo"].to(x.dtype)
+    hg = shard(F.silu(g) * h, "batch", None, "ff")
+    return hg @ p["wo"].to(x.dtype)
 
 
 def gelu_ffn_init(generator: torch.Generator,

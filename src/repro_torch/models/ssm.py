@@ -31,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.parallel.sharding import grad_splittable, splittable
+
 from .common import ModelConfig, dense_init, rms_norm
 
 Params = Mapping[str, torch.Tensor]
@@ -104,7 +106,7 @@ def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     x = rms_norm(p["norm_in"], x, cfg.norm_eps)
     z, xbc, dt = _split_proj(p, x, cfg)
     xbc, conv_state = _causal_conv(p, xbc, cfg)
-    xs = xbc[..., :din].reshape(B, S, H, P)
+    xs = splittable(xbc[..., :din], -1, H).reshape(B, S, H, P)
     Bm = xbc[..., din:din + ns]                           # (B, S, N)
     Cm = xbc[..., din + ns:]                              # (B, S, N)
 
@@ -141,7 +143,7 @@ def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     y = y + torch.einsum("bcqn,bchpn->bcqhp", cc, torch.stack(starts, 1)) \
         * torch.exp(cum)[..., None]
     y = y.reshape(B, S, H, P) + p["d_skip"][:, None] * xs.float()
-    y = y.reshape(B, S, din).to(x.dtype)
+    y = grad_splittable(y.reshape(B, S, din), -1, H).to(x.dtype)
     y = rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
     out = y @ p["w_out"].to(x.dtype)
     if return_state:

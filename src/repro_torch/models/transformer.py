@@ -63,8 +63,11 @@ each ``(L, B, T_enc, K, hd)``, which a decode step reads (rows under
 ``enc_len``) and never writes.  Whisper's prefill applies no RoPE, its
 decode rotates q and the new k at ``cache_len`` (the JAX package's
 behaviour, kept: ROADMAP C29).  Layers run in a
-Python loop (the JAX package's ``lax.scan``); its sharding constraints
-have no counterpart on one device.  ``forward`` sums the MoE layers'
+Python loop (the JAX package's ``lax.scan``).  The JAX package's sharding
+constraints stand at its call sites (:func:`repro_torch.parallel.
+logical_constraint`): on a mesh they redistribute the DTensor activations
+of a training step, and on one device, or on plain tensors, they return
+their input as it is.  ``forward`` sums the MoE layers'
 load-balance losses into its ``aux``; the prefill and decode steps drop
 them.  MLA outside the MoE family raises ``NotImplementedError`` (the JAX
 package cannot decode it, ROADMAP C25).
@@ -89,6 +92,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.types import resolve_device
+from repro_torch.parallel import logical_constraint as shard
 
 from .attention import (decode_attention, init_attention_params,
                         multihead_attention)
@@ -181,6 +185,16 @@ def params_from_tree(tree: Mapping, names) -> Dict[str, object]:
                 if isinstance(node, tuple) else node[layer]
         out[name] = node
     return out
+
+
+def _seq_whole(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, S, d) constrained with its sequence whole: before a
+    matmul region (the all-gather of sequence parallelism), and on the
+    region's output too, so that its gradient reaches the region's
+    products seq-whole (a product whose rows fold a batch and a sequence
+    sharded on three mesh axes costs DTensor's sharding search tens of
+    seconds a shape)."""
+    return shard(x, "batch", None, "embed")
 
 
 def _parameter_dict(params: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
@@ -325,19 +339,25 @@ class DecoderBlock(nn.Module):
 
     def ffn(self, x, cfg: ModelConfig):
         """``(y, aux)`` of the block's feed-forward on ``ln2(x)``."""
-        h = rms_norm(self.ln2, x, cfg.norm_eps)
+        h = _seq_whole(rms_norm(self.ln2, x, cfg.norm_eps))
         if hasattr(self, "moe"):
             return self.moe(h, cfg)
         return self.mlp(h), None
 
     def forward(self, x, positions, cfg: ModelConfig,
                 return_kv: bool = False):
-        hn = rms_norm(self.ln1, x, cfg.norm_eps)
+        # on a mesh (the JAX package's constraints): training keeps the
+        # residual stream seq-sharded and all-gathers the sequence before
+        # each matmul region (Megatron-style sequence parallelism); the
+        # prefill (return_kv) keeps it whole throughout
+        seq = None if return_kv else "seq"
+        hn = _seq_whole(rms_norm(self.ln1, x, cfg.norm_eps))
         a = self.attn(hn, positions, cfg, causal=True, return_kv=return_kv)
         a, kv = a if return_kv else (a, None)
-        x = x + a
+        x = shard(x + _seq_whole(a), "batch", seq, "embed")
         f, aux = self.ffn(x, cfg)
-        return (x + f, aux, kv) if return_kv else (x + f, aux)
+        x = shard(x + _seq_whole(f), "batch", seq, "embed")
+        return (x, aux, kv) if return_kv else (x, aux)
 
     def decode(self, x, position, k_cache, v_cache,
                cache_len: Union[int, torch.Tensor], cfg: ModelConfig):
@@ -538,16 +558,17 @@ def stacked_layers(cfg: ModelConfig) -> int:
 
 
 def _lm_head(params: Transformer, cfg: ModelConfig, x: torch.Tensor):
-    x = rms_norm(params.final_norm, x, cfg.norm_eps)
+    x = _seq_whole(rms_norm(params.final_norm, x, cfg.norm_eps))
     if cfg.tie_embeddings:
         w = params.embed.to(x.dtype).T
     else:
         w = params.lm_head.to(x.dtype)
-    return x @ w
+    return shard(x @ w, "batch", None, "vocab")
 
 
 def _embed_tokens(params: Transformer, cfg: ModelConfig, tokens):
-    return params.embed[tokens.long()].to(cfg.dtype)
+    return shard(params.embed[tokens.long()].to(cfg.dtype),
+                 "batch", "seq", "embed")
 
 
 def _positions(cfg: ModelConfig, B: int, S: int, device) -> torch.Tensor:
@@ -622,7 +643,7 @@ def _maybe_remat(block: nn.Module, cfg: ModelConfig):
 def _hybrid_block(layer: Mamba2, shared, x, positions, cfg: ModelConfig):
     if shared is not None:
         x = shared(x, positions, cfg)
-    return x + layer(x, cfg)
+    return shard(x + layer(x, cfg), "batch", "seq", "embed")
 
 
 def _run_hybrid_stack(params: Transformer, cfg: ModelConfig, x, positions):
@@ -639,7 +660,7 @@ def _run_hybrid_stack(params: Transformer, cfg: ModelConfig, x, positions):
 def _run_ssm_stack(params: Transformer, cfg: ModelConfig, x):
     """The sLSTM + mLSTM pairs, each one unit of ``cfg.remat``."""
     for pair in params.layers:
-        x = _maybe_remat(pair, cfg)(x, cfg)
+        x = shard(_maybe_remat(pair, cfg)(x, cfg), "batch", "seq", "embed")
     return x
 
 
@@ -748,7 +769,7 @@ def _hybrid_prefill(params: Transformer, cfg: ModelConfig, x, positions):
             cache["attn_k"].append(k[:, -W:])
             cache["attn_v"].append(v[:, -W:])
         m, state = layer(x, cfg, return_state=True)
-        x = x + m
+        x = shard(x + m, "batch", "seq", "embed")
         cache["ssm_h"].append(state["h"])
         cache["ssm_conv"].append(state["conv"])
     return _lm_head(params, cfg, x), {key: torch.stack(rows)
@@ -793,7 +814,7 @@ def _ssm_prefill(params: Transformer, cfg: ModelConfig, x):
         s, sfin = pair.slstm(x, cfg, return_state=True)
         x = x + s
         m, mfin = pair.mlstm(x, cfg, return_state=True)
-        x = x + m
+        x = shard(x + m, "batch", "seq", "embed")
         states.append((sfin["c"], sfin["n"], sfin["h"], sfin["m"],
                        mfin["c"], mfin["n"], mfin["m"]))
     return _lm_head(params, cfg, x), {
@@ -839,6 +860,40 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return {key: torch.zeros(shape, dtype=cfg.dtype, device=dev)
             for key, shape in zip(cache_keys(cfg), shapes)}
 
+
+def cache_logical_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """Logical sharding for each cache entry (``None``: a whole dimension),
+    the JAX package's; the SSM family's ``s_m``, an ``(np, B, H, hd)``
+    array here and there, takes four names (the JAX package gives three:
+    ROADMAP C28)."""
+    seq = "seq" if cfg.seq_shard_attn else None
+    kvh = None if cfg.seq_shard_attn else "kv_heads"
+    fam = cfg.family
+    if fam in ("dense", "vlm") or (fam == "moe" and not cfg.use_mla):
+        return {"k": (None, "batch", seq, kvh, None),
+                "v": (None, "batch", seq, kvh, None)}
+    if fam == "moe":
+        return {"ckv": (None, "batch", seq, None),
+                "krope": (None, "batch", seq, None)}
+    if fam == "hybrid":
+        return {"ssm_h": (None, "batch", "heads", None, None),
+                "ssm_conv": (None, "batch", None, None),
+                "attn_k": (None, "batch", seq, kvh, None),
+                "attn_v": (None, "batch", seq, kvh, None)}
+    if fam == "ssm":
+        return {"s_c": (None, "batch", None, None),
+                "s_n": (None, "batch", None, None),
+                "s_h": (None, "batch", None, None),
+                "s_m": (None, "batch", None, None),
+                "m_c": (None, "batch", "heads", None, None),
+                "m_n": (None, "batch", "heads", None),
+                "m_m": (None, "batch", None)}
+    if fam == "audio":
+        return {"k": (None, "batch", seq, kvh, None),
+                "v": (None, "batch", seq, kvh, None),
+                "cross_k": (None, "batch", None, kvh, None),
+                "cross_v": (None, "batch", None, kvh, None)}
+    raise ValueError(fam)
 
 def _hybrid_cache(cfg: ModelConfig, batch: int, max_len: int, dev):
     npts = -(-cfg.n_layers // cfg.hybrid_shared_period)
@@ -979,7 +1034,9 @@ def decode_step(params: Transformer, cfg: ModelConfig,
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor, mask=None):
-    lf = logits.float()
+    # the gather along a vocab-sharded dimension (aten.gather's
+    # MaskPartial strategy) fails on a 2-D mesh: the vocab is made whole
+    lf = shard(logits.float(), "batch", None, None)
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     nll = lse - gold

@@ -33,6 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.parallel.sharding import grad_splittable, splittable
+
 from .common import ModelConfig, dense_init, rms_norm
 
 Params = Mapping[str, torch.Tensor]
@@ -73,9 +75,9 @@ def _mlstm_in(p: Params, x: torch.Tensor, cfg: ModelConfig):
     up = x @ p["w_up"].to(x.dtype)
     xin, gate = up.chunk(2, dim=-1)
     hd = xin.shape[-1] // H
-    q = (xin @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
-    k = (xin @ p["wk"].to(x.dtype)).reshape(B, S, H, hd) / (hd ** 0.5)
-    v = (xin @ p["wv"].to(x.dtype)).reshape(B, S, H, hd)
+    q, k, v = (splittable(xin @ p[w].to(x.dtype), -1, H).reshape(B, S, H, hd)
+               for w in ("wq", "wk", "wv"))
+    k = k / (hd ** 0.5)
     gates = (xin @ p["w_if"].to(x.dtype) + p["b_if"].to(x.dtype)).float()
     return q, k, v, gates[..., :H], F.logsigmoid(gates[..., H:]), gate
 
@@ -140,7 +142,8 @@ def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
         carry, y = _mlstm_chunk(carry, q[:, sl], k[:, sl], v[:, sl],
                                 ig[:, sl], log_f[:, sl])
         ys.append(y)
-    y = torch.cat(ys, 1).reshape(B, S, H * hd).to(x.dtype)
+    y = grad_splittable(torch.cat(ys, 1).reshape(B, S, H * hd), -1, H
+                        ).to(x.dtype)
     out = _mlstm_out(p, y, gate, cfg)
     if return_state:
         return out, {"c": carry[0], "n": carry[1], "m": carry[2]}
@@ -257,7 +260,8 @@ def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     for t in range(S):
         st = _slstm_cell(rp, xg[:, t], st, cfg)
         hs.append(st["h"])
-    y = torch.stack(hs, 1).reshape(B, S, d).to(x.dtype)
+    y = grad_splittable(torch.stack(hs, 1).reshape(B, S, d), -1,
+                        cfg.n_heads).to(x.dtype)
     out = _slstm_ffn(p, y, cfg)
     if return_state:
         return out, st

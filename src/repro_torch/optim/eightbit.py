@@ -5,13 +5,17 @@ fp32 per-block scales, about 2.06 bytes a parameter instead of 8.
 Blocks run along the LAST dim (128 wide where it divides, else the whole
 dim), so a stacked ``(L, ...)`` leaf's codes and scales are its layers'
 stacked: a layer's :class:`Q8` is the JAX package's slice of the stacked
-one.  ``torch.round`` rounds half to even, as ``jnp.round`` does.
+one.  ``torch.round`` rounds half to even, as ``jnp.round`` does.  On a
+device mesh (DTensors) a last dim sharded into more pieces than it has
+blocks is made whole before it is split into them.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.parallel.sharding import splittable
 
 BLOCK = 128
 
@@ -33,7 +37,8 @@ def quantize(x: torch.Tensor) -> Q8:
         return Q8(torch.clamp(torch.round(x), -127, 127).to(torch.int8),
                   torch.ones((), dtype=torch.float32, device=x.device))
     bs = _blocksize(x.shape)
-    xb = x.float().reshape(*x.shape[:-1], x.shape[-1] // bs, bs)
+    nb = x.shape[-1] // bs
+    xb = splittable(x.float(), -1, nb).reshape(*x.shape[:-1], nb, bs)
     scale = xb.abs().amax(dim=-1) / 127.0
     scale = torch.where(scale == 0, 1.0, scale)
     codes = torch.clamp(torch.round(xb / scale[..., None]), -127, 127
@@ -45,8 +50,9 @@ def dequantize(q: Q8) -> torch.Tensor:
     if q.codes.dim() == 0:
         return q.codes.float() * q.scales
     bs = _blocksize(q.codes.shape)
-    xb = q.codes.float().reshape(*q.codes.shape[:-1],
-                                 q.codes.shape[-1] // bs, bs)
+    nb = q.codes.shape[-1] // bs
+    xb = splittable(q.codes.float(), -1, nb).reshape(*q.codes.shape[:-1],
+                                                     nb, bs)
     return (xb * q.scales[..., None]).reshape(q.codes.shape)
 
 

@@ -15,6 +15,13 @@ checkpoint.
 Async: :meth:`CheckpointManager.save` copies the tree to the host, then
 writes it on a background thread, so the training loop only blocks for
 the device-to-host copy.
+
+On a device mesh the leaves are DTensors: a save gathers each whole
+(``full_tensor()``, a collective every rank joins) and only the manager
+made with ``writer=True`` (the mesh's first rank) writes the file; a
+restore into a template of DTensors places each leaf as its template leaf
+is placed, so a checkpoint written under one mesh (or none) resumes under
+another.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 _NPZ_DTYPES = ("float64", "float32", "float16", "int64", "int32", "int16",
                "int8", "uint8", "bool")
@@ -60,6 +68,8 @@ def _map(fn: Callable, tree, prefix: str = ""):
 
 
 def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if str(t.dtype).replace("torch.", "") not in _NPZ_DTYPES:
@@ -102,7 +112,8 @@ def latest_step(directory) -> Optional[int]:
 def restore_pytree(template, directory, step: Optional[int] = None):
     """Restore into the structure of ``template``: each tensor leaf comes
     back with the template leaf's dtype and device (a numpy leaf as a
-    numpy array of its dtype).  Returns ``(tree, step)``."""
+    numpy array of its dtype; a DTensor leaf placed on its mesh as the
+    template leaf is).  Returns ``(tree, step)``."""
     d = Path(directory)
     if step is None:
         step = latest_step(d)
@@ -111,6 +122,10 @@ def restore_pytree(template, directory, step: Optional[int] = None):
     with np.load(d / f"step_{step:08d}.npz") as data:
         def leaf(key, like):
             arr = data[key]
+            if isinstance(like, DTensor):
+                t = torch.from_numpy(arr).to(
+                    device=like.device_mesh.device_type, dtype=like.dtype)
+                return distribute_tensor(t, like.device_mesh, like.placements)
             if isinstance(like, torch.Tensor):
                 return torch.from_numpy(arr).to(device=like.device,
                                                 dtype=like.dtype)
@@ -124,12 +139,15 @@ class CheckpointManager:
     save(): device-to-host copy synchronously, disk write on a daemon
     thread; keeps the last ``keep`` checkpoints.  ``wait()`` joins pending
     writes (called before exit and in tests).  ``stats`` adds up the bytes
-    written and the seconds of the copy and of the write.
+    written and the seconds of the copy and of the write.  A manager with
+    ``writer=False`` (a mesh's other ranks) takes part in the gathering
+    copy and writes nothing.
     """
 
-    def __init__(self, directory, keep: int = 3):
+    def __init__(self, directory, keep: int = 3, writer: bool = True):
         self.dir = Path(directory)
         self.keep = keep
+        self.writer = writer
         self._pending: Optional[threading.Thread] = None
         self.stats: Dict[str, float] = {"saves": 0, "bytes": 0,
                                         "copy_s": 0.0, "write_s": 0.0}
@@ -138,6 +156,8 @@ class CheckpointManager:
         t0 = time.perf_counter()
         host_tree = to_host(tree)                  # snapshot
         self.stats["copy_s"] += time.perf_counter() - t0
+        if not self.writer:
+            return
         self.wait()
 
         def write():

@@ -325,7 +325,8 @@ def main():
     rank, world = int(sys.argv[1]), int(sys.argv[2])
     store, inputs, outdir = sys.argv[3:6]
     mode = sys.argv[6] if len(sys.argv) > 6 else None
-    torch.set_num_threads(1)
+    torch.set_num_threads(1)            # one thread a rank
+    torch.set_num_interop_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:

@@ -10,6 +10,7 @@ this snapshot.
 import pytest
 
 pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  caps torch's threads
 
 import repro_torch  # noqa: E402
 from test_api_surface import PUBLIC_API  # noqa: E402

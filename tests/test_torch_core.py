@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402  caps torch's threads
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -385,11 +386,13 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.core.distributed, repro_torch.analysis, "
             "repro_torch.scenarios, repro_torch.scenarios.sweep, "
             "repro_torch.train, repro_torch.optim, repro_torch.data, "
-            "repro_torch.launch.train, repro_torch.optim.newton_krylov\n"
+            "repro_torch.launch.train, repro_torch.optim.newton_krylov, "
+            "repro_torch.parallel\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro') "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(_torch_threads.child_env(),
+               PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

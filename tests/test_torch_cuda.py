@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  caps torch's threads
 
 import repro_torch  # noqa: E402
 from repro_torch.core import matrices as TM  # noqa: E402
@@ -2039,6 +2040,81 @@ def test_train_steps_on_the_card_match_the_cpu(cuda):
     assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-4)
     for a, b in zip(models["cpu"].parameters(), models["cuda"].parameters()):
         assert float((b.cpu() - a).abs().max() / a.abs().max()) <= 1e-4
+
+
+# -- training on a mesh (repro_torch.parallel) ----------------------------------
+
+@pytest.fixture
+def parallel_mesh(cuda, mesh1):
+    """A (1, 1) ("data", "model") mesh on the one-rank NCCL group of
+    ``mesh1``, as a LogicalMesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.parallel import LogicalMesh
+    return LogicalMesh(init_device_mesh("cuda", (1, 1),
+                                        mesh_dim_names=("data", "model")))
+
+
+def test_parallel_train_on_a_one_rank_mesh_is_the_plain_trainer(
+        parallel_mesh, tmp_path):
+    """Three steps of the f32 smoke phi3 through ``train(lm=)`` on the
+    (1, 1) NCCL mesh and through the plain trainer, same seed and data:
+    every parameter a DTensor placed as ``module_param_specs`` gives, the
+    losses and grad norms equal, the weights equal bit for bit, no kernel
+    of the port launched; the mesh's checkpoint resumes in the plain
+    trainer."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import module_param_specs
+    from repro_torch.train import TrainConfig, train
+    lm = parallel_mesh
+    cfg = _smoke_phi3()
+    dcfg = DataConfig(batch_size=4, seq_len=32, vocab_size=cfg.vocab_size)
+
+    def tcfg(d, steps=3):
+        return TrainConfig(steps=steps, ckpt_every=3, ckpt_dir=str(
+            tmp_path / d), opt=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                          decay_steps=12))
+    ops.reset_launches()
+    mesh = train(cfg, dcfg, tcfg("mesh"), lm=lm)
+    plain = train(cfg, dcfg, tcfg("plain"), device="cuda")
+    torch.cuda.synchronize()
+    assert dict(ops.LAUNCHES) == launches()
+    specs = module_param_specs(mesh["params"], lm)
+    for k, p in mesh["params"].named_parameters():
+        assert isinstance(p, DTensor) and p.device.type == "cuda", k
+        assert tuple(p.placements) == lm.placements(specs[k]), k
+    for key in ("loss", "grad_norm"):
+        assert [h[key] for h in mesh["history"]] == \
+            [h[key] for h in plain["history"]], key
+    theirs = dict(plain["params"].named_parameters())
+    for k, p in mesh["params"].named_parameters():
+        assert torch.equal(p.full_tensor(), theirs[k]), k
+    more = train(cfg, dcfg, tcfg("mesh", steps=4), device="cuda")
+    assert more["start_step"] == 3 and len(more["history"]) == 1
+
+
+def test_parallel_logical_constraint_on_cuda_dtensors(parallel_mesh):
+    """``logical_constraint`` on CUDA DTensors: the placements its names
+    give (a name whose axes do not divide its dimension dropped), the
+    values and the gradient's placements unchanged; a plain CUDA tensor,
+    and any tensor with no mesh set, returned as it is."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.parallel import logical_constraint, use_mesh
+    lm = parallel_mesh
+    t = torch.randn(4, 6, 8, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    x = distribute_tensor(t, lm.mesh, [Replicate(), Replicate()])
+    x.requires_grad_(True)
+    with use_mesh(lm):
+        y = logical_constraint(x, "batch", None, "heads")
+        assert y.placements == (Shard(0), Shard(2))
+        assert torch.equal(y.full_tensor(), t)
+        g, = torch.autograd.grad((y * 2).sum(), [x])
+        assert logical_constraint(t, "batch", None, None) is t
+    assert g.placements == x.placements
+    assert torch.equal(g.full_tensor(), torch.full_like(t, 2.0))
+    assert logical_constraint(x, "batch") is x
 
 
 @pytest.mark.parametrize("substrate", ["cuda", "torch"])

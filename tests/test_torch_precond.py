@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  caps torch's threads
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  caps torch's threads
 
 from repro.observe import profile as JP  # noqa: E402
 from repro.observe import trace as jtrace  # noqa: E402

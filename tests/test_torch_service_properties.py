@@ -10,6 +10,7 @@ import pytest
 
 hypothesis = pytest.importorskip("hypothesis")
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  caps torch's threads
 import hypothesis.strategies as st  # noqa: E402
 from hypothesis import given, settings  # noqa: E402
 

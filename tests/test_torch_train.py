@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402  caps torch's threads
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -175,7 +176,7 @@ def test_flash_config_refuses_to_train():
         loss.backward()
     with torch.inference_mode():                 # serving: no derivative
         assert torch.isfinite(loss_fn(model, tc, {"tokens": toks})[0])
-    with pytest.raises(NotImplementedError, match="parallel/ slice"):
+    with pytest.raises(TypeError, match="LogicalMesh"):
         make_train_step(configs()[1], TrainConfig(), lm=object())
 
 
@@ -399,7 +400,8 @@ def test_train_lowers_the_loss(tmp_path):
 def test_launcher_trains_three_smoke_steps(tmp_path, arch):
     """The default arch, xlstm-350m as in the JAX launcher, and phi3 named
     explicitly."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(_torch_threads.child_env(),
+               PYTHONPATH=os.path.join(ROOT, "src"))
     flags = [] if arch is None else ["--arch", arch]
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
