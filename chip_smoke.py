@@ -381,7 +381,18 @@ package is missing.  Phases, any failure of which fails the run:
    DTensor placed as ``module_param_specs`` gives, each step's loss beside
    6a's and bitwise equal, ms a step against 6a's, the busy share of one
    profiled step, peak memory, no kernel launched, and the mesh's
-   checkpoint restored by the plain trainer bit for bit.  6b ``newton_krylov_step``
+   checkpoint restored by the plain trainer bit for bit.  6e: the dry
+   run's cells (``repro_torch.launch``) on a one-rank NCCL (1, 1) mesh:
+   the solver cell (``dryrun_solver``'s step at 108^3, fp64, "cuda")
+   counted in fake mode and over 16 real steps after a warm one, FLOPs,
+   bytes and collectives equal, one all-reduce an iteration, rows 1 and 2
+   once a step, ms an eager iteration beside the bytes at 3.35 TB/s; the
+   prefill cell (``dryrun.build_cell``'s qwen3-8b prefill, 4 x 1,024
+   tokens, full width and depth, bf16, flash on) counted in fake mode and
+   run for real, the counts equal, within 1% of the hand count, 36 flash
+   launches, wall, TFLOP/s and share of 989, the fake peak within 0.5-2x
+   the card's; 6d's step counted in fake mode (FLOPs, peak, MFU at 6d's
+   ms a step).  6b ``newton_krylov_step``
    on phi3-mini-3.8b at full width, depth 1 (310,256,640 parameters), f32,
    remat none, 2 x 128 tokens, the JAX model test's settings, its inner
    p-BiCGSafe solve on ``substrate="cuda"`` and then ``"torch"`` from the
@@ -405,7 +416,8 @@ package is missing.  Phases, any failure of which fails the run:
    2d's at whisper's; every row with ``launches_ssm``, 4f's (0), and
    ``launches_audio``, 4g's (flash: 4 a prefill batch; 0 elsewhere), and
    ``launches_vlm``, 4h's (flash: 32 a prefill batch; 0 elsewhere), and
-   ``launches_train_mesh``, 6d's (0); the
+   ``launches_train_mesh``, 6d's (0), and ``launches_launch``, 6e's
+   (rows 1 and 2: 17; flash: 36; 0 elsewhere); the
    flash row with ``vlm_shape``, 2d's times at qwen2-vl's shape (G = 8),
    bf16 and its ``fp32``; the
    grouped row, 4c's, at a decode step's
@@ -428,7 +440,7 @@ the allocator holds is printed after each solver phase, and the session
 cache is cleared before phase 4.
 
 The run goes 1, 3a (the matrix), 2, 2b, 2c, 2d, 3b-3f, the profiler's
-counts, 3g, 5, 3h, 3i, 3j, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 6a, 6d, 6b, 6c, 7.  Each path is driven with the
+counts, 3g, 5, 3h, 3i, 3j, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 6a, 6d, 6e, 6b, 6c, 7.  Each path is driven with the
 launch counters set to 0 just before it and read just after; the kernels'
 checks and timings are not counted.
 """
@@ -763,6 +775,18 @@ TRAIN_RESUME_RTOL = 1e-3
 # printed if not (a one-rank mesh runs the same local products)
 TRAIN_MESH_SHAPE, TRAIN_MESH_NAMES = (1, 1), ("data", "model")
 TRAIN_MESH_DIR = os.path.join(ROOT, "build", "train_mesh")
+# phase 6e: the dry run's cells (repro_torch.launch) on a one-rank NCCL
+# (1, 1) mesh: the solver's step at 3a's grid (108^3, fp64, "cuda"), counted
+# in fake mode and over LAUNCH_SOLVER_STEPS real steps after one warm step;
+# qwen3-8b's prefill at phase 4's size (full width and depth, bf16, flash
+# on), counted in fake mode and run for real; 6d's step counted in fake
+# mode.  The prefill's count within LAUNCH_HAND_RTOL of the hand count
+# (causal: S (S + 1) / 2 positions a head), the fake peak within
+# LAUNCH_PEAK_RATIO of the card's max_memory_allocated
+LAUNCH_SOLVER_STEPS = 16
+LAUNCH_HAND_RTOL = 1e-2
+LAUNCH_PEAK_RATIO = (0.5, 2.0)
+BF16_PEAK_FLOPS = 989e12    # H100 SXM, dense
 # phase 6b: one Newton-Krylov step on phi3-mini-3.8b at full width, depth 1
 # (310,256,640 parameters, as the JAX package's model test has one layer),
 # f32, remat none, 2 x 128 tokens, the JAX model test's settings, through
@@ -5791,6 +5815,234 @@ def run_train_mesh_path(torch, ops, seed: int, plain: dict) -> dict:
     return rec
 
 
+def _counted(torch, ops, fn):
+    """``fn()`` run for real with the launch counters set to 0 just before
+    it and read just after; returns ``(its value, launches, wall s)``."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(ops.LAUNCHES), time.perf_counter() - t0
+
+
+def _same_counts(label: str, fake: dict, real: dict) -> None:
+    keys = ("flops", "bytes", "dot_bytes")
+    for k in keys:
+        if fake[k] != real[k]:
+            raise SystemExit(f"6e {label}: the fake {k} {fake[k]!r} is not "
+                             f"the real run's {real[k]!r}")
+    if fake["collectives"]["counts"] != real["collectives"]["counts"]:
+        raise SystemExit(f"6e {label}: the fake collectives "
+                         f"{fake['collectives']['counts']} are not the real "
+                         f"run's {real['collectives']['counts']}")
+
+
+def _launch_solver_cell(torch, ops, mesh) -> dict:
+    """6e's solver cell: ``dryrun_solver``'s step at 3a's grid on the mesh,
+    counted in fake mode (one step) and for real (LAUNCH_SOLVER_STEPS after
+    a warm one), then LAUNCH_SOLVER_STEPS real steps timed uncounted."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun_solver as ds
+
+    def build(fake):
+        return ds.build_step("p-bicgsafe", mesh, NX, NX, NX, torch.float64,
+                             SOLVE_MAXITER, device="cuda", fake=fake)
+    step, state, consts, _ = build(True)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = ds.count_steps(step, state, consts, 1)
+    del step, state, consts
+    step, state, consts, _ = build(False)
+    real, launched, _ = _counted(torch, ops, lambda: ds.count_steps(
+        step, state, consts, LAUNCH_SOLVER_STEPS))
+    _same_counts("solver", fake, real)
+    ran = LAUNCH_SOLVER_STEPS + 1                      # the warm step too
+    for k in ("fused_dots", "fused_axpy"):
+        if launched.get(k) != ran:
+            raise SystemExit(f"6e solver: {k} launched {launched.get(k)} "
+                             f"times in {ran} steps, not once a step")
+    st = real["state"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LAUNCH_SOLVER_STEPS):
+        st = step(st, consts)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / LAUNCH_SOLVER_STEPS
+    counts = fake["collectives"]["counts"]
+    rec = dict(n=NX ** 3, flops=fake["flops"], bytes=fake["bytes"],
+               dot_bytes=fake["dot_bytes"], collectives=counts,
+               real_collectives=real["collectives"]["counts"],
+               launches=launched, steps_run=ran, ms_per_iteration=ms,
+               bytes_ms=fake["bytes"] / HBM_BYTES_PER_S * 1e3,
+               state_bytes=real["argument_size_in_bytes"],
+               fake_peak_bytes=fake["peak_memory_in_bytes"])
+    log(f"6e solver cell (p-bicgsafe, {NX}^3 fp64, cuda, a (1, 1) mesh): "
+        f"fake = real per iteration: {fake['flops']:.6e} FLOP, "
+        f"{fake['bytes']:.6e} B ({rec['bytes_ms']:.4f} ms at 3.35 TB/s), "
+        f"dot bytes {fake['dot_bytes']:.6e}, collectives {counts}; "
+        f"fused_dots {launched.get('fused_dots')} and fused_axpy "
+        f"{launched.get('fused_axpy')} launches in {ran} steps; "
+        f"{ms:.4f} ms an eager iteration; state {rec['state_bytes'] / 1e6:.1f}"
+        f" MB [{card()}]")
+    if counts.get("all-reduce") != 1:
+        raise SystemExit(f"6e solver: {counts} is not one all-reduce an "
+                         "iteration")
+    return rec
+
+
+def _launch_prefill_cell(torch, ops, lm) -> dict:
+    """6e's prefill cell: ``dryrun.build_cell``'s qwen3-8b prefill at phase
+    4's size with flash on, on the mesh: counted in fake mode, run for real
+    counted (the flash launches, the card's peak), then timed uncounted."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.flops import Counter
+    sp = ShapeSpec("prefill", SERVE_PROMPT, SERVE_REQUESTS, "prefill")
+    over = {"use_flash_kernel": True}
+
+    def count(cell):
+        with Counter(track_memory=True) as c:
+            c.hold(cell.arguments)
+            cell.fn()
+        return dict(c.totals(), collectives=c.collectives(),
+                    peak=c.peak_bytes)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = count(dryrun.build_cell(SERVE_ARCH, sp, overrides=over,
+                                       lm=lm, device="cuda"))
+    torch.cuda.empty_cache()
+    cell = dryrun.build_cell(SERVE_ARCH, sp, overrides=over, lm=lm,
+                             device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    real, launched, counted_s = _counted(torch, ops, lambda: count(cell))
+    card_peak = torch.cuda.max_memory_allocated()
+    _same_counts("prefill", fake, real)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = cell.fn()[0]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    logits = logits.full_tensor() if hasattr(logits, "full_tensor") \
+        else logits
+    finite = bool(torch.isfinite(logits.float()).all())
+    hand = sum(vlm_prefill_flop(cell.cfg, SERVE_REQUESTS,
+                                SERVE_PROMPT).values())
+    layers, vocab = cell.cfg.n_layers, cell.cfg.vocab_size
+    wall = min(walls)
+    rec = dict(flops=fake["flops"], bytes=fake["bytes"],
+               dot_bytes=fake["dot_bytes"], hand_flops=hand,
+               hand_rel=fake["flops"] / hand - 1,
+               collectives=fake["collectives"]["counts"],
+               launches=launched, counted_wall_s=counted_s, wall_s=walls,
+               tflops=fake["flops"] / wall / 1e12,
+               peak_share=fake["flops"] / wall / BF16_PEAK_FLOPS,
+               fake_peak_bytes=fake["peak"], card_peak_bytes=card_peak,
+               peak_ratio=fake["peak"] / card_peak,
+               logits_shape=list(logits.shape), finite=finite)
+    log(f"6e prefill cell ({SERVE_ARCH}, {SERVE_REQUESTS} x {SERVE_PROMPT} "
+        f"tokens, bf16, flash on, a (1, 1) mesh): fake = real "
+        f"{fake['flops']:.6e} FLOP (hand count, causal S (S + 1) / 2: "
+        f"{hand:.6e}, {rec['hand_rel']:+.2e}), {fake['bytes']:.6e} B; "
+        f"flash launched {launched.get('flash_attention', 0)}; wall "
+        f"{wall * 1e3:.2f} ms ({walls[0] * 1e3:.2f}, {walls[1] * 1e3:.2f}), "
+        f"{rec['tflops']:.1f} TFLOP/s, {rec['peak_share']:.4f} of 989; peak "
+        f"fake {fake['peak'] / 1e9:.3f} GB, card {card_peak / 1e9:.3f} GB, "
+        f"ratio {rec['peak_ratio']:.3f} [{card()}]")
+    del cell, logits
+    torch.cuda.empty_cache()
+    if launched.get("flash_attention", 0) != layers:
+        raise SystemExit(f"6e prefill: the flash op launched "
+                         f"{launched.get('flash_attention', 0)} times, not "
+                         f"once a layer ({layers}): the DTensor prefill did "
+                         "not reach the kernel")
+    if not abs(rec["hand_rel"]) <= LAUNCH_HAND_RTOL:
+        raise SystemExit(f"6e prefill: the count is {rec['hand_rel']:+.3e} "
+                         f"off the hand count")
+    lo, hi = LAUNCH_PEAK_RATIO
+    if not lo <= rec["peak_ratio"] <= hi:
+        raise SystemExit(f"6e prefill: the fake peak is {rec['peak_ratio']}"
+                         f" x the card's, outside {LAUNCH_PEAK_RATIO}")
+    if not finite or rec["logits_shape"] != [SERVE_REQUESTS, SERVE_PROMPT,
+                                             vocab]:
+        raise SystemExit(f"6e prefill: logits {rec['logits_shape']} finite "
+                         f"{finite}")
+    return rec
+
+
+def _launch_train_cell(torch, lm, mesh_rec: dict, seed: int) -> dict:
+    """6e's train cell: 6d's step (``make_train_step`` on the mesh: loss
+    and grad, the clip, the gate, AdamW) counted in fake mode; nothing runs
+    on the card."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch.flops import Counter
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init, pipelined_clip_init
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.train_loop import place_model, place_opt_state
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, seed=seed, opt=AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=max(1, TRAIN_STEPS // 20),
+        decay_steps=TRAIN_STEPS))
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        model = init_params(cfg, torch.Generator(device="cuda"))
+        specs = place_model(model, lm)
+        opt = place_opt_state(adamw_init(dict(model.named_parameters()),
+                                         tcfg.opt), specs, lm)
+        clip = pipelined_clip_init("cuda")
+        batch = {"tokens": torch.zeros((TRAIN_BATCH, TRAIN_SEQ),
+                                       dtype=torch.int32, device="cuda")}
+        spike = torch.tensor(1e9, device="cuda")
+        step_fn = make_train_step(cfg, tcfg, lm)
+        with Counter(track_memory=True) as c:
+            c.hold((dict(model.named_parameters()), opt, batch))
+            step_fn(model, opt, clip, batch, spike)
+    ms = mesh_rec["ms_per_step"]
+    rec = dict(flops=c.flops, bytes=c.bytes, dot_bytes=c.dot_bytes,
+               fake_peak_bytes=c.peak_bytes,
+               collectives=c.collectives()["counts"],
+               trace_s=time.perf_counter() - t0,
+               measured_ms_per_step=ms,
+               measured_peak_gb=mesh_rec["peak_memory_gb"],
+               mfu=c.flops / (ms / 1e3) / BF16_PEAK_FLOPS)
+    log(f"6e train cell (6d's step, {TRAIN_ARCH} depth {TRAIN_LAYERS}, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, counted in fake mode in "
+        f"{rec['trace_s']:.1f} s): {c.flops:.6e} FLOP, fake peak "
+        f"{c.peak_bytes / 1e9:.3f} GB beside 6d's measured "
+        f"{mesh_rec['peak_memory_gb']:.3f} GB; at 6d's {ms:.1f} ms a step "
+        f"{c.flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, MFU {rec['mfu']:.4f} "
+        f"of 989 [{card()}]")
+    return rec
+
+
+def run_launch_path(torch, ops, mesh_rec: dict, seed: int) -> dict:
+    """Phase 6e: the dry run's cells (``repro_torch.launch``) on a one-rank
+    NCCL (1, 1) ("data", "model") mesh, each real run with the launch
+    counters set to 0 just before it and read just after: the solver cell
+    and the prefill cell, fake counts equal to real ones; the train cell
+    counted only.  ``mesh_rec``: 6d's record."""
+    from repro_torch.parallel import LogicalMesh
+    t0 = time.perf_counter()
+    with one_rank_mesh([], TRAIN_MESH_SHAPE, TRAIN_MESH_NAMES) as mesh:
+        lm = LogicalMesh(mesh)
+        solver = _launch_solver_cell(torch, ops, mesh)
+        torch.cuda.empty_cache()
+        prefill = _launch_prefill_cell(torch, ops, lm)
+        train = _launch_train_cell(torch, lm, mesh_rec, seed)
+    launches = collections.Counter(solver["launches"])
+    launches.update(prefill["launches"])
+    wall = time.perf_counter() - t0
+    log(f"6e: the phase took {wall:.1f} s; launches {dict(launches)} "
+        f"[{card()}]")
+    torch.cuda.empty_cache()
+    return dict(solver=solver, prefill=prefill, train=train,
+                launches=dict(launches), wall_s=wall)
+
+
 def run_newton_krylov_path(torch, ops, seed: int) -> dict:
     """Phase 6b: ``newton_krylov_step`` on phi3-mini-3.8b (full width, depth
     ``NK_LAYERS``, f32, remat none) on the card, its inner p-BiCGSafe solve
@@ -6243,6 +6495,8 @@ def main() -> int:
     log_memory(torch, "6a")
     train_mesh = run_train_mesh_path(torch, ops, args.seed, training["train"])
     log_memory(torch, "6d")
+    launch = run_launch_path(torch, ops, train_mesh, args.seed)
+    log_memory(torch, "6e")
     nk = run_newton_krylov_path(torch, ops, args.seed)
     log_memory(torch, "6b")
     nk_kernels = check_nk_kernels(torch, ops, ref, NK_PARAMS)
@@ -6284,6 +6538,7 @@ def main() -> int:
         extra["launches_audio"] = whisper["launches"][kname]
         extra["launches_vlm"] = vlm["launches"][kname]
         extra["launches_train_mesh"] = train_mesh["launches"].get(kname, 0)
+        extra["launches_launch"] = launch["launches"].get(kname, 0)
         if kname in service_launches:
             extra["launches_service"] = service_launches[kname]
         if kname in mesh_launches:
@@ -6345,6 +6600,7 @@ def main() -> int:
         launches_audio=whisper["launches"]["flash_attention"],
         launches_vlm=vlm["launches"]["flash_attention"],
         launches_train_mesh=train_mesh["launches"].get("flash_attention", 0),
+        launches_launch=launch["launches"].get("flash_attention", 0),
         vlm_shape=dict(shape_bhksd=list(FLASH_SHAPE_VLM), causal=True,
                        dtype="bfloat16", ms=vlm_flash["ms"],
                        plain_ms=vlm_flash["plain_ms"],
@@ -6406,6 +6662,7 @@ def main() -> int:
         launches_audio=whisper["launches"]["grouped_mm"],
         launches_vlm=vlm["launches"]["grouped_mm"],
         launches_train_mesh=train_mesh["launches"].get("grouped_mm", 0),
+        launches_launch=launch["launches"].get("grouped_mm", 0),
         max_abs_err=gdec["max_abs_err"], ms=gdec["ms"],
         plain_ms=gdec["plain_ms"], bound_ms=gdec["bound_ms"],
         bound_by=gdec["bound_by"], library_ms=gdec["library_ms"],

@@ -133,11 +133,12 @@ def plain(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
-def weight_grad(x: torch.Tensor, dy: torch.Tensor, offsets: torch.Tensor,
-                dtype) -> torch.Tensor:
-    """``dw[e] = x_e^T dy_e`` over each group's rows, in f32, cast to
-    ``dtype``: the weight gradient of the grouped product (plain PyTorch,
-    the offsets read to the host, on either device)."""
+def weight_grad(x: torch.Tensor, dy: torch.Tensor,
+                offsets: torch.Tensor) -> torch.Tensor:
+    """``dw[e] = x_e^T dy_e`` over each group's rows, in f32 (f64 for f64),
+    cast to x's dtype: the weight gradient of the grouped product, ``(E, K,
+    N)`` (plain PyTorch, the offsets read to the host, on either device; a
+    group with no rows gives zeros)."""
     bounds = offsets.tolist()
     acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     dw = torch.zeros((len(bounds) - 1, x.shape[1], dy.shape[1]), dtype=acc,
@@ -145,7 +146,7 @@ def weight_grad(x: torch.Tensor, dy: torch.Tensor, offsets: torch.Tensor,
     for e, (start, end) in enumerate(zip(bounds, bounds[1:])):
         if end > start:
             dw[e] = x[start:end].to(acc).T @ dy[start:end].to(acc)
-    return dw.to(dtype)
+    return dw.to(x.dtype)
 
 
 def grouped_mm_cuda(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,

@@ -28,10 +28,11 @@ kernel the output shapes.  An FX graph of a solver step
 (:mod:`repro_torch.analysis`) therefore holds one node per kernel call, on
 the CPU too, where the plain PyTorch a silent fallback would run shows as
 aten nodes instead.  The shared block-Jacobi apply (``nb == 1``) is no
-kernel, and no op.  ``grouped_mm`` is an op of the same namespace, outside
-:data:`KERNEL_OPS`: in fake mode its fake kernel gives the shape, so a
-traced MoE decode step shows no host read, and it has a derivative
-(:func:`_grouped_mm_backward`).
+kernel, and no op.  ``flash_attention`` and ``grouped_mm`` are ops of
+the same namespace, outside :data:`KERNEL_OPS`, each with a fake kernel
+(in fake mode a traced MoE decode step shows no host read);
+``grouped_mm`` has a derivative (:func:`_grouped_mm_backward`), whose
+weight gradient is the op ``grouped_mm_weight_grad``.
 """
 from __future__ import annotations
 
@@ -186,6 +187,48 @@ _grouped_mm_op = _define(
     "grouped_mm", "(Tensor x, Tensor w, Tensor offsets) -> Tensor",
     _grouped.plain, _grouped.grouped_mm_cuda,
     lambda x, w, offsets: x.new_empty((x.shape[0], w.shape[2])))
+# the weight gradient, an op of its own so that a DTensor (a whole-operand
+# rule, :mod:`repro_torch.parallel.strategies`) and fake mode reach it whole:
+# its plain loop reads the offsets to the host, which only a local tensor
+# allows; its fake kernel takes E from the offsets' shape
+_grouped_mm_weight_grad_op = _define(
+    "grouped_mm_weight_grad", "(Tensor x, Tensor dy, Tensor offsets) -> "
+    "Tensor", _grouped.weight_grad, _grouped.weight_grad,
+    lambda x, dy, offsets: x.new_empty((offsets.shape[0] - 1, x.shape[1],
+                                        dy.shape[1])))
+
+
+def _flash_layout(qg, k, v):
+    """``(q (B, H, S, hd), k, v (B, K, S, hd))`` views of the model
+    stack's layout, and ``(B, S, H, hd)``."""
+    B, S, K, G, hd = qg.shape
+    q = qg.view(B, S, K * G, hd).transpose(1, 2)
+    return q, k.transpose(1, 2), v.transpose(1, 2), (B, S, K * G, hd)
+
+
+def _flash_plain(qg, k, v, scale, causal):
+    q, kk, vv, (B, S, H, hd) = _flash_layout(qg, k, v)
+    o = ref.flash_attention(q, kk, vv, scale=scale, causal=causal)
+    return o.transpose(1, 2).reshape(B, S, H * hd)
+
+
+def _flash_kernel(qg, k, v, scale, causal):
+    q, kk, vv, (B, S, H, hd) = _flash_layout(qg, k, v)
+    out = torch.empty((B, S, H, hd), dtype=qg.dtype, device=qg.device)
+    flash_attention_cuda(q, kk, vv, out.transpose(1, 2), scale=scale,
+                         causal=causal)
+    return out.view(B, S, H * hd)
+
+
+# flash attention as an op: a DTensor reaches its kernel through a sharding
+# rule (:mod:`repro_torch.parallel.strategies`), fake mode through its fake
+# kernel, and the dry run's counter through its FLOP formula
+# (:mod:`repro_torch.launch.flops`)
+_flash_attention_op = _define(
+    "flash_attention", "(Tensor qg, Tensor k, Tensor v, float scale, "
+    "bool causal) -> Tensor", _flash_plain, _flash_kernel,
+    lambda qg, k, v, scale, causal: qg.new_empty(
+        (qg.shape[0], qg.shape[1], qg.shape[2] * qg.shape[3] * qg.shape[4])))
 
 
 def _grouped_mm_setup(ctx, inputs, output):
@@ -195,8 +238,9 @@ def _grouped_mm_setup(ctx, inputs, output):
 
 def _grouped_mm_backward(ctx, dy):
     """``dx`` is the grouped product of ``dy`` with each ``w[e]^T`` (the
-    kernel on the card), ``dw[e] = x_e^T dy_e`` plain PyTorch over the
-    groups (:func:`~repro_torch.kernels.grouped_mm.weight_grad`); the
+    kernel on the card), ``dw[e] = x_e^T dy_e`` the op
+    ``grouped_mm_weight_grad`` (plain PyTorch over the groups on either
+    device, :func:`~repro_torch.kernels.grouped_mm.weight_grad`); the
     offsets have none."""
     x, w, offsets = ctx.saved_tensors
     dx = dw = None
@@ -204,7 +248,7 @@ def _grouped_mm_backward(ctx, dy):
         dx = _grouped_mm_op(dy.contiguous(),
                             w.transpose(1, 2).contiguous(), offsets)
     if ctx.needs_input_grad[1]:
-        dw = _grouped.weight_grad(x, dy, offsets, w.dtype)
+        dw = _grouped_mm_weight_grad_op(x, dy.contiguous(), offsets)
     return dx, dw, None
 
 
@@ -369,19 +413,10 @@ def flash_attention(qg, k, v, *, scale: float,
                          f"got {tuple(k.shape)}")
     if qg.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {qg.device}")
-    H = K * G
-    q = qg.view(B, S, H, hd).transpose(1, 2)             # (B, H, S, hd)
-    kk, vv = k.transpose(1, 2), v.transpose(1, 2)        # (B, K, S, hd)
-    if not qg.is_cuda:
-        o = ref.flash_attention(q, kk, vv, scale=scale, causal=causal)
-        return o.transpose(1, 2).reshape(B, S, H * hd)
-    if hd > MAX_HEAD_DIM:
+    if qg.is_cuda and hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head_dim {hd} above the "
                          f"kernel's {MAX_HEAD_DIM}")
-    out = torch.empty((B, S, H, hd), dtype=qg.dtype, device=qg.device)
-    flash_attention_cuda(q, kk, vv, out.transpose(1, 2), scale=scale,
-                         causal=causal)
-    return out.view(B, S, H * hd)
+    return _flash_attention_op(qg, k, v, float(scale), bool(causal))
 
 
 def grouped_mm(x, w, offsets) -> torch.Tensor:

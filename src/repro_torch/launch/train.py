@@ -5,13 +5,16 @@
       --steps 200 --batch-size 8 --seq-len 128
 
 ``--device cpu`` runs it on the CPU (the default is the card).  The flags
-and defaults are the JAX launcher's (``--arch`` xlstm-350m), but
-``--production-mesh`` refuses: the JAX package's HLO dry-run has no
-counterpart in the port yet (ROADMAP A11.11).
+and defaults are the JAX launcher's (``--arch`` xlstm-350m).  With
+``--production-mesh`` the full config's ``train_4k`` cell is traced on the
+16x16 mesh of a fake process group instead (the dry run,
+:mod:`repro_torch.launch.dryrun`; no step executes) and its ``status``
+and ``trace_s`` printed.
 """
 from __future__ import annotations
 
 import argparse
+import json
 
 
 def main(argv=None):
@@ -27,15 +30,18 @@ def main(argv=None):
                     help="use the reduced config (CPU-sized)")
     ap.add_argument("--full-config", dest="smoke", action="store_false")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="lower against the production mesh (the JAX "
-                         "package's dry-run; not in the port yet)")
+                    help="trace against the 256-rank production mesh "
+                         "(dry run; no real step execution)")
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda")
     args = ap.parse_args(argv)
 
     if args.production_mesh:
-        ap.error("--production-mesh: the HLO dry-run waits for the launch/ "
-                 "slice of the PyTorch port (ROADMAP A11.11)")
+        from repro_torch.launch import dryrun
+        rec = dryrun.run_cell(args.arch, "train_4k", False, force=True)
+        print(json.dumps({k: rec[k] for k in ("status", "trace_s")
+                          if k in rec}, indent=2))
+        return rec
 
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.data import DataConfig

@@ -28,6 +28,7 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel import logical_constraint
 from repro_torch.parallel.sharding import shard_map, splittable
 
 from .common import (ModelConfig, apply_mrope, apply_rope, dense_init,
@@ -274,7 +275,7 @@ def decode_attention(p: Params, x: torch.Tensor, position: torch.Tensor,
         k_cache.index_copy_(1, row, k_new.to(k_cache.dtype))
         v_cache.index_copy_(1, row, v_new.to(v_cache.dtype))
 
-    qg = q.reshape(B, 1, K, G, hd)
+    qg = splittable(q, 2, K).reshape(B, 1, K, G, hd)
     logits = _decode_scores(qg, k_cache.to(x.dtype)) * scale
     t_idx = torch.arange(T, device=x.device)
     valid = t_idx <= row
@@ -283,5 +284,8 @@ def decode_attention(p: Params, x: torch.Tensor, position: torch.Tensor,
     logits = torch.where(valid, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     o = torch.einsum("bkgst,btkh->bskgh", probs, v_cache.to(x.dtype))
+    # heads merged whole on a mesh: a merge of KV heads sharded on an axis
+    # wider than them is a strided shard no product has a rule for
+    o = logical_constraint(o, "batch", None, None, None, None)
     y = o.reshape(B, 1, H * hd) @ p["wo"].to(x.dtype)
     return y, k_cache, v_cache

@@ -147,7 +147,24 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
                             / head_dim))
 
 
-@functools.lru_cache(maxsize=None)
+def _device_constant(maxsize=None):
+    """``functools.lru_cache`` for a function that copies a constant to a
+    device, except under a fake mode (the dry run, a fake-mode trace),
+    where the tensor made is that mode's and is not kept for another."""
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def get(*args):
+            if torch._guards.detect_fake_mode() is not None:
+                return fn(*args)
+            return cached(*args)
+        get.cache_clear = cached.cache_clear
+        return get
+    return wrap
+
+
+@_device_constant()
 def _rope_freqs_on(head_dim: int, theta: float,
                    device: torch.device) -> torch.Tensor:
     # copied to the device once: a copy from host memory per call would
@@ -178,7 +195,7 @@ def _rotate_angles(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
+@_device_constant()
 def _mrope_slots_on(sections: Tuple[int, ...],
                     device: torch.device) -> torch.Tensor:
     # each frequency slot's position stream, copied to the device once (as
@@ -217,7 +234,7 @@ def sinusoidal_positions(n: int, d: int) -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=8)
+@_device_constant(maxsize=8)
 def sinusoidal_on(n: int, d: int, dtype: torch.dtype,
                   device: torch.device) -> torch.Tensor:
     """:func:`sinusoidal_positions` rounded to ``dtype`` on ``device``,

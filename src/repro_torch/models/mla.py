@@ -21,12 +21,13 @@ package's names and layout (``x @ W``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Mapping, Union
 
 import torch
 
-from repro_torch.parallel.sharding import splittable
+from repro_torch.parallel.sharding import shard_map, splittable
 
 from .attention import NEG_INF, _cache_row
 from .common import ModelConfig, apply_rope, dense_init, rms_norm
@@ -88,16 +89,22 @@ def mla_attention(p: Params, x: torch.Tensor, positions: torch.Tensor,
     k_nope = splittable(c_kv @ p["wuk"].to(x.dtype), -1, H).reshape(
         B, S, H, dn).float()
     v = splittable(c_kv @ p["wuv"].to(x.dtype), -1, H).reshape(B, S, H, dv)
-    kr = k_rope.float()
+    # the rope key, shared by every head, given to each head: a region's
+    # input whole on an axis its heads are sharded on would get a partial
+    # gradient from each rank
+    kr = k_rope.float()[:, :, None, :].expand(B, S, H, dr)
     col = torch.arange(S, device=x.device)
+    # on a mesh each rank scores its own batch rows and heads, as the dense
+    # attention does (models/attention.py _sdpa_block): DTensor's sharding
+    # propagation finds no plan for these einsums once batch and heads fold
+    # into one dimension sharded on two mesh axes (a (16, 16) mesh)
+    bh = ("batch", None, "heads", None)
+    local = shard_map(functools.partial(_mla_block, scale=scale,
+                                        dtype=x.dtype),
+                      (bh, bh, None, None, bh, bh, bh), bh)
 
     def block_attn(qn, qr, rows):
-        lg = torch.einsum("bskh,btkh->bkst", qn.float(), k_nope)
-        lg = lg + torch.einsum("bskh,bth->bkst", qr.float(), kr)
-        lg = lg * scale
-        lg = torch.where(rows[:, None] >= col[None, :], lg, NEG_INF)
-        pr = torch.softmax(lg, dim=-1).to(x.dtype)
-        return torch.einsum("bkst,btkh->bskh", pr, v)
+        return local(qn, qr, rows, col, k_nope, kr, v)
 
     if S <= q_block:
         o = block_attn(q_nope, q_rope, col)
@@ -112,6 +119,17 @@ def mla_attention(p: Params, x: torch.Tensor, positions: torch.Tensor,
     if return_cache:
         return out, (c_kv, k_rope)
     return out
+
+
+def _mla_block(qn, qr, rows, col, k_nope, kr, v, scale: float, dtype):
+    """One block of query rows against every key: f32 scores and softmax,
+    the probabilities in ``dtype`` for the product with v."""
+    lg = torch.einsum("bskh,btkh->bkst", qn.float(), k_nope)
+    lg = lg + torch.einsum("bskh,btkh->bkst", qr.float(), kr)
+    lg = lg * scale
+    lg = torch.where(rows[:, None] >= col[None, :], lg, NEG_INF)
+    pr = torch.softmax(lg, dim=-1).to(dtype)
+    return torch.einsum("bkst,btkh->bskh", pr, v)
 
 
 def _latent_scores(q: torch.Tensor, cache: torch.Tensor) -> torch.Tensor:

@@ -1038,7 +1038,12 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor, mask=None):
     # MaskPartial strategy) fails on a 2-D mesh: the vocab is made whole
     lf = shard(logits.float(), "batch", None, None)
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    # the gold logit as a masked sum, the value of gather's: on a mesh
+    # gather's backward would build its zeros as a plain tensor of the
+    # global (B, S, V) shape on every rank; where's backward keeps the
+    # gradient's placements
+    vocab = torch.arange(lf.shape[-1], device=lf.device)
+    gold = torch.where(labels.long()[..., None] == vocab, lf, 0.0).sum(-1)
     nll = lse - gold
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
@@ -1087,7 +1092,7 @@ def _mtp_loss(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor):
     e_next = _embed_tokens(params, cfg, torch.roll(tokens, -1, dims=1))
     hcat = torch.cat([rms_norm(mtp.ln_h, h, cfg.norm_eps),
                       rms_norm(mtp.ln_e, e_next, cfg.norm_eps)], dim=-1)
-    x = hcat @ mtp.proj.to(h.dtype)
+    x = _seq_whole(hcat) @ mtp.proj.to(h.dtype)
     x, _ = mtp.block(x, _positions(cfg, B, S, x.device), cfg)
     logits = _lm_head(params, cfg, x)
     labels = torch.roll(tokens, -2, dims=1)

@@ -1,11 +1,12 @@
 """DTensor sharding strategies for the models' ops that DTensor has none
 for, registered when :mod:`repro_torch.parallel` is imported.  Each takes
 its operands whole (``Replicate()`` on every mesh dimension, the inputs
-redistributed to it) and gives a whole result."""
+redistributed to it) and gives a whole result; flash attention may also
+run on each rank's batch rows or KV heads."""
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import Replicate
+from torch.distributed.tensor import Replicate, Shard
 from torch.distributed.tensor.experimental import register_sharding
 
 from repro_torch.kernels import ops as _kops  # noqa: F401  defines grouped_mm
@@ -13,6 +14,13 @@ from repro_torch.kernels import ops as _kops  # noqa: F401  defines grouped_mm
 
 def _whole(n_inputs: int):
     return [([Replicate()], [Replicate()] * n_inputs)]
+
+
+@register_sharding(torch.ops.aten.log_sigmoid_forward.default)
+def _log_sigmoid_forward(x):
+    # the sLSTM's gates (F.logsigmoid) in a decode step: the output and
+    # its buffer, both whole
+    return [([Replicate(), Replicate()], [Replicate()])]
 
 
 @register_sharding(torch.ops.aten.log_sigmoid_backward.default)
@@ -25,3 +33,19 @@ def _log_sigmoid_backward(grad_output, x, buffer):
 def _grouped_mm(x, w, offsets):
     # the MoE sort dispatch's grouped product (and its input gradient)
     return _whole(3)
+
+
+@register_sharding(torch.ops.repro_torch.grouped_mm_weight_grad.default)
+def _grouped_mm_weight_grad(x, dy, offsets):
+    # its weight gradient: the plain loop reads the offsets to the host,
+    # which it may on the whole local tensors
+    return _whole(3)
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention.default)
+def _flash_attention(qg, k, v, scale, causal):
+    # qg (B, S, K, G, hd), k / v (B, S, K, hd) -> (B, S, K * G * hd): whole,
+    # by batch rows, or by KV heads (the output's last dimension in K
+    # chunks of G * hd)
+    return [([p], [p, p, p, None, None])
+            for p in (Replicate(), Shard(0), Shard(2))]

@@ -82,13 +82,6 @@ def _select(ok: torch.Tensor, new, old):
     return torch.where(ok, new, old)
 
 
-NO_SORT_ON_MESH = (
-    "the MoE sort dispatch does not train on a mesh: the weight gradient "
-    "of its grouped product reads the group offsets to the host, which a "
-    "DTensor does not give (ROADMAP C33); train with moe_impl='gather' "
-    "or on one device (lm=None)")
-
-
 def _check_mesh(lm) -> None:
     if lm is not None and not isinstance(lm, LogicalMesh):
         raise TypeError("lm must be a repro_torch.parallel.LogicalMesh (or "
@@ -191,9 +184,6 @@ def make_train_step(model_cfg: ModelConfig, tcfg: TrainConfig,
     check_supported(model_cfg)
     if model_cfg.use_flash_kernel:
         raise NotImplementedError(f"{model_cfg.name}: {NO_FLASH_DERIVATIVE}")
-    if lm is not None and model_cfg.moe_experts \
-            and model_cfg.moe_impl == "sort":
-        raise NotImplementedError(f"{model_cfg.name}: {NO_SORT_ON_MESH}")
 
     def step_fn(model: Transformer, opt_state, clip_state, batch,
                 spike_thresh):

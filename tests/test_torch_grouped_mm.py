@@ -9,7 +9,8 @@ group holding every row and one group alone, in f32 (1e-5 of the result's
 max-abs: another summation order), f64 (1e-12, with JAX's x64 on inside
 the test alone) and bf16 (2e-2, tests/test_kernels.py's bf16 bar: both
 round the f32 sums to bf16, from other orders); the op's fake kernel, its
-derivative and the card's choice of route (from the dtype alone), of
+derivative, its weight gradient's op (bitwise the per-group loop, a fake
+kernel with no host read) and the card's choice of route (from the dtype alone), of
 each route's tile (from R and E alone) and of the f32 / f64 route's copies
 (from K and N alone) too.  The kernel itself runs in
 tests/test_torch_cuda.py and chip_smoke.py, on the card.  Inputs come from
@@ -119,6 +120,59 @@ def test_fake_kernel_gives_the_shape_without_a_host_read():
         out = ops.grouped_mm(*fake)
     assert tuple(out.shape) == (x.shape[0], w.shape[2])
     assert out.dtype == torch.bfloat16
+
+
+def plain_weight_grad(x, dy, sizes):
+    """``dw[e] = x_e^T dy_e`` group by group, each sum in f32 (f64 for
+    f64), rounded to x's dtype; zeros for a group with no rows."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    out, start = [], 0
+    for size in sizes:
+        rows = slice(start, start + int(size))
+        out.append((x[rows].to(acc).T @ dy[rows].to(acc)).to(x.dtype))
+        start += int(size)
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float64"])
+def test_weight_grad_op_is_the_plain_loop_bitwise(dtype):
+    """``repro_torch::grouped_mm_weight_grad``, the op the backward calls
+    (its own op, so a DTensor and fake mode reach it whole: ROADMAP C33),
+    equals the per-group loop bit for bit, empty groups zeros."""
+    x, w, sizes = operands(SIZES["empty groups"], dtype, seed=3)
+    dy = np.random.default_rng(4).standard_normal(
+        (x.shape[0], w.shape[2])).astype(np.float32)
+    tx, tdy = (torch.from_numpy(a).to(TORCH[dtype]) for a in (x, dy))
+    got = torch.ops.repro_torch.grouped_mm_weight_grad(tx, tdy,
+                                                       offsets_of(sizes))
+    want = plain_weight_grad(tx, tdy, sizes)
+    assert got.dtype == TORCH[dtype] and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert not got[np.flatnonzero(sizes == 0)].any()
+
+
+def test_weight_grad_fake_kernel_gives_the_shape_without_a_host_read():
+    """Under ``FakeTensorMode`` the weight gradient's fake kernel gives
+    ``(E, K, N)`` from the shapes alone; ``make_fx`` traces the grouped
+    product's forward and backward to op nodes, no ``.tolist()``."""
+    x, w, sizes = operands(SIZES["empty groups"], "float32")
+    mode = FakeTensorMode()
+    fx, fw, foff = (mode.from_tensor(a) for a in (
+        torch.from_numpy(x), torch.from_numpy(w), offsets_of(sizes)))
+    with mode:
+        dw = torch.ops.repro_torch.grouped_mm_weight_grad(
+            fx, torch.empty(x.shape[0], w.shape[2]), foff)
+    assert tuple(dw.shape) == w.shape and dw.dtype == torch.float32
+
+    def fwd_bwd(a, b, off):
+        return torch.autograd.grad(ops.grouped_mm(a, b, off).sum(), [a, b])
+    gm = make_fx(fwd_bwd, tracing_mode="fake")(
+        fx.requires_grad_(), fw.requires_grad_(), foff)
+    targets = [str(n.target) for n in gm.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count("repro_torch.grouped_mm.default") == 2
+    assert targets.count("repro_torch.grouped_mm_weight_grad.default") == 1
+    assert not any("local_scalar" in t for t in targets)
 
 
 def test_the_plain_version_checks_the_offsets():

@@ -47,7 +47,6 @@ from repro_torch.parallel import (DEFAULT_RULES, LogicalMesh,  # noqa: E402
                                   param_spec, set_mesh, spec_for_param,
                                   tree_param_specs, use_mesh)
 from repro_torch.parallel.sharding import constraint_spec  # noqa: E402
-from repro_torch.train import TrainConfig, make_train_step  # noqa: E402
 from torch.distributed.device_mesh import DeviceMesh  # noqa: E402
 from torch.distributed.tensor import (Replicate, Shard,  # noqa: E402
                                       distribute_tensor)
@@ -247,14 +246,6 @@ def test_constraint_places_dtensors(one_rank_mesh):
             logical_constraint(x, "batch", None, "heads").sum(), [x])
     assert g.placements == x.placements
     assert torch.equal(g.full_tensor(), torch.ones_like(t))
-
-
-def test_sort_dispatch_is_refused_on_a_mesh_by_name():
-    cfg = smoke_config("deepseek-v3-671b")
-    assert cfg.moe_impl == "sort"
-    with pytest.raises(NotImplementedError, match="sort dispatch"):
-        make_train_step(cfg, TrainConfig(), lm=torch_mesh("2x4"))
-    make_train_step(cfg, TrainConfig())          # one device trains it
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

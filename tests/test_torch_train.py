@@ -11,6 +11,7 @@ rounding); checkpoints in both directions bit for bit where nothing was
 computed.
 """
 import io
+import json
 import os
 import shutil
 import subprocess
@@ -44,6 +45,7 @@ from repro_torch.configs import smoke_config as tsmoke  # noqa: E402
 from repro_torch.convert import train_state_from_numpy  # noqa: E402
 from repro_torch.data import DataConfig, make_dataset  # noqa: E402
 from repro_torch.data import synthetic_token_stream  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import loss_fn  # noqa: E402
 from repro_torch.models.transformer import params_tree  # noqa: E402
@@ -397,7 +399,7 @@ def test_train_lowers_the_loss(tmp_path):
 
 
 @pytest.mark.parametrize("arch", [None, "phi3-mini-3.8b"])
-def test_launcher_trains_three_smoke_steps(tmp_path, arch):
+def test_launcher_trains_three_smoke_steps(tmp_path, arch, monkeypatch):
     """The default arch, xlstm-350m as in the JAX launcher, and phi3 named
     explicitly."""
     env = dict(_torch_threads.child_env(),
@@ -411,5 +413,18 @@ def test_launcher_trains_three_smoke_steps(tmp_path, arch):
     assert proc.returncode == 0, proc.stderr
     assert f"arch={arch or 'xlstm-350m'} steps=3" in proc.stdout
     assert (tmp_path / "ckpt" / "step_00000003.npz").exists()
-    with pytest.raises(SystemExit), redirect_stdout(io.StringIO()):
-        launch_train.main(["--production-mesh"])
+    # --production-mesh runs the dry run's train_4k cell of the arch (held
+    # on a fake process group in tests/test_torch_dryrun.py): here its
+    # call and what the launcher prints of the record
+    calls = []
+
+    def run_cell(*args, **kwargs):
+        calls.append((args, kwargs))
+        return {"status": "ok", "trace_s": 1.5, "memory": {}}
+    monkeypatch.setattr(dryrun, "run_cell", run_cell)
+    out = io.StringIO()
+    with redirect_stdout(out):
+        launch_train.main(["--production-mesh"] + flags)
+    assert calls == [((arch or "xlstm-350m", "train_4k", False),
+                      {"force": True})]
+    assert json.loads(out.getvalue()) == {"status": "ok", "trace_s": 1.5}
