@@ -392,7 +392,16 @@ package is missing.  Phases, any failure of which fails the run:
    run for real, the counts equal, within 1% of the hand count, 36 flash
    launches, wall, TFLOP/s and share of 989, the fake peak within 0.5-2x
    the card's; 6d's step counted in fake mode (FLOPs, peak, MFU at 6d's
-   ms a step).  6b ``newton_krylov_step``
+   ms a step); (d) deepseek-v3-671b's absorbed MLA decode (ROADMAP C35's
+   path) at 4c's width, depth 2 and batch 4, the sort dispatch through the
+   grouped kernel: a step counted in fake mode and for real, the counts
+   equal; 4c's prompts prefilled off the mesh, then 4 greedy steps off
+   the mesh and the same on it, 24 grouped launches on it, logits and
+   tokens bitwise equal; (e) whisper-tiny's ``prefill_step`` at full
+   width and depth, flash on, 4g's 4 x 432 tokens on 1,024 seeded frames:
+   counted in fake mode and for real, the counts equal, 4 flash launches
+   (once a decoder layer, through the op's DTensor rule), logits within
+   5e-2 of the plain prefill off the mesh.  6b ``newton_krylov_step``
    on phi3-mini-3.8b at full width, depth 1 (310,256,640 parameters), f32,
    remat none, 2 x 128 tokens, the JAX model test's settings, its inner
    p-BiCGSafe solve on ``substrate="cuda"`` and then ``"torch"`` from the
@@ -417,7 +426,7 @@ package is missing.  Phases, any failure of which fails the run:
    ``launches_audio``, 4g's (flash: 4 a prefill batch; 0 elsewhere), and
    ``launches_vlm``, 4h's (flash: 32 a prefill batch; 0 elsewhere), and
    ``launches_train_mesh``, 6d's (0), and ``launches_launch``, 6e's
-   (rows 1 and 2: 17; flash: 36; 0 elsewhere); the
+   (rows 1 and 2: 17; flash: 36 + 4; grouped: 24; 0 elsewhere); the
    flash row with ``vlm_shape``, 2d's times at qwen2-vl's shape (G = 8),
    bf16 and its ``fp32``; the
    grouped row, 4c's, at a decode step's
@@ -786,6 +795,19 @@ TRAIN_MESH_DIR = os.path.join(ROOT, "build", "train_mesh")
 LAUNCH_SOLVER_STEPS = 16
 LAUNCH_HAND_RTOL = 1e-2
 LAUNCH_PEAK_RATIO = (0.5, 2.0)
+# 6e (d): deepseek-v3's absorbed MLA decode on the mesh, the path of
+# ROADMAP C35: 4c's width, depth, prompts and batch, the sort dispatch
+# through the grouped kernel; a prefill off the mesh, then LAUNCH_MLA_STEPS
+# greedy decode steps off the mesh and the same steps on it from the same
+# cache.  A one-rank mesh runs the same local products in the same order
+# (the repaired cache write takes its one row through index_select and a
+# where, the same values), so the steps' logits and tokens are held bitwise
+LAUNCH_MLA_STEPS = 4
+LAUNCH_MLA_SEED = 0
+# 6e (e): whisper-tiny's prefill_step on the mesh, full width and depth,
+# flash on: 4g's prompts (AUDIO_PROMPT tokens) and AUDIO_FRAMES seeded
+# frames; its logits within SERVE_LOGITS_TOL (4g's bf16 bar, flash against
+# the plain branch) of the plain prefill (flash off) off the mesh
 BF16_PEAK_FLOPS = 989e12    # H100 SXM, dense
 # phase 6b: one Newton-Krylov step on phi3-mini-3.8b at full width, depth 1
 # (310,256,640 parameters, as the JAX package's model test has one layer),
@@ -6019,12 +6041,242 @@ def _launch_train_cell(torch, lm, mesh_rec: dict, seed: int) -> dict:
     return rec
 
 
+def _mesh_placed(lm, t, *names):
+    """``t`` placed on ``lm``'s mesh by the logical ``names``, a name
+    dropped where its axes do not divide the dimension (the dry run's
+    ``div_spec``)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch.dryrun import div_spec
+    return distribute_tensor(t, lm.mesh,
+                             lm.placements(div_spec(lm, t.shape, *names)))
+
+
+def _count_call(args, fn):
+    """``fn()`` under the dry run's counter, ``args`` held as its
+    arguments: ``(its value, {flops, bytes, dot_bytes, collectives,
+    peak})``."""
+    from repro_torch.launch.flops import Counter
+    with Counter(track_memory=True) as c:
+        c.hold(args)
+        out = fn()
+    return out, dict(c.totals(), collectives=c.collectives(),
+                     peak=c.peak_bytes)
+
+
+def _whole(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _launch_mla_decode_cell(torch, ops, lm) -> dict:
+    """6e (d): deepseek-v3-671b's decode on the mesh (LAUNCH_MLA_STEPS):
+    one step counted in fake mode and for real, the counts equal; 4c's
+    prompts prefilled off the mesh, then the same greedy steps off the mesh
+    and on it (counted: the grouped kernel, 3 a layer a step), logits and
+    tokens bitwise equal.  The model is freed before it returns."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_config
+    from repro_torch.models import (cache_logical_axes, decode_step,
+                                    init_cache, init_params, prefill_step)
+    from repro_torch.parallel.sharding import mesh_context
+    from repro_torch.train.train_loop import place_model
+    cfg = get_config(MLA_ARCH).replace(n_layers=MLA_LAYERS, use_mtp=False)
+    B, S, n = SERVE_REQUESTS, SERVE_PROMPT, LAUNCH_MLA_STEPS
+    axes = cache_logical_axes(cfg)
+
+    def on_mesh(model, cache, tokens):
+        place_model(model, lm)
+        return ({k: _mesh_placed(lm, v, *axes[k]) for k, v in cache.items()},
+                _mesh_placed(lm, tokens, "batch", None))
+
+    def step(model, cache, tokens, row: int, mesh: bool):
+        cache_len = torch.full((), row, dtype=torch.int32, device="cuda")
+        with torch.no_grad(), mesh_context(lm if mesh else None):
+            return decode_step(model, cfg, cache, tokens, cache_len)[0]
+
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fmodel = init_params(cfg, torch.Generator(device="cuda"))
+        fcache, ftok = on_mesh(fmodel, init_cache(
+            cfg, B, S + n, device="cuda"), torch.zeros(
+            (B, 1), dtype=torch.int32, device="cuda"))
+        _, fake = _count_call((dict(fmodel.named_parameters()), fcache,
+                               ftok), lambda: step(fmodel, fcache, ftok, S,
+                                                   True))
+        del fmodel, fcache, ftok
+    fake_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        LAUNCH_MLA_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 1e9
+    prompts = torch.tensor(serve_prompts(torch, cfg.vocab_size),
+                           dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        logits, pcache = prefill_step(model, cfg, {"tokens": prompts})
+        first = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        del logits
+        cache = init_cache(cfg, B, S + n, device="cuda")
+        for key, dst in cache.items():
+            dst[:, :, :S].copy_(pcache[key])
+        del pcache
+
+    def run(cache, tokens, mesh: bool):
+        rows, toks = [], []
+        for i in range(n):
+            lg = _whole(step(model, cache, tokens, S + i, mesh))[:, -1]
+            rows.append(lg.float())
+            nxt = lg.argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(nxt[:, 0].tolist())
+            tokens = _mesh_placed(lm, nxt, "batch", None) if mesh else nxt
+        return rows, toks
+
+    (off, off_toks), off_launched, off_s = _counted(
+        torch, ops, lambda: run({k: v.clone() for k, v in cache.items()},
+                                first, False))
+    # the step counted for real on a copy of the cache, then the steps
+    mcache, mtok = on_mesh(model, {k: v.clone() for k, v in cache.items()},
+                           first)
+    _, real = _count_call((dict(model.named_parameters()), mcache, mtok),
+                          lambda: step(model, mcache, mtok, S, True))
+    _same_counts("mla decode", fake, real)
+    mcache, mtok = ({k: _mesh_placed(lm, v, *axes[k])
+                     for k, v in cache.items()},
+                    _mesh_placed(lm, first, "batch", None))
+    (on, on_toks), launched, on_s = _counted(
+        torch, ops, lambda: run(mcache, mtok, True))
+    bitwise = all(torch.equal(a, b) for a, b in zip(on, off))
+    gap = max(float((a - b).abs().max()) for a, b in zip(on, off))
+    finite = all(bool(torch.isfinite(a).all()) for a in on)
+    per = 3 * cfg.n_layers
+    rec = dict(layers=cfg.n_layers, weight_gb=weight_gb, init_s=init_s,
+               fake_trace_s=fake_s, flops=fake["flops"],
+               bytes=fake["bytes"], dot_bytes=fake["dot_bytes"],
+               collectives=fake["collectives"]["counts"],
+               fake_peak_bytes=fake["peak"], launches=launched,
+               off_mesh_launches=off_launched, steps=n,
+               ms_per_step=on_s * 1e3 / n, off_ms_per_step=off_s * 1e3 / n,
+               tokens=on_toks, tokens_equal=on_toks == off_toks,
+               logits_bitwise=bitwise, logits_max_abs_gap=gap,
+               finite=finite)
+    log(f"6e (d) MLA decode cell ({MLA_ARCH}, depth {cfg.n_layers}, "
+        f"{weight_gb:.2f} GB of bf16 drawn in {init_s:.1f} s, B = {B}, "
+        f"{n} greedy steps after a {S}-token prefill, a (1, 1) mesh): fake "
+        f"= real a step: {fake['flops']:.6e} FLOP, {fake['bytes']:.6e} B, "
+        f"collectives {rec['collectives']} (fake traced in {fake_s:.1f} s);"
+        f" grouped_mm launched {launched.get('grouped_mm', 0)} on the mesh "
+        f"({per} a step); {rec['ms_per_step']:.2f} ms a step on the mesh, "
+        f"{rec['off_ms_per_step']:.2f} off it (eager, host-bound); tokens "
+        f"equal {rec['tokens_equal']}, logits bitwise {bitwise} (max gap "
+        f"{gap:.3e}) [{card()}]")
+    del model, cache, mcache, mtok, on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = dict(dict.fromkeys(ops.LAUNCHES, 0), grouped_mm=per * n)
+    if launched != want or off_launched != want:
+        raise SystemExit(f"6e (d): launches {launched} on the mesh and "
+                         f"{off_launched} off it; want {want}")
+    if not (finite and bitwise and rec["tokens_equal"]):
+        raise SystemExit(f"6e (d): the mesh's decode is not the plain one's"
+                         f": tokens {on_toks} against {off_toks}, logits "
+                         f"bitwise {bitwise} (gap {gap:.3e}), finite {finite}")
+    return rec
+
+
+def _launch_whisper_prefill_cell(torch, ops, lm) -> dict:
+    """6e (e): whisper-tiny's ``prefill_step`` on the mesh, flash on, over
+    4g's prompts and AUDIO_FRAMES seeded frames: counted in fake mode and
+    for real (counted: the flash kernel once a decoder layer, through its
+    DTensor rule), the counts equal; logits within SERVE_LOGITS_TOL of the
+    plain prefill off the mesh."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill_step
+    from repro_torch.models.common import sinusoidal_on
+    from repro_torch.parallel.sharding import mesh_context
+    from repro_torch.train.train_loop import place_model
+    cfg = get_config(AUDIO_ARCH).replace(use_flash_kernel=True)
+    B, S, T = SERVE_REQUESTS, AUDIO_PROMPT, AUDIO_FRAMES
+
+    def on_mesh(model, tokens, frames):
+        place_model(model, lm)
+        return {"tokens": _mesh_placed(lm, tokens, "batch", None),
+                "frames": _mesh_placed(lm, frames, "batch", None, None)}
+
+    def prefill(model, c, batch, mesh: bool):
+        with torch.no_grad(), mesh_context(lm if mesh else None):
+            return prefill_step(model, c, batch)[0]
+
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fmodel = init_params(cfg, torch.Generator(device="cuda"))
+        fbatch = on_mesh(fmodel, torch.zeros(
+            (B, S), dtype=torch.int32, device="cuda"), torch.zeros(
+            (B, T, cfg.d_model), dtype=cfg.dtype, device="cuda"))
+        _, fake = _count_call((dict(fmodel.named_parameters()), fbatch),
+                              lambda: prefill(fmodel, cfg, fbatch, True))
+        del fmodel, fbatch
+    fake_s = time.perf_counter() - t0
+
+    gen = torch.Generator().manual_seed(14)             # 4g's prompts
+    tokens = torch.tensor([torch.randint(1, cfg.vocab_size, (S,),
+                                         generator=gen).tolist()
+                           for _ in range(B)], dtype=torch.int32,
+                          device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(15)  # 4g's frames
+    frames = torch.randn(B, T, cfg.d_model, generator=g,
+                         device="cuda").to(cfg.dtype)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(13))
+    plain = prefill(model, cfg.replace(use_flash_kernel=False),
+                    {"tokens": tokens, "frames": frames}, False).float()
+    batch = on_mesh(model, tokens, frames)
+    args = (dict(model.named_parameters()), batch)
+    # the encoder's sinusoidal positions, a copy to the card cached per
+    # shape (4g and the plain prefill made them), made inside the counted
+    # run as a fake-mode trace makes them
+    sinusoidal_on.cache_clear()
+    (logits, real), launched, wall = _counted(torch, ops, lambda: _count_call(
+        args, lambda: prefill(model, cfg, batch, True)))
+    _same_counts("whisper prefill", fake, real)
+    logits = _whole(logits).float()
+    finite = bool(torch.isfinite(logits).all())
+    err = float((logits - plain).abs().max() / plain.abs().max())
+    rec = dict(flops=fake["flops"], bytes=fake["bytes"],
+               dot_bytes=fake["dot_bytes"],
+               collectives=fake["collectives"]["counts"],
+               fake_peak_bytes=fake["peak"], fake_trace_s=fake_s,
+               launches=launched, counted_wall_s=wall,
+               logits_shape=list(logits.shape), finite=finite,
+               logits_max_rel_err=err, tol=SERVE_LOGITS_TOL)
+    log(f"6e (e) whisper prefill cell ({AUDIO_ARCH}, {B} x {S} tokens and "
+        f"{T} frames, bf16, flash on, a (1, 1) mesh): fake = real "
+        f"{fake['flops']:.6e} FLOP, {fake['bytes']:.6e} B, collectives "
+        f"{rec['collectives']}; flash launched "
+        f"{launched.get('flash_attention', 0)} (once a decoder layer); "
+        f"logits {err:.3e} off the plain prefill off the mesh (tol "
+        f"{SERVE_LOGITS_TOL}); counted run {wall * 1e3:.1f} ms [{card()}]")
+    del model, batch, args, logits, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = dict(dict.fromkeys(ops.LAUNCHES, 0), flash_attention=cfg.n_layers)
+    if launched != want:
+        raise SystemExit(f"6e (e): launches {launched}; want {want}")
+    if not finite or err > SERVE_LOGITS_TOL \
+            or rec["logits_shape"] != [B, S, cfg.vocab_size]:
+        raise SystemExit(f"6e (e): logits {rec['logits_shape']} finite "
+                         f"{finite}, {err:.3e} off the plain prefill")
+    return rec
+
+
 def run_launch_path(torch, ops, mesh_rec: dict, seed: int) -> dict:
     """Phase 6e: the dry run's cells (``repro_torch.launch``) on a one-rank
     NCCL (1, 1) ("data", "model") mesh, each real run with the launch
-    counters set to 0 just before it and read just after: the solver cell
-    and the prefill cell, fake counts equal to real ones; the train cell
-    counted only.  ``mesh_rec``: 6d's record."""
+    counters set to 0 just before it and read just after: the solver cell,
+    the prefill cell, deepseek-v3's decode and whisper's prefill, fake
+    counts equal to real ones; the train cell counted only.  ``mesh_rec``:
+    6d's record."""
     from repro_torch.parallel import LogicalMesh
     t0 = time.perf_counter()
     with one_rank_mesh([], TRAIN_MESH_SHAPE, TRAIN_MESH_NAMES) as mesh:
@@ -6033,14 +6285,17 @@ def run_launch_path(torch, ops, mesh_rec: dict, seed: int) -> dict:
         torch.cuda.empty_cache()
         prefill = _launch_prefill_cell(torch, ops, lm)
         train = _launch_train_cell(torch, lm, mesh_rec, seed)
+        mla = _launch_mla_decode_cell(torch, ops, lm)
+        audio = _launch_whisper_prefill_cell(torch, ops, lm)
     launches = collections.Counter(solver["launches"])
-    launches.update(prefill["launches"])
+    for cell in (prefill, mla, audio):
+        launches.update(cell["launches"])
     wall = time.perf_counter() - t0
     log(f"6e: the phase took {wall:.1f} s; launches {dict(launches)} "
         f"[{card()}]")
     torch.cuda.empty_cache()
-    return dict(solver=solver, prefill=prefill, train=train,
-                launches=dict(launches), wall_s=wall)
+    return dict(solver=solver, prefill=prefill, train=train, mla_decode=mla,
+                whisper_prefill=audio, launches=dict(launches), wall_s=wall)
 
 
 def run_newton_krylov_path(torch, ops, seed: int) -> dict:

@@ -256,7 +256,12 @@ class Counter(TorchDispatchMode):
             return
         out_b = sum(_nbytes(t) for t in outs)
         if packet in flop_registry:
-            flops = flop_registry[packet](*args, **kwargs, out_val=out)
+            # an overload with an output dtype (``bmm.dtype``: bf16 products
+            # summed into f32) takes its packet's formula on the operands
+            flops = flop_registry[packet](
+                *(a for a in args if not isinstance(a, torch.dtype)),
+                **{k: v for k, v in kwargs.items() if k != "out_dtype"},
+                out_val=out)
             io = out_b + sum(_nbytes(t) for t in _tensors((args, kwargs)))
             self.flops += flops
             self.bytes += io

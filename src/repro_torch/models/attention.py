@@ -29,7 +29,8 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.parallel import logical_constraint
-from repro_torch.parallel.sharding import shard_map, splittable
+from repro_torch.parallel.sharding import (grad_splittable, shard_map,
+                                           splittable, write_row)
 
 from .common import (ModelConfig, apply_mrope, apply_rope, dense_init,
                      rms_norm)
@@ -142,7 +143,7 @@ def _sdpa_block(q, k, v, mask: Optional[torch.Tensor], scale: float):
     dimension, whose sharding propagation does not end on a 3-D mesh)."""
     bh = ("batch", None, "heads", None)
     return shard_map(functools.partial(_sdpa_local, scale=scale),
-                     (bh, bh, bh, None), bh)(q, k, v, mask)
+                     (bh, bh, bh, None), [bh])(q, k, v, mask)
 
 
 def _sdpa_local(q, k, v, mask: Optional[torch.Tensor], scale: float):
@@ -210,7 +211,10 @@ def multihead_attention(p: Params, x: torch.Tensor,
                 blocks.append(_sdpa_block(
                     q[:, i * q_block:(i + 1) * q_block], kr, vr, mask, scale))
             o = torch.cat(blocks, dim=1)
-        o = o.reshape(B, S, H * hd)
+        # the heads merged; in the backward the merge's gradient is split
+        # back into heads, which a model axis that does not divide them
+        # cannot do sharded
+        o = grad_splittable(o.reshape(B, S, H * hd), -1, H)
     out = o @ p["wo"].to(x.dtype)
     if return_kv:
         return out, (k, v)
@@ -272,10 +276,15 @@ def decode_attention(p: Params, x: torch.Tensor, position: torch.Tensor,
     row = _cache_row(cache_len, x.device)
     if update_cache:
         k_new, v_new = _project_kv(p, x, cfg, positions)
-        k_cache.index_copy_(1, row, k_new.to(k_cache.dtype))
-        v_cache.index_copy_(1, row, v_new.to(v_cache.dtype))
+        write_row(k_cache, 1, row, k_new.to(k_cache.dtype))
+        write_row(v_cache, 1, row, v_new.to(v_cache.dtype))
 
-    qg = splittable(q, 2, K).reshape(B, 1, K, G, hd)
+    # the query with its heads whole and its batch on "batch" on a mesh:
+    # the scores' product folds batch and KV heads, a strided shard where
+    # the heads lie on the model axis and the batch does not lie on the
+    # axis before it (the cache is sharded by its sequence instead)
+    q = logical_constraint(q, "batch", None, None, None)
+    qg = q.reshape(B, 1, K, G, hd)
     logits = _decode_scores(qg, k_cache.to(x.dtype)) * scale
     t_idx = torch.arange(T, device=x.device)
     valid = t_idx <= row

@@ -27,7 +27,8 @@ from typing import Dict, Mapping, Union
 
 import torch
 
-from repro_torch.parallel.sharding import shard_map, splittable
+from repro_torch.parallel.sharding import (grad_placed, shard_map, splittable,
+                                           write_row)
 
 from .attention import NEG_INF, _cache_row
 from .common import ModelConfig, apply_rope, dense_init, rms_norm
@@ -60,7 +61,8 @@ def _compress(p: Params, x: torch.Tensor, cfg: ModelConfig, positions):
     B, S, _ = x.shape
     H = cfg.n_heads
     dn, kvr = cfg.qk_nope_head_dim, cfg.kv_lora_rank
-    cq = rms_norm(p["q_norm"], x @ p["wdq"].to(x.dtype), cfg.norm_eps)
+    cq = rms_norm(p["q_norm"], grad_placed(x @ p["wdq"].to(x.dtype)),
+                  cfg.norm_eps)
     q = splittable(cq @ p["wuq"].to(x.dtype), -1, H).reshape(B, S, H, -1)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     ckv_full = x @ p["wdkv"].to(x.dtype)
@@ -101,7 +103,7 @@ def mla_attention(p: Params, x: torch.Tensor, positions: torch.Tensor,
     bh = ("batch", None, "heads", None)
     local = shard_map(functools.partial(_mla_block, scale=scale,
                                         dtype=x.dtype),
-                      (bh, bh, None, None, bh, bh, bh), bh)
+                      (bh, bh, None, None, bh, bh, bh), [bh])
 
     def block_attn(qn, qr, rows):
         return local(qn, qr, rows, col, k_nope, kr, v)
@@ -164,8 +166,9 @@ def mla_decode(p: Params, x: torch.Tensor, position: torch.Tensor,
     positions = position[:, None] if position.dim() == 1 else position
     q_nope, q_rope, c_new, krope_new = _compress(p, x, cfg, positions)
     row = _cache_row(cache_len, x.device)
-    ckv_cache.index_copy_(1, row, c_new.to(ckv_cache.dtype))
-    krope_cache.index_copy_(1, row, krope_new.to(krope_cache.dtype))
+    write_row(ckv_cache, 1, row, c_new.to(ckv_cache.dtype))
+    write_row(krope_cache, 1, row,
+              krope_new.to(krope_cache.dtype))
 
     # absorb: q_eff[b, h, :] = q_nope[b, h] @ W_uk[h] (a latent-space query)
     wuk = p["wuk"].to(x.dtype).reshape(kvr, H, dn)

@@ -25,13 +25,15 @@ of 256.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.parallel.sharding import grad_splittable, splittable
+from repro_torch.parallel.sharding import (grad_placed, grad_splittable,
+                                           seq_whole, shard_map, splittable)
 
 from .common import ModelConfig, dense_init, rms_norm
 
@@ -65,7 +67,7 @@ def init_mamba2_params(generator: torch.Generator,
 
 def _split_proj(p: Params, x: torch.Tensor, cfg: ModelConfig):
     din, ns, H = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
-    zxbcdt = x @ p["w_in"].to(x.dtype)
+    zxbcdt = grad_placed(x @ p["w_in"].to(x.dtype))
     z = zxbcdt[..., :din]
     xbc = zxbcdt[..., din:din + din + 2 * ns]
     dt = zxbcdt[..., -H:]
@@ -103,19 +105,42 @@ def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     B, S, _ = x.shape
     din, ns, H = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     P = din // H
-    x = rms_norm(p["norm_in"], x, cfg.norm_eps)
+    # a matmul region: its input and output seq-whole on a mesh
+    x = seq_whole(rms_norm(p["norm_in"], x, cfg.norm_eps))
     z, xbc, dt = _split_proj(p, x, cfg)
     xbc, conv_state = _causal_conv(p, xbc, cfg)
     xs = splittable(xbc[..., :din], -1, H).reshape(B, S, H, P)
     Bm = xbc[..., din:din + ns]                           # (B, S, N)
     Cm = xbc[..., din + ns:]                              # (B, S, N)
-
     dtp = _softplus_dt(dt, p)                             # (B, S, H)
-    A = -torch.exp(p["a_log"])                            # (H,)
-    log_a = dtp * A                                       # (B, S, H) <= 0
-
     if S % chunk:
         chunk = S                 # the reference's rule: a single chunk
+    # on a mesh each rank runs the scan of its own batch rows and heads (B
+    # and C, shared by the heads, whole): the SSD's products fold batch,
+    # chunk and head dimensions, a strided shard where batch and heads lie
+    # on two mesh axes
+    bh = ("batch", None, "heads", None)
+    y, h = shard_map(functools.partial(_ssd, chunk=chunk),
+                     (bh, ("batch", None, None), ("batch", None, None),
+                      ("batch", None, "heads"), ("heads",), ("heads",)),
+                     [bh, ("batch", "heads", None, None)])(
+        xs, Bm, Cm, dtp, p["a_log"], p["d_skip"])
+    y = grad_splittable(y.reshape(B, S, din), -1, H).to(x.dtype)
+    y = rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    out = seq_whole(y @ p["w_out"].to(x.dtype))
+    if return_state:
+        return out, {"h": h, "conv": conv_state}
+    return out
+
+
+def _ssd(xs, Bm, Cm, dtp, a_log, d_skip, chunk: int):
+    """The chunked SSD scan over x ``(B, S, H, P)``, B and C ``(B, S, N)``
+    and dt ``(B, S, H)`` (after the softplus): ``(y (B, S, H, P) f32 with
+    the skip term, the final state h (B, H, P, N) f32)``."""
+    B, S, H, P = xs.shape
+    ns = Bm.shape[-1]
+    A = -torch.exp(a_log)                                 # (H,)
+    log_a = dtp * A                                       # (B, S, H) <= 0
     nc, Q = S // chunk, chunk
     xc = xs.reshape(B, nc, Q, H, P).float()
     bc = Bm.reshape(B, nc, Q, ns).float()
@@ -123,7 +148,7 @@ def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     dtc = dtp.reshape(B, nc, Q, H)
     cum = torch.cumsum(log_a.reshape(B, nc, Q, H), dim=2)  # (B, nc, Q, H)
     total = cum[:, :, -1]                                 # (B, nc, H)
-    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=xs.device).tril()
     # intra: scores[t, j] = (C_t . B_j) exp(cum_t - cum_j) dt_j, j <= t
     cb = torch.einsum("bcqn,bckn->bcqk", cc, bc)          # (B, nc, Q, Q)
     decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, Q, Q, H)
@@ -134,7 +159,7 @@ def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     wj = torch.exp(total[:, :, None] - cum) * dtc         # (B, nc, Q, H)
     own = torch.einsum("bcqh,bcqn,bcqhp->bchpn", wj, bc, xc)
     # the carry, chunk by chunk: h' = exp(total) h + own
-    h = torch.zeros((B, H, P, ns), dtype=torch.float32, device=x.device)
+    h = torch.zeros((B, H, P, ns), dtype=torch.float32, device=xs.device)
     starts = []
     for c in range(nc):
         starts.append(h)
@@ -142,13 +167,7 @@ def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     # inter: y_t += C_t (exp(cum_t) h_carry)
     y = y + torch.einsum("bcqn,bchpn->bcqhp", cc, torch.stack(starts, 1)) \
         * torch.exp(cum)[..., None]
-    y = y.reshape(B, S, H, P) + p["d_skip"][:, None] * xs.float()
-    y = grad_splittable(y.reshape(B, S, din), -1, H).to(x.dtype)
-    y = rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
-    out = y @ p["w_out"].to(x.dtype)
-    if return_state:
-        return out, {"h": h, "conv": conv_state}
-    return out
+    return y.reshape(B, S, H, P) + d_skip[:, None] * xs.float(), h
 
 
 def mamba2_init_state(cfg: ModelConfig, batch: int, dtype=torch.float32, *,

@@ -93,6 +93,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.core.types import resolve_device
 from repro_torch.parallel import logical_constraint as shard
+from repro_torch.parallel.sharding import seq_whole as _seq_whole
 
 from .attention import (decode_attention, init_attention_params,
                         multihead_attention)
@@ -187,16 +188,6 @@ def params_from_tree(tree: Mapping, names) -> Dict[str, object]:
     return out
 
 
-def _seq_whole(x: torch.Tensor) -> torch.Tensor:
-    """``x`` (B, S, d) constrained with its sequence whole: before a
-    matmul region (the all-gather of sequence parallelism), and on the
-    region's output too, so that its gradient reaches the region's
-    products seq-whole (a product whose rows fold a batch and a sequence
-    sharded on three mesh axes costs DTensor's sharding search tens of
-    seconds a shape)."""
-    return shard(x, "batch", None, "embed")
-
-
 def _parameter_dict(params: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
     return nn.ParameterDict({k: nn.Parameter(t) for k, t in params.items()})
 
@@ -285,7 +276,11 @@ class AudioBlock(nn.Module):
         self.mlp = GeluFFN(params["mlp"])
 
     def _ln(self, n: str, x):
-        return layer_norm(getattr(self, n + "_s"), getattr(self, n + "_b"), x)
+        # the input of a matmul region, seq-whole on a mesh (the decoder's
+        # tokens come in seq-sharded; rows that fold a batch and a sequence
+        # sharded on two mesh axes are a strided shard no product takes)
+        return _seq_whole(layer_norm(getattr(self, n + "_s"),
+                                     getattr(self, n + "_b"), x))
 
     def forward(self, x, cfg: ModelConfig, enc=None, return_kv: bool = False):
         """The encoder block with ``enc=None``, else the decoder block
@@ -294,14 +289,14 @@ class AudioBlock(nn.Module):
         a = self.attn(self._ln("ln1", x), None, cfg, causal=enc is not None,
                       return_kv=return_kv)
         a, kv = a if return_kv else (a, ())
-        x = x + a
+        x = x + _seq_whole(a)
         if enc is not None:
             c = self.xattn(self._ln("lnx", x), None, cfg, causal=False,
                            x_kv=enc, return_kv=return_kv)
             c, xkv = c if return_kv else (c, ())
-            x = x + c
+            x = x + _seq_whole(c)
             kv = tuple(kv) + tuple(xkv)
-        x = x + self.mlp(self._ln("ln2", x))
+        x = x + _seq_whole(self.mlp(self._ln("ln2", x)))
         return (x, kv) if return_kv else x
 
     def decode(self, x, position, k_cache, v_cache, cross_k, cross_v,
@@ -395,16 +390,17 @@ class SharedBlock(nn.Module):
         self.mlp = DenseFFN(params["mlp"])
 
     def _mlp(self, x, cfg: ModelConfig):
-        return x + self.mlp(rms_norm(self.ln2, x, cfg.norm_eps))
+        return x + _seq_whole(self.mlp(_seq_whole(
+            rms_norm(self.ln2, x, cfg.norm_eps))))
 
     def forward(self, x, positions, cfg: ModelConfig,
                 return_kv: bool = False):
         """``x`` after the block, with ``return_kv`` also the attention's
         ``(k, v)``, each ``(B, S, K, hd)``."""
-        a = self.attn(rms_norm(self.ln, x, cfg.norm_eps), positions, cfg,
-                      causal=True, return_kv=return_kv)
+        a = self.attn(_seq_whole(rms_norm(self.ln, x, cfg.norm_eps)),
+                      positions, cfg, causal=True, return_kv=return_kv)
         a, kv = a if return_kv else (a, None)
-        x = self._mlp(x + a, cfg)
+        x = self._mlp(x + _seq_whole(a), cfg)
         return (x, kv) if return_kv else x
 
     def decode(self, x, position, k_ring, v_ring,

@@ -33,7 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.parallel.sharding import grad_splittable, splittable
+from repro_torch.parallel.sharding import (grad_splittable, seq_whole,
+                                           shard_map, splittable)
 
 from .common import ModelConfig, dense_init, rms_norm
 
@@ -71,7 +72,8 @@ def _mlstm_in(p: Params, x: torch.Tensor, cfg: ModelConfig):
     the output gate's input, (B, S, 2 d)."""
     B, S, _ = x.shape
     H = cfg.n_heads
-    x = rms_norm(p["norm_in"], x, cfg.norm_eps)
+    # a matmul region: its input (and _mlstm_out's output) seq-whole
+    x = seq_whole(rms_norm(p["norm_in"], x, cfg.norm_eps))
     up = x @ p["w_up"].to(x.dtype)
     xin, gate = up.chunk(2, dim=-1)
     hd = xin.shape[-1] // H
@@ -85,7 +87,7 @@ def _mlstm_in(p: Params, x: torch.Tensor, cfg: ModelConfig):
 def _mlstm_out(p: Params, y: torch.Tensor, gate: torch.Tensor,
                cfg: ModelConfig):
     y = rms_norm(p["norm"], y, cfg.norm_eps) * F.silu(gate)
-    return y @ p["w_down"].to(y.dtype)
+    return seq_whole(y @ p["w_down"].to(y.dtype))
 
 
 def _mlstm_chunk(carry, qi, ki, vi, ii, fi):
@@ -206,28 +208,28 @@ def init_slstm_params(generator: torch.Generator,
     }
 
 
-def slstm_init_state(cfg: ModelConfig, batch: int, *,
-                     device=None) -> Dict[str, torch.Tensor]:
-    H = cfg.n_heads
-    shape = (batch, H, cfg.d_model // H)
+def _slstm_zero_state(shape, device) -> Dict[str, torch.Tensor]:
+    """The sLSTM's state before the first token: ``c``, ``n``, ``h`` zero,
+    ``m`` at -inf, each of ``shape`` (B, H, hd) f32."""
     f32 = dict(dtype=torch.float32, device=device)
     return {"c": torch.zeros(shape, **f32), "n": torch.zeros(shape, **f32),
             "h": torch.zeros(shape, **f32),
             "m": torch.full(shape, NEG_INF, **f32)}
 
 
-def _slstm_cell(p: Params, xt: torch.Tensor, st: Mapping[str, torch.Tensor],
-                cfg: ModelConfig):
-    """One sLSTM time step.  xt: (B, 4 d), the input's projection; ``p``
-    needs ``w_r`` and ``bias`` alone (already in ``xt.dtype``, their casts
-    launch nothing)."""
-    B = xt.shape[0]
+def slstm_init_state(cfg: ModelConfig, batch: int, *,
+                     device=None) -> Dict[str, torch.Tensor]:
     H = cfg.n_heads
-    hd = cfg.d_model // H
-    rec = torch.einsum("bhk,hkg->bhg", st["h"].to(xt.dtype),
-                       p["w_r"].to(xt.dtype))           # (B,H,4*hd)
-    tot = (xt.reshape(B, H, 4 * hd) + rec
-           + p["bias"].to(xt.dtype).reshape(H, 4 * hd)).float()
+    return _slstm_zero_state((batch, H, cfg.d_model // H), device)
+
+
+def _slstm_cell(xt: torch.Tensor, w_r: torch.Tensor, bias: torch.Tensor,
+                st: Mapping[str, torch.Tensor]):
+    """One sLSTM time step.  xt: (B, H, 4 hd), the input's projection;
+    the block-diagonal ``w_r`` (H, hd, 4 hd) and ``bias`` (H, 4 hd) already
+    in ``xt.dtype``."""
+    rec = torch.einsum("bhk,hkg->bhg", st["h"].to(xt.dtype), w_r)
+    tot = (xt + rec + bias).float()                      # (B,H,4*hd)
     z, i, f, o = tot.chunk(4, dim=-1)                    # each (B,H,hd)
     log_f = F.logsigmoid(f)
     m_new = torch.maximum(log_f + st["m"], i)
@@ -239,10 +241,50 @@ def _slstm_cell(p: Params, xt: torch.Tensor, st: Mapping[str, torch.Tensor],
     return {"c": c, "n": n, "h": h, "m": m_new}
 
 
+def _slstm_scan(xg: torch.Tensor, w_r: torch.Tensor, bias: torch.Tensor,
+                *state: torch.Tensor):
+    """The sLSTM's steps over xg (B, S, H, 4 hd) from ``state``, its ``(c,
+    n, h, m)`` (B, H, hd) f32 (:func:`_slstm_zero_state` if none is
+    given): ``(hs (B, S, H, hd), c, n, h, m)``, f32.  ``w_r`` and ``bias``
+    are cast to xg's dtype once, not at every step."""
+    B, S, H, g = xg.shape
+    w_r, bias = w_r.to(xg.dtype), bias.to(xg.dtype)
+    st = dict(zip("cnhm", state)) if state else \
+        _slstm_zero_state((B, H, g // 4), xg.device)
+    hs = []
+    for t in range(S):
+        st = _slstm_cell(xg[:, t], w_r, bias, st)
+        hs.append(st["h"])
+    return torch.stack(hs, 1), st["c"], st["n"], st["h"], st["m"]
+
+
+def _slstm_steps(p: Params, xg: torch.Tensor, cfg: ModelConfig,
+                 state=None):
+    """:func:`_slstm_scan` of the projection ``xg`` (B, S, 4 d) and the
+    block's weights.  On a mesh each rank runs the steps of its own batch
+    rows (and heads, where the model axis divides them): the recurrence is
+    independent across both, and a token loop of DTensor ops would meet,
+    in the merges of batch, head and width dimensions, strided shards that
+    no op takes."""
+    B, S, _ = xg.shape
+    H = cfg.n_heads
+    hd = cfg.d_model // H
+    xg = splittable(xg, -1, H).reshape(B, S, H, 4 * hd)
+    bh, st = ("batch", None, "heads", None), ("batch", "heads", None)
+    state = () if state is None else tuple(state[k] for k in "cnhm")
+    hs, c, n, h, m = shard_map(
+        _slstm_scan,
+        (bh, ("heads", None, None), ("heads", None)) + (st,) * len(state),
+        [bh, st, st, st, st])(xg, p["w_r"], p["bias"].reshape(H, 4 * hd),
+                              *state)
+    return hs, {"c": c, "n": n, "h": h, "m": m}
+
+
 def _slstm_ffn(p: Params, h: torch.Tensor, cfg: ModelConfig):
     y = rms_norm(p["norm"], h, cfg.norm_eps)
     a, b = (y @ p["w_up"].to(y.dtype)).chunk(2, dim=-1)
-    return (F.gelu(a, approximate="tanh") * b) @ p["w_down"].to(y.dtype)
+    return seq_whole((F.gelu(a, approximate="tanh") * b)
+                     @ p["w_down"].to(y.dtype))
 
 
 def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -251,17 +293,10 @@ def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     S, d) -> (B, S, d) [, the final state ``{"c", "n", "h", "m"}``, each
     (B, H, hd) f32]."""
     B, S, d = x.shape
-    x = rms_norm(p["norm_in"], x, cfg.norm_eps)
-    xg = x @ p["w_x"].to(x.dtype)                        # (B,S,4d)
-    # cast once, not at every step
-    rp = {k: p[k].to(x.dtype) for k in ("w_r", "bias")}
-    st = slstm_init_state(cfg, B, device=x.device)
-    hs = []
-    for t in range(S):
-        st = _slstm_cell(rp, xg[:, t], st, cfg)
-        hs.append(st["h"])
-    y = grad_splittable(torch.stack(hs, 1).reshape(B, S, d), -1,
-                        cfg.n_heads).to(x.dtype)
+    # a matmul region: its input (and _slstm_ffn's output) seq-whole
+    x = seq_whole(rms_norm(p["norm_in"], x, cfg.norm_eps))
+    hs, st = _slstm_steps(p, x @ p["w_x"].to(x.dtype), cfg)
+    y = grad_splittable(hs.reshape(B, S, d), -1, cfg.n_heads).to(x.dtype)
     out = _slstm_ffn(p, y, cfg)
     if return_state:
         return out, st
@@ -274,9 +309,8 @@ def slstm_decode(p: Params, x: torch.Tensor, state: Mapping[str, torch.Tensor],
     "m"})``, the new state in fresh tensors."""
     B = x.shape[0]
     x = rms_norm(p["norm_in"], x, cfg.norm_eps)
-    xg = (x @ p["w_x"].to(x.dtype))[:, 0]
-    st = _slstm_cell(p, xg, state, cfg)
-    y = st["h"].reshape(B, 1, cfg.d_model).to(x.dtype)
+    hs, st = _slstm_steps(p, x @ p["w_x"].to(x.dtype), cfg, state)
+    y = hs.reshape(B, 1, cfg.d_model).to(x.dtype)
     return _slstm_ffn(p, y, cfg), st
 
 

@@ -34,7 +34,8 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
+from torch.distributed.tensor import (DTensor, Partial, Placement,
+                                      Replicate, Shard)
 from torch.distributed.tensor.experimental import (implicit_replication,
                                                    local_map)
 
@@ -174,13 +175,16 @@ def mesh_context(lm: Optional[LogicalMesh]):
 
 def constraint_spec(shape, logical, lm: LogicalMesh) -> PartitionSpec:
     """The spec of ``logical`` names for a tensor of ``shape``: a name whose
-    axes do not divide its dimension (or outnumber it) is dropped."""
+    axes do not divide its dimension (or outnumber it) is dropped, and so
+    is one on a dimension of size 1 (a decode step's sequence: DTensor
+    takes a dimension sharded on a one-rank axis for sharded, and a view
+    that folds it away fails)."""
     spec = []
     for dim, l in zip(shape, logical):
         ax = lm.axes_for(l)
         n = lm.size(l)
         spec.append(ax if ax is not None and dim % max(n, 1) == 0
-                    and dim >= n else None)
+                    and dim >= n and dim > 1 else None)
     return PartitionSpec(*spec)
 
 
@@ -196,6 +200,52 @@ def logical_constraint(x: torch.Tensor,
         return x
     return x.redistribute(
         lm.mesh, lm.placements(constraint_spec(x.shape, logical, lm)))
+
+
+def seq_whole(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, S, d) with its sequence whole, its batch on "batch": the
+    input of a matmul region (the all-gather of sequence parallelism), and
+    its output too, so that the gradient reaches the region's products
+    seq-whole.  The rows of a product fold B and S; with B and S sharded on
+    two mesh axes that fold is a strided shard, which no product's
+    sharding rule takes (and on a 3-D mesh DTensor's search for a plan
+    costs tens of seconds a shape)."""
+    return logical_constraint(x, "batch", None, "embed")
+
+
+def write_row(cache: torch.Tensor, dim: int, row: torch.Tensor,
+              new: torch.Tensor) -> None:
+    """``cache.index_copy_(dim, row, new)``: the rows ``new`` (one along
+    ``dim``) written in place at the one-element index ``row``, a device
+    tensor the host never reads.  A DTensor cache sharded along ``dim``
+    (a decode cache on "seq") is written shard by shard, as GSPMD
+    partitions a ``dynamic_update_slice``: each rank writes the row where
+    it falls in its own range of rows and writes its row back as it was
+    elsewhere, so the cache keeps its placements (DTensor's rule for
+    ``index_copy_`` would make the dimension whole and reshard the cache
+    in place)."""
+    if not isinstance(cache, DTensor):
+        cache.index_copy_(dim, row, new)
+        return
+    mesh, placements = cache.device_mesh, cache.placements
+    on = [i for i, p in enumerate(placements) if p.is_shard(dim)]
+    new = new.redistribute(mesh, [Replicate() if i in on else p
+                                  for i, p in enumerate(placements)])
+    local, new = cache.to_local(), new.to_local()
+    row = row.full_tensor() if isinstance(row, DTensor) else row
+    if not on:
+        local.index_copy_(dim, row, new)
+        return
+    coord = mesh.get_coordinate()
+    shard = 0
+    for i in on:                       # the first mesh dimension is major
+        shard = shard * mesh.size(i) + coord[i]
+    n = local.shape[dim]
+    at = row - shard * n
+    mine = (at >= 0) & (at < n)
+    at = at.clamp(0, n - 1)
+    local.index_copy_(dim, at, torch.where(
+        mine, new, local.index_select(dim, at)))
 
 
 def splittable(x: torch.Tensor, dim: int, lead: int) -> torch.Tensor:
@@ -245,24 +295,46 @@ def shard_map(fn, in_logical, out_logical):
     is passed (the JAX package's ``shard_map``; PyTorch's ``local_map``):
     each tensor argument is redistributed to the placements of its logical
     names (``None``: passed as it is), ``fn`` computes on the local
-    tensors, and its one output, shaped as the first argument, is a
-    DTensor placed by ``out_logical``.  For work that is independent
-    across the sharded dimensions (attention per batch row and head).
-    Otherwise ``fn`` itself."""
+    tensors, and each of its outputs is a DTensor placed by its entry of
+    ``out_logical``, a list of logical-name tuples, one for each tensor
+    ``fn`` returns: a logical name is sharded there as the inputs shard
+    it.  The call returns what ``fn`` returns.  For work that
+    is independent across the sharded dimensions (attention per batch row
+    and head).  An input whole on a mesh axis that another input is
+    sharded on (a weight shared by every head) takes from each rank the
+    gradient of that rank's share of the work: a partial sum.  Otherwise
+    ``fn`` itself."""
     def run(*args):
         lm = current_mesh()
         if lm is None or not any(isinstance(a, DTensor) for a in args):
             return fn(*args)
-        def placed(shape, names):
-            return lm.placements(constraint_spec(shape, names, lm))
-        in_placements = tuple(
-            None if names is None else placed(a.shape, names)
-            for a, names in zip(args, in_logical))
-        return local_map(_contiguous_grads(fn),
-                         out_placements=(placed(args[0].shape,
-                                                out_logical),),
-                         in_placements=in_placements, device_mesh=lm.mesh,
-                         redistribute_inputs=True)(*args)
+        placed: Dict[str, Entry] = {}
+        in_placements = []
+        for a, names in zip(args, in_logical):
+            if names is None:
+                in_placements.append(None)
+                continue
+            spec = constraint_spec(a.shape, names, lm)
+            for n, entry in zip(names, spec):
+                if n is not None and entry is not None:
+                    placed[n] = entry
+            in_placements.append(lm.placements(spec))
+        split = {i for pl in in_placements if pl is not None
+                 for i, p in enumerate(pl) if p.is_shard()}
+        grad_placements = tuple(
+            None if pl is None else tuple(
+                Partial() if i in split and not p.is_shard() else p
+                for i, p in enumerate(pl))
+            for pl in in_placements)
+
+        def out(names):
+            return lm.placements(PartitionSpec(*(placed.get(n)
+                                                 for n in names)))
+        out_placements = tuple(out(n) for n in out_logical)
+        return local_map(_contiguous_grads(fn), out_placements=out_placements,
+                         in_placements=tuple(in_placements),
+                         in_grad_placements=grad_placements,
+                         device_mesh=lm.mesh, redistribute_inputs=True)(*args)
     return run
 
 
@@ -286,6 +358,36 @@ def grad_splittable(x: torch.Tensor, dim: int, lead: int) -> torch.Tensor:
     if not isinstance(x, DTensor):
         return x
     return _SplittableGrad.apply(x, dim, lead)
+
+
+class _PlacedGrad(torch.autograd.Function):
+    """The identity; the gradient redistributed to the input's
+    placements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if isinstance(grad, DTensor) and grad.placements != ctx.placements:
+            grad = grad.redistribute(ctx.mesh, ctx.placements)
+        return grad
+
+
+def grad_placed(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (a projection's output, (B, S, n)) whose gradient comes back
+    with ``x``'s own placements.  Gradients that are partial sums (from a
+    :func:`shard_map` region's inputs whole on the model axis, or from a
+    product that contracts a model-sharded dimension) may be reduced onto
+    the sequence; where the batch leaves each rank more than one row (a
+    (2, 16, 16) mesh at B = 256), the fold of batch and sequence into the
+    weight gradient's rows is then a strided shard.  A plain tensor is
+    returned as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return _PlacedGrad.apply(x)
 
 
 def param_spec(path: str, shape: Tuple[int, ...],

@@ -1,12 +1,13 @@
 """DTensor sharding strategies for the models' ops that DTensor has none
-for, registered when :mod:`repro_torch.parallel` is imported.  Each takes
-its operands whole (``Replicate()`` on every mesh dimension, the inputs
-redistributed to it) and gives a whole result; flash attention may also
-run on each rank's batch rows or KV heads."""
+for, registered when :mod:`repro_torch.parallel` is imported.  Most take
+their operands whole (``Replicate()`` on every mesh dimension, the inputs
+redistributed to it) and give a whole result; flash attention may also
+run on each rank's batch rows or KV heads, and ``bmm`` with an f32 output
+takes ``bmm``'s own placements."""
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import register_sharding
 
 from repro_torch.kernels import ops as _kops  # noqa: F401  defines grouped_mm
@@ -49,3 +50,15 @@ def _flash_attention(qg, k, v, scale, causal):
     # chunks of G * hd)
     return [([p], [p, p, p, None, None])
             for p in (Replicate(), Shard(0), Shard(2))]
+
+
+@register_sharding(torch.ops.aten.bmm.dtype)
+def _bmm_dtype(x, y, out_dtype):
+    # bf16 operands summed into an f32 output (the MLA decode's scores on
+    # the card): bmm's placements, by batch, by the rows of x, by the
+    # columns of y, or a partial sum over a sharded contraction
+    return [([Replicate()], [Replicate(), Replicate(), None]),
+            ([Shard(0)], [Shard(0), Shard(0), None]),
+            ([Shard(1)], [Shard(1), Replicate(), None]),
+            ([Shard(2)], [Replicate(), Shard(2), None]),
+            ([Partial()], [Shard(2), Shard(1), None])]

@@ -117,13 +117,19 @@ def place_model(model: Transformer, lm: LogicalMesh
     names = {id(p): k for k, p in model.named_parameters()}
     with torch.no_grad():
         for mod in model.modules():
-            for key, p in list(mod._parameters.items()):
+            # one parameter held at a time: a sharded placement copies its
+            # tensor, so the old one must go before the next is placed (a
+            # module of three 7 GiB expert stacks would otherwise hold all
+            # three twice)
+            for key in list(mod._parameters):
+                p = mod._parameters[key]
                 if p is None or isinstance(p, DTensor):
                     continue
                 placements = lm.placements(specs[names[id(p)]])
                 mod._parameters[key] = torch.nn.Parameter(
                     distribute_tensor(p.detach(), lm.mesh, placements),
                     requires_grad=p.requires_grad)
+                del p
     return specs
 
 

@@ -10,8 +10,10 @@ never ``jax``, and writes what the test holds to OUT.json:
   ``torch.testing._internal.distributed.fake_pg`` the dry run relies on),
   an all-reduce returns at once with the tensor as it was, a (16, 16)
   mesh builds, and a DTensor product runs on it;
-* ``argument_bytes``: one rank's bytes of each architecture's ``train_4k``
-  cell at full width, depth ``DEPTH``, on (16, 16) and (2, 16, 16);
+* ``argument_bytes``: one rank's bytes of each architecture's ``train_4k``,
+  ``prefill_32k`` and ``decode_32k`` cells at full width, depth ``DEPTH``,
+  on (16, 16) and (2, 16, 16) (keys ``mesh/arch`` for train_4k,
+  ``mesh/arch/shape`` for the others);
 * ``solver``: ``dryrun_solver``'s one iteration on 8 fake ranks (rank 1)
   over a ``SOLVER_GRID`` grid;
 * ``train_cli``: ``launch.train --production-mesh --arch qwen3-8b`` at depth
@@ -35,6 +37,7 @@ from repro_torch.launch import train as train_cli
 from repro_torch.parallel import LogicalMesh
 
 DEPTH = 2
+ARG_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 SOLVER_GRID = (16, 8, 8)
 SOLVER_RANKS = 8
 
@@ -64,11 +67,14 @@ def argument_bytes_case() -> dict:
         with mesh.fake_group(multi_pod):
             lm = LogicalMesh(mesh.make_production_mesh(multi_pod=multi_pod))
             for arch in ARCH_IDS:
-                with FakeTensorMode(allow_non_fake_inputs=True):
-                    cell = dryrun.build_cell(arch, "train_4k", multi_pod,
-                                             {"n_layers": DEPTH}, lm=lm)
-                    out[f"{mesh.mesh_name(multi_pod)}/{arch}"] = \
-                        dryrun.local_bytes(cell.arguments)
+                for shape in ARG_SHAPES:
+                    with FakeTensorMode(allow_non_fake_inputs=True):
+                        cell = dryrun.build_cell(arch, shape, multi_pod,
+                                                 {"n_layers": DEPTH}, lm=lm)
+                        key = f"{mesh.mesh_name(multi_pod)}/{arch}"
+                        if shape != "train_4k":
+                            key += f"/{shape}"
+                        out[key] = dryrun.local_bytes(cell.arguments)
     return out
 
 

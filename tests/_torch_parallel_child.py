@@ -21,7 +21,16 @@ writes what the test reads to OUTDIR (``arrays.npz``: gathered gradients;
 * llama4 (MoE, gather dispatch) on (2, 4): the loss and every gradient of
   the JAX weights;
 * every other smoke config on (2, 4), deepseek-v3's sort dispatch
-  included: the loss and gradients of the port's seed-0 weights.
+  included: the loss and gradients of the port's seed-0 weights;
+* the repaired mesh mechanisms on (2, 4) (``REPAIRS``, each run by
+  :func:`repair_run`, which the test also calls on one device): a train
+  step with 6 heads on the 4-way model axis (the JAX weights under
+  ``heads/``); decode steps on a cache sharded by its sequence, after a
+  one-device prefill, for phi3 (batch and heads merged into the scores'
+  product), deepseek-v3's absorbed MLA, the xlstm (two pairs) and zamba2
+  at B = 1 (a batch the "data" axis cannot split); whisper's train step
+  (batch and sequence folded into its products' rows).  A case that fails
+  records its error and the others run on.
 """
 import dataclasses
 import json
@@ -35,13 +44,18 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch import lm_params_from_numpy
 from repro_torch.configs import ARCH_IDS, smoke_config
 from repro_torch.data import DataConfig, make_dataset
-from repro_torch.models import init_params
+from repro_torch.launch.dryrun import div_spec
+from repro_torch.models import (cache_logical_axes, decode_step, init_cache,
+                                init_params, prefill_step)
+from repro_torch.models.transformer import state_entries
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.parallel import LogicalMesh
+from repro_torch.parallel.sharding import mesh_context
 from repro_torch.train import (FailureInjector, TrainConfig,
                                run_with_restarts, train)
 from repro_torch.train.train_loop import (loss_and_grads, place_model,
@@ -191,6 +205,108 @@ def family_cases(run, flat, tokens, outdir):
         run.grads(f"{arch}/2x4", cfg, model, batch, lm)
 
 
+#: the repaired mechanisms' cases: (arch, config changes, kind, B, S)
+REPAIRS = {
+    "heads_train": ("qwen2.5-32b", dict(n_heads=6, n_kv_heads=2,
+                                        head_dim=16), "train", 4, 32),
+    "merge_decode": ("phi3-mini-3.8b", {}, "decode", 4, 16),
+    "mla_decode": ("deepseek-v3-671b", {}, "decode", 4, 16),
+    "xlstm_decode": ("xlstm-350m", {}, "decode", 4, 16),
+    "batch1_decode": ("zamba2-1.2b", {}, "decode", 1, 16),
+    "merge_train": ("whisper-tiny", {}, "train", 4, 256),
+}
+REPAIR_STEPS = 3          # decode steps, into a cache of S + 4 rows
+REPAIR_SEED = 7
+
+
+def repair_config(case):
+    arch, over, _, _, _ = REPAIRS[case]
+    return f32(arch).replace(**over)
+
+
+def repair_batch(cfg, B, S):
+    rng = np.random.default_rng(REPAIR_SEED)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def _whole(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _placed(t, lm, *names):
+    return distribute_tensor(t, lm.mesh,
+                             lm.placements(div_spec(lm, t.shape, *names)))
+
+
+def repair_run(case, lm=None, flat=None):
+    """The outputs of ``case`` on ``lm`` (``None``: one device) as numpy
+    arrays: a train case's loss and every gradient; a decode case's logits
+    of each step and its cache after them.  The weights are the seed-0
+    ones, or the JAX tree in ``flat`` under the case's short name."""
+    _, _, kind, B, S = REPAIRS[case]
+    cfg = repair_config(case)
+    if flat is not None:
+        model = lm_params_from_numpy(cfg, tree_of(flat, case.split("_")[0]),
+                                     device="cpu")
+    else:
+        model = init_params(cfg, torch.Generator().manual_seed(0))
+    batch = repair_batch(cfg, B, S)
+    if kind == "train":
+        if lm is not None:
+            place_model(model, lm)
+        loss, _, grads = loss_and_grads(model, cfg, batch, lm)
+        out = {"loss": np.asarray(float(loss.detach()))}
+        out.update({"grad/" + k: _whole(g).numpy() for k, g in grads.items()})
+        return out
+    # decode: a one-device prefill spliced into a cache of S + 4 rows (a
+    # multiple of the model axis, so that "seq" shards it), then the steps
+    with torch.no_grad():
+        logits, pcache = prefill_step(model, cfg, batch)
+    cache = init_cache(cfg, B, S + 4, device="cpu")
+    for key, dst in cache.items():
+        src = pcache[key]
+        if key in state_entries(cfg):
+            dst.copy_(src)
+        else:
+            dst[:, :, :src.shape[2]].copy_(src)
+    cur = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    if lm is not None:
+        place_model(model, lm)
+        axes = cache_logical_axes(cfg)
+        cache = {k: _placed(v, lm, *axes[k]) for k, v in cache.items()}
+    out = {}
+    for i in range(REPAIR_STEPS):
+        tok = cur if lm is None else _placed(cur, lm, "batch", None)
+        with torch.no_grad(), mesh_context(lm):
+            lg, cache = decode_step(model, cfg, cache, tok, torch.tensor(
+                S + i, dtype=torch.int32))
+        lg = _whole(lg)
+        out[f"logits{i}"] = lg.numpy()
+        cur = lg[:, -1].argmax(-1)[:, None].to(torch.int32)
+    out.update({"cache/" + k: _whole(v).numpy() for k, v in cache.items()})
+    return out
+
+
+def repair_cases(run, flat, tokens, outdir):
+    shape, names = MESHES["2x4"]
+    lm = LogicalMesh(init_device_mesh("cpu", shape, mesh_dim_names=names))
+    for case in REPAIRS:
+        try:
+            got = repair_run(case, lm, flat if case == "heads_train"
+                             else None)
+        except Exception:                # noqa: BLE001 - the next case runs
+            run.scalars[f"repair_error/{case}"] = traceback.format_exc()
+            continue
+        if run.rank == 0:
+            run.arrays.update({f"repair/{case}/{k}": v
+                               for k, v in got.items()})
+
+
 def main():
     rank, world = int(sys.argv[1]), int(sys.argv[2])
     store, inputs, outdir = sys.argv[3:6]
@@ -203,7 +319,8 @@ def main():
         data = dict(np.load(inputs))
         tokens = torch.from_numpy(data.pop("tokens"))
         run = Run(rank, outdir)
-        for case in (mesh_cases, training_cases, family_cases):
+        for case in (mesh_cases, training_cases, family_cases,
+                     repair_cases):
             t0 = time.perf_counter()
             case(run, data, tokens, outdir)
             if rank == 0:

@@ -10,7 +10,11 @@ state) and held here against the JAX package.
   width (depth 2) on (16, 16) and (2, 16, 16): the port's placed
   parameters, AdamW moments (8-bit for the JAX package's four) and batch
   against the shards JAX's ``tree_param_specs`` give over an
-  ``AbstractMesh`` (the JAX dry run's moment and batch specs).
+  ``AbstractMesh`` (the JAX dry run's moment and batch specs); likewise
+  its ``prefill_32k`` arguments (parameters and batch) and its
+  ``decode_32k`` ones (parameters, the cache placed by
+  ``cache_logical_axes`` with the JAX dry run's ``_div_spec`` fallback,
+  the tokens on "batch" and the 0-d ``cache_len``).
 * The solver's one iteration on 8 fake ranks: exactly one all-reduce (the
   paper's invariant), the interior slab's halo (two matvecs, a plane each
   way each), the state's bytes a whole number of local vectors.
@@ -34,6 +38,7 @@ from jax.sharding import PartitionSpec as P  # noqa: E402
 
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import input_specs as jinput_specs  # noqa: E402
+from repro.models import cache_logical_axes as jcache_axes  # noqa: E402
 from repro.models import init_params as jinit  # noqa: E402
 from repro.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro.optim.eightbit import Q8  # noqa: E402
@@ -127,6 +132,61 @@ def jax_rank_bytes(arch, mesh) -> int:
 def test_per_rank_argument_bytes_are_the_jax_specs_bytes(child, arch, mesh):
     assert child["argument_bytes"][f"{mesh}/{arch}"] == \
         jax_rank_bytes(arch, mesh)
+
+
+def jdiv_spec(lm, shape, *logical):
+    """The JAX dry run's own ``_div_spec``.  Its module sets ``XLA_FLAGS``
+    (512 host devices) when imported, so the variable is put back: the
+    other JAX tests of this process keep their one device."""
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch.dryrun import _div_spec
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+    return _div_spec(lm, shape, *logical)
+
+
+def jax_serve_bytes(arch, mesh, shape) -> int:
+    """One rank's bytes of the JAX dry run's ``prefill_32k`` or
+    ``decode_32k`` arguments: the parameters by ``tree_param_specs``; the
+    batch's leaves on "batch", or the cache by ``cache_logical_axes``, the
+    tokens on "batch" and ``cache_len`` whole, each by ``_div_spec``."""
+    shp, names = MESHES[mesh]
+    sizes = dict(zip(names, shp))
+    lm = JLogicalMesh(AbstractMesh(shp, names))
+    cfg = jget_config(arch).replace(n_layers=DEPTH)
+    params = jax.eval_shape(lambda: jinit(cfg, jax.random.PRNGKey(0)))
+    specs = tree_param_specs(params, lm)
+    total = sum(shard_bytes(a, s, sizes) for a, s in zip(
+        jax.tree_util.tree_leaves(params), jax.tree_util.tree_leaves(
+            specs, is_leaf=lambda x: isinstance(x, P))))
+    inputs = jinput_specs(cfg, shape, arch)
+    if shape == "prefill_32k":
+        for leaf in inputs["batch"].values():
+            total += shard_bytes(leaf, jdiv_spec(
+                lm, leaf.shape, "batch", *(None,) * (len(leaf.shape) - 1)),
+                sizes)
+        return total
+    axes = jcache_axes(cfg)
+    for key, leaf in inputs["cache"].items():
+        total += shard_bytes(leaf, jdiv_spec(lm, leaf.shape, *axes[key]),
+                             sizes)
+    tokens = inputs["tokens"]
+    total += shard_bytes(tokens, jdiv_spec(lm, tokens.shape, "batch", None),
+                         sizes)
+    return total + inputs["cache_len"].dtype.itemsize
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_per_rank_serving_argument_bytes_are_the_jax_specs_bytes(
+        child, arch, mesh, shape):
+    assert child["argument_bytes"][f"{mesh}/{arch}/{shape}"] == \
+        jax_serve_bytes(arch, mesh, shape)
 
 
 def test_solver_iteration_has_one_all_reduce(child):

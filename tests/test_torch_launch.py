@@ -100,6 +100,16 @@ def test_count_single_matmul():
     assert c["bytes"] == c["dot_bytes"]
 
 
+def test_count_bmm_with_an_f32_output_as_bmm():
+    """``bmm.dtype`` (bf16 products summed into f32: the MLA decode's
+    scores on the card) is counted by ``bmm``'s formula on its operands."""
+    a, b = meta(8, 16, 32, dtype=torch.bfloat16), meta(8, 32, 64,
+                                                       dtype=torch.bfloat16)
+    c = count_fn(lambda x, y: torch.bmm(x, y, out_dtype=torch.float32), a, b)
+    assert c["flops"] == 2 * 8 * 16 * 32 * 64
+    assert c["dot_bytes"] == 2 * (8 * 16 * 32 + 8 * 32 * 64) + 4 * 8 * 16 * 64
+
+
 def test_count_runs_a_python_loop():
     """The JAX scan's test: ten chained products (here a loop, counted as
     it runs)."""

@@ -27,6 +27,14 @@ decay over 12.
   C33): the loss and every gradient within 1e-5 relative of the port's
   single-device ones (the recurrent hybrid and SSM families' gradients
   within their files' whole-model bar, 5e-5).
+* The mesh mechanisms repaired for the dry run's grid (ROADMAP C35), each
+  a case of the child's ``REPAIRS`` on (2, 4) within 1e-5 relative of the
+  same call on one device: a train step with 6 heads on the 4-way model
+  axis (its one-device loss and gradients also within 1e-5 of the JAX
+  package's); decode steps on a sequence-sharded cache (its logits each
+  step and the cache after them) for phi3, deepseek-v3's absorbed MLA, the
+  xlstm and zamba2 at B = 1; whisper's train step, its rows a fold of a
+  batch on "data" and a sequence on "model".
 """
 import dataclasses
 import json
@@ -40,6 +48,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 import _torch_threads  # noqa: E402  caps torch's threads
+import _torch_parallel_child as pchild  # noqa: E402  the repaired cases
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -73,6 +82,7 @@ MESHES = {"2x4": ((2, 4), ("data", "model")),
           "8": ((8,), ("data",)),
           "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
 JAX_ARCHS = {"phi3": "phi3-mini-3.8b", "llama4": "llama4-scout-17b-a16e"}
+REPAIR_RTOL = 1e-5
 OPT = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=12)
 
 
@@ -126,6 +136,16 @@ def jax_refs():
             jp, jc, {"tokens": jnp.asarray(tokens)})
         out[short] = (jax.tree_util.tree_map(np.asarray, jp), float(loss),
                       jax.tree_util.tree_map(np.asarray, grads))
+    # the 6-head case's JAX weights, loss and gradients on its batch
+    arch, over, _, B, S = pchild.REPAIRS["heads_train"]
+    jc = jf32(arch).replace(**over)
+    jp = jinit(jc, jax.random.PRNGKey(0))
+    batch = pchild.repair_batch(pchild.repair_config("heads_train"), B, S)
+    (loss, _), grads = jax.jit(jax.value_and_grad(jloss_fn, has_aux=True),
+                               static_argnums=1)(
+        jp, jc, {"tokens": jnp.asarray(batch["tokens"].numpy())})
+    out["heads"] = (jax.tree_util.tree_map(np.asarray, jp), float(loss),
+                    jax.tree_util.tree_map(np.asarray, grads))
     return out
 
 
@@ -134,7 +154,7 @@ def world(jax_refs, tmp_path_factory):
     """Run the child on 8 gloo processes; return rank 0's output."""
     work = tmp_path_factory.mktemp("parallel8")
     inputs = {"tokens": jax_refs["tokens"]}
-    for short in JAX_ARCHS:
+    for short in list(JAX_ARCHS) + ["heads"]:
         for path, arr in flat_tree(jax_refs[short][0]):
             inputs["/".join((short,) + path)] = arr
     np.savez(work / "inputs.npz", **inputs)
@@ -296,3 +316,29 @@ def test_every_family_on_the_mesh_matches_one_device(world, arch):
     assert sorted(got) == sorted(grads)
     worst = max(rel(got[k], g.numpy()) for k, g in grads.items())
     assert worst <= RECURRENT_RTOL.get(cfg.family, GRAD_RTOL), worst
+
+
+def heads_inputs(jax_refs):
+    return {"/".join(("heads",) + path): arr
+            for path, arr in flat_tree(jax_refs["heads"][0])}
+
+
+@pytest.mark.parametrize("case", list(pchild.REPAIRS))
+def test_repaired_mesh_case_matches_one_device(world, jax_refs, case):
+    err = world["scalars"].get(f"repair_error/{case}")
+    assert err is None, err
+    prefix = f"repair/{case}/"
+    got = {k[len(prefix):]: v for k, v in world["arrays"].items()
+           if k.startswith(prefix)}
+    flat = heads_inputs(jax_refs) if case == "heads_train" else None
+    want = pchild.repair_run(case, None, flat)
+    assert sorted(got) == sorted(want)
+    worst = max((rel(got[k], v), k) for k, v in want.items())
+    assert worst[0] <= REPAIR_RTOL, worst
+    if case == "heads_train":
+        # the one-device step against the JAX package's
+        _, jloss, jgrads = jax_refs["heads"]
+        assert rel(want["loss"], jloss) <= GRAD_RTOL
+        worst = max(rel(g, leaf_at(jgrads, k[len("grad/"):]))
+                    for k, g in want.items() if k.startswith("grad/"))
+        assert worst <= GRAD_RTOL, worst
